@@ -1,20 +1,25 @@
 """Chip smoke test of the PyTorch/CUDA port: builds the hand-written kernels,
 holds each against its plain PyTorch version on the card, and drives the
-port's main path — the quickstart's cross-island query and the §IV-B
-wavelet-signature kNN analytic at 4096 patients — through ``connect()``.
+port's paths through their entry points: the quickstart's cross-island
+query and the §IV-B wavelet-signature kNN analytic at 4096 patients through
+``connect()``, then LM serving (``BatchServer`` prefill + continuous-
+batching decode) of internlm2-1.8b and mamba2-370m at full width and depth,
+with bfloat16 parameters from the port's seeded init.
 
 Run on a machine with one CUDA card:  python3 chip_smoke.py
 
 Each phase prints one JSON line; any failure exits non-zero.  The line
-before the last lists every ported kernel with its launches on the
-analytic path, its error against the plain version, its time, the plain
-version's time, the bound and the yardstick library call's time.  The last
+before the last lists every ported kernel with its launches on its path
+(Haar and kNN on the analytic, flash attention on the dense LM's serving,
+SSD on the SSM LM's), its error against the plain version, its time, the
+plain version's time, the bound and the yardstick library call's time.  The last
 line is ``{"ok": true, "device": {...}}``.  Without a CUDA device, or
 without the repository's ``src/`` beside it, the script fails and prints no
 result.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import statistics
@@ -29,6 +34,7 @@ import torch
 
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
+from repro_torch.configs import PlanConfig, ShapeConfig, get_arch  # noqa: E402
 from repro_torch.core import DenseTensor, connect, execute_plan  # noqa: E402
 from repro_torch.core import middleware as mw  # noqa: E402
 from repro_torch.core.engines import ENGINES  # noqa: E402
@@ -37,7 +43,14 @@ from repro_torch.core.qlang import bigdawg  # noqa: E402
 from repro_torch.data import ecg_waveforms  # noqa: E402
 from repro_torch.kernels import _build, ops  # noqa: E402
 from repro_torch.kernels.haar import haar_cuda, haar_ref  # noqa: E402
+from repro_torch.kernels.flash_attention import (  # noqa: E402
+    flash_attention_cuda, flash_attention_ref)
 from repro_torch.kernels.knn import knn_scores_cuda, knn_scores_ref  # noqa: E402
+from repro_torch.kernels.ssd_scan import ssd_intra_cuda, ssd_intra_ref  # noqa: E402
+from repro_torch.models import api  # noqa: E402
+from repro_torch.models import transformer as T  # noqa: E402
+from repro_torch.models.util import tree_leaves, tree_map  # noqa: E402
+from repro_torch.runtime import BatchServer, Request  # noqa: E402
 
 # H100 SXM published peaks (NVIDIA data sheet): HBM rate, float32 outside
 # the tensor cores, dense bfloat16 tensor cores.  Bounds use them with the
@@ -59,6 +72,42 @@ KNN_SHAPES = [(4096, 224, 1), (4096, 224, 64), (100, 48, 3)]
 # score tolerances, and equal top-k indices in float32.
 HAAR_TOL = {torch.float32: (0.0, 0.0), torch.bfloat16: (2e-2, 2e-2)}
 KNN_TOL = {torch.float32: (1e-4, 1e-3), torch.bfloat16: (2e-2, 0.3)}
+# (BH, S, d, causal, dtype); the first is the dense prefill path's shape
+# (internlm2: 16 heads of 128, a 2048-token prompt), the rest ragged edges
+FLASH_SHAPES = [(16, 2048, 128, True, torch.bfloat16),
+                (16, 2048, 128, True, torch.float32),
+                (4, 1, 64, True, torch.float32),
+                (4, 77, 80, True, torch.float32),
+                (2, 1000, 64, True, torch.float32),
+                (2, 1000, 80, False, torch.float32),
+                (3, 129, 17, True, torch.bfloat16)]
+# (b, Q, h, p, g, n); the first is the SSM prefill path's shape (mamba2:
+# 16 chunks of 128 for a 2048-token prompt), the rest ragged, with g = 2
+SSD_SHAPES = [(16, 128, 32, 64, 1, 128), (3, 40, 6, 17, 2, 9),
+              (5, 77, 4, 33, 2, 31)]
+# the reference tests' tolerances: attention float32 1e-4, bfloat16 3e-2;
+# SSD y and states 2e-4, chunk decay 1e-5 relative / 1e-6 absolute
+FLASH_TOL = {torch.float32: 1e-4, torch.bfloat16: 3e-2}
+# a bfloat16 output is also held against the plain version in float32 on
+# the same inputs, at twice the 8.2e-3 this script measured at the dense
+# path's shape on the H100; its late rows average ~1000 keys (|o| ~ 0.05),
+# and the float32 case at the same shape holds them at 1e-4
+FLASH_BF16_VS_F32_TOL = 1.6e-2
+# SSD: the kernel's float32 against the plain version in float64, y and
+# states at 2e-4 relative and 2e-4 of the largest |value| absolute (B and C
+# at unit scale make y of order 100: see phase_ssd)
+SSD_TOL = [(2e-4, 2e-4), (2e-4, 2e-4), (1e-5, 1e-6)]
+# LM serving: slots and cache capacity, requests, new tokens each
+LM_SLOTS, LM_MAX_LEN, LM_REQUESTS, LM_NEW_TOKENS = 8, 4096, 16, 32
+# cpu_check: the same depth-2 float32 model on the card (kernels) and on the
+# CPU (plain versions); logits must agree to 1e-3 relative + 1e-3 absolute
+# (float32 sums in other orders through two layers), and the greedy token
+# must be equal or a near-tie within that tolerance
+CPU_CHECK_TOKENS, CPU_CHECK_DEPTH, CPU_CHECK_TOL = 256, 2, 1e-3
+# decode_vs_prefill: in bfloat16 the kernel prefill and the plain decode
+# round at other places over the whole depth; a token that differs must be
+# a near-tie, its prefill logit within this margin of the prefill's argmax
+DECODE_NEAR_TIE = 0.5
 
 
 class SmokeFailure(RuntimeError):
@@ -129,7 +178,8 @@ def phase_device(dev) -> dict:
     cap = torch.cuda.get_device_capability(dev)
     check(tuple(cap) == (9, 0), f"need an sm_90 card, got capability {cap}")
     t0 = time.perf_counter()
-    _build.build(["haar", "knn"])            # one nvcc per source, in parallel
+    # one nvcc per source, all at once
+    _build.build(["haar", "knn", "flash_attention", "ssd_scan"])
     build_s = time.perf_counter() - t0
     ptxas = {name: [line.strip() for line in log.splitlines()
                     if "registers" in line or "spill" in line]
@@ -211,6 +261,114 @@ def phase_knn(dev, shapes=KNN_SHAPES, k: int = K) -> dict:
                 if (b, dtype) == (shapes[0][2], torch.float32):
                     main = dict(row)
             emit("knn", **row)
+    return main
+
+
+def phase_flash(dev, shapes=FLASH_SHAPES) -> dict:
+    gen = torch.Generator(device=dev).manual_seed(2)
+    main = {}
+    for bh, s, d, causal, dtype in shapes:
+        q, k, v = (torch.randn((bh, s, d), generator=gen, device=dev)
+                   .to(dtype) for _ in range(3))
+        got = flash_attention_cuda(q, k, v, causal=causal)
+        want = flash_attention_ref(q, k, v, causal=causal)
+        sync(dev)
+        err = max_abs_err(got, want)
+        tol = FLASH_TOL[dtype]
+        check(got.dtype == dtype and got.shape == q.shape,
+              f"flash {bh}x{s}x{d}: {got.dtype} {tuple(got.shape)}")
+        check(torch.allclose(got.float(), want.float(), rtol=tol, atol=tol),
+              f"flash {bh}x{s}x{d} causal={causal} {dtype}: max err {err}")
+        row = {"shape": {"BH": bh, "S": s, "d": d}, "causal": causal,
+               "dtype": str(dtype).replace("torch.", ""),
+               "max_abs_err": err, "tol": tol}
+        if dtype == torch.bfloat16:
+            want32 = flash_attention_ref(q.float(), k.float(), v.float(),
+                                         causal=causal)
+            err32 = max_abs_err(got, want32)
+            check(err32 <= FLASH_BF16_VS_F32_TOL,
+                  f"flash {bh}x{s}x{d} bfloat16 vs float32 plain: max err "
+                  f"{err32}")
+            row["max_abs_err_vs_f32"] = err32
+            row["tol_vs_f32"] = FLASH_BF16_VS_F32_TOL
+        if (bh, s, d, causal, dtype) == shapes[0]:
+            q4, k4, v4 = (t.view(1, bh, s, d) for t in (q, k, v))
+            row["ms"] = time_ms(lambda: flash_attention_cuda(q, k, v), dev)
+            row["plain_ms"] = time_ms(lambda: flash_attention_ref(q, k, v),
+                                      dev)
+            row["library_ms"] = time_ms(
+                lambda: torch.nn.functional.scaled_dot_product_attention(
+                    q4, k4, v4, is_causal=True), dev)
+            # q, k, v read once, o written once; the causal half of the two
+            # products, 2 operations per multiply-add
+            nbytes = 4.0 * bh * s * d * q.element_size()
+            ops_count = 4.0 * bh * d * s * (s + 1) / 2
+            row["bound_ms"], row["bound_by"] = bound_ms(nbytes, ops_count,
+                                                        dtype)
+            main = dict(row)
+        emit("flash_attention", **row)
+    return main
+
+
+def _ssd_work(b, q, h, p, g, n) -> tuple:
+    """(bytes, operations) the intra-chunk SSD needs: inputs read and
+    outputs written once; C·Bᵀ on and under the diagonal once per group,
+    the masked decay and M·x per head, the decayed Bᵀ·x per head."""
+    tri = q * (q + 1) / 2
+    nbytes = 4.0 * (b * q * h * p * 2 + b * q * h + 2 * b * q * g * n
+                    + b * h * n * p + b * h)
+    ops_count = (2.0 * b * g * n * tri
+                 + b * h * (2.0 * p * tri + tri + 2.0 * q * n * p + q * p))
+    return nbytes, ops_count
+
+
+def phase_ssd(dev, shapes=SSD_SHAPES) -> dict:
+    gen = torch.Generator(device=dev).manual_seed(3)
+    main = {}
+    for b, q, h, p, g, n in shapes:
+        x = torch.randn((b, q, h, p), generator=gen, device=dev)
+        da = -torch.nn.functional.softplus(
+            torch.randn((b, q, h), generator=gen, device=dev))
+        # B and C at unit scale: C·Bᵀ sums n products, so y is of order
+        # 100 at n = 128; the tolerance scales with the output
+        B = torch.randn((b, q, g, n), generator=gen, device=dev)
+        C = torch.randn((b, q, g, n), generator=gen, device=dev)
+        got = ssd_intra_cuda(x, da, B, C)
+        want = ssd_intra_ref(*(t.double() for t in (x, da, B, C)))
+        plain32 = ssd_intra_ref(x, da, B, C)
+        sync(dev)
+        errs = [max_abs_err(a, w) for a, w in zip(got, want)]
+        atols = []
+        for name, a, w, (rtol, atol) in zip(("y", "states", "decay"), got,
+                                            want, SSD_TOL):
+            check(a.dtype == torch.float32 and a.shape == w.shape,
+                  f"ssd {name} {a.dtype} {tuple(a.shape)}")
+            if name != "decay":
+                atol *= float(w.abs().max())
+            atols.append(atol)
+            check(torch.allclose(a.double(), w, rtol=rtol, atol=atol),
+                  f"ssd {name} at {(b, q, h, p, g, n)}: max err "
+                  f"{max_abs_err(a, w)}, atol {atol}")
+        names = ("y", "states", "decay")
+        row = {"shape": {"b": b, "Q": q, "h": h, "p": p, "g": g, "n": n},
+               "dtype": "float32", "max_abs_err": max(errs),
+               "max_abs_err_each": dict(zip(names, errs)),
+               "atol_each": dict(zip(names, atols)),
+               "max_abs_each": {nm: float(w.abs().max())
+                                for nm, w in zip(names, want)},
+               "plain_f32_max_abs_err_each": {
+                   nm: max_abs_err(a, w)
+                   for nm, a, w in zip(names, plain32, want)}}
+        if (b, q, h, p, g, n) == shapes[0]:
+            row["ms"] = time_ms(lambda: ssd_intra_cuda(x, da, B, C), dev)
+            row["plain_ms"] = time_ms(lambda: ssd_intra_ref(x, da, B, C),
+                                      dev)
+            row["library_ms"] = None          # no single PyTorch call
+            nbytes, ops_count = _ssd_work(b, q, h, p, g, n)
+            row["bound_ms"], row["bound_by"] = bound_ms(nbytes, ops_count,
+                                                        torch.float32)
+            main = dict(row)
+        emit("ssd_intra", **row)
     return main
 
 
@@ -424,24 +582,237 @@ def _cpu_check(plan_key: str, train_w, test_hists, results, n: int) -> dict:
             "near_ties": near_ties}
 
 
-def kernels_line(haar_row: dict, knn_row: dict, analytic: dict) -> dict:
-    launches = analytic["launches"]
+# -- LM serving -----------------------------------------------------------------
+
+def _lm_prompts(cfg, n_req: int, one_token: bool) -> list:
+    """Prompt lengths from default_rng(0) in [128, 2048], one of them
+    exactly 2048 (request 1), plus a 1-token prompt for the dense model;
+    tokens from the same generator."""
+    rng = np.random.default_rng(0)
+    lengths = [int(x) for x in rng.integers(128, 2049, n_req)]
+    lengths[1] = 2048
+    if one_token:
+        lengths.append(1)
+    return [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
+            for n in lengths]
+
+
+def _prefill_logits(cfg, plan, params, tokens: np.ndarray, dev):
+    """Last-token logits (float32, on the host) of one prompt."""
+    tok = torch.as_tensor(tokens[None, :], device=dev)
+    shape = ShapeConfig("check", "prefill", len(tokens) + 1, 1)
+    logits, _, _ = api.make_prefill(cfg, shape, plan)(params,
+                                                      {"tokens": tok})
+    return logits[0].float().cpu()
+
+
+def _lm_cpu_check(cfg, params, prompt, dev, depth=CPU_CHECK_DEPTH,
+                  n_tokens=CPU_CHECK_TOKENS) -> dict:
+    """The first two layers of the served parameters in float32: a prefill
+    of the prompt's first tokens on the card (kernels) and on the CPU
+    (plain versions) must give the same last-token logits and greedy
+    token."""
+    cut = dataclasses.replace(cfg, num_layers=depth)
+    plan = PlanConfig(param_dtype="float32", compute_dtype="float32")
+    small = dict(params, blocks=tree_map(lambda a: a[:depth],
+                                         params["blocks"]))
+    small = tree_map(lambda a: a.float(), small)
+    toks = prompt[:n_tokens]
+    card = _prefill_logits(cut, plan, small, toks, dev)
+    host = _prefill_logits(cut, plan, tree_map(lambda a: a.cpu(), small),
+                           toks, torch.device("cpu"))
+    err = float((card - host).abs().max())
+    scale = float(host.abs().max())
+    ok = bool(torch.allclose(card, host, rtol=CPU_CHECK_TOL,
+                             atol=CPU_CHECK_TOL))
+    t_card, t_host = int(card.argmax()), int(host.argmax())
+    gap = float(host[t_host] - host[t_card])
+    row = {"depth": depth, "tokens": len(toks), "dtype": "float32",
+           "max_abs_err": err, "max_abs_logit": scale, "tol": CPU_CHECK_TOL,
+           "token_card": t_card, "token_cpu": t_host,
+           "near_tie": t_card != t_host, "gap": gap}
+    check(ok, f"cpu_check logits differ by {err} (|logit| up to {scale})")
+    check(t_card == t_host or gap <= CPU_CHECK_TOL * max(1.0, scale),
+          f"cpu_check greedy tokens {t_card} vs {t_host}, gap {gap}")
+    return row
+
+
+def _decode_vs_prefill(cfg, plan, params, req, dev, k=8) -> dict:
+    """A prefill over the prompt and the first k-1 generated tokens must
+    predict the k-th generated token (or a near-tie)."""
+    toks = np.concatenate([req.prompt, np.asarray(req.out_tokens[:k - 1],
+                                                  np.int32)])
+    logits = _prefill_logits(cfg, plan, params, toks, dev)
+    want = req.out_tokens[k - 1]
+    got = int(logits.argmax())
+    gap = float(logits[got] - logits[want])
+    row = {"k": k, "prefill_token": got, "decoded_token": want,
+           "equal": got == want, "gap": gap, "margin": DECODE_NEAR_TIE}
+    check(got == want or gap <= DECODE_NEAR_TIE,
+          f"decode_vs_prefill: prefill says {got}, decode said {want}, "
+          f"gap {gap}")
+    return row
+
+
+def _device_profile(fn, dev, top: int = 5) -> dict:
+    """One call of ``fn`` (warmed up first) under ``torch.profiler`` with
+    CUDA activity only: host wall ms of the call (ending in a synchronize),
+    the device's busy ms (union of its kernel and copy intervals), the busy
+    share, and the kernels that took the most device time."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    sync(dev)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        sync(dev)
+        wall = (time.perf_counter() - t0) * 1e3
+    spans = sorted((e.time_range.start, e.time_range.end, e.name)
+                   for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA)
+    busy, end, by_name = 0.0, float("-inf"), {}
+    for a, b, name in spans:
+        busy += max(0.0, b - max(a, end))
+        end = max(end, b)
+        by_name[name] = by_name.get(name, 0.0) + (b - a) / 1e3
+    busy /= 1e3
+    return {"wall_ms": wall, "device_busy_ms": busy if spans else None,
+            "busy_share": busy / wall if spans else None,
+            "device_ops": len(spans),
+            "top_ms": sorted(by_name.items(), key=lambda kv: -kv[1])[:top]}
+
+
+def phase_lm(dev, name: str, cfg=None, slots=LM_SLOTS, max_len=LM_MAX_LEN,
+             n_req=LM_REQUESTS, new_tokens=LM_NEW_TOKENS) -> dict:
+    """Serve ``n_req`` requests (plus a 1-token prompt for the dense model)
+    through ``BatchServer.run`` at full width and depth, bfloat16
+    parameters (``PlanConfig`` defaults) from the port's seeded init."""
+    cfg = cfg or get_arch(name)
+    plan = PlanConfig()
+    kernel, other = (("flash_attention", "ssd_intra")
+                     if cfg.family == "dense" else
+                     ("ssd_intra", "flash_attention"))
+    t0 = time.perf_counter()
+    params = api.init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                             plan, dev)
+    sync(dev)
+    init_s = time.perf_counter() - t0
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    shape = ShapeConfig("serve", "decode", max_len, slots)
+    prefill = api.make_prefill(cfg, shape, plan)
+    decode = api.make_decode_step(cfg, shape, plan)
+    prefill_ms, decode_ms = [], []
+
+    def timed_prefill(p, tok):
+        t1 = time.perf_counter()
+        out = prefill(p, {"tokens": tok})
+        sync(dev)
+        prefill_ms.append(((time.perf_counter() - t1) * 1e3, tok.shape[1]))
+        return out
+
+    def timed_decode(p, c, t, pos):
+        t1 = time.perf_counter()
+        out = decode(p, c, t, pos)
+        sync(dev)
+        decode_ms.append((time.perf_counter() - t1) * 1e3)
+        return out
+
+    srv = BatchServer(slots=slots, max_len=max_len, prefill_fn=timed_prefill,
+                      decode_fn=timed_decode, params=params,
+                      init_cache_fn=lambda b, ml: api.init_cache(
+                          cfg, b, ml, torch.bfloat16, dev))
+    prompts = _lm_prompts(cfg, n_req, one_token=cfg.family == "dense")
+    reqs = [Request(i, p, new_tokens) for i, p in enumerate(prompts)]
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    srv.run(reqs)
+    sync(dev)
+    run_s = time.perf_counter() - t0
+    launches = ops.launches()
+    peak = torch.cuda.max_memory_allocated(dev) / 1e9 \
+        if dev.type == "cuda" else None
+
+    vp = T.padded_vocab(cfg)
+    for r in reqs:
+        check(r.done and len(r.out_tokens) == new_tokens,
+              f"{name} request {r.rid}: done={r.done}, "
+              f"{len(r.out_tokens)} tokens")
+        check(all(0 <= t < vp for t in r.out_tokens),
+              f"{name} request {r.rid}: token outside [0, {vp})")
+    for leaf in tree_leaves(srv.cache) + tree_leaves(params):
+        check(leaf.device.type == dev.type, f"{name}: a leaf on "
+              f"{leaf.device}")
+    prefills = srv.stats["prefills"]
+    check(prefills == len(reqs), f"{name}: {prefills} prefills")
+    if dev.type == "cuda":
+        check(launches[kernel] == cfg.num_layers * prefills
+              and launches[other] == 0,
+              f"{name}: launches {launches}, want {kernel} = "
+              f"{cfg.num_layers} x {prefills}")
+    full = [ms for ms, n in prefill_ms]
+    row = {"model": cfg.name, "family": cfg.family, "params": n_params,
+           "layers": cfg.num_layers, "d_model": cfg.d_model,
+           "param_dtype": plan.param_dtype, "init_s": init_s,
+           "slots": slots, "max_len": max_len, "requests": len(reqs),
+           "prompt_lengths": [len(p) for p in prompts],
+           "new_tokens": new_tokens, "prefills": prefills,
+           "decode_steps": srv.stats["decode_steps"],
+           "tokens_out": srv.stats["tokens_out"], "run_s": run_s,
+           "prefill_ms_median": statistics.median(full),
+           "prefill_ms_per_token_median": statistics.median(
+               ms / n for ms, n in prefill_ms),
+           "prefill_ms_2048": [ms for ms, n in prefill_ms if n == 2048],
+           "decode_step_ms_median": statistics.median(decode_ms),
+           "decode_tokens_per_s": srv.stats["tokens_out"]
+           / srv.stats["decode_seconds"],
+           "peak_mem_gb": peak, "launches": launches, "kernel": kernel}
+    if dev.type == "cuda":
+        # where the time goes, after the counts were read: the 2048-token
+        # prefill, and one decode step over all slots of the used cache
+        long = next(p for p in prompts if len(p) == 2048)
+        tok = torch.as_tensor(long[None, :], device=dev)
+        toks = torch.zeros((slots,), dtype=torch.int32, device=dev)
+        pos = torch.full((slots,), max_len - 2, dtype=torch.int32,
+                         device=dev)
+        row["profile"] = {
+            "prefill_2048": _device_profile(
+                lambda: prefill(params, {"tokens": tok}), dev),
+            "decode_step": _device_profile(
+                lambda: decode(params, srv.cache, toks, pos), dev)}
+    row["cpu_check"] = _lm_cpu_check(cfg, params, reqs[0].prompt, dev)
+    row["decode_vs_prefill"] = _decode_vs_prefill(cfg, plan, params,
+                                                  reqs[0], dev)
+    emit(f"lm_{cfg.family}", **row)
+    return row
+
+
+def _kernel_entry(name, source, replaces, launches, row) -> dict:
+    return {"name": name, "route": "cuda",
+            "source": f"src/repro_torch/kernels/csrc/{source}",
+            "replaces": replaces, "launches": launches,
+            "max_abs_err": row["max_abs_err"], "ms": row["ms"],
+            "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+            "bound_by": row["bound_by"], "library_ms": row.get("library_ms")}
+
+
+def kernels_line(haar_row: dict, knn_row: dict, flash_row: dict,
+                 ssd_row: dict, analytic: dict, lm_dense: dict,
+                 lm_ssm: dict) -> dict:
+    """Launches of each kernel on its own path: Haar and kNN on the
+    analytic, flash attention on dense LM serving, SSD on SSM serving."""
     return {"kernels": [
-        {"name": "haar", "route": "cuda",
-         "source": "src/repro_torch/kernels/csrc/haar.cu",
-         "replaces": "src/repro/kernels/haar.py:32",
-         "launches": launches["haar"],
-         "max_abs_err": haar_row["max_abs_err"], "ms": haar_row["ms"],
-         "plain_ms": haar_row["plain_ms"], "bound_ms": haar_row["bound_ms"],
-         "bound_by": haar_row["bound_by"], "library_ms": None},
-        {"name": "knn_scores", "route": "cuda",
-         "source": "src/repro_torch/kernels/csrc/knn.cu",
-         "replaces": "src/repro/kernels/knn.py:34",
-         "launches": launches["knn_scores"],
-         "max_abs_err": knn_row["max_abs_err"], "ms": knn_row["ms"],
-         "plain_ms": knn_row["plain_ms"], "bound_ms": knn_row["bound_ms"],
-         "bound_by": knn_row["bound_by"],
-         "library_ms": knn_row["library_ms"]},
+        _kernel_entry("haar", "haar.cu", "src/repro/kernels/haar.py:32",
+                      analytic["launches"]["haar"], haar_row),
+        _kernel_entry("knn_scores", "knn.cu", "src/repro/kernels/knn.py:34",
+                      analytic["launches"]["knn_scores"], knn_row),
+        _kernel_entry("flash_attention", "flash_attention.cu",
+                      "src/repro/kernels/flash_attention.py:73",
+                      lm_dense["launches"]["flash_attention"], flash_row),
+        _kernel_entry("ssd_intra", "ssd_scan.cu",
+                      "src/repro/kernels/ssd_scan.py:45",
+                      lm_ssm["launches"]["ssd_intra"], ssd_row),
     ]}
 
 
@@ -454,11 +825,16 @@ def main() -> int:
     phase_device(dev)
     haar_row = phase_haar(dev)
     knn_row = phase_knn(dev)
+    flash_row = phase_flash(dev)
+    ssd_row = phase_ssd(dev)
     with tempfile.TemporaryDirectory(prefix="chip-smoke-") as state_dir:
         phase_quickstart(dev, state_dir)
     analytic = phase_analytic(dev)
+    lm_dense = phase_lm(dev, "internlm2-1.8b")
+    lm_ssm = phase_lm(dev, "mamba2-370m")
     emit("total", seconds=time.perf_counter() - t0)
-    print(json.dumps(kernels_line(haar_row, knn_row, analytic)), flush=True)
+    print(json.dumps(kernels_line(haar_row, knn_row, flash_row, ssd_row,
+                                  analytic, lm_dense, lm_ssm)), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

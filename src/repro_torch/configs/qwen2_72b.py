@@ -1,0 +1,17 @@
+"""qwen2-72b — dense GQA LM with QKV bias [arXiv:2407.10671; hf]."""
+from repro_torch.configs.base import ArchConfig
+
+CONFIG = ArchConfig(
+    name="qwen2-72b",
+    family="dense",
+    num_layers=80,
+    d_model=8192,
+    num_heads=64,
+    num_kv_heads=8,
+    d_ff=29568,
+    vocab_size=152064,
+    head_dim=128,
+    qkv_bias=True,
+    rope_theta=1e6,
+    source="arXiv:2407.10671; hf:Qwen/Qwen2-72B",
+)

@@ -6,10 +6,16 @@ arrays — into the port's container of the same kind on ``device``.  The
 reference's persisted state (``monitor.json``, ``monitor.calib.json``,
 ``monitor.plans.json``) needs no conversion: the port reads those files as
 they are.
+
+``params_from_numpy(tree, device, dtype)`` turns the reference's LM
+parameter tree with numpy leaves (``jax.tree.map(np.asarray, params)``)
+into the port's parameters: the port keeps the reference's names and
+layouts, so the map is name for name.
 """
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 from repro_torch.core import tables
 
@@ -38,3 +44,27 @@ def from_numpy_container(obj, device):
         return tables.StreamBuffer(tables.to_device(np.asarray(obj.data), dev),
                                    t0=int(obj.t0))
     raise TypeError(f"not a polystore container: {type(obj).__name__}")
+
+
+def _tensor(a: np.ndarray) -> torch.Tensor:
+    a = np.array(a)                     # a writable copy
+    if a.dtype.name == "bfloat16":      # ml_dtypes' bfloat16: same bits
+        return torch.from_numpy(a.view(np.int16)).view(torch.bfloat16)
+    return torch.from_numpy(a)
+
+
+def params_from_numpy(tree, device, dtype=None):
+    """The port's parameter dict of a numpy-leafed reference parameter tree
+    (nested dicts), on ``device``.  With ``dtype``, floating leaves are cast
+    to it except the float32-sensitive ones (``models.api.F32_SENSITIVE``),
+    as ``cast_params`` does."""
+    from repro_torch.models.api import cast_params
+    dev = tables.resolve_device(device)
+
+    def conv(node):
+        if isinstance(node, dict):
+            return {k: conv(v) for k, v in node.items()}
+        return _tensor(node).to(dev)
+
+    params = conv(tree)
+    return params if dtype is None else cast_params(params, dtype)

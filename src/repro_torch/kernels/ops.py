@@ -5,16 +5,22 @@ kernel, which raises on what it does not accept.  There is no override and
 no fallback: a CUDA tensor never reaches a plain version.  Each kernel's
 wrapper counts its launches (``haar_cuda.launches``,
 ``knn_scores_cuda.launches``), so a run can show that its main path went
-through the kernels.
+through the kernels.  ``flash_attention`` and ``ssd_intra`` carry the LM
+prefill path (``models.layers.attention_apply``, ``models.ssm.ssd_chunked``).
 """
 from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels.flash_attention import (flash_attention_cuda,
+                                                 flash_attention_ref)
 from repro_torch.kernels.haar import haar_cuda, haar_ref
 from repro_torch.kernels.knn import (knn_scores_cuda, knn_scores_ref, top_k)
+from repro_torch.kernels.ssd_scan import ssd_intra_cuda, ssd_intra_ref
 
-KERNELS = {"haar": haar_cuda, "knn_scores": knn_scores_cuda}
+KERNELS = {"haar": haar_cuda, "knn_scores": knn_scores_cuda,
+           "flash_attention": flash_attention_cuda,
+           "ssd_intra": ssd_intra_cuda}
 
 
 def _route(t: torch.Tensor, op: str) -> bool:
@@ -42,6 +48,24 @@ def knn(train: torch.Tensor, test: torch.Tensor, k: int):
     """(int32 indices, float32 scores) of the k best train rows per test
     row; top-k runs outside the kernel."""
     return top_k(knn_scores(train, test), k)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True) -> torch.Tensor:
+    """q, k, v: (BH, S, d), KV already expanded to the query heads."""
+    if _route(q, "flash_attention"):
+        return flash_attention_cuda(q.contiguous(), k.contiguous(),
+                                    v.contiguous(), causal=causal)
+    return flash_attention_ref(q, k, v, causal=causal)
+
+
+def ssd_intra(x: torch.Tensor, da: torch.Tensor, B: torch.Tensor,
+              C: torch.Tensor):
+    """Intra-chunk SSD over (b, Q, ...) chunks: (y, states, chunk_decay)."""
+    if _route(x, "ssd_intra"):
+        return ssd_intra_cuda(x.contiguous(), da.contiguous(),
+                              B.contiguous(), C.contiguous())
+    return ssd_intra_ref(x, da, B, C)
 
 
 def reset_launches() -> None:

@@ -1,0 +1,208 @@
+"""Shared model layers: norms, RoPE, SwiGLU MLP, GQA/MHA attention.
+
+Functional, as the reference's ``repro.models.layers``: parameters are plain
+dicts of tensors made by ``init_*``, with the reference's names and layouts
+(``wq`` (D, H, hd), ``wo`` (H, hd, D), ``w1`` (D, F), ...), and forward
+functions take (params, inputs) and use ``torch.einsum`` in the reference's
+index order.  The port runs on one device, so the reference's sharding
+constraints (``pcon``) are dropped.
+
+Prefill attention (causal self-attention, the only kind the ported families
+run) goes through the flash-attention kernel, ``kernels.ops.flash_attention``,
+in place of the reference's query-chunked jnp ``sdpa_chunked``; cross and
+non-causal attention come with the encoder-decoder and vision-language
+families.  Decode attention is plain PyTorch, as in the reference, and
+writes the new key and value into the cache IN PLACE (the reference returns
+an updated copy): at full width the internlm2 cache is gigabytes, and no
+caller needs the old one.
+
+Multi-head latent attention (MLA, refused by ``transformer``) and
+context-parallel decode are not ported yet; reaching them raises
+``NotImplementedError``.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.configs.base import ArchConfig
+from repro_torch.kernels import ops
+
+
+def not_ported(what: str, item: str):
+    """The error of a path the port does not have yet, naming the ROADMAP
+    item that brings it."""
+    return NotImplementedError(f"{what} is not ported yet (ROADMAP.md queue "
+                               f"1: {item})")
+
+
+# --------------------------------------------------------------------------
+# initialization helpers
+# --------------------------------------------------------------------------
+
+def _dense_init(gen, shape, in_dim, dtype, device):
+    """N(0, 1/in_dim) in float32, cast to ``dtype``; on the ``meta`` device
+    only the shape (no generator is read)."""
+    if device.type == "meta":
+        return torch.empty(shape, dtype=dtype, device=device)
+    scale = 1.0 / math.sqrt(in_dim)
+    w = torch.randn(shape, generator=gen, dtype=torch.float32, device=device)
+    return (w * scale).to(dtype)
+
+
+def _ones(shape, dtype, device):
+    return torch.ones(shape, dtype=dtype, device=device)
+
+
+# --------------------------------------------------------------------------
+# norms
+# --------------------------------------------------------------------------
+
+def rms_norm(x, w, eps: float = 1e-5):
+    xf = x.to(torch.float32)
+    var = torch.mean(xf * xf, dim=-1, keepdim=True)
+    out = xf * torch.rsqrt(var + eps)
+    return (out * w.to(torch.float32)).to(x.dtype)
+
+
+def rms_norm_gated(x, z, w, eps: float = 1e-5):
+    """Mamba2 gated norm: rmsnorm(x * silu(z))."""
+    xf = x.to(torch.float32) * F.silu(z.to(torch.float32))
+    var = torch.mean(xf * xf, dim=-1, keepdim=True)
+    out = xf * torch.rsqrt(var + eps)
+    return (out * w.to(torch.float32)).to(x.dtype)
+
+
+# --------------------------------------------------------------------------
+# RoPE
+# --------------------------------------------------------------------------
+
+def rope_apply(x, positions, theta: float):
+    """Rotate the last dim.  x: (..., S, H, rd), or (B, H, rd) for decode.
+
+    positions broadcasts against x's sequence/batch dims: (S,) or (B, S),
+    or (B,) for single-token decode; the broadcast is picked by ndim, as in
+    the reference."""
+    rd = x.shape[-1]
+    if rd % 2:
+        raise ValueError("rope dim must be even")
+    half = rd // 2
+    freqs = torch.exp(-math.log(theta) * torch.arange(
+        half, dtype=torch.float32, device=x.device) / half)
+    ang = positions.to(torch.float32)[..., None] * freqs         # (..., half)
+    cos, sin = torch.cos(ang), torch.sin(ang)
+    if x.ndim in (ang.ndim + 2, ang.ndim + 1):   # prefill (S, H) / decode (H)
+        cos, sin = cos[..., None, :], sin[..., None, :]
+    xf1 = x[..., :half].to(torch.float32)
+    xf2 = x[..., half:].to(torch.float32)
+    out = torch.cat([xf1 * cos - xf2 * sin, xf2 * cos + xf1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+# --------------------------------------------------------------------------
+# SwiGLU MLP
+# --------------------------------------------------------------------------
+
+def init_mlp(gen, d_model, d_ff, dtype, device, lead=()):
+    return {
+        "w1": _dense_init(gen, lead + (d_model, d_ff), d_model, dtype, device),
+        "w3": _dense_init(gen, lead + (d_model, d_ff), d_model, dtype, device),
+        "w2": _dense_init(gen, lead + (d_ff, d_model), d_ff, dtype, device),
+    }
+
+
+def mlp_apply(p, x):
+    h = torch.einsum("...d,df->...f", x, p["w1"])
+    g = torch.einsum("...d,df->...f", x, p["w3"])
+    h = F.silu(g.to(torch.float32)).to(x.dtype) * h
+    return torch.einsum("...f,fd->...d", h, p["w2"])
+
+
+# --------------------------------------------------------------------------
+# dense GQA/MHA attention
+# --------------------------------------------------------------------------
+
+def init_attention(gen, cfg: ArchConfig, dtype, device, lead=()):
+    D, H, KV, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    p = {
+        "wq": _dense_init(gen, lead + (D, H, hd), D, dtype, device),
+        "wk": _dense_init(gen, lead + (D, KV, hd), D, dtype, device),
+        "wv": _dense_init(gen, lead + (D, KV, hd), D, dtype, device),
+        "wo": _dense_init(gen, lead + (H, hd, D), H * hd, dtype, device),
+    }
+    if cfg.qkv_bias:
+        p["bq"] = torch.zeros(lead + (H, hd), dtype=dtype, device=device)
+        p["bk"] = torch.zeros(lead + (KV, hd), dtype=dtype, device=device)
+        p["bv"] = torch.zeros(lead + (KV, hd), dtype=dtype, device=device)
+    return p
+
+
+def _expand_kv(k, n_rep):
+    """Repeat KV heads to the query heads: query head h reads KV head
+    h // n_rep (``jnp.repeat`` along heads)."""
+    return k if n_rep == 1 else torch.repeat_interleave(k, n_rep, dim=-2)
+
+
+def _flash(q, k, v):
+    """Causal self-attention on the kernel: (B, S, H, hd) -> (B·H, S, hd)
+    and back."""
+    B, S, H, hd = q.shape
+    fold = lambda t: t.permute(0, 2, 1, 3).reshape(B * H, S, hd)
+    o = ops.flash_attention(fold(q), fold(k), fold(v), causal=True)
+    return o.reshape(B, H, S, hd).permute(0, 2, 1, 3)
+
+
+def attention_apply(p, cfg: ArchConfig, x, positions):
+    """Causal self-attention over the full sequence (prefill), on the
+    flash kernel.  Returns (out, (k, v))."""
+    H, KV = cfg.num_heads, cfg.num_kv_heads
+    q = torch.einsum("bsd,dhk->bshk", x, p["wq"])
+    k = torch.einsum("bsd,dhk->bshk", x, p["wk"])
+    v = torch.einsum("bsd,dhk->bshk", x, p["wv"])
+    if cfg.qkv_bias:
+        q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
+    if positions is not None:
+        q = rope_apply(q, positions, cfg.rope_theta)
+        k = rope_apply(k, positions, cfg.rope_theta)
+    kv_cache = (k, v)
+    o = _flash(q, _expand_kv(k, H // KV), _expand_kv(v, H // KV))
+    out = torch.einsum("bshk,hkd->bsd", o, p["wo"])
+    return out, kv_cache
+
+
+def attention_decode(p, cfg: ArchConfig, x, cache_k, cache_v, pos,
+                     use_cp: bool = False):
+    """Single-token decode.  x: (B, D); cache_k/v: (B, Smax, KV, hd);
+    pos: (B,).  Writes this token's key and value into ``cache_k`` and
+    ``cache_v`` in place at ``pos`` and returns (out (B, D), cache_k,
+    cache_v)."""
+    if use_cp:
+        raise not_ported("context-parallel decode attention (decode_cp)",
+                         "LM side, sharding")
+    q = torch.einsum("bd,dhk->bhk", x, p["wq"])
+    k = torch.einsum("bd,dhk->bhk", x, p["wk"])
+    v = torch.einsum("bd,dhk->bhk", x, p["wv"])
+    if cfg.qkv_bias:
+        q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
+    q = rope_apply(q, pos, cfg.rope_theta)
+    k = rope_apply(k, pos, cfg.rope_theta)
+    rows = torch.arange(x.shape[0], device=x.device)
+    at = pos.to(torch.long)
+    cache_k[rows, at] = k.to(cache_k.dtype)
+    cache_v[rows, at] = v.to(cache_v.dtype)
+    o = _decode_attend(cfg, q, cache_k, cache_v, pos)
+    out = torch.einsum("bhk,hkd->bd", o, p["wo"])
+    return out, cache_k, cache_v
+
+
+def _decode_attend(cfg, q, cache_k, cache_v, pos):
+    H, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    ke = _expand_kv(cache_k, H // KV)
+    ve = _expand_kv(cache_v, H // KV)
+    s = torch.einsum("bhk,bshk->bhs", q, ke).to(torch.float32) / math.sqrt(hd)
+    mask = torch.arange(ke.shape[1], device=q.device)[None, :] <= pos[:, None]
+    s = s.masked_fill(~mask[:, None, :], float("-inf"))
+    w = torch.softmax(s, dim=-1).to(q.dtype)
+    return torch.einsum("bhs,bshk->bhk", w, ve)

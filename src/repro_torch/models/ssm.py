@@ -1,0 +1,259 @@
+"""Mamba2 (state-space duality) block: chunked SSD scan, conv and decode step.
+
+The port of ``repro.models.ssm``.  ``ssd_chunked`` computes each chunk's
+quadratic intra-chunk term, its end-of-chunk state contribution and its
+decay with ONE ``kernels.ops.ssd_intra`` call over all chunks of the batch
+(the SSD kernel on the card); the inter-chunk recurrence and its output
+term stay plain PyTorch.  The intra-chunk term is float32 even in a
+bfloat16 model, as in the reference.
+
+``causal_conv1d`` stays shift-and-add in float32 (the reference's form; a
+float32 ``F.conv1d`` on the card would go through cuDNN in TF32).  Decode
+(``mamba_step``) returns new state tensors; ``ssm_lm.ssm_decode_step``
+copies them into the cache in place.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.configs.base import ArchConfig, SSMConfig
+from repro_torch.kernels import ops
+from repro_torch.models.layers import _dense_init, _ones, rms_norm_gated
+
+
+# --------------------------------------------------------------------------
+# causal depthwise conv1d
+# --------------------------------------------------------------------------
+
+def causal_conv1d(x, w, b):
+    """x: (B, S, Ch); w: (W, Ch); b: (Ch,).  Shift-and-add (W is tiny)."""
+    W = w.shape[0]
+    S = x.shape[1]
+    out = torch.zeros(x.shape, dtype=torch.float32, device=x.device)
+    for i in range(W):
+        shift = W - 1 - i
+        xi = x if shift == 0 else F.pad(x, (0, 0, shift, 0))[:, :S]
+        out = out + xi.to(torch.float32) * w[i].to(torch.float32)
+    return (out + b.to(torch.float32)).to(x.dtype)
+
+
+def conv1d_step(conv_state, x_new, w, b):
+    """conv_state: (B, W-1, Ch) raw past inputs; x_new: (B, Ch)."""
+    window = torch.cat([conv_state, x_new[:, None]], dim=1)       # (B, W, Ch)
+    y = torch.einsum("bwc,wc->bc", window.to(torch.float32),
+                     w.to(torch.float32))
+    y = (y + b.to(torch.float32)).to(x_new.dtype)
+    return y, window[:, 1:]
+
+
+# --------------------------------------------------------------------------
+# SSD scan (chunked state-space dual form)
+# --------------------------------------------------------------------------
+
+def _segsum(x):
+    """x: (..., Q) -> (..., Q, Q), S[i, j] = sum_{j < k <= i} x[k], -inf
+    above the diagonal."""
+    Q = x.shape[-1]
+    cs = torch.cumsum(x, dim=-1)
+    d = cs[..., :, None] - cs[..., None, :]
+    mask = torch.ones((Q, Q), dtype=torch.bool, device=x.device).tril()
+    return d.masked_fill(~mask, float("-inf"))
+
+
+def ssd_chunked(x, dt, A, B, C, chunk: int, initial_state=None):
+    """SSD over chunks.
+
+    x: (b, s, h, p); dt: (b, s, h); A: (h,) negative decay rates;
+    B, C: (b, s, g, n).  Returns (y (b, s, h, p), final_state (b, h, n, p)).
+    """
+    b, s, h, p = x.shape
+    g, n = B.shape[2], B.shape[3]
+    hg = h // g
+    pad = (-s) % chunk
+    if pad:                               # dt = 0 => identity update
+        x = F.pad(x, (0, 0, 0, 0, 0, pad))
+        dt = F.pad(dt, (0, 0, 0, pad))
+        B = F.pad(B, (0, 0, 0, 0, 0, pad))
+        C = F.pad(C, (0, 0, 0, 0, 0, pad))
+    S = x.shape[1]
+    nc, Q = S // chunk, chunk
+
+    f32 = torch.float32
+    xdt = x.to(f32) * dt.to(f32)[..., None]                  # (b, S, h, p)
+    da = dt.to(f32) * A.to(f32)                              # (b, S, h)
+    Bc = B.to(f32).reshape(b, nc, Q, g, n)
+    Cc = C.to(f32).reshape(b, nc, Q, g, n)
+
+    # intra-chunk term, chunk states and chunk decay: one kernel call
+    y_intra, states, chunk_decay = ops.ssd_intra(
+        xdt.reshape(b * nc, Q, h, p), da.reshape(b * nc, Q, h),
+        Bc.reshape(b * nc, Q, g, n), Cc.reshape(b * nc, Q, g, n))
+    states = states.reshape(b, nc, g, hg, n, p)
+    cdg = chunk_decay.reshape(b, nc, g, hg)
+
+    # inter-chunk recurrence over nc: the state BEFORE each chunk
+    if initial_state is None:
+        run = torch.zeros((b, g, hg, n, p), dtype=f32, device=x.device)
+    else:
+        run = initial_state.reshape(b, g, hg, n, p).to(f32)
+    prevs = []
+    for ci in range(nc):
+        prevs.append(run)
+        run = run * cdg[:, ci, ..., None, None] + states[:, ci]
+    prev_states = torch.stack(prevs, dim=1)                  # (b,nc,g,hg,n,p)
+
+    # inter-chunk output: C_t · (decayed running state)
+    A_cs = torch.cumsum(da.reshape(b, nc, Q, h).permute(0, 3, 1, 2), dim=-1)
+    state_decay = torch.exp(A_cs).reshape(b, g, hg, nc, Q)
+    Y_inter = torch.einsum("bcqgn,bcghnp,bghcq->bcqghp", Cc, prev_states,
+                           state_decay)
+
+    y = (y_intra.reshape(b, nc, Q, g, hg, p) + Y_inter).reshape(b, S, h, p)
+    return y[:, :s].to(x.dtype), run.reshape(b, h, n, p)
+
+
+def ssd_step(state, x_t, dt_t, A, B_t, C_t):
+    """Single-token recurrence.  state: (b,h,n,p); x_t: (b,h,p);
+    dt_t: (b,h); B_t, C_t: (b,g,n)."""
+    h = state.shape[1]
+    hg = h // B_t.shape[1]
+    f32 = torch.float32
+    da = torch.exp(dt_t.to(f32) * A.to(f32))                        # (b,h)
+    xdt = x_t.to(f32) * dt_t.to(f32)[..., None]
+    Bh = torch.repeat_interleave(B_t.to(f32), hg, dim=1)            # (b,h,n)
+    Ch = torch.repeat_interleave(C_t.to(f32), hg, dim=1)
+    new_state = state * da[..., None, None] + torch.einsum("bhn,bhp->bhnp",
+                                                           Bh, xdt)
+    y = torch.einsum("bhn,bhnp->bhp", Ch, new_state)
+    return new_state, y.to(x_t.dtype)
+
+
+# --------------------------------------------------------------------------
+# Mamba2 block
+# --------------------------------------------------------------------------
+
+def init_mamba_block(gen, cfg: ArchConfig, dtype, device, lead=()):
+    """One block's parameters, or ``lead``-stacked blocks."""
+    m: SSMConfig = cfg.ssm
+    D = cfg.d_model
+    di = m.expand * D
+    H = di // m.head_dim
+    GN = m.n_groups * m.state_dim
+    conv_ch = di + 2 * GN
+    f32 = torch.float32
+    if device.type == "meta":
+        dt_bias = torch.empty(lead + (H,), dtype=f32, device=device)
+    else:
+        lo, hi = math.log(1e-3), math.log(1e-1)
+        u = torch.rand(lead + (H,), generator=gen, dtype=f32, device=device)
+        dt = torch.exp(lo + u * (hi - lo))
+        dt_bias = torch.log(torch.expm1(dt))
+    A_log = torch.log(torch.arange(1, H + 1, dtype=f32, device=device))
+    return {
+        "ln": _ones(lead + (D,), dtype, device),
+        "w_z": _dense_init(gen, lead + (D, di), D, dtype, device),
+        "w_x": _dense_init(gen, lead + (D, di), D, dtype, device),
+        "w_B": _dense_init(gen, lead + (D, GN), D, dtype, device),
+        "w_C": _dense_init(gen, lead + (D, GN), D, dtype, device),
+        "w_dt": _dense_init(gen, lead + (D, H), D, dtype, device),
+        "dt_bias": dt_bias,
+        "A_log": A_log.expand(lead + (H,)).clone(),
+        "Dskip": _ones(lead + (H,), f32, device),
+        "conv_w": _dense_init(gen, lead + (m.conv_width, conv_ch),
+                              m.conv_width, dtype, device),
+        "conv_b": torch.zeros(lead + (conv_ch,), dtype=dtype, device=device),
+        "ssm_norm": _ones(lead + (di,), dtype, device),
+        "out_proj": _dense_init(gen, lead + (di, D), di, dtype, device),
+    }
+
+
+def _split_xbc(xBC, cfg):
+    m = cfg.ssm
+    di = m.expand * cfg.d_model
+    GN = m.n_groups * m.state_dim
+    return xBC[..., :di], xBC[..., di:di + GN], xBC[..., di + GN:]
+
+
+def mamba_apply(p, cfg: ArchConfig, x, initial_state=None):
+    """x: (B, S, D).  Returns (out (B,S,D), (ssm_state, conv_tail))."""
+    m: SSMConfig = cfg.ssm
+    Bsz, S, D = x.shape
+    di = m.expand * D
+    H = di // m.head_dim
+    f32 = torch.float32
+    z = torch.einsum("bsd,de->bse", x, p["w_z"])
+    xx = torch.einsum("bsd,de->bse", x, p["w_x"])
+    xB = torch.einsum("bsd,de->bse", x, p["w_B"])
+    xC = torch.einsum("bsd,de->bse", x, p["w_C"])
+    xBC = torch.cat([xx, xB, xC], dim=-1)
+    # as the reference: a prompt shorter than conv_width - 1 gives a shorter
+    # tail (BatchServer._write_rows pads it at the end)
+    conv_tail = xBC[:, -(m.conv_width - 1):]
+    if initial_state is not None:
+        _, prev_conv = initial_state
+        xBC_in = torch.cat([prev_conv, xBC], dim=1)
+        conv = causal_conv1d(xBC_in, p["conv_w"],
+                             p["conv_b"])[:, m.conv_width - 1:]
+    else:
+        conv = causal_conv1d(xBC, p["conv_w"], p["conv_b"])
+    conv = F.silu(conv.to(f32)).to(x.dtype)
+    xs, Bs, Cs = _split_xbc(conv, cfg)
+    xs = xs.reshape(Bsz, S, H, m.head_dim)
+    Bs = Bs.reshape(Bsz, S, m.n_groups, m.state_dim)
+    Cs = Cs.reshape(Bsz, S, m.n_groups, m.state_dim)
+    dt = F.softplus(torch.einsum("bsd,dh->bsh", x, p["w_dt"]).to(f32)
+                    + p["dt_bias"])
+    A = -torch.exp(p["A_log"])
+    ssm_init = initial_state[0] if initial_state is not None else None
+    y, fstate = ssd_chunked(xs, dt, A, Bs, Cs, m.chunk, ssm_init)
+    y = y + p["Dskip"][None, None, :, None] * xs.to(f32)
+    y = y.reshape(Bsz, S, di).to(x.dtype)
+    y = rms_norm_gated(y, z, p["ssm_norm"], cfg.norm_eps)
+    out = torch.einsum("bse,ed->bsd", y, p["out_proj"])
+    return out, (fstate, conv_tail)
+
+
+def mamba_step(p, cfg: ArchConfig, x, state):
+    """Single-token decode.  x: (B, D); state = (ssm_state, conv_state).
+    Returns (out (B, D), (new ssm_state, new conv_state))."""
+    m: SSMConfig = cfg.ssm
+    Bsz, D = x.shape
+    di = m.expand * D
+    H = di // m.head_dim
+    f32 = torch.float32
+    ssm_state, conv_state = state
+    z = torch.einsum("bd,de->be", x, p["w_z"])
+    xx = torch.einsum("bd,de->be", x, p["w_x"])
+    xB = torch.einsum("bd,de->be", x, p["w_B"])
+    xC = torch.einsum("bd,de->be", x, p["w_C"])
+    xBC = torch.cat([xx, xB, xC], dim=-1)
+    conv, conv_state = conv1d_step(conv_state, xBC, p["conv_w"], p["conv_b"])
+    conv = F.silu(conv.to(f32)).to(x.dtype)
+    xs, Bs, Cs = _split_xbc(conv, cfg)
+    xs = xs.reshape(Bsz, H, m.head_dim)
+    Bs = Bs.reshape(Bsz, m.n_groups, m.state_dim)
+    Cs = Cs.reshape(Bsz, m.n_groups, m.state_dim)
+    dt = F.softplus(torch.einsum("bd,dh->bh", x, p["w_dt"]).to(f32)
+                    + p["dt_bias"])
+    A = -torch.exp(p["A_log"])
+    ssm_state, y = ssd_step(ssm_state, xs, dt, A, Bs, Cs)
+    y = y + p["Dskip"][None, :, None] * xs.to(f32)
+    y = y.reshape(Bsz, di).to(x.dtype)
+    y = rms_norm_gated(y, z, p["ssm_norm"], cfg.norm_eps)
+    out = torch.einsum("be,ed->bd", y, p["out_proj"])
+    return out, (ssm_state, conv_state)
+
+
+def init_mamba_state(cfg: ArchConfig, batch: int, dtype=torch.float32,
+                     device=torch.device("cpu")):
+    m: SSMConfig = cfg.ssm
+    di = m.expand * cfg.d_model
+    H = di // m.head_dim
+    conv_ch = di + 2 * m.n_groups * m.state_dim
+    return (torch.zeros((batch, H, m.state_dim, m.head_dim),
+                        dtype=torch.float32, device=device),
+            torch.zeros((batch, m.conv_width - 1, conv_ch), dtype=dtype,
+                        device=device))

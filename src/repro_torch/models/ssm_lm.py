@@ -1,0 +1,82 @@
+"""Pure-SSM LM (mamba2-370m): stacked Mamba2 blocks, no attention anywhere.
+
+The port of ``repro.models.ssm_lm`` for the serving path.  Prefill runs the
+SSD kernel once per layer (``ssm.ssd_chunked``); decode is plain PyTorch and
+writes each layer's new SSM and conv state into the cache IN PLACE (the
+reference returns a new cache).  The loss (``ssm_lm_loss``) is not ported
+yet (ROADMAP.md queue 1, LM side).
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.configs.base import ArchConfig, PlanConfig
+from repro_torch.models import layers as L
+from repro_torch.models import ssm
+from repro_torch.models.transformer import padded_vocab
+from repro_torch.models.util import stack_scan, tree_map
+
+
+def init_ssm_lm(cfg: ArchConfig, gen, plan: PlanConfig = PlanConfig(),
+                device=torch.device("cpu")):
+    dtype = getattr(torch, plan.param_dtype)
+    Vp = padded_vocab(cfg)
+    return {
+        "emb": L._dense_init(gen, (Vp, cfg.d_model), cfg.d_model, dtype,
+                             device),
+        "final_norm": L._ones((cfg.d_model,), dtype, device),
+        "blocks": ssm.init_mamba_block(gen, cfg, dtype, device,
+                                       lead=(cfg.num_layers,)),
+    }
+
+
+def ssm_hidden(cfg: ArchConfig, plan: PlanConfig, params, embeds,
+               collect_state=False):
+    def body(x, lp):
+        h, state = ssm.mamba_apply(lp, cfg,
+                                   L.rms_norm(x, lp["ln"], cfg.norm_eps))
+        return x + h, (state if collect_state else None)
+
+    x, states = stack_scan(body, embeds, params["blocks"])
+    return L.rms_norm(x, params["final_norm"], cfg.norm_eps), states
+
+
+def init_ssm_cache(cfg: ArchConfig, batch: int, dtype,
+                   device=torch.device("cpu")):
+    """Per-layer (ssm_state, conv_state) stacked over layers."""
+    s, c = ssm.init_mamba_state(cfg, batch, dtype, torch.device("meta"))
+    L_ = cfg.num_layers
+    return {"ssm": torch.zeros((L_,) + tuple(s.shape), dtype=s.dtype,
+                               device=device),
+            "conv": torch.zeros((L_,) + tuple(c.shape), dtype=c.dtype,
+                                device=device)}
+
+
+def ssm_prefill(cfg, plan, params, tokens):
+    e = params["emb"][tokens.to(torch.long)]
+    hidden, states = ssm_hidden(cfg, plan, params, e, collect_state=True)
+    logits = torch.einsum("bd,vd->bv", hidden[:, -1],
+                          params["emb"]).to(torch.float32)
+    cache = {"ssm": states[0], "conv": states[1].to(e.dtype)}
+    pos = torch.full((tokens.shape[0],), tokens.shape[1], dtype=torch.int32,
+                     device=e.device)
+    return logits, cache, pos
+
+
+def ssm_decode_step(cfg: ArchConfig, plan: PlanConfig, params, cache, tokens,
+                    pos):
+    """One decode step; pos is unused (state-space models carry no
+    positional cache).  Returns (next_tokens (B,) int32, cache); the cache
+    is updated in place."""
+    x = params["emb"][tokens.to(torch.long)]
+    for i in range(cache["ssm"].shape[0]):
+        lp = tree_map(lambda a: a[i], params["blocks"])
+        h, (s2, c2) = ssm.mamba_step(lp, cfg,
+                                     L.rms_norm(x, lp["ln"], cfg.norm_eps),
+                                     (cache["ssm"][i], cache["conv"][i]))
+        cache["ssm"][i].copy_(s2)
+        cache["conv"][i].copy_(c2)
+        x = x + h
+    x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
+    logits = torch.einsum("bd,vd->bv", x, params["emb"]).to(torch.float32)
+    return torch.argmax(logits, dim=-1).to(torch.int32), cache

@@ -9,7 +9,10 @@ import torch
 from repro_torch.core import DenseTensor, connect
 from repro_torch.kernels import ops
 from repro_torch.kernels.haar import haar_cuda, haar_ref
+from repro_torch.kernels.flash_attention import (flash_attention_cuda,
+                                                 flash_attention_ref)
 from repro_torch.kernels.knn import knn_scores_cuda, knn_scores_ref
+from repro_torch.kernels.ssd_scan import ssd_intra_cuda, ssd_intra_ref
 
 pytestmark = pytest.mark.gpu
 
@@ -151,3 +154,96 @@ def test_every_engine_op_on_cuda_matches_cpu(cuda):
             assert g.dtype == w.dtype and g.shape == w.shape, (engine, op)
             np.testing.assert_allclose(g, w, rtol=1e-5, atol=1e-5,
                                        err_msg=f"{engine}.{op}")
+
+
+# -- the LM kernels and serving path ------------------------------------------
+
+@pytest.mark.parametrize("bh,s,d,causal,dtype", [
+    (16, 2048, 128, True, torch.bfloat16),     # the dense prefill path
+    (16, 2048, 128, True, torch.float32),
+    (3, 1, 64, True, torch.float32),
+    (3, 77, 80, True, torch.float32),
+    (2, 1000, 64, True, torch.float32),
+    (2, 333, 80, False, torch.float32),
+    (4, 129, 17, True, torch.bfloat16),
+    (2, 65, 200, True, torch.float32),
+])
+def test_flash_kernel_matches_plain(cuda, bh, s, d, causal, dtype):
+    """Any length (ragged q and k tiles), any width up to 256; the
+    reference tests' tolerances."""
+    gen = torch.Generator(device=cuda).manual_seed(s)
+    q, k, v = (torch.randn((bh, s, d), generator=gen, device=cuda).to(dtype)
+               for _ in range(3))
+    tol = 3e-2 if dtype == torch.bfloat16 else 1e-4
+    got = flash_attention_cuda(q, k, v, causal=causal)
+    assert got.dtype == dtype and got.shape == q.shape
+    torch.testing.assert_close(got.float(), flash_attention_ref(
+        q, k, v, causal=causal).float(), rtol=tol, atol=tol)
+    if dtype == torch.bfloat16:            # as chip_smoke.phase_flash
+        want32 = flash_attention_ref(q.float(), k.float(), v.float(),
+                                     causal=causal)
+        assert float((got.float() - want32).abs().max()) <= 1.6e-2
+
+
+@pytest.mark.parametrize("b,q,h,p,g,n", [
+    (16, 128, 32, 64, 1, 128),                 # the SSM prefill path
+    (3, 40, 6, 17, 2, 9),
+    (5, 77, 4, 33, 2, 31),
+    (2, 1, 2, 5, 1, 3),
+])
+def test_ssd_kernel_matches_plain(cuda, b, q, h, p, g, n):
+    gen = torch.Generator(device=cuda).manual_seed(q)
+    x = torch.randn((b, q, h, p), generator=gen, device=cuda)
+    da = -torch.nn.functional.softplus(
+        torch.randn((b, q, h), generator=gen, device=cuda))
+    B = torch.randn((b, q, g, n), generator=gen, device=cuda)
+    C = torch.randn((b, q, g, n), generator=gen, device=cuda)
+    got = ssd_intra_cuda(x, da, B, C)
+    want = ssd_intra_ref(*(t.double() for t in (x, da, B, C)))
+    # against float64, at tolerances scaled to the output (chip_smoke.SSD_TOL)
+    for a, w, (rtol, atol, scaled) in zip(got, want, [
+            (2e-4, 2e-4, True), (2e-4, 2e-4, True), (1e-5, 1e-6, False)]):
+        assert a.dtype == torch.float32
+        if scaled:
+            atol *= float(w.abs().max())
+        torch.testing.assert_close(a.double(), w, rtol=rtol, atol=atol)
+
+
+def test_lm_kernels_refuse_what_they_do_not_take(cuda):
+    x = torch.zeros((1, 8, 2, 4), device=cuda)
+    with pytest.raises(TypeError):
+        ssd_intra_cuda(x.bfloat16(), torch.zeros((1, 8, 2), device=cuda),
+                       torch.zeros((1, 8, 1, 4), device=cuda),
+                       torch.zeros((1, 8, 1, 4), device=cuda))
+    q = torch.zeros((1, 8, 264), device=cuda)
+    with pytest.raises(ValueError):
+        flash_attention_cuda(q, q, q)
+
+
+@pytest.mark.parametrize("name", ["internlm2-1.8b", "mamba2-370m"])
+def test_smoke_batch_server_on_cuda_launches_the_kernels(cuda, name):
+    from repro_torch.configs import PlanConfig, ShapeConfig, get_arch
+    from repro_torch.models import api
+    from repro_torch.runtime import BatchServer, Request
+    cfg = get_arch(name).smoke()
+    plan = PlanConfig(param_dtype="float32")
+    params = api.init_params(cfg, torch.Generator(device=cuda).manual_seed(0),
+                             plan, cuda)
+    shape = ShapeConfig("serve", "decode", 64, 2)
+    pre = api.make_prefill(cfg, shape, plan)
+    srv = BatchServer(slots=2, max_len=64,
+                      prefill_fn=lambda p, t: pre(p, {"tokens": t}),
+                      decode_fn=api.make_decode_step(cfg, shape, plan),
+                      params=params,
+                      init_cache_fn=lambda b, ml: api.init_cache(
+                          cfg, b, ml, torch.float32, cuda))
+    rng = np.random.default_rng(0)
+    reqs = [Request(i, rng.integers(0, cfg.vocab_size, n).astype(np.int32), 6)
+            for i, n in enumerate((17, 5, 30))]
+    ops.reset_launches()
+    srv.run(reqs)
+    launches = ops.launches()
+    assert all(r.done and len(r.out_tokens) == 6 for r in reqs)
+    kernel, other = (("flash_attention", "ssd_intra") if cfg.family == "dense"
+                     else ("ssd_intra", "flash_attention"))
+    assert launches[kernel] == cfg.num_layers * 3 and launches[other] == 0

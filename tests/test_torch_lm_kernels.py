@@ -1,0 +1,190 @@
+"""The port's plain flash-attention and SSD versions against the reference's
+oracles and its Pallas kernels (interpret mode), plus their dispatch.
+
+Inputs are drawn with numpy from a seed and fed to both packages.  The
+tolerances are the reference's own (``tests/test_kernels.py``): attention
+1e-4 in float32 and 3e-2 in bfloat16; SSD y and states 2e-4, chunk decay
+1e-5 relative / 1e-6 absolute; one chunk against the chunked SSD 2e-3."""
+import numpy as np
+import jax.numpy as jnp
+import pytest
+import torch
+
+from repro.kernels import ref as jref
+from repro.kernels.flash_attention import flash_attention_pallas
+from repro.kernels.ssd_scan import ssd_intra_pallas
+from repro.models.ssm import ssd_chunked as jssd_chunked
+from repro_torch.kernels import flash_attention as tflash
+from repro_torch.kernels import ops as tops
+from repro_torch.kernels import ssd_scan as tssd
+from repro_torch.kernels import ref as tref
+from repro_torch.models.ssm import ssd_chunked as tssd_chunked
+
+from _torch_parity import bf16_pair
+
+_SEEDS = range(4)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread while this module runs: the suite runs in
+    parallel workers beside timing-based tests of the reference, and idle
+    OpenMP threads spinning here would add noise to their timings."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def _f32(a):
+    if isinstance(a, torch.Tensor):
+        return a.to(torch.float32).numpy()
+    return np.asarray(a, np.float32)
+
+
+def _attn_inputs(seed, s_mult=8):
+    rng = np.random.default_rng(512 + seed)   # seeds 0-3 cover causal x dtype
+    bh = int(rng.integers(1, 5))
+    s = int(rng.integers(1, 24)) * s_mult
+    d = int(rng.integers(4, 80))
+    causal = bool(rng.integers(0, 2))
+    dtype = "bf16" if rng.integers(0, 2) else "f32"
+    qkv = [rng.normal(size=(bh, s, d)).astype(np.float32) for _ in range(3)]
+    if dtype == "bf16":
+        pairs = [bf16_pair(a) for a in qkv]
+    else:
+        pairs = [(jnp.asarray(a), torch.from_numpy(a)) for a in qkv]
+    tol = 3e-2 if dtype == "bf16" else 1e-4
+    return pairs, causal, tol
+
+
+@pytest.mark.parametrize("seed", _SEEDS)
+def test_flash_plain_matches_oracle_and_pallas(seed):
+    pairs, causal, tol = _attn_inputs(seed)
+    (qj, qt), (kj, kt), (vj, vt) = pairs
+    got = tref.flash_attention_ref(qt, kt, vt, causal=causal)
+    assert got.dtype == qt.dtype and got.shape == qt.shape
+    want = jref.flash_attention_ref(qj, kj, vj, causal=causal)
+    np.testing.assert_allclose(_f32(got), _f32(want), rtol=tol, atol=tol)
+    pallas = flash_attention_pallas(qj, kj, vj, causal=causal, block_q=64,
+                                    block_k=64, interpret=True)
+    np.testing.assert_allclose(_f32(got), _f32(pallas), rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("s", [1, 7, 13])
+def test_flash_plain_ragged_lengths(s):
+    """Lengths the Pallas kernel would run with a block of one: the plain
+    version against the oracle, causal and not."""
+    rng = np.random.default_rng(s)
+    q, k, v = (rng.normal(size=(3, s, 16)).astype(np.float32)
+               for _ in range(3))
+    for causal in (True, False):
+        got = tref.flash_attention_ref(*map(torch.from_numpy, (q, k, v)),
+                                       causal=causal)
+        want = jref.flash_attention_ref(*map(jnp.asarray, (q, k, v)),
+                                        causal=causal)
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-4,
+                                   atol=1e-4)
+
+
+def _ssd_inputs(seed):
+    rng = np.random.default_rng(600 + seed)
+    b = int(rng.integers(1, 4))
+    q = int(rng.integers(1, 12)) * 8
+    h = int(rng.integers(1, 10))
+    p = int(rng.integers(2, 40))
+    g = int(rng.integers(1, 3))
+    if h % g:
+        g = 1
+    n = int(rng.integers(2, 40))
+    x = rng.normal(size=(b, q, h, p)).astype(np.float32)
+    da = -np.log1p(np.exp(rng.normal(size=(b, q, h)))).astype(np.float32)
+    B = rng.normal(size=(b, q, g, n)).astype(np.float32)
+    C = rng.normal(size=(b, q, g, n)).astype(np.float32)
+    return x, da, B, C
+
+
+@pytest.mark.parametrize("seed", _SEEDS)
+def test_ssd_plain_matches_oracle_and_pallas(seed):
+    arrs = _ssd_inputs(seed)
+    got = tref.ssd_intra_ref(*map(torch.from_numpy, arrs))
+    want = jref.ssd_intra_ref(*map(jnp.asarray, arrs))
+    pallas = ssd_intra_pallas(*map(jnp.asarray, arrs), block_h=4,
+                              interpret=True)
+    assert [t.dtype for t in got] == [torch.float32] * 3
+    for other in (want, pallas):
+        for g, w, (rtol, atol) in zip(got, other, [(2e-4, 2e-4), (2e-4, 2e-4),
+                                                   (1e-5, 1e-6)]):
+            assert tuple(g.shape) == w.shape
+            np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=rtol,
+                                       atol=atol)
+
+
+def test_ssd_one_chunk_equals_chunked_ssd():
+    """One-chunk SSD == the port's chunked SSD with chunk == seq, and the
+    port's chunked SSD == the reference's."""
+    rng = np.random.default_rng(7)
+    b, s, h, p, n = 2, 64, 4, 16, 8
+    x = rng.normal(size=(b, s, h, p)).astype(np.float32)
+    dt = np.log1p(np.exp(rng.normal(size=(b, s, h)))).astype(np.float32)
+    A = -np.exp(rng.normal(size=(h,)) * 0.2).astype(np.float32)
+    B = rng.normal(size=(b, s, 1, n)).astype(np.float32)
+    C = rng.normal(size=(b, s, 1, n)).astype(np.float32)
+    t = lambda a: torch.from_numpy(a)
+    y_full, _ = tssd_chunked(t(x), t(dt), t(A), t(B), t(C), chunk=s)
+    y_k, _, _ = tref.ssd_intra_ref(t(x * dt[..., None]), t(dt * A), t(B),
+                                   t(C))
+    np.testing.assert_allclose(y_k.numpy(), y_full.numpy(), rtol=2e-3,
+                               atol=2e-3)
+    y_ref, _ = jssd_chunked(*map(jnp.asarray, (x, dt, A, B, C)), chunk=s)
+    np.testing.assert_allclose(y_full.numpy(), np.asarray(y_ref), rtol=1e-4,
+                               atol=1e-4)
+
+
+def test_lm_ops_take_the_plain_version_for_cpu_tensors(monkeypatch):
+    """A CPU tensor never reaches a kernel launcher, and so never moves a
+    launch counter."""
+    def boom(*a, **k):
+        raise AssertionError("a CPU tensor reached the CUDA launcher")
+    monkeypatch.setattr(tops, "flash_attention_cuda", boom)
+    monkeypatch.setattr(tops, "ssd_intra_cuda", boom)
+    tops.reset_launches()
+    q = torch.from_numpy(np.random.default_rng(0).normal(
+        size=(2, 9, 8)).astype(np.float32))
+    torch.testing.assert_close(tops.flash_attention(q, q, q),
+                               tref.flash_attention_ref(q, q, q),
+                               rtol=0, atol=0)
+    x, da, B, C = map(torch.from_numpy, _ssd_inputs(0))
+    for got, want in zip(tops.ssd_intra(x, da, B, C),
+                         tref.ssd_intra_ref(x, da, B, C)):
+        torch.testing.assert_close(got, want, rtol=0, atol=0)
+    assert tops.launches() == {"haar": 0, "knn_scores": 0,
+                               "flash_attention": 0, "ssd_intra": 0}
+
+
+def test_lm_ops_refuse_other_devices():
+    q = torch.empty((2, 8, 16), device="meta")
+    with pytest.raises(ValueError, match="no kernel"):
+        tops.flash_attention(q, q, q)
+    x = torch.empty((1, 8, 2, 4), device="meta")
+    with pytest.raises(ValueError, match="no kernel"):
+        tops.ssd_intra(x, torch.empty((1, 8, 2), device="meta"),
+                       torch.empty((1, 8, 1, 4), device="meta"),
+                       torch.empty((1, 8, 1, 4), device="meta"))
+
+
+def test_lm_launchers_check_before_building():
+    """The launchers refuse CPU tensors before touching nvcc or ctypes, and
+    the SSD launcher knows its shared-memory budget."""
+    x = torch.zeros((2, 8, 16))
+    with pytest.raises(ValueError, match="CUDA"):
+        tflash.flash_attention_cuda(x, x, x)
+    xs = torch.zeros((1, 8, 2, 4))
+    with pytest.raises(ValueError, match="CUDA"):
+        tssd.ssd_intra_cuda(xs, torch.zeros((1, 8, 2)),
+                            torch.zeros((1, 8, 1, 4)),
+                            torch.zeros((1, 8, 1, 4)))
+    # shared-memory budget of one chunk: the path's shape fits, a chunk of
+    # 512 rows at n 128 does not
+    assert tssd.smem_bytes(128, 64, 128) == 133632
+    assert tssd.smem_bytes(512, 64, 128) > tssd.SMEM_LIMIT

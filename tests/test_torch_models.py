@@ -1,0 +1,316 @@
+"""The port's LM serving path against the reference, on the smoke configs
+of internlm2-1.8b (dense GQA) and mamba2-370m (SSM) in float32.
+
+The reference's parameters (``repro.models.api.init_params``) go through
+``convert.params_from_numpy`` into the port, and the same numpy tokens go
+through both packages.  Tolerance 1e-4 in float32 (the two frameworks sum
+in different orders); generated tokens must be equal, and int32."""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.configs import PlanConfig, ShapeConfig, get_arch
+from repro.models import api as japi
+from repro.models import layers as JL
+from repro.models import ssm as JM
+from repro.models import ssm_lm as JS
+from repro.models import transformer as JT
+from repro.runtime.server import BatchServer as JBatchServer
+from repro.runtime.server import Request as JRequest
+from repro_torch.configs import PlanConfig as TPlan
+from repro_torch.configs import get_arch as tget
+from repro_torch.convert import params_from_numpy
+from repro_torch.models import api as tapi
+from repro_torch.models import layers as TL
+from repro_torch.models import ssm as TM
+from repro_torch.models.util import tree_leaves, tree_map
+from repro_torch.runtime import BatchServer as TBatchServer
+from repro_torch.runtime import Request as TRequest
+
+TOL = dict(rtol=1e-4, atol=1e-4)
+PLAN = PlanConfig(param_dtype="float32", compute_dtype="float32",
+                  attn_chunk=8, remat="none")
+TPLAN = TPlan(param_dtype="float32", compute_dtype="float32", remat="none")
+NAMES = ["internlm2-1.8b", "mamba2-370m"]
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread while this module runs: the suite runs in
+    parallel workers beside timing-based tests of the reference, and idle
+    OpenMP threads spinning here would add noise to their timings."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def _cfgs(name):
+    return get_arch(name).smoke(), tget(name).smoke()
+
+
+def _params(cfg, seed=0):
+    jp = japi.init_params(cfg, jax.random.PRNGKey(seed), PLAN)
+    return jp, params_from_numpy(jax.tree.map(np.asarray, jp), "cpu")
+
+
+def _close(port, ref, **tol):
+    ref = np.asarray(ref)
+    got = port.detach().numpy()
+    assert got.dtype == ref.dtype, (got.dtype, ref.dtype)
+    assert got.shape == ref.shape, (got.shape, ref.shape)
+    np.testing.assert_allclose(got, ref, **(tol or TOL))
+
+
+def _cache_leaves(cache):
+    """{path: leaf} of a nested cache dict of either package."""
+    out = {}
+
+    def walk(prefix, node):
+        if isinstance(node, dict):
+            for k, v in node.items():
+                walk(prefix + (k,), v)
+        else:
+            out[prefix] = node
+    walk((), cache)
+    return out
+
+
+def _same_cache(tcache, jcache):
+    t, j = _cache_leaves(tcache), _cache_leaves(jcache)
+    assert sorted(t) == sorted(j)
+    for path in j:
+        _close(t[path], j[path])
+
+
+def _tokens(cfg, shape, seed):
+    return np.random.default_rng(seed).integers(
+        0, cfg.vocab_size, shape).astype(np.int32)
+
+
+def test_configs_are_the_reference_configs():
+    """Every config of the registry, and its smoke variant, field for
+    field (the port copies the config files)."""
+    from repro.configs import ARCHS
+    from repro_torch.configs import ARCHS as TARCHS
+    assert sorted(TARCHS) == sorted(ARCHS)
+    for name in ARCHS:
+        for n in (name, name + "-smoke"):
+            assert repr(tget(n)) == repr(get_arch(n)), n
+
+
+@pytest.mark.parametrize("name", NAMES)
+def test_param_count_matches_reference(name):
+    """Full-size configs: the port's shapes give the reference's count (no
+    parameter is allocated on either side)."""
+    assert tget(name).param_count() == get_arch(name).param_count()
+
+
+def test_cast_params_keeps_the_f32_sensitive_leaves():
+    cfg, _ = _cfgs("mamba2-370m")
+    jp, tp = _params(cfg)
+    jc = japi.cast_params(jp, jnp.bfloat16)
+    tc = tapi.cast_params(tp, torch.bfloat16)
+    for name, leaf in jc["blocks"].items():
+        assert str(tc["blocks"][name].dtype) == f"torch.{leaf.dtype}", name
+
+
+@pytest.mark.parametrize("name", NAMES)
+def test_params_from_numpy_keeps_bfloat16_bits(name):
+    """bfloat16 leaves (numpy's ml_dtypes) arrive bit for bit; ``dtype=``
+    casts float32 leaves as ``cast_params`` does."""
+    cfg, _ = _cfgs(name)
+    jp = japi.init_params(cfg, jax.random.PRNGKey(1),
+                          PlanConfig(param_dtype="bfloat16"))
+    tp = params_from_numpy(jax.tree.map(np.asarray, jp), "cpu")
+    jl = jax.tree_util.tree_flatten_with_path(jp)[0]
+    for path, leaf in jl:
+        got = tp
+        for key in path:
+            got = got[key.key]
+        assert str(got.dtype) == f"torch.{leaf.dtype}", path
+        np.testing.assert_array_equal(got.float().numpy(),
+                                      np.asarray(leaf, np.float32))
+    jp32, tp32 = _params(cfg)
+    cast = params_from_numpy(jax.tree.map(np.asarray, jp32), "cpu",
+                             dtype=torch.bfloat16)
+    for a, b in zip(tree_leaves(cast), tree_leaves(
+            tapi.cast_params(tp32, torch.bfloat16))):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+
+
+def test_expand_kv_is_repeat_not_tile():
+    """Query head h reads KV head h // (H/KV), as ``jnp.repeat``."""
+    k = np.arange(2 * 3 * 4 * 5, dtype=np.float32).reshape(2, 3, 4, 5)
+    _close(TL._expand_kv(torch.from_numpy(k), 3),
+           JL._expand_kv(jnp.asarray(k), 3), rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("ndim", [4, 3])
+def test_rope_apply_prefill_and_decode_broadcast(ndim):
+    rng = np.random.default_rng(ndim)
+    if ndim == 4:                    # prefill: (B, S, H, rd), positions (S,)
+        x = rng.normal(size=(2, 5, 3, 8)).astype(np.float32)
+        pos = np.arange(5)
+    else:                            # decode: (B, H, rd), positions (B,)
+        x = rng.normal(size=(4, 3, 8)).astype(np.float32)
+        pos = np.array([0, 3, 17, 250])
+    got = TL.rope_apply(torch.from_numpy(x), torch.from_numpy(pos), 1e6)
+    want = JL.rope_apply(jnp.asarray(x), jnp.asarray(pos), 1e6)
+    _close(got, want, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("S", [13, 16])
+def test_attention_apply_matches_reference(S):
+    """The port's prefill attention (the flash path; 13 positions: ragged)
+    against the reference's query-chunked jnp path (chunks of 8)."""
+    cfg, tcfg = _cfgs("internlm2-1.8b")
+    assert cfg.num_heads != cfg.num_kv_heads          # GQA on the path
+    jp, tp = _params(cfg)
+    jl = jax.tree.map(lambda a: a[0], jp["blocks"]["attn"])
+    tl = tree_map(lambda a: a[0], tp["blocks"]["attn"])
+    x = np.random.default_rng(1).normal(size=(2, S, cfg.d_model)) \
+        .astype(np.float32)
+    jo, (jk, jv) = JL.attention_apply(jl, cfg, jnp.asarray(x),
+                                      jnp.arange(S), causal=True, chunk=8)
+    to, (tk, tv) = TL.attention_apply(tl, tcfg, torch.from_numpy(x),
+                                      torch.arange(S))
+    _close(to, jo)
+    _close(tk, jk)
+    _close(tv, jv)
+
+
+@pytest.mark.parametrize("s,init", [(20, False), (19, True), (8, True)])
+def test_ssd_chunked_matches_reference(s, init):
+    """Padding to a multiple of the chunk (dt = 0) and a carried initial
+    state."""
+    rng = np.random.default_rng(s)
+    b, h, p, g, n, chunk = 2, 4, 6, 2, 5, 8
+    x = rng.normal(size=(b, s, h, p)).astype(np.float32)
+    dt = np.log1p(np.exp(rng.normal(size=(b, s, h)))).astype(np.float32)
+    A = -np.exp(rng.normal(size=(h,)) * 0.3).astype(np.float32)
+    B = rng.normal(size=(b, s, g, n)).astype(np.float32)
+    C = rng.normal(size=(b, s, g, n)).astype(np.float32)
+    st = rng.normal(size=(b, h, n, p)).astype(np.float32) if init else None
+    jy, jf = JM.ssd_chunked(*map(jnp.asarray, (x, dt, A, B, C)), chunk,
+                            None if st is None else jnp.asarray(st))
+    ty, tf = TM.ssd_chunked(*map(torch.from_numpy, (x, dt, A, B, C)), chunk,
+                            None if st is None else torch.from_numpy(st))
+    _close(ty, jy)
+    _close(tf, jf)
+
+
+def _prefill_both(name, S, batch=1, max_len=32):
+    cfg, tcfg = _cfgs(name)
+    jp, tp = _params(cfg)
+    toks = _tokens(cfg, (batch, S), S)
+    if cfg.family == "dense":
+        jout = JT.lm_prefill(cfg, PLAN, jp, jnp.asarray(toks), max_len)
+    else:
+        jout = JS.ssm_prefill(cfg, PLAN, jp, jnp.asarray(toks))
+    shape = ShapeConfig("serve", "prefill", max_len, batch)
+    tout = tapi.make_prefill(tcfg, shape, TPLAN)(
+        tp, {"tokens": torch.from_numpy(toks)})
+    return cfg, tcfg, jp, tp, jout, tout
+
+
+@pytest.mark.parametrize("name", NAMES)
+def test_prefill_matches_reference(name):
+    """Logits, next position and every cache leaf; S = 21 is not a multiple
+    of the SSM chunk (8)."""
+    *_, (jl, jc, jpos), (tl, tc, tpos) = _prefill_both(name, 21, batch=2)
+    _close(tl, jl)
+    _close(tpos, jpos, rtol=0, atol=0)
+    _same_cache(tc, jc)
+
+
+@pytest.mark.parametrize("name", NAMES)
+def test_decode_step_matches_reference(name):
+    cfg, tcfg, jp, tp, (jl, jc, jpos), (tl, tc, tpos) = _prefill_both(
+        name, 11, batch=2)
+    tok = jnp.argmax(jl, axis=-1).astype(jnp.int32)
+    shape = ShapeConfig("serve", "decode", 32, 2)
+    jn, jc2 = japi.make_decode_step(cfg, shape, PLAN)(jp, jc, tok, jpos)
+    tn, tc2 = tapi.make_decode_step(tcfg, shape, TPLAN)(
+        tp, tc, torch.from_numpy(np.array(tok)), tpos)
+    assert tn.dtype == torch.int32
+    np.testing.assert_array_equal(tn.numpy(), np.asarray(jn))
+    assert tc2 is tc                         # the cache is updated in place
+    _same_cache(tc2, jc2)
+
+
+def test_unported_families_raise():
+    for name in ("deepseek-v2-lite-16b", "zamba2-7b", "seamless-m4t-medium",
+                 "internvl2-26b"):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            tapi.init_params(tget(name).smoke(), torch.Generator(),
+                             device="cpu")
+
+
+def _serve_both(name, lengths, new_tokens=5, slots=3, max_len=40):
+    cfg, tcfg = _cfgs(name)
+    jp, tp = _params(cfg)
+    shape = ShapeConfig("serve", "decode", max_len, slots)
+    if cfg.family == "dense":
+        jpre = jax.jit(lambda p, t: JT.lm_prefill(cfg, PLAN, p, t, max_len))
+        jinit = lambda b, ml: JT.init_cache(cfg, b, ml, jnp.float32)
+    else:
+        jpre = jax.jit(lambda p, t: JS.ssm_prefill(cfg, PLAN, p, t))
+        jinit = lambda b, ml: JS.init_ssm_cache(cfg, b, jnp.float32)
+    jsrv = JBatchServer(slots=slots, max_len=max_len, prefill_fn=jpre,
+                        decode_fn=jax.jit(japi.make_decode_step(cfg, shape,
+                                                                PLAN)),
+                        params=jp, init_cache_fn=jinit)
+    tpre = tapi.make_prefill(tcfg, shape, TPLAN)
+    tsrv = TBatchServer(
+        slots=slots, max_len=max_len,
+        prefill_fn=lambda p, t: tpre(p, {"tokens": t}),
+        decode_fn=tapi.make_decode_step(tcfg, shape, TPLAN), params=tp,
+        init_cache_fn=lambda b, ml: tapi.init_cache(tcfg, b, ml,
+                                                    torch.float32, "cpu"))
+    prompts = [_tokens(cfg, (n,), 100 + i) for i, n in enumerate(lengths)]
+    jreqs = [JRequest(i, p, new_tokens) for i, p in enumerate(prompts)]
+    treqs = [TRequest(i, p, new_tokens) for i, p in enumerate(prompts)]
+    jsrv.run(jreqs)
+    tsrv.run(treqs)
+    return jsrv, tsrv, jreqs, treqs
+
+
+@pytest.mark.parametrize("name,lengths", [
+    ("internlm2-1.8b", [13, 1, 13, 1]),
+    # 2 tokens < conv_width - 1: the reference's short conv tail, padded at
+    # the end by _write_rows, is copied as it is
+    ("mamba2-370m", [13, 2, 13, 2]),
+])
+def test_batch_server_gives_the_reference_tokens(name, lengths):
+    """Four requests on three slots (one waits for a free slot), two prompt
+    lengths (two prefill compiles on the reference side)."""
+    jsrv, tsrv, jreqs, treqs = _serve_both(name, lengths)
+    assert all(r.done for r in treqs)
+    assert [r.out_tokens for r in treqs] == [r.out_tokens for r in jreqs]
+    assert all(len(r.out_tokens) == 5 for r in treqs)
+    assert tsrv.stats["prefills"] == jsrv.stats["prefills"] == 4
+    assert tsrv.stats["decode_steps"] == jsrv.stats["decode_steps"]
+    _same_cache(tsrv.cache, jsrv.cache)
+
+
+def test_batch_server_serve_matches_run():
+    """Pool-parallel prefill (``serve``) gives what ``run`` gives."""
+    cfg, tcfg = _cfgs("internlm2-1.8b")
+    _, tp = _params(cfg)
+    shape = ShapeConfig("serve", "decode", 40, 2)
+    pre = tapi.make_prefill(tcfg, shape, TPLAN)
+
+    def server():
+        return TBatchServer(
+            slots=2, max_len=40, prefill_fn=lambda p, t: pre(p, {"tokens": t}),
+            decode_fn=tapi.make_decode_step(tcfg, shape, TPLAN), params=tp,
+            init_cache_fn=lambda b, ml: tapi.init_cache(
+                tcfg, b, ml, torch.float32, "cpu"))
+    prompts = [_tokens(cfg, (n,), n) for n in (5, 9, 3)]
+    a = server().run([TRequest(i, p, 4) for i, p in enumerate(prompts)])
+    b = server().serve([TRequest(i, p, 4) for i, p in enumerate(prompts)],
+                       workers=2)
+    assert [r.out_tokens for r in a] == [r.out_tokens for r in b]
