@@ -10,10 +10,14 @@ Run on a machine with one CUDA card:  python3 chip_smoke.py
 
 Each phase prints one JSON line; any failure exits non-zero.  The line
 before the last lists every ported kernel with its launches on its path
-(Haar and kNN on the analytic, flash attention on the dense LM's serving,
-SSD on the SSM LM's), its error against the plain version, its time, the
-plain version's time, the bound and the yardstick library call's time.  The last
-line is ``{"ok": true, "device": {...}}``.  Without a CUDA device, or
+(Haar and kNN on the analytic, the tensor-core flash attention on the dense
+LM's bfloat16 serving, the CUDA-core one on its float32 prefill check, SSD
+on the SSM LM's serving), its error against the plain version, its time,
+the plain version's time, the bound and the yardstick library call's time.
+Times are device times: CUDA events around many back-to-back launches,
+divided by their count (``time_ms``); ``call_ms`` beside them is the old
+one-call figure, what the path pays per call with the host's work.  The
+last line is ``{"ok": true, "device": {...}}``.  Without a CUDA device, or
 without the repository's ``src/`` beside it, the script fails and prints no
 result.
 """
@@ -21,6 +25,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -44,7 +49,8 @@ from repro_torch.data import ecg_waveforms  # noqa: E402
 from repro_torch.kernels import _build, ops  # noqa: E402
 from repro_torch.kernels.haar import haar_cuda, haar_ref  # noqa: E402
 from repro_torch.kernels.flash_attention import (  # noqa: E402
-    flash_attention_cuda, flash_attention_ref)
+    TC_HEAD_DIMS, flash_attention_cuda, flash_attention_ref, tc_occupancy,
+    variant)
 from repro_torch.kernels.knn import knn_scores_cuda, knn_scores_ref  # noqa: E402
 from repro_torch.kernels.ssd_scan import ssd_intra_cuda, ssd_intra_ref  # noqa: E402
 from repro_torch.models import api  # noqa: E402
@@ -72,8 +78,12 @@ KNN_SHAPES = [(4096, 224, 1), (4096, 224, 64), (100, 48, 3)]
 # score tolerances, and equal top-k indices in float32.
 HAAR_TOL = {torch.float32: (0.0, 0.0), torch.bfloat16: (2e-2, 2e-2)}
 KNN_TOL = {torch.float32: (1e-4, 1e-3), torch.bfloat16: (2e-2, 0.3)}
-# (BH, S, d, causal, dtype); the first is the dense prefill path's shape
-# (internlm2: 16 heads of 128, a 2048-token prompt), the rest ragged edges
+# L2 cache of the H100 (50 MB): inputs that the path reads cold are rotated
+# through copies that together exceed it twice
+L2_BYTES = 50e6
+# (BH, S, d, causal, dtype), the (BH, S, d) form; the first is the dense
+# prefill path's shape folded (internlm2: 16 heads of 128, a 2048-token
+# prompt), the second the CUDA-core variant's timed shape, the rest ragged
 FLASH_SHAPES = [(16, 2048, 128, True, torch.bfloat16),
                 (16, 2048, 128, True, torch.float32),
                 (4, 1, 64, True, torch.float32),
@@ -81,6 +91,13 @@ FLASH_SHAPES = [(16, 2048, 128, True, torch.bfloat16),
                 (2, 1000, 64, True, torch.float32),
                 (2, 1000, 80, False, torch.float32),
                 (3, 129, 17, True, torch.bfloat16)]
+# (B, S, H, KV, d, causal, dtype), the (B, S, H, d) form with the KV heads
+# read in place; the first is the dense prefill path's own shape (internlm2:
+# 16 query heads over 8 KV heads of 128)
+FLASH_GQA_SHAPES = [(1, 2048, 16, 8, 128, True, torch.bfloat16),
+                    (2, 1000, 4, 1, 64, False, torch.bfloat16),
+                    (1, 65, 8, 2, 80, True, torch.bfloat16),
+                    (2, 129, 6, 2, 128, True, torch.float32)]
 # (b, Q, h, p, g, n); the first is the SSM prefill path's shape (mamba2:
 # 16 chunks of 128 for a 2048-token prompt), the rest ragged, with g = 2
 SSD_SHAPES = [(16, 128, 32, 64, 1, 128), (3, 40, 6, 17, 2, 9),
@@ -128,9 +145,51 @@ def sync(dev) -> None:
         torch.cuda.synchronize(dev)
 
 
-def time_ms(fn, dev, iters: int = 20, warmup: int = 3) -> float:
-    """Median milliseconds of ``fn`` over ``iters`` runs after ``warmup``:
-    CUDA events on the card, the host clock elsewhere."""
+# labels of device timings whose launches the host could not queue ahead of
+# the card (their time may hold host gaps); emitted by the "total" phase
+HOST_BEHIND = []
+# cycles of torch.cuda._sleep per millisecond, at the H100's top clock
+# (1.98 GHz), so that a sleep lasts at least as long as asked
+SLEEP_CYCLES_PER_MS = 1.98e6
+
+
+def time_ms(fn, dev, n: int = 50, warmup: int = 5, label: str = "") -> float:
+    """Device milliseconds of one call of ``fn``: CUDA events around ``n``
+    back-to-back calls after ``warmup``, one synchronize, the elapsed time
+    over ``n`` (the host clock elsewhere).  Before the start event the card
+    sleeps for longer than the host takes to queue the ``n`` calls (from the
+    warm-up's host time), so a call whose host work outlasts its kernel is
+    still timed back to back on the device; if the start event has already
+    passed when the last call is queued, ``label`` goes to HOST_BEHIND.
+    ``fn`` takes the call's index, so that a caller can rotate inputs."""
+    t0 = time.perf_counter()
+    for i in range(warmup):
+        fn(i)
+    host_ms = (time.perf_counter() - t0) * 1e3 / warmup
+    sync(dev)
+    if dev.type == "cuda":
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(int(SLEEP_CYCLES_PER_MS * (2 * n * host_ms + 5)))
+        start.record()
+        for i in range(n):
+            fn(i)
+        end.record()
+        if start.query():
+            HOST_BEHIND.append(label or getattr(fn, "__name__", "?"))
+        end.synchronize()
+        return start.elapsed_time(end) / n
+    t0 = time.perf_counter()
+    for i in range(n):
+        fn(i)
+    return (time.perf_counter() - t0) * 1e3 / n
+
+
+def call_ms(fn, dev, iters: int = 20, warmup: int = 3) -> float:
+    """Median milliseconds of one call of ``fn`` (no arguments) with a
+    synchronize after it: CUDA events around each call on the card, the
+    host clock elsewhere.  For a call of tens of microseconds this is the
+    wrapper's and the launch's host time, what the path pays per call."""
     for _ in range(warmup):
         fn()
     sync(dev)
@@ -181,15 +240,18 @@ def phase_device(dev) -> dict:
     # one nvcc per source, all at once
     _build.build(["haar", "knn", "flash_attention", "ssd_scan"])
     build_s = time.perf_counter() - t0
+    # registers, spills, and any wgmma that ptxas had to serialize (C7513)
     ptxas = {name: [line.strip() for line in log.splitlines()
-                    if "registers" in line or "spill" in line]
+                    if "registers" in line or "spill" in line
+                    or "C7513" in line]
              for name, log in _build.build_log.items()}
+    occupancy = {str(d): tc_occupancy(d) for d in TC_HEAD_DIMS}
     info = {"card": card, "capability": list(cap),
             "torch": torch.__version__, "cuda": torch.version.cuda,
             "build_s": round(build_s, 3),
             "build_s_each": {k: round(v, 3)
                              for k, v in _build.build_seconds.items()},
-            "ptxas": ptxas}
+            "ptxas": ptxas, "flash_tc_occupancy": occupancy}
     emit("device", **info)
     return info
 
@@ -213,8 +275,13 @@ def phase_haar(dev, shapes=HAAR_SHAPES) -> dict:
                    "max_abs_err": err,
                    "bitwise": bool(torch.equal(got, want))}
             if (n, t, levels) == shapes[0]:
-                row["ms"] = time_ms(lambda: haar_cuda(x, levels), dev)
-                row["plain_ms"] = time_ms(lambda: haar_ref(x, levels), dev)
+                # 256 MB in and out: every launch reads from device memory
+                tag = f"haar {dtype}"
+                row["ms"] = time_ms(lambda i: haar_cuda(x, levels), dev,
+                                    label=tag)
+                row["plain_ms"] = time_ms(lambda i: haar_ref(x, levels), dev,
+                                          label=f"{tag} plain")
+                row["call_ms"] = call_ms(lambda: haar_cuda(x, levels), dev)
                 b, by = bound_ms(2.0 * x.numel() * x.element_size(),
                                  4.0 * x.numel(), dtype)
                 row["bound_ms"], row["bound_by"] = b, by
@@ -249,12 +316,23 @@ def phase_knn(dev, shapes=KNN_SHAPES, k: int = K) -> dict:
                       f"knn top-{kk} indices differ at {n}x{v} B{b}")
                 row["topk_equal"] = True
             if (n, v) == shapes[0][:2] and b in (1, 64):
-                tT = train.t()
-                row["ms"] = time_ms(lambda: knn_scores_cuda(train, test), dev)
-                row["plain_ms"] = time_ms(lambda: knn_scores_ref(train, test),
-                                          dev)
-                row["library_ms"] = time_ms(lambda: torch.matmul(test, tT),
-                                            dev)
+                # the path reads train cold (a 256 MB Haar pass precedes
+                # it): rotate through copies that exceed the L2 twice
+                copies = math.ceil(2 * L2_BYTES
+                                   / (train.numel() * train.element_size()))
+                trains = [train.clone() for _ in range(copies)]
+                row["l2_copies"] = copies
+                tag = f"knn B{b} {dtype}"
+                row["ms"] = time_ms(lambda i: knn_scores_cuda(
+                    trains[i % copies], test), dev, label=tag)
+                row["plain_ms"] = time_ms(lambda i: knn_scores_ref(
+                    trains[i % copies], test), dev, label=f"{tag} plain")
+                row["library_ms"] = time_ms(lambda i: torch.matmul(
+                    test, trains[i % copies].t()), dev,
+                    label=f"{tag} library")
+                row["call_ms"] = call_ms(lambda: knn_scores_cuda(train, test),
+                                         dev)
+                del trains
                 nbytes = (n * v + b * v) * train.element_size() + b * n * 4
                 bnd, by = bound_ms(nbytes, 2.0 * b * n * v, dtype)
                 row["bound_ms"], row["bound_by"] = bnd, by
@@ -264,50 +342,91 @@ def phase_knn(dev, shapes=KNN_SHAPES, k: int = K) -> dict:
     return main
 
 
-def phase_flash(dev, shapes=FLASH_SHAPES) -> dict:
+def _flash_work(b, s, h, kv, d, causal, esize) -> tuple:
+    """(bytes, operations) of one attention call: q, k and v read once and
+    o written once (k and v at their KV heads); the query-key pairs that
+    the mask keeps, 4 operations each (a multiply-add in each product)."""
+    pairs = s * (s + 1) / 2 if causal else s * s
+    nbytes = (2.0 * b * s * h * d + 2.0 * b * s * kv * d) * esize
+    return nbytes, 4.0 * b * h * d * pairs
+
+
+def _sdpa_layout(q, k, v):
+    """q, k, v in ``scaled_dot_product_attention``'s (B, H, S, d), KV heads
+    expanded, laid out before the yardstick is timed."""
+    if q.ndim == 3:
+        return tuple(t.unsqueeze(0) for t in (q, k, v))
+    rep = q.shape[2] // k.shape[2]
+    return (q.transpose(1, 2).contiguous(),
+            *(torch.repeat_interleave(t, rep, dim=2).transpose(1, 2)
+              .contiguous() for t in (k, v)))
+
+
+def phase_flash(dev, shapes=FLASH_SHAPES, gqa_shapes=FLASH_GQA_SHAPES) -> dict:
+    """Both kernels against the plain version in both layouts.  Returns the
+    timed rows: "tc" at the dense path's own (B, S, H, d) shape, "tc_folded"
+    at its (BH, S, d) fold, "simt" at (16, 2048, 128) in float32."""
     gen = torch.Generator(device=dev).manual_seed(2)
-    main = {}
-    for bh, s, d, causal, dtype in shapes:
-        q, k, v = (torch.randn((bh, s, d), generator=gen, device=dev)
-                   .to(dtype) for _ in range(3))
+    # both forms as (form, B, S, H, KV, d, causal, dtype); (BH, S, d) is
+    # B 1 with H = KV = BH for the work it does
+    cases = ([("BH,S,d", 1, s, bh, bh, d, causal, dtype)
+              for bh, s, d, causal, dtype in shapes]
+             + [("B,S,H,d", *shape) for shape in gqa_shapes])
+    timed_at = {cases[0]: "tc_folded", cases[1]: "simt",
+                cases[len(shapes)]: "tc"}
+    timed = {}
+    for case in cases:
+        form, b, s, h, kv, d, causal, dtype = case
+        rnd = lambda *shape: torch.randn(shape, generator=gen,
+                                         device=dev).to(dtype)
+        if form == "B,S,H,d":
+            q, k, v = rnd(b, s, h, d), rnd(b, s, kv, d), rnd(b, s, kv, d)
+            shape = {"B": b, "S": s, "H": h, "KV": kv, "d": d}
+        else:
+            q, k, v = rnd(h, s, d), rnd(h, s, d), rnd(h, s, d)
+            shape = {"BH": h, "S": s, "d": d}
+        label = f"flash {shape} causal={causal} {dtype}"
         got = flash_attention_cuda(q, k, v, causal=causal)
         want = flash_attention_ref(q, k, v, causal=causal)
         sync(dev)
         err = max_abs_err(got, want)
         tol = FLASH_TOL[dtype]
         check(got.dtype == dtype and got.shape == q.shape,
-              f"flash {bh}x{s}x{d}: {got.dtype} {tuple(got.shape)}")
+              f"{label}: {got.dtype} {tuple(got.shape)}")
         check(torch.allclose(got.float(), want.float(), rtol=tol, atol=tol),
-              f"flash {bh}x{s}x{d} causal={causal} {dtype}: max err {err}")
-        row = {"shape": {"BH": bh, "S": s, "d": d}, "causal": causal,
+              f"{label}: max err {err}")
+        row = {"form": form, "shape": shape, "causal": causal,
                "dtype": str(dtype).replace("torch.", ""),
-               "max_abs_err": err, "tol": tol}
+               "variant": variant(dtype, d), "max_abs_err": err, "tol": tol}
         if dtype == torch.bfloat16:
             want32 = flash_attention_ref(q.float(), k.float(), v.float(),
                                          causal=causal)
             err32 = max_abs_err(got, want32)
             check(err32 <= FLASH_BF16_VS_F32_TOL,
-                  f"flash {bh}x{s}x{d} bfloat16 vs float32 plain: max err "
-                  f"{err32}")
+                  f"{label} bfloat16 vs float32 plain: max err {err32}")
             row["max_abs_err_vs_f32"] = err32
             row["tol_vs_f32"] = FLASH_BF16_VS_F32_TOL
-        if (bh, s, d, causal, dtype) == shapes[0]:
-            q4, k4, v4 = (t.view(1, bh, s, d) for t in (q, k, v))
-            row["ms"] = time_ms(lambda: flash_attention_cuda(q, k, v), dev)
-            row["plain_ms"] = time_ms(lambda: flash_attention_ref(q, k, v),
-                                      dev)
+        if case in timed_at:
+            tag = f"flash {timed_at[case]}"
+            ql, kl, vl = _sdpa_layout(q, k, v)
+            row["ms"] = time_ms(lambda i: flash_attention_cuda(
+                q, k, v, causal=causal), dev, label=tag)
+            row["plain_ms"] = time_ms(lambda i: flash_attention_ref(
+                q, k, v, causal=causal), dev, label=f"{tag} plain")
             row["library_ms"] = time_ms(
-                lambda: torch.nn.functional.scaled_dot_product_attention(
-                    q4, k4, v4, is_causal=True), dev)
-            # q, k, v read once, o written once; the causal half of the two
-            # products, 2 operations per multiply-add
-            nbytes = 4.0 * bh * s * d * q.element_size()
-            ops_count = 4.0 * bh * d * s * (s + 1) / 2
+                lambda i: torch.nn.functional.scaled_dot_product_attention(
+                    ql, kl, vl, is_causal=causal), dev,
+                label=f"{tag} library")
+            row["call_ms"] = call_ms(lambda: flash_attention_cuda(
+                q, k, v, causal=causal), dev)
+            nbytes, ops_count = _flash_work(b, s, h, kv, d, causal,
+                                            q.element_size())
             row["bound_ms"], row["bound_by"] = bound_ms(nbytes, ops_count,
                                                         dtype)
-            main = dict(row)
+            del ql, kl, vl
+            timed[timed_at[case]] = dict(row)
         emit("flash_attention", **row)
-    return main
+    return timed
 
 
 def _ssd_work(b, q, h, p, g, n) -> tuple:
@@ -360,9 +479,11 @@ def phase_ssd(dev, shapes=SSD_SHAPES) -> dict:
                    nm: max_abs_err(a, w)
                    for nm, a, w in zip(names, plain32, want)}}
         if (b, q, h, p, g, n) == shapes[0]:
-            row["ms"] = time_ms(lambda: ssd_intra_cuda(x, da, B, C), dev)
-            row["plain_ms"] = time_ms(lambda: ssd_intra_ref(x, da, B, C),
-                                      dev)
+            row["ms"] = time_ms(lambda i: ssd_intra_cuda(x, da, B, C), dev,
+                                label="ssd")
+            row["plain_ms"] = time_ms(lambda i: ssd_intra_ref(x, da, B, C),
+                                      dev, label="ssd plain")
+            row["call_ms"] = call_ms(lambda: ssd_intra_cuda(x, da, B, C), dev)
             row["library_ms"] = None          # no single PyTorch call
             nbytes, ops_count = _ssd_work(b, q, h, p, g, n)
             row["bound_ms"], row["bound_by"] = bound_ms(nbytes, ops_count,
@@ -528,21 +649,22 @@ def phase_analytic(dev, n_train=N_TRAIN, n_test=N_TEST, samples=SAMPLES,
 
 
 def _stage_ms(dev, waves, test_hist) -> dict:
-    """Time of each dense_array op of the production plan at the analytic's
-    shapes (after the main path's counts were read)."""
+    """One-call time of each dense_array op of the production plan at the
+    analytic's shapes, host work included (after the main path's counts
+    were read)."""
     eng = ENGINES["dense_array"]
     hist_attrs = {"nbins": NBINS, "levels": LEVELS}
     coeffs = eng.run("haar", {"levels": LEVELS}, waves, device=dev)
     hist = eng.run("bin_hist", hist_attrs, coeffs, device=dev)
     feats = eng.run("tfidf", {}, hist, device=dev)
     return {
-        "haar": time_ms(lambda: eng.run("haar", {"levels": LEVELS}, waves,
+        "haar": call_ms(lambda: eng.run("haar", {"levels": LEVELS}, waves,
                                         device=dev), dev, iters=10),
-        "bin_hist": time_ms(lambda: eng.run("bin_hist", hist_attrs, coeffs,
+        "bin_hist": call_ms(lambda: eng.run("bin_hist", hist_attrs, coeffs,
                                             device=dev), dev, iters=10),
-        "tfidf": time_ms(lambda: eng.run("tfidf", {}, hist, device=dev),
+        "tfidf": call_ms(lambda: eng.run("tfidf", {}, hist, device=dev),
                          dev, iters=10),
-        "knn": time_ms(lambda: eng.run("knn", {"k": K}, feats, test_hist,
+        "knn": call_ms(lambda: eng.run("knn", {"k": K}, feats, test_hist,
                                        device=dev), dev, iters=10),
     }
 
@@ -606,19 +728,29 @@ def _prefill_logits(cfg, plan, params, tokens: np.ndarray, dev):
     return logits[0].float().cpu()
 
 
+def _lm_kernel(cfg, dtype) -> str:
+    """The launch counter of the kernel that a prefill of ``cfg`` in
+    ``dtype`` runs in every layer."""
+    if cfg.family == "dense":
+        return "flash_attention_" + variant(dtype, cfg.head_dim)
+    return "ssd_intra"
+
+
 def _lm_cpu_check(cfg, params, prompt, dev, depth=CPU_CHECK_DEPTH,
                   n_tokens=CPU_CHECK_TOKENS) -> dict:
     """The first two layers of the served parameters in float32: a prefill
     of the prompt's first tokens on the card (kernels) and on the CPU
     (plain versions) must give the same last-token logits and greedy
-    token."""
+    token.  The card's prefill launches are counted on their own."""
     cut = dataclasses.replace(cfg, num_layers=depth)
     plan = PlanConfig(param_dtype="float32", compute_dtype="float32")
     small = dict(params, blocks=tree_map(lambda a: a[:depth],
                                          params["blocks"]))
     small = tree_map(lambda a: a.float(), small)
     toks = prompt[:n_tokens]
+    ops.reset_launches()
     card = _prefill_logits(cut, plan, small, toks, dev)
+    launches = ops.launches()
     host = _prefill_logits(cut, plan, tree_map(lambda a: a.cpu(), small),
                            toks, torch.device("cpu"))
     err = float((card - host).abs().max())
@@ -630,7 +762,13 @@ def _lm_cpu_check(cfg, params, prompt, dev, depth=CPU_CHECK_DEPTH,
     row = {"depth": depth, "tokens": len(toks), "dtype": "float32",
            "max_abs_err": err, "max_abs_logit": scale, "tol": CPU_CHECK_TOL,
            "token_card": t_card, "token_cpu": t_host,
-           "near_tie": t_card != t_host, "gap": gap}
+           "near_tie": t_card != t_host, "gap": gap, "launches": launches}
+    if dev.type == "cuda":
+        # in float32 the dense model's prefill takes the CUDA-core kernel
+        kernel = _lm_kernel(cfg, torch.float32)
+        check(launches[kernel] == depth
+              and all(n == 0 for k, n in launches.items() if k != kernel),
+              f"cpu_check launches {launches}, want {kernel} = {depth}")
     check(ok, f"cpu_check logits differ by {err} (|logit| up to {scale})")
     check(t_card == t_host or gap <= CPU_CHECK_TOL * max(1.0, scale),
           f"cpu_check greedy tokens {t_card} vs {t_host}, gap {gap}")
@@ -654,11 +792,12 @@ def _decode_vs_prefill(cfg, plan, params, req, dev, k=8) -> dict:
     return row
 
 
-def _device_profile(fn, dev, top: int = 5) -> dict:
+def _device_profile(fn, dev, kernel: str, top: int = 5) -> dict:
     """One call of ``fn`` (warmed up first) under ``torch.profiler`` with
     CUDA activity only: host wall ms of the call (ending in a synchronize),
     the device's busy ms (union of its kernel and copy intervals), the busy
-    share, and the kernels that took the most device time."""
+    share, the device ms and launches of the hand kernel whose name
+    contains ``kernel``, and the kernels that took the most device time."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     sync(dev)
@@ -676,9 +815,11 @@ def _device_profile(fn, dev, top: int = 5) -> dict:
         end = max(end, b)
         by_name[name] = by_name.get(name, 0.0) + (b - a) / 1e3
     busy /= 1e3
+    mine = [b - a for a, b, name in spans if kernel in name]
     return {"wall_ms": wall, "device_busy_ms": busy if spans else None,
             "busy_share": busy / wall if spans else None,
-            "device_ops": len(spans),
+            "device_ops": len(spans), "kernel": kernel,
+            "kernel_ms": sum(mine) / 1e3, "kernel_launches": len(mine),
             "top_ms": sorted(by_name.items(), key=lambda kv: -kv[1])[:top]}
 
 
@@ -689,9 +830,7 @@ def phase_lm(dev, name: str, cfg=None, slots=LM_SLOTS, max_len=LM_MAX_LEN,
     parameters (``PlanConfig`` defaults) from the port's seeded init."""
     cfg = cfg or get_arch(name)
     plan = PlanConfig()
-    kernel, other = (("flash_attention", "ssd_intra")
-                     if cfg.family == "dense" else
-                     ("ssd_intra", "flash_attention"))
+    kernel = _lm_kernel(cfg, torch.bfloat16)
     t0 = time.perf_counter()
     params = api.init_params(cfg, torch.Generator(device=dev).manual_seed(0),
                              plan, dev)
@@ -747,10 +886,11 @@ def phase_lm(dev, name: str, cfg=None, slots=LM_SLOTS, max_len=LM_MAX_LEN,
     prefills = srv.stats["prefills"]
     check(prefills == len(reqs), f"{name}: {prefills} prefills")
     if dev.type == "cuda":
+        # every prefill layer on the one kernel, and no other launch
         check(launches[kernel] == cfg.num_layers * prefills
-              and launches[other] == 0,
+              and all(n == 0 for k, n in launches.items() if k != kernel),
               f"{name}: launches {launches}, want {kernel} = "
-              f"{cfg.num_layers} x {prefills}")
+              f"{cfg.num_layers} x {prefills} and nothing else")
     full = [ms for ms, n in prefill_ms]
     row = {"model": cfg.name, "family": cfg.family, "params": n_params,
            "layers": cfg.num_layers, "d_model": cfg.d_model,
@@ -776,11 +916,14 @@ def phase_lm(dev, name: str, cfg=None, slots=LM_SLOTS, max_len=LM_MAX_LEN,
         toks = torch.zeros((slots,), dtype=torch.int32, device=dev)
         pos = torch.full((slots,), max_len - 2, dtype=torch.int32,
                          device=dev)
+        device_name = {"flash_attention_tc": "flash_fwd_wgmma",
+                       "ssd_intra": "ssd_intra_kernel"}[kernel]
         row["profile"] = {
             "prefill_2048": _device_profile(
-                lambda: prefill(params, {"tokens": tok}), dev),
+                lambda: prefill(params, {"tokens": tok}), dev, device_name),
             "decode_step": _device_profile(
-                lambda: decode(params, srv.cache, toks, pos), dev)}
+                lambda: decode(params, srv.cache, toks, pos), dev,
+                device_name)}
     row["cpu_check"] = _lm_cpu_check(cfg, params, reqs[0].prompt, dev)
     row["decode_vs_prefill"] = _decode_vs_prefill(cfg, plan, params,
                                                   reqs[0], dev)
@@ -794,22 +937,29 @@ def _kernel_entry(name, source, replaces, launches, row) -> dict:
             "replaces": replaces, "launches": launches,
             "max_abs_err": row["max_abs_err"], "ms": row["ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
-            "bound_by": row["bound_by"], "library_ms": row.get("library_ms")}
+            "bound_by": row["bound_by"], "library_ms": row.get("library_ms"),
+            "call_ms": row["call_ms"]}
 
 
-def kernels_line(haar_row: dict, knn_row: dict, flash_row: dict,
+def kernels_line(haar_row: dict, knn_row: dict, flash_rows: dict,
                  ssd_row: dict, analytic: dict, lm_dense: dict,
                  lm_ssm: dict) -> dict:
     """Launches of each kernel on its own path: Haar and kNN on the
-    analytic, flash attention on dense LM serving, SSD on SSM serving."""
+    analytic, the tensor-core flash attention on dense LM serving
+    (bfloat16), the CUDA-core one on the dense LM's float32 prefill
+    (``cpu_check``), SSD on SSM serving."""
+    flash = "src/repro/kernels/flash_attention.py:73"
     return {"kernels": [
         _kernel_entry("haar", "haar.cu", "src/repro/kernels/haar.py:32",
                       analytic["launches"]["haar"], haar_row),
         _kernel_entry("knn_scores", "knn.cu", "src/repro/kernels/knn.py:34",
                       analytic["launches"]["knn_scores"], knn_row),
-        _kernel_entry("flash_attention", "flash_attention.cu",
-                      "src/repro/kernels/flash_attention.py:73",
-                      lm_dense["launches"]["flash_attention"], flash_row),
+        _kernel_entry("flash_attention_tc", "flash_attention.cu", flash,
+                      lm_dense["launches"]["flash_attention_tc"],
+                      flash_rows["tc"]),
+        _kernel_entry("flash_attention_simt", "flash_attention.cu", flash,
+                      lm_dense["cpu_check"]["launches"]
+                      ["flash_attention_simt"], flash_rows["simt"]),
         _kernel_entry("ssd_intra", "ssd_scan.cu",
                       "src/repro/kernels/ssd_scan.py:45",
                       lm_ssm["launches"]["ssd_intra"], ssd_row),
@@ -825,15 +975,16 @@ def main() -> int:
     phase_device(dev)
     haar_row = phase_haar(dev)
     knn_row = phase_knn(dev)
-    flash_row = phase_flash(dev)
+    flash_rows = phase_flash(dev)
     ssd_row = phase_ssd(dev)
     with tempfile.TemporaryDirectory(prefix="chip-smoke-") as state_dir:
         phase_quickstart(dev, state_dir)
     analytic = phase_analytic(dev)
     lm_dense = phase_lm(dev, "internlm2-1.8b")
     lm_ssm = phase_lm(dev, "mamba2-370m")
-    emit("total", seconds=time.perf_counter() - t0)
-    print(json.dumps(kernels_line(haar_row, knn_row, flash_row, ssd_row,
+    emit("total", seconds=time.perf_counter() - t0,
+         host_behind=HOST_BEHIND)
+    print(json.dumps(kernels_line(haar_row, knn_row, flash_rows, ssd_row,
                                   analytic, lm_dense, lm_ssm)), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,41 +1,87 @@
-// Forward flash attention over (BH, S, d) with KV already expanded to the
-// query heads: o = softmax(q·kᵀ / sqrt(d), causal mask qpos >= kpos) · v.
+// Forward flash attention, o = softmax(q·kᵀ / sqrt(d), causal mask
+// qpos >= kpos) · v, with grouped-query heads read in place: q and o are
+// (B, Sq, H, d), k and v (B, Sk, KV, d), H % KV == 0, and query head h reads
+// KV head h / (H / KV), as the reference's jnp.repeat over heads.  Every
+// tensor is addressed through its own element strides of batch, sequence and
+// head; the last dimension is contiguous.  The (BH, S, d) form is the same
+// layout with H = KV = 1.
 //
 // Replaces the TPU kernel src/repro/kernels/flash_attention.py:
 // flash_attention_pallas (body _fa_kernel).  Same function: the scale
 // multiplies the float32 scores, the mask value is -1e30, the running max,
 // denominator and accumulator are float32, P is rounded to v's dtype before
 // P·V, tiles wholly above the diagonal are skipped, and the output is
-// acc / max(l, 1e-30) in q's dtype.
+// acc / max(l, 1e-30) in q's dtype.  The ragged ends of q and k are masked
+// here, so any S >= 1 works (the TPU kernel needs S divisible by its block).
 //
-// What bounds it on the card: on the dense prefill path (BH 16, S up to
-// 2048, d 128, bfloat16) attention does 4·BH·d·S(S+1)/2 operations on
-// 4·BH·S·d·2 bytes, far above the ridge point: it is bound by operations.
-// The bound is the bfloat16 tensor-core rate; this first kernel runs on the
-// CUDA cores in float32, so it sits well above that bound (PERF.md).
-// Tensor cores (mma.sync / wgmma) are later work (ROADMAP queue 2).
+// What bounds it on the card: on the dense prefill path (16 heads, S up to
+// 2048, d 128, bfloat16) attention does 4·H·d·S(S+1)/2 operations on
+// 4·H·S·d·2 bytes, far above the ridge point: it is bound by the bfloat16
+// tensor-core rate.
 //
-// Design.  One block per (q-tile of 64 rows, bh); four threads per query
-// row, each owning d/4 of the row's columns, interleaved in float4 chunks
-// so that the four threads of a row read neighbouring 16-byte words of a
-// shared-memory K/V row (no bank conflicts; other rows of the warp read the
-// same words as broadcasts).  Each K/V tile (32 keys, 16 at d > 128) is
-// staged in shared memory as float32.  A row's score for key j is the sum
-// of its four partial dots (two shuffles); the scores of a tile stay in
-// registers, and the online softmax updates max, denominator and
-// accumulator once per tile, as the TPU kernel does per kv block.  The
-// ragged edges of q and k are masked inside the kernel, so any S >= 1
-// works (the TPU kernel needs S divisible by its block).  The head width is
-// a template bound (64, 128 or 256); columns past d are zero.
+// Two variants, chosen by the caller (kernels/flash_attention.py) by dtype
+// and head width:
+//
+// flash_fwd_wgmma: bfloat16 at d 64 and 128, on the tensor cores.  A block
+//   takes 128 query rows of one head: two consumer warpgroups of 64 rows and
+//   one producer warpgroup.  The producer's first thread keeps K and V tiles
+//   of 128 keys in flight into a ring in shared memory (3 stages at d 128,
+//   4 at d 64: what fits in 227 KB) with TMA (cp.async.bulk.tensor over a
+//   4-D tensor map of (B, S, heads, d); rows past S arrive as zeros),
+//   synchronised by mbarriers: "full" when a stage's bytes have landed,
+//   "empty" when all eight consumer warps are done with it.  TMA rather
+//   than cp.async: one thread issues a whole tile, and the 128-byte swizzle
+//   that wgmma reads without bank conflicts comes from the copy itself.  The
+//   tensor-map encoder (cuTensorMapEncodeTiled) lives in libcuda; it is
+//   looked up once with dlsym, so the library links against nothing new.
+//   Each consumer warpgroup computes S = Q·Kᵀ with wgmma.m64n128k16 (Q and K
+//   from shared memory, float32 sums in registers), the online softmax in
+//   registers (the four threads of a row meet by two shuffles), rounds P to
+//   bfloat16 in registers and feeds it as the register A operand of a second
+//   wgmma, O += P·V, with V read transposed from shared memory.  The
+//   accumulator layout of the first product is the A-operand layout of the
+//   second, so P never touches shared memory.  The two products overlap the
+//   softmax: S of tile t+1 and P·V of tile t are issued together, and the
+//   softmax of t+1 runs on the CUDA cores while P·V(t) runs on the tensor
+//   cores.  Registers move from the producer (24 a thread) to the consumers
+//   (240) with setmaxnreg.  Only tiles that cross the diagonal or the ragged
+//   end of k take the element mask; tiles wholly above a warpgroup's
+//   diagonal are skipped.  Causal q-tiles are scheduled heaviest first (the
+//   grid's slow axis runs from the last tile down), so the last wave is not
+//   made of the longest tiles.
+//
+// flash_fwd_simt: float32 at any d up to 256, and bfloat16 at the widths the
+//   tensor-core variant does not take, on the CUDA cores in float32 (tensor
+//   cores would compute a float32 product in TF32).  One block per (q-tile
+//   of 64 rows, head); four threads per query row, each owning d/4 of the
+//   row's columns, interleaved in float4 chunks so that the four threads of
+//   a row read neighbouring 16-byte words of a shared-memory K/V row.  Each
+//   K/V tile (32 keys, 16 at d > 128) is staged in shared memory as float32;
+//   scores of a tile stay in registers and the online softmax updates once
+//   per tile.  The head width is a template bound (64, 128 or 256); columns
+//   past d are zero.
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <dlfcn.h>
 #include <stdint.h>
 
 namespace {
 
+constexpr float kNegInf = -1e30f;  // the TPU kernel's masked value
+
+// Shapes and element strides of one call.
+struct Geom {
+  int B, Sq, Sk, H, KV, d;
+  long long qsb, qss, qsh, ksb, kss, ksh, vsb, vss, vsh, osb, oss, osh;
+};
+
+// ---------------------------------------------------------------------------
+// CUDA-core variant
+// ---------------------------------------------------------------------------
+
 constexpr int kBQ = 64;           // query rows per block
 constexpr int kThreads = 4 * kBQ; // four threads per query row
-constexpr float kNegInf = -1e30f; // the TPU kernel's masked value
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
@@ -60,21 +106,24 @@ __device__ __forceinline__ void store(__nv_bfloat16* dst, float v) {
 // D: padded head width (multiple of 16, >= d); BK: keys per tile.
 template <typename T, int D, int BK>
 __global__ void __launch_bounds__(kThreads)
-flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, T* __restrict__ o, int sq, int sk,
-                 int d, float scale, int causal) {
+flash_fwd_simt(const T* __restrict__ q, const T* __restrict__ k,
+               const T* __restrict__ v, T* __restrict__ o, Geom g,
+               float scale, int causal) {
   constexpr int C4 = D / 16;      // float4 chunks of a row per thread
   __shared__ __align__(16) float ks[BK * D];
   __shared__ __align__(16) float vs[BK * D];
 
-  const int bh = blockIdx.y;
+  const int b = blockIdx.y / g.H;
+  const int h = blockIdx.y - b * g.H;
+  const int kvh = h / (g.H / g.KV);
+  const int sq = g.Sq, sk = g.Sk, d = g.d;
   const int q0 = blockIdx.x * kBQ;
   const int quad = threadIdx.x & 3;
   const int qi = q0 + (threadIdx.x >> 2);
   const bool row_ok = qi < sq;
-  const T* qb = q + (size_t)bh * sq * d;
-  const T* kb = k + (size_t)bh * sk * d;
-  const T* vb = v + (size_t)bh * sk * d;
+  const T* qb = q + b * g.qsb + h * g.qsh;
+  const T* kb = k + b * g.ksb + kvh * g.ksh;
+  const T* vb = v + b * g.vsb + kvh * g.vsh;
 
   // this thread's columns: 4 * (quad + 4 * c) + e, c < C4, e < 4
   float qr[4 * C4];
@@ -84,7 +133,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
       const int col = 4 * (quad + 4 * c) + e;
-      qr[4 * c + e] = (row_ok && col < d) ? to_f32(qb[(size_t)qi * d + col])
+      qr[4 * c + e] = (row_ok && col < d) ? to_f32(qb[qi * g.qss + col])
                                           : 0.f;
       acc[4 * c + e] = 0.f;
     }
@@ -101,8 +150,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
       const int c = i - r * D;
       const int kr = k0 + r;
       const bool in = kr < sk && c < d;
-      ks[i] = in ? to_f32(kb[(size_t)kr * d + c]) : 0.f;
-      vs[i] = in ? to_f32(vb[(size_t)kr * d + c]) : 0.f;
+      ks[i] = in ? to_f32(kb[kr * g.kss + c]) : 0.f;
+      vs[i] = in ? to_f32(vb[kr * g.vss + c]) : 0.f;
     }
     __syncthreads();
 
@@ -157,7 +206,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   if (row_ok) {
     const float denom = fmaxf(l, 1e-30f);
-    T* orow = o + ((size_t)bh * sq + qi) * d;
+    T* orow = o + b * g.osb + h * g.osh + qi * g.oss;
 #pragma unroll
     for (int c = 0; c < C4; ++c) {
 #pragma unroll
@@ -170,45 +219,654 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 }
 
 template <typename T, int D, int BK>
-int launch(const void* q, const void* k, const void* v, void* o, int bh,
-           int sq, int sk, int d, float scale, int causal,
-           cudaStream_t stream) {
-  dim3 grid((unsigned)((sq + kBQ - 1) / kBQ), (unsigned)bh);
-  flash_fwd_kernel<T, D, BK><<<grid, kThreads, 0, stream>>>(
+int launch_simt(const void* q, const void* k, const void* v, void* o,
+                const Geom& g, float scale, int causal, cudaStream_t stream) {
+  dim3 grid((unsigned)((g.Sq + kBQ - 1) / kBQ), (unsigned)(g.B * g.H));
+  flash_fwd_simt<T, D, BK><<<grid, kThreads, 0, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), sq, sk, d, scale,
-      causal);
+      static_cast<const T*>(v), static_cast<T*>(o), g, scale, causal);
   return (int)cudaGetLastError();
 }
 
 template <typename T>
-int dispatch(const void* q, const void* k, const void* v, void* o, int bh,
-             int sq, int sk, int d, float scale, int causal,
-             cudaStream_t s) {
-  if (d <= 64) return launch<T, 64, 32>(q, k, v, o, bh, sq, sk, d, scale,
-                                        causal, s);
-  if (d <= 128) return launch<T, 128, 32>(q, k, v, o, bh, sq, sk, d, scale,
-                                          causal, s);
-  return launch<T, 256, 16>(q, k, v, o, bh, sq, sk, d, scale, causal, s);
+int dispatch_simt(const void* q, const void* k, const void* v, void* o,
+                  const Geom& g, float scale, int causal, cudaStream_t s) {
+  if (g.d <= 64) return launch_simt<T, 64, 32>(q, k, v, o, g, scale, causal, s);
+  if (g.d <= 128)
+    return launch_simt<T, 128, 32>(q, k, v, o, g, scale, causal, s);
+  return launch_simt<T, 256, 16>(q, k, v, o, g, scale, causal, s);
+}
+
+// ---------------------------------------------------------------------------
+// Tensor-core variant: PTX helpers
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
+               :: "r"(smem_u32(bar)), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               :: "r"(smem_u32(bar)), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n"
+               :: "r"(smem_u32(bar)) : "memory");
+}
+
+// Wait for the completion of the barrier's phase of the given parity.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
+  const uint32_t addr = smem_u32(bar);
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(addr), "r"(parity) : "memory");
+  }
+}
+
+// One TMA copy of a box of the 4-D tensor map into shared memory; the
+// barrier counts its bytes.  Coordinates are (column, head, row, batch).
+__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
+                                         uint64_t* bar, int c0, int c1,
+                                         int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n"
+      :: "r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)),
+         "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// wgmma shared-memory descriptor with the 128-byte swizzle: start address,
+// leading and stride byte offsets, each in 16-byte units.
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo,
+                                               uint32_t sbo) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) |
+         ((uint64_t)((lbo >> 4) & 0x3FFF) << 16) |
+         ((uint64_t)((sbo >> 4) & 0x3FFF) << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void wg_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wg_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+// Wait until at most N committed wgmma groups of this warp are pending.
+template <int N>
+__device__ __forceinline__ void wg_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" :: "n"(N) : "memory");
+}
+
+// Keeps the compiler from moving reads or writes of an accumulator across
+// the asynchronous wgmma: every register is "changed" here.
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i]) :: "memory");
+}
+template <int N>
+__device__ __forceinline__ void fence_regs(uint32_t (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i]) :: "memory");
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// D (64 x 128, float32) += A (64 x 16, shared memory) * B (16 x 128, shared
+// memory, K-major); scale_d == 0 starts D from zero.
+__device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da,
+                                              uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11,"
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35,"
+      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59,"
+      "%60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// D (64 x 64, float32) += A (64 x 16, bfloat16 pairs in registers) *
+// B (16 x 64, shared memory, MN-major: transposed).
+__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32], uint32_t a0,
+                                              uint32_t a1, uint32_t a2,
+                                              uint32_t a3, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, 1, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11,"
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(db));
+}
+
+// D (64 x 128, float32) += A (64 x 16, bfloat16 pairs in registers) *
+// B (16 x 128, shared memory, MN-major: transposed).
+__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64], uint32_t a0,
+                                              uint32_t a1, uint32_t a2,
+                                              uint32_t a3, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, 1, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11,"
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35,"
+      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59,"
+      "%60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(db));
+}
+
+
+template <int D>
+__device__ __forceinline__ void wgmma_rs(float (&d)[D / 2], uint32_t a0,
+                                         uint32_t a1, uint32_t a2,
+                                         uint32_t a3, uint64_t db) {
+  if constexpr (D == 128) {
+    wgmma_rs_n128(d, a0, a1, a2, a3, db);
+  } else {
+    wgmma_rs_n64(d, a0, a1, a2, a3, db);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// Tensor-core variant: the kernel
+// ---------------------------------------------------------------------------
+
+constexpr int kWG = 2;                  // consumer warpgroups, 64 rows each
+constexpr int kTcBQ = 64 * kWG;         // query rows per block
+constexpr int kBK = 128;                // keys per K/V tile
+constexpr int kTcThreads = 128 * (kWG + 1);
+constexpr int kProducerRegs = 24;       // setmaxnreg targets
+constexpr int kConsumerRegs = 240;
+constexpr int kTile = 64 * 128;         // bytes of a [64 rows][64 cols] tile
+
+// Shared memory, from a 1024-byte aligned base (the swizzle's period).
+// Every tile is [rows][64 columns] of bfloat16, 128-byte rows in TMA's
+// 128-byte swizzle; a head width of 128 is two such tiles side by side.
+// The ring holds as many K/V stages as fit in 227 KB: 3 at d 128, 4 at 64.
+template <int D>
+struct TcSmem {
+  static constexpr int kStages = D == 128 ? 3 : 4;
+  static constexpr int kHalves = D / 64;
+  static constexpr int kQBytes = kTcBQ * D * 2;        // [wg][half][64][64]
+  static constexpr int kKVBytes = kBK * D * 2;         // [half][kBK][64]
+  static constexpr int kKOff = kQBytes;
+  static constexpr int kVOff = kKOff + kStages * kKVBytes;
+  static constexpr int kBarOff = kVOff + kStages * kKVBytes;
+  static constexpr int kBytes = kBarOff + 8 * (2 * kStages + 1);
+  static constexpr int kAlloc = kBytes + 1024;         // room to align
+  static_assert(kAlloc <= 232448, "more than a block's shared memory");
+};
+
+// S = Q·Kᵀ for one K tile: D/16 steps of wgmma.m64n128k16, Q and K from
+// shared memory (each step 16 columns of d: tile kk / 4, 32 bytes into its
+// 128-byte rows).  Issued and committed as one group, not waited for.
+template <int D>
+__device__ __forceinline__ void issue_qk(float (&sc)[kBK / 2], uint32_t q_s,
+                                         uint32_t k_s) {
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    const uint32_t col = (kk & 3) * 32;
+    wgmma_ss_n128(sc, sw128_desc(q_s + (kk >> 2) * kTile + col, 16, 1024),
+                  sw128_desc(k_s + (kk >> 2) * kBK * 128 + col, 16, 1024),
+                  kk > 0);
+  }
+  wg_commit();
+}
+
+// O += P·V for one V tile: kBK/16 steps, P from registers (the accumulator
+// pairs of 16 keys of S are the A fragment of one step), V read transposed
+// from shared memory (16 keys a step, 2048 bytes; the two 64-column halves
+// of d one tile apart).  Issued and committed as one group.
+template <int D>
+__device__ __forceinline__ void issue_pv(float (&acc)[D / 2],
+                                         const uint32_t (&p)[kBK / 4],
+                                         uint32_t v_s) {
+#pragma unroll
+  for (int kk = 0; kk < kBK / 16; ++kk)
+    wgmma_rs<D>(acc, p[4 * kk], p[4 * kk + 1], p[4 * kk + 2], p[4 * kk + 3],
+                sw128_desc(v_s + kk * 2048, kBK * 128, 1024));
+  wg_commit();
+}
+
+// The online softmax of one S tile, in place in its registers: scales by
+// 1/sqrt(d)·log2 e (so exp is exp2), masks the keys past Sk and, causal,
+// past each row (only where the tile crosses the diagonal or the ragged
+// end), replaces each score by its exp, and updates the running max and
+// this thread's part of the denominator.  Returns the factors by which the
+// two rows' accumulators must be rescaled.  The four threads of a row meet
+// by two shuffles.
+struct RowState {
+  float m_a, m_b, l_a, l_b;
+};
+
+__device__ __forceinline__ void softmax_tile(float (&sc)[kBK / 2],
+                                             RowState& st, float& al_a,
+                                             float& al_b, int k0, int q0w,
+                                             int row_a, int c2, int sk,
+                                             float scale_log2, int causal) {
+#pragma unroll
+  for (int i = 0; i < kBK / 2; ++i) sc[i] *= scale_log2;
+  if ((causal && k0 + kBK - 1 > q0w) || k0 + kBK > sk) {
+#pragma unroll
+    for (int i = 0; i < kBK / 2; ++i) {
+      const int kc = k0 + 8 * (i >> 2) + c2 + (i & 1);
+      const int row = (i & 2) ? row_a + 8 : row_a;
+      if (kc >= sk || (causal && kc > row)) sc[i] = kNegInf;
+    }
+  }
+  float mx_a = kNegInf, mx_b = kNegInf;
+#pragma unroll
+  for (int i = 0; i < kBK / 2; ++i) {
+    if (i & 2) mx_b = fmaxf(mx_b, sc[i]);
+    else mx_a = fmaxf(mx_a, sc[i]);
+  }
+  mx_a = fmaxf(mx_a, __shfl_xor_sync(0xffffffffu, mx_a, 1));
+  mx_a = fmaxf(mx_a, __shfl_xor_sync(0xffffffffu, mx_a, 2));
+  mx_b = fmaxf(mx_b, __shfl_xor_sync(0xffffffffu, mx_b, 1));
+  mx_b = fmaxf(mx_b, __shfl_xor_sync(0xffffffffu, mx_b, 2));
+  const float mn_a = fmaxf(st.m_a, mx_a);
+  const float mn_b = fmaxf(st.m_b, mx_b);
+  al_a = exp2f(st.m_a - mn_a);
+  al_b = exp2f(st.m_b - mn_b);
+  st.m_a = mn_a;
+  st.m_b = mn_b;
+  float ps_a = 0.f, ps_b = 0.f;
+#pragma unroll
+  for (int i = 0; i < kBK / 2; ++i) {
+    sc[i] = exp2f(sc[i] - ((i & 2) ? mn_b : mn_a));
+    if (i & 2) ps_b += sc[i];
+    else ps_a += sc[i];
+  }
+  st.l_a = st.l_a * al_a + ps_a;
+  st.l_b = st.l_b * al_b + ps_b;
+}
+
+// P rounded to bfloat16: the accumulator pairs of 16 keys of S are the A
+// fragment of one k-step of P·V.
+__device__ __forceinline__ void pack_p(const float (&sc)[kBK / 2],
+                                       uint32_t (&p)[kBK / 4]) {
+#pragma unroll
+  for (int j = 0; j < kBK / 4; ++j) p[j] = pack_bf16(sc[2 * j], sc[2 * j + 1]);
+}
+
+template <int D>
+__global__ void __launch_bounds__(kTcThreads, 1)
+flash_fwd_wgmma(const __grid_constant__ CUtensorMap qmap,
+                const __grid_constant__ CUtensorMap kmap,
+                const __grid_constant__ CUtensorMap vmap,
+                __nv_bfloat16* __restrict__ o, Geom g, float scale_log2,
+                int causal) {
+  using L = TcSmem<D>;
+  constexpr int kStages = L::kStages;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + L::kBarOff);
+  uint64_t* empty = full + kStages;
+  uint64_t* qbar = empty + kStages;
+
+  const int b = blockIdx.x / g.H;
+  const int h = blockIdx.x - b * g.H;
+  const int kvh = h / (g.H / g.KV);
+  // causal: the heaviest q-tiles (the last ones) are launched first
+  const int qt = causal ? (int)gridDim.y - 1 - (int)blockIdx.y
+                        : (int)blockIdx.y;
+  const int q0 = qt * kTcBQ;
+  const int last_row = min(q0 + kTcBQ, g.Sq) - 1;
+  const int k_tiles = (g.Sk + kBK - 1) / kBK;
+  const int n_tiles = causal ? min(k_tiles, last_row / kBK + 1) : k_tiles;
+  const int live_wgs = min(kWG, (g.Sq - q0 + 63) / 64);
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 4 * kWG);     // one arrival per consumer warp
+    }
+    mbar_init(qbar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128;
+  if (wg == kWG) {
+    // producer warpgroup: one thread issues every copy
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n"
+                 :: "n"(kProducerRegs));
+    if (threadIdx.x == kWG * 128) {
+      mbar_expect_tx(qbar, live_wgs * 64 * D * 2);
+      for (int w = 0; w < live_wgs; ++w)
+        for (int hh = 0; hh < L::kHalves; ++hh)
+          tma_load(smem + (w * L::kHalves + hh) * kTile, &qmap, qbar, hh * 64,
+                   h, q0 + 64 * w, b);
+      for (int t = 0; t < n_tiles; ++t) {
+        const int s = t % kStages;
+        mbar_wait(&empty[s], ((t / kStages) & 1) ^ 1);
+        mbar_expect_tx(&full[s], 2 * L::kKVBytes);
+        for (int hh = 0; hh < L::kHalves; ++hh) {
+          const int off = s * L::kKVBytes + hh * kBK * 128;
+          tma_load(smem + L::kKOff + off, &kmap, &full[s], hh * 64, kvh,
+                   t * kBK, b);
+          tma_load(smem + L::kVOff + off, &vmap, &full[s], hh * 64, kvh,
+                   t * kBK, b);
+        }
+      }
+    }
+  } else {
+    // consumer warpgroup wg: query rows q0w .. q0w + 63
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n"
+                 :: "n"(kConsumerRegs));
+    const int tid = threadIdx.x & 127;
+    const int warp = tid >> 5;
+    const int lane = tid & 31;
+    const int q0w = q0 + 64 * wg;
+    // accumulator layout of wgmma m64nN: this thread holds rows row_a and
+    // row_a + 8, columns 8 i + c2 and 8 i + c2 + 1 of every 8-column group
+    const int row_a = q0w + warp * 16 + (lane >> 2);
+    const int row_b = row_a + 8;
+    const int c2 = 2 * (lane & 3);
+    const bool wg_live = wg < live_wgs;
+    const int wg_last = min(q0w + 63, g.Sq - 1);
+    const uint32_t q_s = smem_u32(smem + wg * L::kHalves * kTile);
+
+    // the warpgroup's live tiles are a prefix: causal, those that start
+    // at or before its last row
+    const int n_live = !wg_live ? 0
+                       : causal ? min(n_tiles, wg_last / kBK + 1) : n_tiles;
+    float acc[D / 2];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+    // running max (in log2 units) and this thread's part of the denominator
+    RowState st{kNegInf, kNegInf, 0.f, 0.f};
+    uint32_t p[kBK / 4];
+    float al_a, al_b;
+    const auto k_smem = [&](int t) {
+      return smem_u32(smem + L::kKOff + (t % kStages) * L::kKVBytes);
+    };
+    const auto v_smem = [&](int t) {
+      return smem_u32(smem + L::kVOff + (t % kStages) * L::kKVBytes);
+    };
+    const auto release = [&](int t) {     // this warp is done with tile t
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&empty[t % kStages]);
+    };
+
+    if (n_live > 0) {
+      mbar_wait(qbar, 0);
+      mbar_wait(&full[0], 0);
+      float sc[kBK / 2];
+#pragma unroll
+      for (int i = 0; i < kBK / 2; ++i) sc[i] = 0.f;
+      fence_regs(sc);
+      wg_fence();
+      issue_qk<D>(sc, q_s, k_smem(0));
+      wg_wait<0>();
+      fence_regs(sc);
+      softmax_tile(sc, st, al_a, al_b, 0, q0w, row_a, c2, g.Sk, scale_log2,
+                   causal);
+      pack_p(sc, p);
+    }
+    // Tile t's P·V runs on the tensor cores while the softmax of tile t+1
+    // runs on the CUDA cores: S(t+1) and P·V(t) are issued together and S
+    // is waited for first.  P(t)'s registers stay fenced until P·V(t) is
+    // retired, so the compiler gives none of them to the softmax meanwhile
+    // (ptxas would serialize the wgmmas, C7513); P(t+1) is packed after.
+    for (int t = 0; t + 1 < n_live; ++t) {
+      mbar_wait(&full[(t + 1) % kStages], ((t + 1) / kStages) & 1);
+      float sc[kBK / 2];
+#pragma unroll
+      for (int i = 0; i < kBK / 2; ++i) sc[i] = 0.f;
+      fence_regs(sc);
+      fence_regs(acc);
+      fence_regs(p);
+      wg_fence();
+      issue_qk<D>(sc, q_s, k_smem(t + 1));
+      issue_pv<D>(acc, p, v_smem(t));
+      wg_wait<1>();
+      fence_regs(sc);
+      softmax_tile(sc, st, al_a, al_b, (t + 1) * kBK, q0w, row_a, c2, g.Sk,
+                   scale_log2, causal);
+      wg_wait<0>();
+      fence_regs(acc);
+      fence_regs(p);
+      release(t);
+#pragma unroll
+      for (int i = 0; i < D / 2; ++i) acc[i] *= (i & 2) ? al_b : al_a;
+      pack_p(sc, p);
+    }
+    if (n_live > 0) {
+      fence_regs(acc);
+      fence_regs(p);
+      wg_fence();
+      issue_pv<D>(acc, p, v_smem(n_live - 1));
+      wg_wait<0>();
+      fence_regs(acc);
+      release(n_live - 1);
+    }
+    // tiles past the warpgroup's diagonal: keep the ring's phases in step
+    for (int t = n_live; t < n_tiles; ++t) {
+      mbar_wait(&full[t % kStages], (t / kStages) & 1);
+      release(t);
+    }
+
+    if (wg_live) {
+      float l_a = st.l_a, l_b = st.l_b;
+      l_a += __shfl_xor_sync(0xffffffffu, l_a, 1);
+      l_a += __shfl_xor_sync(0xffffffffu, l_a, 2);
+      l_b += __shfl_xor_sync(0xffffffffu, l_b, 1);
+      l_b += __shfl_xor_sync(0xffffffffu, l_b, 2);
+      const float den_a = fmaxf(l_a, 1e-30f);
+      const float den_b = fmaxf(l_b, 1e-30f);
+      __nv_bfloat16* ob = o + b * g.osb + h * g.osh;
+#pragma unroll
+      for (int i = 0; i < D / 8; ++i) {
+        const int col = 8 * i + c2;
+        if (row_a < g.Sq)
+          *reinterpret_cast<uint32_t*>(ob + row_a * g.oss + col) =
+              pack_bf16(acc[4 * i] / den_a, acc[4 * i + 1] / den_a);
+        if (row_b < g.Sq)
+          *reinterpret_cast<uint32_t*>(ob + row_b * g.oss + col) =
+              pack_bf16(acc[4 * i + 2] / den_b, acc[4 * i + 3] / den_b);
+      }
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// Tensor-core variant: host side
+// ---------------------------------------------------------------------------
+
+// Return codes past the CUDA runtime's own
+constexpr int kErrNoEncoder = 10001;   // libcuda has no cuTensorMapEncodeTiled
+constexpr int kErrEncode = 10002;      // libcuda refused a tensor map
+constexpr int kErrRegs = 10003;        // too few registers for setmaxnreg
+
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                void*, const cuuint64_t*, const cuuint64_t*,
+                                const cuuint32_t*, const cuuint32_t*,
+                                CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
+
+EncodeTiled encoder() {
+  static EncodeTiled fn = nullptr;
+  if (!fn) {
+    void* lib = dlopen("libcuda.so.1", RTLD_LAZY | RTLD_NOLOAD);
+    if (!lib) lib = dlopen("libcuda.so.1", RTLD_LAZY);
+    if (lib)
+      fn = reinterpret_cast<EncodeTiled>(dlsym(lib, "cuTensorMapEncodeTiled"));
+  }
+  return fn;
+}
+
+// A 4-D map over (batch, rows, heads, d) in bfloat16 with the given element
+// strides; boxes of [box_rows][64 columns], 128-byte swizzle, rows outside
+// the tensor read as zeros.
+int make_map(CUtensorMap* map, const void* base, int batch, int rows,
+             int heads, int d, long long sb, long long ss, long long sh,
+             int box_rows) {
+  EncodeTiled enc = encoder();
+  if (!enc) return kErrNoEncoder;
+  cuuint64_t dims[4] = {(cuuint64_t)d, (cuuint64_t)heads, (cuuint64_t)rows,
+                        (cuuint64_t)batch};
+  cuuint64_t strides[3] = {(cuuint64_t)sh * 2, (cuuint64_t)ss * 2,
+                           (cuuint64_t)sb * 2};
+  cuuint32_t box[4] = {64, 1, (cuuint32_t)box_rows, 1};
+  cuuint32_t unit[4] = {1, 1, 1, 1};
+  CUresult r = enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
+                   const_cast<void*>(base), dims, strides, box, unit,
+                   CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                   CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                   CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : kErrEncode;
+}
+
+template <int D>
+int launch_wgmma(const void* q, const void* k, const void* v, void* o,
+                 const Geom& g, float scale, int causal, cudaStream_t stream) {
+  using L = TcSmem<D>;
+  static int setup = -1;     // once per process (one device)
+  if (setup < 0) {
+    cudaFuncAttributes attr;
+    setup = (int)cudaFuncGetAttributes(&attr, flash_fwd_wgmma<D>);
+    // setmaxnreg moves registers inside the block's allocation: the block
+    // must start with enough for the consumers' 240 and the producer's 24
+    if (!setup && attr.numRegs * kTcThreads <
+                      kConsumerRegs * 128 * kWG + kProducerRegs * 128)
+      setup = kErrRegs;
+    if (!setup)
+      setup = (int)cudaFuncSetAttribute(
+          flash_fwd_wgmma<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+          L::kAlloc);
+  }
+  if (setup) return setup;
+  CUtensorMap qm, km, vm;
+  int rc = make_map(&qm, q, g.B, g.Sq, g.H, D, g.qsb, g.qss, g.qsh, 64);
+  if (!rc) rc = make_map(&km, k, g.B, g.Sk, g.KV, D, g.ksb, g.kss, g.ksh, kBK);
+  if (!rc) rc = make_map(&vm, v, g.B, g.Sk, g.KV, D, g.vsb, g.vss, g.vsh, kBK);
+  if (rc) return rc;
+  dim3 grid((unsigned)(g.B * g.H), (unsigned)((g.Sq + kTcBQ - 1) / kTcBQ));
+  flash_fwd_wgmma<D><<<grid, kTcThreads, L::kAlloc, stream>>>(
+      qm, km, vm, static_cast<__nv_bfloat16*>(o), g,
+      scale * 1.4426950408889634f, causal);
+  return (int)cudaGetLastError();
+}
+
+template <int D>
+int tc_info(int* regs, int* smem, int* blocks) {
+  cudaFuncAttributes attr;
+  int rc = (int)cudaFuncGetAttributes(&attr, flash_fwd_wgmma<D>);
+  if (!rc)
+    rc = (int)cudaFuncSetAttribute(flash_fwd_wgmma<D>,
+                                   cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                   TcSmem<D>::kAlloc);
+  if (rc) return rc;
+  *regs = attr.numRegs;
+  *smem = (int)attr.sharedSizeBytes + TcSmem<D>::kAlloc;
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      blocks, flash_fwd_wgmma<D>, kTcThreads, TcSmem<D>::kAlloc);
 }
 
 }  // namespace
 
-// q: (bh, sq, d), k and v: (bh, sk, d), o: (bh, sq, d), all row-major and of
-// one dtype (float32 when is_bf16 == 0, else bfloat16); 1 <= d <= 256,
-// bh <= 65535.  scale multiplies the float32 scores.  Launches on `stream`,
-// does not synchronise, and returns cudaGetLastError() after the launch
-// (0 on success).
-extern "C" int flash_attention_launch(const void* q, const void* k,
-                                      const void* v, void* o, int bh, int sq,
-                                      int sk, int d, float scale, int causal,
-                                      int is_bf16, void* stream) {
-  if (bh < 0 || sq < 0 || sk < 0 || d < 1 || d > 256 || bh > 65535)
+// What a block of the tensor-core kernel at head width d (64 or 128) takes:
+// registers a thread at launch (before setmaxnreg), shared memory a block
+// (static and dynamic), and how many blocks fit on one SM of this device.
+extern "C" int flash_attention_tc_info(int d, int* regs, int* smem,
+                                       int* blocks) {
+  if (d == 64) return tc_info<64>(regs, smem, blocks);
+  if (d == 128) return tc_info<128>(regs, smem, blocks);
+  return (int)cudaErrorInvalidValue;
+}
+
+// q, o: (B, Sq, H, d); k, v: (B, Sk, KV, d); element strides of batch,
+// sequence and head for each (the last dimension is contiguous); one dtype
+// (float32 when is_bf16 == 0, else bfloat16).  1 <= d <= 256, Sk >= 1,
+// H % KV == 0, B·H <= 65535.  tensor_cores selects flash_fwd_wgmma, which
+// takes bfloat16 at d 64 or 128 with strides that are multiples of 8
+// elements and 16-byte aligned pointers; otherwise flash_fwd_simt.  scale
+// multiplies the float32 scores.  Launches on `stream`, does not
+// synchronise, and returns cudaGetLastError() after the launch (0 on
+// success), or one of the codes above.
+extern "C" int flash_attention_launch(
+    const void* q, const void* k, const void* v, void* o, int B, int Sq,
+    int Sk, int H, int KV, int d, long long qsb, long long qss,
+    long long qsh, long long ksb, long long kss, long long ksh,
+    long long vsb, long long vss, long long vsh, long long osb,
+    long long oss, long long osh, float scale, int causal, int is_bf16,
+    int tensor_cores, void* stream) {
+  if (B < 0 || Sq < 0 || Sk < 1 || d < 1 || d > 256 || H < 1 || KV < 1 ||
+      H % KV != 0 || (long long)B * H > 65535)
     return (int)cudaErrorInvalidValue;
-  if (bh == 0 || sq == 0) return 0;
+  if (B == 0 || Sq == 0) return 0;
+  const Geom g{B,   Sq,  Sk,  H,   KV,  d,   qsb, qss, qsh,
+               ksb, kss, ksh, vsb, vss, vsh, osb, oss, osh};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (tensor_cores) {
+    if (!is_bf16 || (d != 64 && d != 128)) return (int)cudaErrorInvalidValue;
+    if (d == 64) return launch_wgmma<64>(q, k, v, o, g, scale, causal, s);
+    return launch_wgmma<128>(q, k, v, o, g, scale, causal, s);
+  }
   if (is_bf16)
-    return dispatch<__nv_bfloat16>(q, k, v, o, bh, sq, sk, d, scale, causal,
-                                   s);
-  return dispatch<float>(q, k, v, o, bh, sq, sk, d, scale, causal, s);
+    return dispatch_simt<__nv_bfloat16>(q, k, v, o, g, scale, causal, s);
+  return dispatch_simt<float>(q, k, v, o, g, scale, causal, s);
 }

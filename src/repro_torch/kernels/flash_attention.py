@@ -1,14 +1,30 @@
-"""Forward attention over (BH, S, d): the hand-written CUDA kernel
-(``csrc/flash_attention.cu``) and, beside it, its plain PyTorch version.
+"""Forward attention: the hand-written CUDA kernels
+(``csrc/flash_attention.cu``) and, beside them, their plain PyTorch version.
 
-``flash_attention_cuda`` launches the kernel on CUDA tensors;
-``flash_attention_ref`` is the plain version, written to the reference's
-oracle (``repro.kernels.ref.flash_attention_ref``): float32 softmax over
-scores divided by sqrt(d), cast to q's dtype before the product with v.
-The kernel computes the reference's TPU kernel instead (scores multiplied
-by 1/sqrt(d), online softmax, P rounded to v's dtype); the two agree within
-the reference tests' tolerances (float32 1e-4, bfloat16 3e-2).  The causal
-mask is top-left aligned: query i sees keys 0..i.
+Two layouts, the same function:
+
+* the Pallas kernel's ``(BH, S, d)``: q, k and v share the fold of batch and
+  heads;
+* the projections' own ``(B, S, H, d)`` for q and ``(B, S, KV, d)`` for k and
+  v, with ``H % KV == 0``: query head h reads KV head ``h // (H // KV)``, as
+  ``jnp.repeat`` over heads does in the reference.  The output is
+  ``(B, S, H, d)``.
+
+The kernels read either in place through element strides (the 3-D form is
+the 4-D one with one head), so a caller folds, expands and copies nothing.
+
+``flash_attention_cuda`` launches one of two kernels on CUDA tensors, chosen
+by ``variant`` from the dtype and head width alone: the tensor-core kernel
+(``wgmma``) for bfloat16 at ``TC_HEAD_DIMS``, the CUDA-core kernel for
+everything else (float32 stays off the tensor cores, which would compute it
+in TF32).  Each has its own launch counter, ``flash_attention_cuda.launches_tc``
+and ``.launches_simt``.  ``flash_attention_ref`` is the plain version, written
+to the reference's oracle (``repro.kernels.ref.flash_attention_ref``): float32
+softmax over scores divided by sqrt(d), cast to q's dtype before the product
+with v.  The kernels compute the reference's TPU kernel instead (scores
+multiplied by 1/sqrt(d), online softmax, P rounded to v's dtype); the two
+agree within the reference tests' tolerances (float32 1e-4, bfloat16 3e-2).
+The causal mask is top-left aligned: query i sees keys 0..i.
 """
 from __future__ import annotations
 
@@ -18,11 +34,18 @@ import torch
 
 _DTYPES = (torch.float32, torch.bfloat16)
 MAX_HEAD_DIM = 256
+TC_HEAD_DIMS = (64, 128)
+MAX_HEADS = 65535          # B·H: the CUDA-core kernel's grid
 
 
-def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                        causal: bool = True) -> torch.Tensor:
-    """q: (BH, Sq, d); k, v: (BH, Sk, d) -> (BH, Sq, d), float32 softmax."""
+def variant(dtype: torch.dtype, d: int) -> str:
+    """Which kernel takes (dtype, head width): "tc" (tensor cores, wgmma)
+    or "simt" (CUDA cores)."""
+    return "tc" if dtype == torch.bfloat16 and d in TC_HEAD_DIMS else "simt"
+
+
+def _attend(q, k, v, causal):
+    """(BH, Sq, d) x (BH, Sk, d) -> (BH, Sq, d), float32 softmax."""
     d = q.shape[-1]
     s = torch.einsum("bqd,bkd->bqk", q, k).to(torch.float32) / math.sqrt(d)
     if causal:
@@ -33,63 +56,131 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return torch.einsum("bqk,bkd->bqd", p, v)
 
 
+def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                        causal: bool = True) -> torch.Tensor:
+    """q: (BH, Sq, d), k and v: (BH, Sk, d) -> (BH, Sq, d); or q:
+    (B, Sq, H, d), k and v: (B, Sk, KV, d) -> (B, Sq, H, d), where the KV
+    heads are repeated to the query heads and everything folded to
+    (B·H, S, d) first."""
+    if q.ndim == 3:
+        return _attend(q, k, v, causal)
+    B, S, H, d = q.shape
+    KV = k.shape[2]
+    if H % KV:
+        raise ValueError(f"{KV} KV heads do not divide {H} query heads")
+
+    def fold(t):
+        t = torch.repeat_interleave(t, H // t.shape[2], dim=2)
+        return t.permute(0, 2, 1, 3).reshape(B * H, t.shape[1], d)
+
+    o = _attend(fold(q), fold(k), fold(v), causal)
+    return o.reshape(B, H, S, d).permute(0, 2, 1, 3)
+
+
 def _lib():
     import ctypes
 
     from repro_torch.kernels import _build
     lib = _build.load("flash_attention")
-    if lib.flash_attention_launch.argtypes is None:
-        lib.flash_attention_launch.argtypes = (
-            [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4
-            + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
-        lib.flash_attention_launch.restype = ctypes.c_int
+    fn = lib.flash_attention_launch
+    if fn.argtypes is None:
+        fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
+                       + [ctypes.c_longlong] * 12
+                       + [ctypes.c_float] + [ctypes.c_int] * 3
+                       + [ctypes.c_void_p])
+        fn.restype = ctypes.c_int
     return lib
 
 
-def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                         *, causal: bool = True) -> torch.Tensor:
-    """Launch the kernel: q (BH, Sq, d), k and v (BH, Sk, d), contiguous
-    CUDA tensors of one dtype (float32 or bfloat16) on one device,
-    1 <= d <= 256.  Returns (BH, Sq, d) in q's dtype.  Raises on anything
-    else, and if the launch is refused."""
+def tc_occupancy(d: int) -> dict:
+    """Registers a thread (at launch, before ``setmaxnreg``), shared memory
+    a block and blocks per SM of the tensor-core kernel at head width d on
+    the current CUDA device."""
+    import ctypes
+    fn = _lib().flash_attention_tc_info
+    fn.argtypes = [ctypes.c_int] + [ctypes.POINTER(ctypes.c_int)] * 3
+    regs, smem, blocks = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
+    rc = fn(d, ctypes.byref(regs), ctypes.byref(smem), ctypes.byref(blocks))
+    if rc != 0:
+        raise RuntimeError(f"flash_attention_tc_info failed: code {rc}")
+    return {"registers": regs.value, "smem_bytes": smem.value,
+            "blocks_per_sm": blocks.value}
+
+
+def _check(q, k, v):
+    """Raise on what neither kernel takes, layout first, then device and
+    dtype; returns the 4-D views and (B, Sq, Sk, H, KV, d)."""
+    if q.ndim not in (3, 4) or k.ndim != q.ndim or v.ndim != q.ndim:
+        raise ValueError(f"q, k and v must all be (BH, S, d) or "
+                         f"(B, S, heads, d), got {q.ndim}-, {k.ndim}- and "
+                         f"{v.ndim}-d")
+    q4, k4, v4 = (t.unsqueeze(2) if t.ndim == 3 else t for t in (q, k, v))
+    B, sq, H, d = q4.shape
+    sk, KV = k4.shape[1], k4.shape[2]
+    if k4.shape != v4.shape or k4.shape[0] != B or k4.shape[3] != d:
+        raise ValueError(f"shapes differ: q {tuple(q.shape)}, k "
+                         f"{tuple(k.shape)}, v {tuple(v.shape)}")
+    if KV < 1 or H % KV:
+        raise ValueError(f"{KV} KV heads do not divide {H} query heads")
+    if not 1 <= d <= MAX_HEAD_DIM:
+        raise ValueError(f"head width {d} outside 1..{MAX_HEAD_DIM}")
+    if sk < 1:
+        raise ValueError("no keys: k and v have length 0")
+    if B * H > MAX_HEADS or max(sq, sk) >= 2**31:
+        raise ValueError(f"too large for the kernel's grid: {tuple(q.shape)}")
     for name, t in (("q", q), ("k", k), ("v", v)):
+        if t.stride(-1) != 1 and d > 1:
+            raise ValueError(f"{name}'s last dimension must be contiguous")
         if t.device.type != "cuda":
             raise ValueError(f"flash_attention_cuda needs CUDA tensors, {name}"
                              f" is on {t.device}")
         if t.dtype not in _DTYPES:
             raise TypeError(f"flash_attention_cuda takes float32 or bfloat16,"
                             f" {name} is {t.dtype}")
-        if t.ndim != 3:
-            raise ValueError(f"{name} must be (BH, S, d), got {t.ndim}-d")
-        if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
         if t.device != q.device or t.dtype != q.dtype:
             raise TypeError(f"{name} is {t.dtype} on {t.device}, q is "
                             f"{q.dtype} on {q.device}")
-    bh, sq, d = q.shape
-    if k.shape != v.shape or k.shape[0] != bh or k.shape[2] != d:
-        raise ValueError(f"shapes differ: q {tuple(q.shape)}, k "
-                         f"{tuple(k.shape)}, v {tuple(v.shape)}")
-    sk = k.shape[1]
-    if not 1 <= d <= MAX_HEAD_DIM:
-        raise ValueError(f"head width {d} outside 1..{MAX_HEAD_DIM}")
-    if bh > 65535 or max(sq, sk) * d > 2**31 - 1:
-        raise ValueError(f"too large for the kernel's grid: {tuple(q.shape)}")
-    out = torch.empty_like(q)
-    if bh == 0 or sq == 0:
+    return (q4, k4, v4), (B, sq, sk, H, KV, d)
+
+
+def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         *, causal: bool = True) -> torch.Tensor:
+    """Launch a kernel on q, k, v of one dtype (float32 or bfloat16) on one
+    CUDA device, in either layout of the module docstring, with the last
+    dimension contiguous, 1 <= d <= 256.  The tensor-core kernel also needs
+    strides that are multiples of 8 elements and 16-byte aligned data.
+    Returns a new contiguous tensor in q's layout and dtype.  Raises on
+    anything else, and if the launch is refused."""
+    (q4, k4, v4), (B, sq, sk, H, KV, d) = _check(q, k, v)
+    kind = variant(q.dtype, d)
+    if kind == "tc":
+        for name, t in (("q", q4), ("k", k4), ("v", v4)):
+            if t.data_ptr() % 16 or any(st % 8 for st in t.stride()[:3]):
+                raise ValueError(f"the tensor-core kernel needs {name} "
+                                 f"16-byte aligned with strides in multiples"
+                                 f" of 8 elements, got {t.stride()}")
+    out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    if B * H == 0 or sq == 0:
         return out
+    o4 = out.unsqueeze(2) if out.ndim == 3 else out
     lib = _lib()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = lib.flash_attention_launch(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), bh, sq,
-            sk, d, 1.0 / math.sqrt(d), int(causal),
-            int(q.dtype == torch.bfloat16), stream)
+            q4.data_ptr(), k4.data_ptr(), v4.data_ptr(), o4.data_ptr(),
+            B, sq, sk, H, KV, d,
+            *q4.stride()[:3], *k4.stride()[:3], *v4.stride()[:3],
+            *o4.stride()[:3], 1.0 / math.sqrt(d), int(causal),
+            int(q.dtype == torch.bfloat16), int(kind == "tc"), stream)
     if rc != 0:
-        raise RuntimeError(f"flash_attention kernel launch failed: "
-                           f"cudaError {rc}")
-    flash_attention_cuda.launches += 1
+        raise RuntimeError(f"flash_attention {kind} kernel launch failed: "
+                           f"code {rc}")
+    if kind == "tc":
+        flash_attention_cuda.launches_tc += 1
+    else:
+        flash_attention_cuda.launches_simt += 1
     return out
 
 
-flash_attention_cuda.launches = 0
+flash_attention_cuda.launches_tc = 0
+flash_attention_cuda.launches_simt = 0

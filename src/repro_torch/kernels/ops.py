@@ -4,9 +4,11 @@ A CPU tensor takes the plain PyTorch version; a CUDA tensor takes the CUDA
 kernel, which raises on what it does not accept.  There is no override and
 no fallback: a CUDA tensor never reaches a plain version.  Each kernel's
 wrapper counts its launches (``haar_cuda.launches``,
-``knn_scores_cuda.launches``), so a run can show that its main path went
-through the kernels.  ``flash_attention`` and ``ssd_intra`` carry the LM
-prefill path (``models.layers.attention_apply``, ``models.ssm.ssd_chunked``).
+``knn_scores_cuda.launches``; flash attention one count per variant,
+``flash_attention_cuda.launches_tc`` and ``.launches_simt``), so a run can
+show that its main path went through the kernels.  ``flash_attention`` and
+``ssd_intra`` carry the LM prefill path (``models.layers.attention_apply``,
+``models.ssm.ssd_chunked``).
 """
 from __future__ import annotations
 
@@ -18,9 +20,12 @@ from repro_torch.kernels.haar import haar_cuda, haar_ref
 from repro_torch.kernels.knn import (knn_scores_cuda, knn_scores_ref, top_k)
 from repro_torch.kernels.ssd_scan import ssd_intra_cuda, ssd_intra_ref
 
-KERNELS = {"haar": haar_cuda, "knn_scores": knn_scores_cuda,
-           "flash_attention": flash_attention_cuda,
-           "ssd_intra": ssd_intra_cuda}
+# launch counters: name -> (wrapper, attribute)
+COUNTERS = {"haar": (haar_cuda, "launches"),
+            "knn_scores": (knn_scores_cuda, "launches"),
+            "flash_attention_tc": (flash_attention_cuda, "launches_tc"),
+            "flash_attention_simt": (flash_attention_cuda, "launches_simt"),
+            "ssd_intra": (ssd_intra_cuda, "launches")}
 
 
 def _route(t: torch.Tensor, op: str) -> bool:
@@ -52,10 +57,14 @@ def knn(train: torch.Tensor, test: torch.Tensor, k: int):
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True) -> torch.Tensor:
-    """q, k, v: (BH, S, d), KV already expanded to the query heads."""
+    """q, k, v: (BH, S, d); or q (B, S, H, d) with k, v (B, S, KV, d), the
+    KV heads read in place by groups of H // KV query heads.  The kernel
+    reads any strides; only a last dimension that is not contiguous is
+    copied."""
     if _route(q, "flash_attention"):
-        return flash_attention_cuda(q.contiguous(), k.contiguous(),
-                                    v.contiguous(), causal=causal)
+        q, k, v = (t if t.stride(-1) == 1 else t.contiguous()
+                   for t in (q, k, v))
+        return flash_attention_cuda(q, k, v, causal=causal)
     return flash_attention_ref(q, k, v, causal=causal)
 
 
@@ -69,9 +78,9 @@ def ssd_intra(x: torch.Tensor, da: torch.Tensor, B: torch.Tensor,
 
 
 def reset_launches() -> None:
-    for fn in KERNELS.values():
-        fn.launches = 0
+    for fn, attr in COUNTERS.values():
+        setattr(fn, attr, 0)
 
 
 def launches() -> dict:
-    return {name: fn.launches for name, fn in KERNELS.items()}
+    return {name: getattr(fn, attr) for name, (fn, attr) in COUNTERS.items()}

@@ -9,7 +9,8 @@ constraints (``pcon``) are dropped.
 
 Prefill attention (causal self-attention, the only kind the ported families
 run) goes through the flash-attention kernel, ``kernels.ops.flash_attention``,
-in place of the reference's query-chunked jnp ``sdpa_chunked``; cross and
+in place of the reference's query-chunked jnp ``sdpa_chunked``, with the
+GQA KV heads read in place (no expanded or folded copies); cross and
 non-causal attention come with the encoder-decoder and vision-language
 families.  Decode attention is plain PyTorch, as in the reference, and
 writes the new key and value into the cache IN PLACE (the reference returns
@@ -145,19 +146,10 @@ def _expand_kv(k, n_rep):
     return k if n_rep == 1 else torch.repeat_interleave(k, n_rep, dim=-2)
 
 
-def _flash(q, k, v):
-    """Causal self-attention on the kernel: (B, S, H, hd) -> (B·H, S, hd)
-    and back."""
-    B, S, H, hd = q.shape
-    fold = lambda t: t.permute(0, 2, 1, 3).reshape(B * H, S, hd)
-    o = ops.flash_attention(fold(q), fold(k), fold(v), causal=True)
-    return o.reshape(B, H, S, hd).permute(0, 2, 1, 3)
-
-
 def attention_apply(p, cfg: ArchConfig, x, positions):
     """Causal self-attention over the full sequence (prefill), on the
-    flash kernel.  Returns (out, (k, v))."""
-    H, KV = cfg.num_heads, cfg.num_kv_heads
+    flash kernel, which reads q (B, S, H, hd) and the KV heads of k and v
+    (B, S, KV, hd) in place.  Returns (out, (k, v))."""
     q = torch.einsum("bsd,dhk->bshk", x, p["wq"])
     k = torch.einsum("bsd,dhk->bshk", x, p["wk"])
     v = torch.einsum("bsd,dhk->bshk", x, p["wv"])
@@ -167,7 +159,7 @@ def attention_apply(p, cfg: ArchConfig, x, positions):
         q = rope_apply(q, positions, cfg.rope_theta)
         k = rope_apply(k, positions, cfg.rope_theta)
     kv_cache = (k, v)
-    o = _flash(q, _expand_kv(k, H // KV), _expand_kv(v, H // KV))
+    o = ops.flash_attention(q, k, v, causal=True)
     out = torch.einsum("bshk,hkd->bsd", o, p["wo"])
     return out, kv_cache
 

@@ -10,7 +10,7 @@ from repro_torch.core import DenseTensor, connect
 from repro_torch.kernels import ops
 from repro_torch.kernels.haar import haar_cuda, haar_ref
 from repro_torch.kernels.flash_attention import (flash_attention_cuda,
-                                                 flash_attention_ref)
+                                                 flash_attention_ref, variant)
 from repro_torch.kernels.knn import knn_scores_cuda, knn_scores_ref
 from repro_torch.kernels.ssd_scan import ssd_intra_cuda, ssd_intra_ref
 
@@ -185,6 +185,84 @@ def test_flash_kernel_matches_plain(cuda, bh, s, d, causal, dtype):
         assert float((got.float() - want32).abs().max()) <= 1.6e-2
 
 
+def _expand_fold(t, h):
+    """(B, S, KV, d) -> (B·H, S, d): KV heads repeated to h query heads."""
+    B, S, _, d = t.shape
+    t = torch.repeat_interleave(t, h // t.shape[2], dim=2)
+    return t.permute(0, 2, 1, 3).reshape(B * h, S, d)
+
+
+@pytest.mark.parametrize("b,s,h,kv,d,causal,dtype", [
+    (1, 2048, 16, 8, 128, True, torch.bfloat16),   # internlm2's prefill
+    (2, 1, 4, 2, 128, True, torch.bfloat16),
+    (1, 63, 4, 1, 64, True, torch.bfloat16),
+    (2, 64, 4, 4, 128, True, torch.bfloat16),
+    (1, 65, 8, 2, 128, False, torch.bfloat16),
+    (2, 129, 4, 2, 64, False, torch.bfloat16),
+    (1, 1000, 4, 2, 128, True, torch.bfloat16),
+    (1, 1000, 4, 1, 80, True, torch.bfloat16),
+    (2, 129, 4, 2, 80, False, torch.float32),
+    (1, 65, 4, 4, 128, True, torch.float32),
+    (1, 63, 6, 2, 64, False, torch.float32),
+])
+def test_flash_gqa_kernel_matches_plain(cuda, b, s, h, kv, d, causal, dtype):
+    """The (B, S, H, d) form with KV heads read in place, against the plain
+    version on expanded and folded inputs, and against the kernel's own
+    (BH, S, d) form on those inputs."""
+    gen = torch.Generator(device=cuda).manual_seed(s + h)
+    q = torch.randn((b, s, h, d), generator=gen, device=cuda).to(dtype)
+    k, v = (torch.randn((b, s, kv, d), generator=gen, device=cuda).to(dtype)
+            for _ in range(2))
+    tol = 3e-2 if dtype == torch.bfloat16 else 1e-4
+    got = flash_attention_cuda(q, k, v, causal=causal)
+    assert got.dtype == dtype and got.shape == q.shape
+    qf, kf, vf = _expand_fold(q, h), _expand_fold(k, h), _expand_fold(v, h)
+    unfold = lambda o: o.reshape(b, h, s, d).permute(0, 2, 1, 3)
+    want = unfold(flash_attention_ref(qf, kf, vf, causal=causal))
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+    folded = unfold(flash_attention_cuda(qf, kf, vf, causal=causal))
+    torch.testing.assert_close(got.float(), folded.float(), rtol=tol,
+                               atol=tol)
+    if dtype == torch.bfloat16:            # as chip_smoke.phase_flash
+        want32 = unfold(flash_attention_ref(qf.float(), kf.float(),
+                                            vf.float(), causal=causal))
+        assert float((got.float() - want32).abs().max()) <= 1.6e-2
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_kernel_reads_strided_inputs(cuda, dtype):
+    """Non-contiguous q, k and v (heads-major storage, last dim contiguous)
+    are read in place and give the contiguous inputs' result."""
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    q = torch.randn((2, 8, 200, 128), generator=gen, device=cuda).to(dtype)
+    k, v = (torch.randn((2, 2, 200, 128), generator=gen, device=cuda)
+            .to(dtype) for _ in range(2))
+    q, k, v = (t.transpose(1, 2) for t in (q, k, v))
+    assert not q.is_contiguous()
+    got = flash_attention_cuda(q, k, v)
+    want = flash_attention_cuda(q.contiguous(), k.contiguous(),
+                                v.contiguous())
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("dtype,d,kind", [(torch.bfloat16, 128, "tc"),
+                                          (torch.bfloat16, 64, "tc"),
+                                          (torch.float32, 128, "simt"),
+                                          (torch.bfloat16, 80, "simt")])
+def test_flash_variant_counters(cuda, dtype, d, kind):
+    """bfloat16 at d 64 and 128 launches only the tensor-core kernel, and
+    everything else only the CUDA-core kernel."""
+    assert variant(dtype, d) == kind
+    q = torch.randn((1, 70, 4, d), device=cuda).to(dtype)
+    kv = torch.randn((1, 70, 2, d), device=cuda).to(dtype)
+    ops.reset_launches()
+    ops.flash_attention(q, kv, kv)
+    other = "simt" if kind == "tc" else "tc"
+    counts = ops.launches()
+    assert counts[f"flash_attention_{kind}"] == 1
+    assert counts[f"flash_attention_{other}"] == 0
+
+
 @pytest.mark.parametrize("b,q,h,p,g,n", [
     (16, 128, 32, 64, 1, 128),                 # the SSM prefill path
     (3, 40, 6, 17, 2, 9),
@@ -218,6 +296,14 @@ def test_lm_kernels_refuse_what_they_do_not_take(cuda):
     q = torch.zeros((1, 8, 264), device=cuda)
     with pytest.raises(ValueError):
         flash_attention_cuda(q, q, q)
+    q = torch.zeros((1, 8, 6, 64), device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="do not divide"):
+        flash_attention_cuda(q, q[:, :, :4], q[:, :, :4])
+    # 64 columns that start 2 bytes past a 16-byte boundary
+    wide = torch.zeros((1, 8, 6, 72), device=cuda, dtype=torch.bfloat16)
+    odd = wide[:, :, :, 1:65]
+    with pytest.raises(ValueError, match="multiples of 8"):
+        flash_attention_cuda(odd, odd, odd)
 
 
 @pytest.mark.parametrize("name", ["internlm2-1.8b", "mamba2-370m"])
@@ -244,6 +330,10 @@ def test_smoke_batch_server_on_cuda_launches_the_kernels(cuda, name):
     srv.run(reqs)
     launches = ops.launches()
     assert all(r.done and len(r.out_tokens) == 6 for r in reqs)
-    kernel, other = (("flash_attention", "ssd_intra") if cfg.family == "dense"
-                     else ("ssd_intra", "flash_attention"))
-    assert launches[kernel] == cfg.num_layers * 3 and launches[other] == 0
+    if cfg.family == "dense":
+        # the variant that the config's dtype and head width select
+        kernel = "flash_attention_" + variant(torch.float32, cfg.head_dim)
+    else:
+        kernel = "ssd_intra"
+    assert launches[kernel] == cfg.num_layers * 3
+    assert all(n == 0 for name, n in launches.items() if name != kernel)

@@ -124,7 +124,8 @@ def test_ops_take_the_plain_version_for_cpu_tensors(monkeypatch):
     idx, _ = tops.knn(x, x[:2], 2)
     assert idx.dtype == torch.int32
     assert tops.launches() == {"haar": 0, "knn_scores": 0,
-                               "flash_attention": 0, "ssd_intra": 0}
+                               "flash_attention_tc": 0,
+                               "flash_attention_simt": 0, "ssd_intra": 0}
 
 
 def test_ops_refuse_other_devices():

@@ -87,6 +87,80 @@ def test_flash_plain_ragged_lengths(s):
                                    atol=1e-4)
 
 
+def _gqa_inputs(seed):
+    """q (B, S, H, d), k and v (B, S, KV, d) from a numpy seed; seeds 0-3
+    cover causal x dtype and H // KV of 1, 2 and 4."""
+    rng = np.random.default_rng(700 + seed)
+    b = int(rng.integers(1, 3))
+    s = int(rng.integers(1, 12)) * 8
+    kv = int(rng.integers(1, 3))
+    h = kv * (1, 2, 4, 2)[seed % 4]
+    d = (64, 16, 32, 24)[seed % 4]
+    causal = seed % 2 == 0
+    dtype = "bf16" if seed in (1, 2) else "f32"
+    q = rng.normal(size=(b, s, h, d)).astype(np.float32)
+    k, v = (rng.normal(size=(b, s, kv, d)).astype(np.float32)
+            for _ in range(2))
+    if dtype == "bf16":
+        pairs = [bf16_pair(a) for a in (q, k, v)]
+    else:
+        pairs = [(jnp.asarray(a), torch.from_numpy(a)) for a in (q, k, v)]
+    tol = 3e-2 if dtype == "bf16" else 1e-4
+    return pairs, causal, tol
+
+
+@pytest.mark.parametrize("seed", _SEEDS)
+def test_flash_plain_gqa_matches_oracle_and_pallas(seed):
+    """The plain version's (B, S, H, d) form with KV heads read in groups
+    against the reference's oracle and its Pallas kernel on jnp.repeat
+    expanded, folded inputs."""
+    pairs, causal, tol = _gqa_inputs(seed)
+    (qj, qt), (kj, kt), (vj, vt) = pairs
+    b, s, h, d = qt.shape
+    got = tref.flash_attention_ref(qt, kt, vt, causal=causal)
+    assert got.dtype == qt.dtype and got.shape == qt.shape
+
+    def fold(a):
+        a = jnp.repeat(a, h // a.shape[2], axis=2)
+        return a.transpose(0, 2, 1, 3).reshape(b * h, s, d)
+
+    def unfold(o):
+        return np.asarray(o, np.float32).reshape(b, h, s, d).transpose(
+            0, 2, 1, 3)
+
+    want = jref.flash_attention_ref(fold(qj), fold(kj), fold(vj),
+                                    causal=causal)
+    np.testing.assert_allclose(_f32(got), unfold(want), rtol=tol, atol=tol)
+    pallas = flash_attention_pallas(fold(qj), fold(kj), fold(vj),
+                                    causal=causal, block_q=64, block_k=64,
+                                    interpret=True)
+    np.testing.assert_allclose(_f32(got), unfold(pallas), rtol=tol,
+                               atol=tol)
+
+
+def test_flash_launcher_refuses_before_building(monkeypatch):
+    """KV heads that do not divide the query heads, and a last dimension
+    that is not contiguous, are refused before nvcc or ctypes is touched;
+    the dispatch picks the tensor cores for bfloat16 at d 64 and 128 only."""
+    from repro_torch.kernels import _build
+
+    def boom(*a, **k):
+        raise AssertionError("the launcher reached the build")
+    monkeypatch.setattr(_build, "load", boom)
+    q = torch.zeros((1, 8, 6, 64), dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="do not divide"):
+        tflash.flash_attention_cuda(q, q[:, :, :4], q[:, :, :4])
+    with pytest.raises(ValueError, match="do not divide"):
+        tref.flash_attention_ref(q, q[:, :, :4], q[:, :, :4])
+    t = torch.zeros((1, 64, 8, 6), dtype=torch.bfloat16).transpose(1, 3)
+    with pytest.raises(ValueError, match="contiguous"):
+        tflash.flash_attention_cuda(t, t[:, :, :4], t[:, :, :4])
+    assert [tflash.variant(dt, d) for dt, d in [
+        (torch.bfloat16, 64), (torch.bfloat16, 128), (torch.bfloat16, 80),
+        (torch.bfloat16, 256), (torch.float32, 128)]] == [
+            "tc", "tc", "simt", "simt", "simt"]
+
+
 def _ssd_inputs(seed):
     rng = np.random.default_rng(600 + seed)
     b = int(rng.integers(1, 4))
@@ -159,7 +233,8 @@ def test_lm_ops_take_the_plain_version_for_cpu_tensors(monkeypatch):
                          tref.ssd_intra_ref(x, da, B, C)):
         torch.testing.assert_close(got, want, rtol=0, atol=0)
     assert tops.launches() == {"haar": 0, "knn_scores": 0,
-                               "flash_attention": 0, "ssd_intra": 0}
+                               "flash_attention_tc": 0,
+                               "flash_attention_simt": 0, "ssd_intra": 0}
 
 
 def test_lm_ops_refuse_other_devices():
