@@ -11,9 +11,11 @@ Run on a machine with one CUDA card:  python3 chip_smoke.py
 Each phase prints one JSON line; any failure exits non-zero.  The line
 before the last lists every ported kernel with its launches on its path
 (Haar and kNN on the analytic, the tensor-core flash attention on the dense
-LM's bfloat16 serving, the CUDA-core one on its float32 prefill check, SSD
-on the SSM LM's serving), its error against the plain version, its time,
-the plain version's time, the bound and the yardstick library call's time.
+LM's bfloat16 serving, the CUDA-core one on its float32 prefill check, the
+tensor-core SSD on the SSM LM's serving, the CUDA-core one on the SSM smoke
+config's ragged prefill check), its error against the plain version, its
+time, the plain version's time, the bound and the yardstick library call's
+time.
 Times are device times: CUDA events around many back-to-back launches,
 divided by their count (``time_ms``); ``call_ms`` beside them is the old
 one-call figure, what the path pays per call with the host's work.  The
@@ -52,7 +54,8 @@ from repro_torch.kernels.flash_attention import (  # noqa: E402
     TC_HEAD_DIMS, flash_attention_cuda, flash_attention_ref, tc_occupancy,
     variant)
 from repro_torch.kernels.knn import knn_scores_cuda, knn_scores_ref  # noqa: E402
-from repro_torch.kernels.ssd_scan import ssd_intra_cuda, ssd_intra_ref  # noqa: E402
+from repro_torch.kernels.ssd_scan import (  # noqa: E402
+    ssd_intra_cuda, ssd_intra_ref, variant as ssd_variant)
 from repro_torch.models import api  # noqa: E402
 from repro_torch.models import transformer as T  # noqa: E402
 from repro_torch.models.util import tree_leaves, tree_map  # noqa: E402
@@ -63,6 +66,8 @@ from repro_torch.runtime import BatchServer, Request  # noqa: E402
 # card's power limit printed beside (a lower limit runs slower under load).
 HBM_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = {torch.float32: 67e12, torch.bfloat16: 989e12}
+# dense TF32 tensor cores; 3xTF32 runs three TF32 products per float32 one
+TF32_OPS_PER_S = 495e12
 
 LEVELS, NBINS, K = 6, 32, 11
 N_TRAIN, N_TEST, SAMPLES = 4096, 64, 16384
@@ -99,8 +104,12 @@ FLASH_GQA_SHAPES = [(1, 2048, 16, 8, 128, True, torch.bfloat16),
                     (1, 65, 8, 2, 80, True, torch.bfloat16),
                     (2, 129, 6, 2, 128, True, torch.float32)]
 # (b, Q, h, p, g, n); the first is the SSM prefill path's shape (mamba2:
-# 16 chunks of 128 for a 2048-token prompt), the rest ragged, with g = 2
-SSD_SHAPES = [(16, 128, 32, 64, 1, 128), (3, 40, 6, 17, 2, 9),
+# 16 chunks of 128 for a 2048-token prompt), then zamba2-7b's p and n at the
+# same length, a tensor-core shape with g = 2, and ragged shapes that only
+# the CUDA-core kernel takes.  Every shape runs on the CUDA-core kernel, and
+# on the tensor-core kernel where ssd_scan.variant names it.
+SSD_SHAPES = [(16, 128, 32, 64, 1, 128), (16, 128, 32, 64, 1, 64),
+              (2, 128, 8, 64, 2, 32), (3, 40, 6, 17, 2, 9),
               (5, 77, 4, 33, 2, 31)]
 # the reference tests' tolerances: attention float32 1e-4, bfloat16 3e-2;
 # SSD y and states 2e-4, chunk decay 1e-5 relative / 1e-6 absolute
@@ -240,11 +249,16 @@ def phase_device(dev) -> dict:
     # one nvcc per source, all at once
     _build.build(["haar", "knn", "flash_attention", "ssd_scan"])
     build_s = time.perf_counter() - t0
-    # registers, spills, and any wgmma that ptxas had to serialize (C7513)
+    # each kernel's registers and spills, and any wgmma that ptxas had to
+    # serialize (C7510, C7513, C7520: a register of an in-flight wgmma
+    # touched, a wgmma under a condition); a serialized wgmma fails the run
     ptxas = {name: [line.strip() for line in log.splitlines()
                     if "registers" in line or "spill" in line
-                    or "C7513" in line]
+                    or "Function properties" in line or "C75" in line]
              for name, log in _build.build_log.items()}
+    serialized = [line for lines in ptxas.values() for line in lines
+                  if "C75" in line]
+    check(not serialized, f"ptxas serialized wgmma: {serialized}")
     occupancy = {str(d): tc_occupancy(d) for d in TC_HEAD_DIMS}
     info = {"card": card, "capability": list(cap),
             "torch": torch.__version__, "cuda": torch.version.cuda,
@@ -442,8 +456,12 @@ def _ssd_work(b, q, h, p, g, n) -> tuple:
 
 
 def phase_ssd(dev, shapes=SSD_SHAPES) -> dict:
+    """Both kernels against the plain version in float64.  Returns the rows
+    timed at the path's shape (the first): "tc" (the path's kernel) and
+    "simt" (the CUDA-core kernel at the same shape, its time before the
+    tensor-core kernel took the path)."""
     gen = torch.Generator(device=dev).manual_seed(3)
-    main = {}
+    timed = {}
     for b, q, h, p, g, n in shapes:
         x = torch.randn((b, q, h, p), generator=gen, device=dev)
         da = -torch.nn.functional.softplus(
@@ -452,45 +470,66 @@ def phase_ssd(dev, shapes=SSD_SHAPES) -> dict:
         # 100 at n = 128; the tolerance scales with the output
         B = torch.randn((b, q, g, n), generator=gen, device=dev)
         C = torch.randn((b, q, g, n), generator=gen, device=dev)
-        got = ssd_intra_cuda(x, da, B, C)
         want = ssd_intra_ref(*(t.double() for t in (x, da, B, C)))
         plain32 = ssd_intra_ref(x, da, B, C)
-        sync(dev)
-        errs = [max_abs_err(a, w) for a, w in zip(got, want)]
-        atols = []
-        for name, a, w, (rtol, atol) in zip(("y", "states", "decay"), got,
-                                            want, SSD_TOL):
-            check(a.dtype == torch.float32 and a.shape == w.shape,
-                  f"ssd {name} {a.dtype} {tuple(a.shape)}")
-            if name != "decay":
-                atol *= float(w.abs().max())
-            atols.append(atol)
-            check(torch.allclose(a.double(), w, rtol=rtol, atol=atol),
-                  f"ssd {name} at {(b, q, h, p, g, n)}: max err "
-                  f"{max_abs_err(a, w)}, atol {atol}")
         names = ("y", "states", "decay")
-        row = {"shape": {"b": b, "Q": q, "h": h, "p": p, "g": g, "n": n},
-               "dtype": "float32", "max_abs_err": max(errs),
-               "max_abs_err_each": dict(zip(names, errs)),
-               "atol_each": dict(zip(names, atols)),
-               "max_abs_each": {nm: float(w.abs().max())
-                                for nm, w in zip(names, want)},
-               "plain_f32_max_abs_err_each": {
-                   nm: max_abs_err(a, w)
-                   for nm, a, w in zip(names, plain32, want)}}
-        if (b, q, h, p, g, n) == shapes[0]:
-            row["ms"] = time_ms(lambda i: ssd_intra_cuda(x, da, B, C), dev,
-                                label="ssd")
-            row["plain_ms"] = time_ms(lambda i: ssd_intra_ref(x, da, B, C),
-                                      dev, label="ssd plain")
-            row["call_ms"] = call_ms(lambda: ssd_intra_cuda(x, da, B, C), dev)
-            row["library_ms"] = None          # no single PyTorch call
-            nbytes, ops_count = _ssd_work(b, q, h, p, g, n)
-            row["bound_ms"], row["bound_by"] = bound_ms(nbytes, ops_count,
-                                                        torch.float32)
-            main = dict(row)
-        emit("ssd_intra", **row)
-    return main
+        kinds = ["tc", "simt"] if ssd_variant(q, p, n) == "tc" else ["simt"]
+        for kind in kinds:
+            got = ssd_intra_cuda(x, da, B, C, kind=kind)
+            sync(dev)
+            errs = [max_abs_err(a, w) for a, w in zip(got, want)]
+            atols = []
+            for name, a, w, (rtol, atol) in zip(names, got, want, SSD_TOL):
+                check(a.dtype == torch.float32 and a.shape == w.shape,
+                      f"ssd {kind} {name} {a.dtype} {tuple(a.shape)}")
+                if name != "decay":
+                    atol *= float(w.abs().max())
+                atols.append(atol)
+                check(torch.allclose(a.double(), w, rtol=rtol, atol=atol),
+                      f"ssd {kind} {name} at {(b, q, h, p, g, n)}: max err "
+                      f"{max_abs_err(a, w)}, atol {atol}")
+            row = {"shape": {"b": b, "Q": q, "h": h, "p": p, "g": g, "n": n},
+                   "variant": kind, "dtype": "float32",
+                   "max_abs_err": max(errs),
+                   "max_abs_err_each": dict(zip(names, errs)),
+                   "atol_each": dict(zip(names, atols)),
+                   "max_abs_each": {nm: float(w.abs().max())
+                                    for nm, w in zip(names, want)},
+                   "plain_f32_max_abs_err_each": {
+                       nm: max_abs_err(a, w)
+                       for nm, a, w in zip(names, plain32, want)}}
+            if (b, q, h, p, g, n) == shapes[0]:
+                run = lambda i, kind=kind: ssd_intra_cuda(x, da, B, C,
+                                                          kind=kind)
+                row["ms"] = time_ms(run, dev, label=f"ssd {kind}")
+                row["plain_ms"] = time_ms(
+                    lambda i: ssd_intra_ref(x, da, B, C), dev,
+                    label=f"ssd {kind} plain")
+                row["call_ms"] = call_ms(lambda: run(0), dev)
+                row["library_ms"] = None          # no single PyTorch call
+                nbytes, ops_count = _ssd_work(b, q, h, p, g, n)
+                t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+                t_f32 = ops_count / PEAK_OPS_PER_S[torch.float32] * 1e3
+                t_3xtf32 = 3 * ops_count / TF32_OPS_PER_S * 1e3
+                row["bound_bytes_ms"] = t_bytes
+                row["bound_ops_f32_ms"] = t_f32
+                row["bound_ops_3xtf32_ms"] = t_3xtf32
+                if kind == "tc":
+                    # 3xTF32 on the tensor cores takes the operations below
+                    # the bytes: the bound is the bytes
+                    t_ops, note = t_3xtf32, ("operations at the 3xTF32 "
+                                             "tensor-core rate")
+                else:
+                    t_ops, note = t_f32, ("operations at the float32 "
+                                          "CUDA-core rate")
+                row["bound_ms"] = max(t_bytes, t_ops)
+                row["bound_by"] = "bytes" if t_bytes >= t_ops else \
+                    "operations"
+                row["bound_note"] = (f"bytes {t_bytes:.4f} ms vs {note} "
+                                     f"{t_ops:.4f} ms")
+                timed[kind] = dict(row)
+            emit("ssd_intra", **row)
+    return timed
 
 
 def phase_quickstart(dev, state_dir: str) -> dict:
@@ -733,7 +772,14 @@ def _lm_kernel(cfg, dtype) -> str:
     ``dtype`` runs in every layer."""
     if cfg.family == "dense":
         return "flash_attention_" + variant(dtype, cfg.head_dim)
-    return "ssd_intra"
+    return "ssd_intra_" + ssd_variant(cfg.ssm.chunk, cfg.ssm.head_dim,
+                                      cfg.ssm.state_dim)
+
+
+# device kernel name (in the profiler's trace) of each launch counter
+DEVICE_KERNEL = {"flash_attention_tc": "flash_fwd_wgmma",
+                 "ssd_intra_tc": "ssd_intra_wgmma",
+                 "ssd_intra_simt": "ssd_intra_kernel"}
 
 
 def _lm_cpu_check(cfg, params, prompt, dev, depth=CPU_CHECK_DEPTH,
@@ -772,6 +818,41 @@ def _lm_cpu_check(cfg, params, prompt, dev, depth=CPU_CHECK_DEPTH,
     check(ok, f"cpu_check logits differ by {err} (|logit| up to {scale})")
     check(t_card == t_host or gap <= CPU_CHECK_TOL * max(1.0, scale),
           f"cpu_check greedy tokens {t_card} vs {t_host}, gap {gap}")
+    return row
+
+
+def _lm_ragged_check(cfg, dev, n_tokens: int = 61) -> dict:
+    """The family's smoke config (for the SSM family chunk 8, head width 16,
+    state 16: a shape only the CUDA-core SSD kernel takes) in float32 from
+    a seeded init: a prefill of a ragged prompt on the card (kernels) and
+    on the CPU (plain versions) must give the same last-token logits.  The
+    card's prefill launches are counted on their own."""
+    small = cfg.smoke()
+    plan = PlanConfig(param_dtype="float32", compute_dtype="float32")
+    cpu = torch.device("cpu")
+    params = api.init_params(small, torch.Generator().manual_seed(1), plan,
+                             cpu)
+    toks = np.random.default_rng(1).integers(
+        0, small.vocab_size, n_tokens).astype(np.int32)
+    ops.reset_launches()
+    card = _prefill_logits(small, plan, tree_map(lambda a: a.to(dev),
+                                                 params), toks, dev)
+    launches = ops.launches()
+    host = _prefill_logits(small, plan, params, toks, cpu)
+    err = float((card - host).abs().max())
+    row = {"model": small.name, "layers": small.num_layers,
+           "tokens": n_tokens, "dtype": "float32", "max_abs_err": err,
+           "max_abs_logit": float(host.abs().max()), "tol": CPU_CHECK_TOL,
+           "launches": launches}
+    if dev.type == "cuda":
+        kernel = _lm_kernel(small, torch.float32)
+        check(launches[kernel] == small.num_layers
+              and all(n == 0 for k, n in launches.items() if k != kernel),
+              f"ragged_check launches {launches}, want {kernel} = "
+              f"{small.num_layers}")
+    check(bool(torch.allclose(card, host, rtol=CPU_CHECK_TOL,
+                              atol=CPU_CHECK_TOL)),
+          f"ragged_check logits differ by {err}")
     return row
 
 
@@ -916,8 +997,7 @@ def phase_lm(dev, name: str, cfg=None, slots=LM_SLOTS, max_len=LM_MAX_LEN,
         toks = torch.zeros((slots,), dtype=torch.int32, device=dev)
         pos = torch.full((slots,), max_len - 2, dtype=torch.int32,
                          device=dev)
-        device_name = {"flash_attention_tc": "flash_fwd_wgmma",
-                       "ssd_intra": "ssd_intra_kernel"}[kernel]
+        device_name = DEVICE_KERNEL[kernel]
         row["profile"] = {
             "prefill_2048": _device_profile(
                 lambda: prefill(params, {"tokens": tok}), dev, device_name),
@@ -925,6 +1005,8 @@ def phase_lm(dev, name: str, cfg=None, slots=LM_SLOTS, max_len=LM_MAX_LEN,
                 lambda: decode(params, srv.cache, toks, pos), dev,
                 device_name)}
     row["cpu_check"] = _lm_cpu_check(cfg, params, reqs[0].prompt, dev)
+    if cfg.family == "ssm":
+        row["ragged_check"] = _lm_ragged_check(cfg, dev)
     row["decode_vs_prefill"] = _decode_vs_prefill(cfg, plan, params,
                                                   reqs[0], dev)
     emit(f"lm_{cfg.family}", **row)
@@ -938,17 +1020,21 @@ def _kernel_entry(name, source, replaces, launches, row) -> dict:
             "max_abs_err": row["max_abs_err"], "ms": row["ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row.get("library_ms"),
-            "call_ms": row["call_ms"]}
+            "call_ms": row["call_ms"],
+            **{key: row[key] for key in ("bound_note", "bound_bytes_ms",
+                                         "bound_ops_f32_ms") if key in row}}
 
 
 def kernels_line(haar_row: dict, knn_row: dict, flash_rows: dict,
-                 ssd_row: dict, analytic: dict, lm_dense: dict,
+                 ssd_rows: dict, analytic: dict, lm_dense: dict,
                  lm_ssm: dict) -> dict:
     """Launches of each kernel on its own path: Haar and kNN on the
     analytic, the tensor-core flash attention on dense LM serving
     (bfloat16), the CUDA-core one on the dense LM's float32 prefill
-    (``cpu_check``), SSD on SSM serving."""
+    (``cpu_check``), the tensor-core SSD on SSM serving, the CUDA-core one
+    on the SSM smoke config's ragged prefill (``ragged_check``)."""
     flash = "src/repro/kernels/flash_attention.py:73"
+    ssd = "src/repro/kernels/ssd_scan.py:45"
     return {"kernels": [
         _kernel_entry("haar", "haar.cu", "src/repro/kernels/haar.py:32",
                       analytic["launches"]["haar"], haar_row),
@@ -960,9 +1046,11 @@ def kernels_line(haar_row: dict, knn_row: dict, flash_rows: dict,
         _kernel_entry("flash_attention_simt", "flash_attention.cu", flash,
                       lm_dense["cpu_check"]["launches"]
                       ["flash_attention_simt"], flash_rows["simt"]),
-        _kernel_entry("ssd_intra", "ssd_scan.cu",
-                      "src/repro/kernels/ssd_scan.py:45",
-                      lm_ssm["launches"]["ssd_intra"], ssd_row),
+        _kernel_entry("ssd_intra_tc", "ssd_scan.cu", ssd,
+                      lm_ssm["launches"]["ssd_intra_tc"], ssd_rows["tc"]),
+        _kernel_entry("ssd_intra_simt", "ssd_scan.cu", ssd,
+                      lm_ssm["ragged_check"]["launches"]["ssd_intra_simt"],
+                      ssd_rows["simt"]),
     ]}
 
 
@@ -976,7 +1064,7 @@ def main() -> int:
     haar_row = phase_haar(dev)
     knn_row = phase_knn(dev)
     flash_rows = phase_flash(dev)
-    ssd_row = phase_ssd(dev)
+    ssd_rows = phase_ssd(dev)
     with tempfile.TemporaryDirectory(prefix="chip-smoke-") as state_dir:
         phase_quickstart(dev, state_dir)
     analytic = phase_analytic(dev)
@@ -984,7 +1072,7 @@ def main() -> int:
     lm_ssm = phase_lm(dev, "mamba2-370m")
     emit("total", seconds=time.perf_counter() - t0,
          host_behind=HOST_BEHIND)
-    print(json.dumps(kernels_line(haar_row, knn_row, flash_rows, ssd_row,
+    print(json.dumps(kernels_line(haar_row, knn_row, flash_rows, ssd_rows,
                                   analytic, lm_dense, lm_ssm)), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -2,7 +2,8 @@
 
 Each ``csrc/<name>.cu`` exposes a plain C interface and is compiled by
 ``nvcc`` for ``sm_90a`` into ``_build/lib<name>-<hash>.so`` (the hash is of
-the source, so an edited kernel rebuilds), then loaded with ``ctypes``.  The
+the source, every ``csrc/*.cuh`` header and the flags, so an edited kernel
+or header rebuilds), then loaded with ``ctypes``.  The
 build happens at the first launch, never at import: a machine without
 ``nvcc`` imports the package and runs the plain versions on CPU tensors.
 
@@ -48,8 +49,10 @@ def _nvcc() -> str:
 
 
 def _target(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(ARCH_FLAGS + NVCC_FLAGS).encode())
+    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        digest.update(header.name.encode() + b"\0" + header.read_bytes())
+    digest.update(" ".join(ARCH_FLAGS + NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:12]}.so"
 
 

@@ -4,8 +4,9 @@ A CPU tensor takes the plain PyTorch version; a CUDA tensor takes the CUDA
 kernel, which raises on what it does not accept.  There is no override and
 no fallback: a CUDA tensor never reaches a plain version.  Each kernel's
 wrapper counts its launches (``haar_cuda.launches``,
-``knn_scores_cuda.launches``; flash attention one count per variant,
-``flash_attention_cuda.launches_tc`` and ``.launches_simt``), so a run can
+``knn_scores_cuda.launches``; flash attention and SSD one count per
+variant, ``flash_attention_cuda.launches_tc`` and ``.launches_simt``,
+``ssd_intra_cuda.launches_tc`` and ``.launches_simt``), so a run can
 show that its main path went through the kernels.  ``flash_attention`` and
 ``ssd_intra`` carry the LM prefill path (``models.layers.attention_apply``,
 ``models.ssm.ssd_chunked``).
@@ -25,7 +26,8 @@ COUNTERS = {"haar": (haar_cuda, "launches"),
             "knn_scores": (knn_scores_cuda, "launches"),
             "flash_attention_tc": (flash_attention_cuda, "launches_tc"),
             "flash_attention_simt": (flash_attention_cuda, "launches_simt"),
-            "ssd_intra": (ssd_intra_cuda, "launches")}
+            "ssd_intra_tc": (ssd_intra_cuda, "launches_tc"),
+            "ssd_intra_simt": (ssd_intra_cuda, "launches_simt")}
 
 
 def _route(t: torch.Tensor, op: str) -> bool:
@@ -70,7 +72,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 def ssd_intra(x: torch.Tensor, da: torch.Tensor, B: torch.Tensor,
               C: torch.Tensor):
-    """Intra-chunk SSD over (b, Q, ...) chunks: (y, states, chunk_decay)."""
+    """Intra-chunk SSD over (b, Q, ...) chunks: (y, states, chunk_decay);
+    on the card the kernel that ``ssd_scan.variant`` names for the shape."""
     if _route(x, "ssd_intra"):
         return ssd_intra_cuda(x.contiguous(), da.contiguous(),
                               B.contiguous(), C.contiguous())

@@ -12,7 +12,8 @@ from repro_torch.kernels.haar import haar_cuda, haar_ref
 from repro_torch.kernels.flash_attention import (flash_attention_cuda,
                                                  flash_attention_ref, variant)
 from repro_torch.kernels.knn import knn_scores_cuda, knn_scores_ref
-from repro_torch.kernels.ssd_scan import ssd_intra_cuda, ssd_intra_ref
+from repro_torch.kernels.ssd_scan import (ssd_intra_cuda, ssd_intra_ref,
+                                          variant as ssd_variant)
 
 pytestmark = pytest.mark.gpu
 
@@ -263,20 +264,34 @@ def test_flash_variant_counters(cuda, dtype, d, kind):
     assert counts[f"flash_attention_{other}"] == 0
 
 
-@pytest.mark.parametrize("b,q,h,p,g,n", [
-    (16, 128, 32, 64, 1, 128),                 # the SSM prefill path
+_SSD_SHAPES = [
+    (16, 128, 32, 64, 1, 128),                 # the SSM prefill path (mamba2)
+    (4, 128, 8, 64, 1, 64),                    # zamba2's p and n
+    (2, 128, 8, 64, 2, 32),
     (3, 40, 6, 17, 2, 9),
     (5, 77, 4, 33, 2, 31),
     (2, 1, 2, 5, 1, 3),
-])
-def test_ssd_kernel_matches_plain(cuda, b, q, h, p, g, n):
+]
+
+
+def _ssd_inputs(cuda, b, q, h, p, g, n):
     gen = torch.Generator(device=cuda).manual_seed(q)
     x = torch.randn((b, q, h, p), generator=gen, device=cuda)
     da = -torch.nn.functional.softplus(
         torch.randn((b, q, h), generator=gen, device=cuda))
     B = torch.randn((b, q, g, n), generator=gen, device=cuda)
     C = torch.randn((b, q, g, n), generator=gen, device=cuda)
-    got = ssd_intra_cuda(x, da, B, C)
+    return x, da, B, C
+
+
+# every shape on the CUDA-core kernel, and on the tensor-core kernel where
+# variant() names it
+@pytest.mark.parametrize("kind,b,q,h,p,g,n", [
+    (kind, *shape) for shape in _SSD_SHAPES for kind in ("tc", "simt")
+    if kind == "simt" or ssd_variant(shape[1], shape[3], shape[5]) == "tc"])
+def test_ssd_kernel_matches_plain(cuda, kind, b, q, h, p, g, n):
+    x, da, B, C = _ssd_inputs(cuda, b, q, h, p, g, n)
+    got = ssd_intra_cuda(x, da, B, C, kind=kind)
     want = ssd_intra_ref(*(t.double() for t in (x, da, B, C)))
     # against float64, at tolerances scaled to the output (chip_smoke.SSD_TOL)
     for a, w, (rtol, atol, scaled) in zip(got, want, [
@@ -285,6 +300,20 @@ def test_ssd_kernel_matches_plain(cuda, b, q, h, p, g, n):
         if scaled:
             atol *= float(w.abs().max())
         torch.testing.assert_close(a.double(), w, rtol=rtol, atol=atol)
+
+
+@pytest.mark.parametrize("shape", _SSD_SHAPES)
+def test_ssd_variant_counters(cuda, shape):
+    """ops.ssd_intra launches exactly the kernel that variant() names for
+    the shape, once."""
+    b, q, h, p, g, n = shape
+    kind = ssd_variant(q, p, n)
+    ops.reset_launches()
+    ops.ssd_intra(*_ssd_inputs(cuda, b, q, h, p, g, n))
+    other = "simt" if kind == "tc" else "tc"
+    counts = ops.launches()
+    assert counts[f"ssd_intra_{kind}"] == 1
+    assert counts[f"ssd_intra_{other}"] == 0
 
 
 def test_lm_kernels_refuse_what_they_do_not_take(cuda):
@@ -334,6 +363,8 @@ def test_smoke_batch_server_on_cuda_launches_the_kernels(cuda, name):
         # the variant that the config's dtype and head width select
         kernel = "flash_attention_" + variant(torch.float32, cfg.head_dim)
     else:
-        kernel = "ssd_intra"
+        ssm = cfg.ssm
+        kernel = "ssd_intra_" + ssd_variant(ssm.chunk, ssm.head_dim,
+                                            ssm.state_dim)
     assert launches[kernel] == cfg.num_layers * 3
     assert all(n == 0 for name, n in launches.items() if name != kernel)

@@ -125,7 +125,8 @@ def test_ops_take_the_plain_version_for_cpu_tensors(monkeypatch):
     assert idx.dtype == torch.int32
     assert tops.launches() == {"haar": 0, "knn_scores": 0,
                                "flash_attention_tc": 0,
-                               "flash_attention_simt": 0, "ssd_intra": 0}
+                               "flash_attention_simt": 0, "ssd_intra_tc": 0,
+                               "ssd_intra_simt": 0}
 
 
 def test_ops_refuse_other_devices():
@@ -156,3 +157,26 @@ def test_connect_without_a_card_raises(monkeypatch):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         patients_table(4)
     assert connect(device="cpu").bigdawg.device == torch.device("cpu")
+
+
+def test_build_target_follows_every_header(tmp_path, monkeypatch):
+    """A library's name hashes its source and every csrc/*.cuh header: an
+    edited or added header gives each kernel a new library (no stale .so),
+    and another kernel's source does not."""
+    import shutil
+    from repro_torch.kernels import _build
+    for pattern in ("*.cu", "*.cuh"):
+        for src in _build.CSRC.glob(pattern):
+            shutil.copy(src, tmp_path / src.name)
+    monkeypatch.setattr(_build, "CSRC", tmp_path)
+    before = {name: _build._target(name) for name in ("ssd_scan",
+                                                      "flash_attention")}
+    with open(tmp_path / "haar.cu", "a") as f:
+        f.write("// another kernel's edit\n")
+    assert {name: _build._target(name) for name in before} == before
+    with open(tmp_path / "hopper.cuh", "a") as f:
+        f.write("// an edited helper\n")
+    edited = {name: _build._target(name) for name in before}
+    assert all(edited[name] != before[name] for name in before)
+    (tmp_path / "extra.cuh").write_text("#pragma once\n")
+    assert all(_build._target(name) != edited[name] for name in before)

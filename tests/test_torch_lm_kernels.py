@@ -234,7 +234,8 @@ def test_lm_ops_take_the_plain_version_for_cpu_tensors(monkeypatch):
         torch.testing.assert_close(got, want, rtol=0, atol=0)
     assert tops.launches() == {"haar": 0, "knn_scores": 0,
                                "flash_attention_tc": 0,
-                               "flash_attention_simt": 0, "ssd_intra": 0}
+                               "flash_attention_simt": 0, "ssd_intra_tc": 0,
+                               "ssd_intra_simt": 0}
 
 
 def test_lm_ops_refuse_other_devices():
@@ -263,3 +264,63 @@ def test_lm_launchers_check_before_building():
     # 512 rows at n 128 does not
     assert tssd.smem_bytes(128, 64, 128) == 133632
     assert tssd.smem_bytes(512, 64, 128) > tssd.SMEM_LIMIT
+
+
+@pytest.mark.parametrize("q,p,n,kind", [
+    (128, 64, 128, "tc"),          # mamba2-370m
+    (128, 64, 64, "tc"),           # zamba2-7b
+    (128, 64, 32, "tc"),
+    (128, 8, 8, "tc"),
+    (40, 17, 9, "simt"),           # the ragged shapes of the card's tests
+    (77, 33, 31, "simt"),
+    (1, 5, 3, "simt"),
+    (8, 16, 16, "simt"),           # the smoke configs' chunk of 8
+    (128, 72, 128, "simt"),        # p past 64
+    (128, 64, 136, "simt"),        # n past 128
+    (128, 60, 128, "simt"),        # p not a multiple of 8
+    (256, 64, 128, "simt"),
+])
+def test_ssd_variant_picks_by_shape(q, p, n, kind):
+    assert tssd.variant(q, p, n) == kind
+
+
+@pytest.mark.parametrize("kind", [None, "tc", "simt"])
+def test_ssd_launcher_refuses_before_building(monkeypatch, kind):
+    """At a tensor-core shape, either kernel refuses bfloat16, a tensor that
+    is not contiguous and a tensor off the card before nvcc or ctypes is
+    touched; the tensor-core kernel is refused at a shape it does not
+    take."""
+    from repro_torch.kernels import _build
+
+    def boom(*a, **k):
+        raise AssertionError("the launcher reached the build")
+    monkeypatch.setattr(_build, "load", boom)
+    rng = np.random.default_rng(1)
+    b, q, h, p, g, n = 1, 128, 2, 64, 1, 128
+    x = torch.from_numpy(rng.normal(size=(b, q, h, p)).astype(np.float32))
+    da = torch.zeros((b, q, h))
+    B = torch.zeros((b, q, g, n))
+    before = tops.launches()
+    with pytest.raises(TypeError, match="float32"):
+        tssd.ssd_intra_cuda(x.bfloat16(), da, B, B, kind=kind)
+    with pytest.raises(ValueError, match="contiguous"):
+        tssd.ssd_intra_cuda(x.transpose(1, 2).contiguous().transpose(1, 2),
+                            da, B, B, kind=kind)
+    with pytest.raises(ValueError, match="CUDA"):
+        tssd.ssd_intra_cuda(x, da, B, B, kind=kind)
+    if kind == "tc":
+        x, B = torch.zeros((1, 40, 2, 17)), torch.zeros((1, 40, 1, 9))
+        with pytest.raises(ValueError, match="no 'tc' kernel"):
+            tssd.ssd_intra_cuda(x, torch.zeros((1, 40, 2)), B, B, kind=kind)
+    assert tops.launches() == before
+
+
+@pytest.mark.parametrize("n", [128, 64])
+def test_ssd_tc_shared_memory_fits(n):
+    """The tensor-core kernel's shared memory at the two configs' state
+    widths fits in a Hopper block; B's hi and lo tiles cover whole halves
+    of 64 columns (32 KB each)."""
+    assert tssd.tc_smem_bytes(n) <= tssd.SMEM_LIMIT
+    assert tssd.tc_smem_bytes(n) == tssd.tc_smem_bytes(n - 8)
+    assert tssd.tc_smem_bytes(n) - tssd.tc_smem_bytes(n - 64) \
+        == (2 * 2 * 128 * 128 if n == 128 else 0)
