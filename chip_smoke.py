@@ -10,12 +10,13 @@ Run on a machine with one CUDA card:  python3 chip_smoke.py
 
 Each phase prints one JSON line; any failure exits non-zero.  The line
 before the last lists every ported kernel with its launches on its path
-(Haar and kNN on the analytic, the tensor-core flash attention on the dense
-LM's bfloat16 serving, the CUDA-core one on its float32 prefill check, the
-tensor-core SSD on the SSM LM's serving, the CUDA-core one on the SSM smoke
-config's ragged prefill check), its error against the plain version, its
-time, the plain version's time, the bound and the yardstick library call's
-time.
+(Haar and kNN on the analytic, the bfloat16 tensor-core flash attention on
+the dense LM's bfloat16 serving, the float32 (3xTF32) one on its float32
+prefill check, the CUDA-core one on the dense smoke config's ragged prefill
+check, the tensor-core SSD on the SSM LM's serving, the CUDA-core one on
+the SSM smoke config's ragged prefill check), its error against the plain
+version, its time, the plain version's time, the bound and the yardstick
+library call's time.
 Times are device times: CUDA events around many back-to-back launches,
 divided by their count (``time_ms``); ``call_ms`` beside them is the old
 one-call figure, what the path pays per call with the host's work.  The
@@ -29,6 +30,7 @@ import dataclasses
 import json
 import math
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -52,7 +54,7 @@ from repro_torch.kernels import _build, ops  # noqa: E402
 from repro_torch.kernels.haar import haar_cuda, haar_ref  # noqa: E402
 from repro_torch.kernels.flash_attention import (  # noqa: E402
     TC_HEAD_DIMS, flash_attention_cuda, flash_attention_ref, tc_occupancy,
-    variant)
+    tf32_smem_bytes, variant)
 from repro_torch.kernels.knn import knn_scores_cuda, knn_scores_ref  # noqa: E402
 from repro_torch.kernels.ssd_scan import (  # noqa: E402
     ssd_intra_cuda, ssd_intra_ref, variant as ssd_variant)
@@ -61,13 +63,15 @@ from repro_torch.models import transformer as T  # noqa: E402
 from repro_torch.models.util import tree_leaves, tree_map  # noqa: E402
 from repro_torch.runtime import BatchServer, Request  # noqa: E402
 
-# H100 SXM published peaks (NVIDIA data sheet): HBM rate, float32 outside
-# the tensor cores, dense bfloat16 tensor cores.  Bounds use them with the
-# card's power limit printed beside (a lower limit runs slower under load).
+# H100 SXM published peaks (NVIDIA data sheet): HBM rate, and operations a
+# second of each kind of unit: float32 outside the tensor cores, dense
+# bfloat16 tensor cores, and float32 as 3xTF32 on the dense TF32 tensor
+# cores (495 TFLOP/s, three TF32 products per float32 one).  Bounds use them
+# with the card's power limit printed beside (a lower limit runs slower
+# under load).
 HBM_BYTES_PER_S = 3.35e12
-PEAK_OPS_PER_S = {torch.float32: 67e12, torch.bfloat16: 989e12}
-# dense TF32 tensor cores; 3xTF32 runs three TF32 products per float32 one
-TF32_OPS_PER_S = 495e12
+PEAK_OPS_PER_S = {"f32": 67e12, "bf16": 989e12, "3xtf32": 495e12 / 3}
+UNITS = {torch.float32: "f32", torch.bfloat16: "bf16"}
 
 LEVELS, NBINS, K = 6, 32, 11
 N_TRAIN, N_TEST, SAMPLES = 4096, 64, 16384
@@ -86,31 +90,58 @@ KNN_TOL = {torch.float32: (1e-4, 1e-3), torch.bfloat16: (2e-2, 0.3)}
 # L2 cache of the H100 (50 MB): inputs that the path reads cold are rotated
 # through copies that together exceed it twice
 L2_BYTES = 50e6
-# (BH, S, d, causal, dtype), the (BH, S, d) form; the first is the dense
-# prefill path's shape folded (internlm2: 16 heads of 128, a 2048-token
-# prompt), the second the CUDA-core variant's timed shape, the rest ragged
+# (BH, S, d, causal, dtype), the (BH, S, d) form; the first three are the
+# dense prefill's attention folded (internlm2: 16 heads of 128, a 2048-token
+# prompt) in bfloat16 and float32, and float32 at d 64, the rest ragged.
+# Every float32 shape that a tensor-core kernel takes is also checked on the
+# CUDA-core kernel.
 FLASH_SHAPES = [(16, 2048, 128, True, torch.bfloat16),
                 (16, 2048, 128, True, torch.float32),
+                (16, 2048, 64, True, torch.float32),
                 (4, 1, 64, True, torch.float32),
                 (4, 77, 80, True, torch.float32),
                 (2, 1000, 64, True, torch.float32),
                 (2, 1000, 80, False, torch.float32),
+                (3, 200, 128, False, torch.float32),
                 (3, 129, 17, True, torch.bfloat16)]
 # (B, S, H, KV, d, causal, dtype), the (B, S, H, d) form with the KV heads
-# read in place; the first is the dense prefill path's own shape (internlm2:
-# 16 query heads over 8 KV heads of 128)
+# read in place; first the paths' own shapes: internlm2's prefill (16 query
+# heads over 8 KV heads of 128) of 2048 tokens in bfloat16 (serving) and
+# float32 (the traced float32 prefill), of 256 in float32 (cpu_check), and
+# its smoke config's 61-token float32 prefill (ragged_check: head width 32)
 FLASH_GQA_SHAPES = [(1, 2048, 16, 8, 128, True, torch.bfloat16),
+                    (1, 2048, 16, 8, 128, True, torch.float32),
+                    (1, 256, 16, 8, 128, True, torch.float32),
+                    (1, 61, 4, 2, 32, True, torch.float32),
                     (2, 1000, 4, 1, 64, False, torch.bfloat16),
                     (1, 65, 8, 2, 80, True, torch.bfloat16),
-                    (2, 129, 6, 2, 128, True, torch.float32)]
+                    (2, 129, 6, 2, 128, True, torch.float32),
+                    (1, 333, 8, 2, 64, True, torch.float32)]
+# the (shape, kernel) pairs that phase_flash times, with their row's name:
+# each kernel at its path's shape ("tc", "tf32", "simt"), and the folded
+# forms at 2048 tokens, where the CUDA-core kernel, forced, is the float32
+# kernel's time before the 3xTF32 one took the shape
+FLASH_TIMED = {(FLASH_GQA_SHAPES[0], "tc"): "tc",
+               (FLASH_GQA_SHAPES[1], "tf32"): "tf32",
+               (FLASH_GQA_SHAPES[3], "simt"): "simt",
+               (FLASH_SHAPES[0], "tc"): "tc_folded",
+               (FLASH_SHAPES[1], "tf32"): "tf32_folded",
+               (FLASH_SHAPES[1], "simt"): "simt_folded",
+               (FLASH_SHAPES[2], "tf32"): "tf32_d64"}
 # (b, Q, h, p, g, n); the first is the SSM prefill path's shape (mamba2:
 # 16 chunks of 128 for a 2048-token prompt), then zamba2-7b's p and n at the
-# same length, a tensor-core shape with g = 2, and ragged shapes that only
-# the CUDA-core kernel takes.  Every shape runs on the CUDA-core kernel, and
-# on the tensor-core kernel where ssd_scan.variant names it.
+# same length, a tensor-core shape with g = 2, the SSM smoke config's
+# 61-token prefill (ragged_check: 8 chunks of 8), and ragged shapes that
+# only the CUDA-core kernel takes.  Every shape runs on the CUDA-core
+# kernel, and on the tensor-core kernel where ssd_scan.variant names it.
 SSD_SHAPES = [(16, 128, 32, 64, 1, 128), (16, 128, 32, 64, 1, 64),
-              (2, 128, 8, 64, 2, 32), (3, 40, 6, 17, 2, 9),
-              (5, 77, 4, 33, 2, 31)]
+              (2, 128, 8, 64, 2, 32), (8, 8, 16, 16, 1, 16),
+              (3, 40, 6, 17, 2, 9), (5, 77, 4, 33, 2, 31)]
+# the (shape, kernel) pairs that phase_ssd times: each kernel at its path's
+# shape, and the CUDA-core kernel, forced, at the tensor-core kernel's path
+# shape, its time before the tensor-core kernel took that path
+SSD_TIMED = {(SSD_SHAPES[0], "tc"): "tc", (SSD_SHAPES[3], "simt"): "simt",
+             (SSD_SHAPES[0], "simt"): "simt_before"}
 # the reference tests' tolerances: attention float32 1e-4, bfloat16 3e-2;
 # SSD y and states 2e-4, chunk decay 1e-5 relative / 1e-6 absolute
 FLASH_TOL = {torch.float32: 1e-4, torch.bfloat16: 3e-2}
@@ -219,13 +250,18 @@ def call_ms(fn, dev, iters: int = 20, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
-def bound_ms(nbytes: float, ops_count: float, dtype) -> tuple:
-    """(least milliseconds, what bounds it): bytes over the HBM rate vs
-    operations over the peak rate of ``dtype``."""
-    t_bytes = nbytes / HBM_BYTES_PER_S
-    t_ops = ops_count / PEAK_OPS_PER_S[dtype]
-    return (max(t_bytes, t_ops) * 1e3,
-            "bytes" if t_bytes >= t_ops else "operations")
+def bound_ms(nbytes: float, ops_count: float, units: str,
+             beside: tuple = ()) -> dict:
+    """The least milliseconds of a call and what bounds it: bytes over the
+    HBM rate vs operations at the peak rate of ``units`` (a key of
+    PEAK_OPS_PER_S); the bytes' time and the operations' time at ``units``
+    and at each of ``beside`` go with it."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = {u: ops_count / PEAK_OPS_PER_S[u] * 1e3 for u in (units, *beside)}
+    return {"bound_ms": max(t_bytes, t_ops[units]),
+            "bound_by": "bytes" if t_bytes >= t_ops[units] else "operations",
+            "bound_bytes_ms": t_bytes,
+            **{f"bound_ops_{u}_ms": t for u, t in t_ops.items()}}
 
 
 def max_abs_err(a: torch.Tensor, b: torch.Tensor) -> float:
@@ -259,7 +295,13 @@ def phase_device(dev) -> dict:
     serialized = [line for lines in ptxas.values() for line in lines
                   if "C75" in line]
     check(not serialized, f"ptxas serialized wgmma: {serialized}")
-    occupancy = {str(d): tc_occupancy(d) for d in TC_HEAD_DIMS}
+    occupancy = {kind: {str(d): tc_occupancy(d, kind) for d in TC_HEAD_DIMS}
+                 for kind in ("tc", "tf32")}
+    for d in TC_HEAD_DIMS:
+        got = occupancy["tf32"][str(d)]["smem_bytes"]
+        check(got == tf32_smem_bytes(d),
+              f"flash tf32 d {d}: {got} bytes of shared memory, the layout "
+              f"says {tf32_smem_bytes(d)}")
     info = {"card": card, "capability": list(cap),
             "torch": torch.__version__, "cuda": torch.version.cuda,
             "build_s": round(build_s, 3),
@@ -296,9 +338,8 @@ def phase_haar(dev, shapes=HAAR_SHAPES) -> dict:
                 row["plain_ms"] = time_ms(lambda i: haar_ref(x, levels), dev,
                                           label=f"{tag} plain")
                 row["call_ms"] = call_ms(lambda: haar_cuda(x, levels), dev)
-                b, by = bound_ms(2.0 * x.numel() * x.element_size(),
-                                 4.0 * x.numel(), dtype)
-                row["bound_ms"], row["bound_by"] = b, by
+                row.update(bound_ms(2.0 * x.numel() * x.element_size(),
+                                    4.0 * x.numel(), UNITS[dtype]))
                 if dtype == torch.float32:
                     main = dict(row)
             emit("haar", **row)
@@ -348,8 +389,7 @@ def phase_knn(dev, shapes=KNN_SHAPES, k: int = K) -> dict:
                                          dev)
                 del trains
                 nbytes = (n * v + b * v) * train.element_size() + b * n * 4
-                bnd, by = bound_ms(nbytes, 2.0 * b * n * v, dtype)
-                row["bound_ms"], row["bound_by"] = bnd, by
+                row.update(bound_ms(nbytes, 2.0 * b * n * v, UNITS[dtype]))
                 if (b, dtype) == (shapes[0][2], torch.float32):
                     main = dict(row)
             emit("knn", **row)
@@ -376,21 +416,39 @@ def _sdpa_layout(q, k, v):
               .contiguous() for t in (k, v)))
 
 
-def phase_flash(dev, shapes=FLASH_SHAPES, gqa_shapes=FLASH_GQA_SHAPES) -> dict:
-    """Both kernels against the plain version in both layouts.  Returns the
-    timed rows: "tc" at the dense path's own (B, S, H, d) shape, "tc_folded"
-    at its (BH, S, d) fold, "simt" at (16, 2048, 128) in float32."""
+def _kernel_names(fn, dev) -> list:
+    """Names of the device kernels that one call of ``fn`` (warmed up)
+    launches, from ``torch.profiler``; none off the card."""
+    if dev.type != "cuda":
+        return []
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    sync(dev)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        sync(dev)
+    return sorted({e.name for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA})
+
+
+# the units whose peak rate bounds each flash kernel's operations
+FLASH_UNITS = {"tc": "bf16", "tf32": "3xtf32", "simt": "f32"}
+
+
+def phase_flash(dev, shapes=FLASH_SHAPES, gqa_shapes=FLASH_GQA_SHAPES,
+                timed_at=FLASH_TIMED) -> dict:
+    """Every kernel against the plain version in both layouts: each shape on
+    the kernel that ``variant`` names, and each float32 shape that a
+    tensor-core kernel takes also on the CUDA-core kernel.  Returns the rows
+    that ``timed_at`` names, timed beside the plain version and SDPA."""
     gen = torch.Generator(device=dev).manual_seed(2)
-    # both forms as (form, B, S, H, KV, d, causal, dtype); (BH, S, d) is
-    # B 1 with H = KV = BH for the work it does
-    cases = ([("BH,S,d", 1, s, bh, bh, d, causal, dtype)
-              for bh, s, d, causal, dtype in shapes]
-             + [("B,S,H,d", *shape) for shape in gqa_shapes])
-    timed_at = {cases[0]: "tc_folded", cases[1]: "simt",
-                cases[len(shapes)]: "tc"}
+    # both forms as (shape as given, form, B, S, H, KV, d, causal, dtype);
+    # (BH, S, d) is B 1 with H = KV = BH for the work it does
+    cases = ([(shape, "BH,S,d", 1, shape[1], shape[0], shape[0], *shape[2:])
+              for shape in shapes]
+             + [(shape, "B,S,H,d", *shape) for shape in gqa_shapes])
     timed = {}
-    for case in cases:
-        form, b, s, h, kv, d, causal, dtype = case
+    for given, form, b, s, h, kv, d, causal, dtype in cases:
         rnd = lambda *shape: torch.randn(shape, generator=gen,
                                          device=dev).to(dtype)
         if form == "B,S,H,d":
@@ -399,47 +457,54 @@ def phase_flash(dev, shapes=FLASH_SHAPES, gqa_shapes=FLASH_GQA_SHAPES) -> dict:
         else:
             q, k, v = rnd(h, s, d), rnd(h, s, d), rnd(h, s, d)
             shape = {"BH": h, "S": s, "d": d}
-        label = f"flash {shape} causal={causal} {dtype}"
-        got = flash_attention_cuda(q, k, v, causal=causal)
         want = flash_attention_ref(q, k, v, causal=causal)
-        sync(dev)
-        err = max_abs_err(got, want)
-        tol = FLASH_TOL[dtype]
-        check(got.dtype == dtype and got.shape == q.shape,
-              f"{label}: {got.dtype} {tuple(got.shape)}")
-        check(torch.allclose(got.float(), want.float(), rtol=tol, atol=tol),
-              f"{label}: max err {err}")
-        row = {"form": form, "shape": shape, "causal": causal,
-               "dtype": str(dtype).replace("torch.", ""),
-               "variant": variant(dtype, d), "max_abs_err": err, "tol": tol}
-        if dtype == torch.bfloat16:
-            want32 = flash_attention_ref(q.float(), k.float(), v.float(),
-                                         causal=causal)
-            err32 = max_abs_err(got, want32)
-            check(err32 <= FLASH_BF16_VS_F32_TOL,
-                  f"{label} bfloat16 vs float32 plain: max err {err32}")
-            row["max_abs_err_vs_f32"] = err32
-            row["tol_vs_f32"] = FLASH_BF16_VS_F32_TOL
-        if case in timed_at:
-            tag = f"flash {timed_at[case]}"
-            ql, kl, vl = _sdpa_layout(q, k, v)
-            row["ms"] = time_ms(lambda i: flash_attention_cuda(
-                q, k, v, causal=causal), dev, label=tag)
-            row["plain_ms"] = time_ms(lambda i: flash_attention_ref(
-                q, k, v, causal=causal), dev, label=f"{tag} plain")
-            row["library_ms"] = time_ms(
-                lambda i: torch.nn.functional.scaled_dot_product_attention(
-                    ql, kl, vl, is_causal=causal), dev,
-                label=f"{tag} library")
-            row["call_ms"] = call_ms(lambda: flash_attention_cuda(
-                q, k, v, causal=causal), dev)
-            nbytes, ops_count = _flash_work(b, s, h, kv, d, causal,
-                                            q.element_size())
-            row["bound_ms"], row["bound_by"] = bound_ms(nbytes, ops_count,
-                                                        dtype)
-            del ql, kl, vl
-            timed[timed_at[case]] = dict(row)
-        emit("flash_attention", **row)
+        kinds = [variant(dtype, d)]
+        if dtype == torch.float32 and kinds[0] != "simt":
+            kinds.append("simt")
+        for kind in kinds:
+            label = f"flash {kind} {shape} causal={causal} {dtype}"
+            got = flash_attention_cuda(q, k, v, causal=causal, kind=kind)
+            sync(dev)
+            err = max_abs_err(got, want)
+            tol = FLASH_TOL[dtype]
+            check(got.dtype == dtype and got.shape == q.shape,
+                  f"{label}: {got.dtype} {tuple(got.shape)}")
+            check(torch.allclose(got.float(), want.float(), rtol=tol,
+                                 atol=tol), f"{label}: max err {err}")
+            row = {"form": form, "shape": shape, "causal": causal,
+                   "dtype": str(dtype).replace("torch.", ""),
+                   "variant": kind, "max_abs_err": err, "tol": tol}
+            if dtype == torch.bfloat16:
+                want32 = flash_attention_ref(q.float(), k.float(), v.float(),
+                                             causal=causal)
+                err32 = max_abs_err(got, want32)
+                check(err32 <= FLASH_BF16_VS_F32_TOL,
+                      f"{label} bfloat16 vs float32 plain: max err {err32}")
+                row["max_abs_err_vs_f32"] = err32
+                row["tol_vs_f32"] = FLASH_BF16_VS_F32_TOL
+            if (given, kind) in timed_at:
+                name = timed_at[given, kind]
+                tag = f"flash {name}"
+                ql, kl, vl = _sdpa_layout(q, k, v)
+                run = lambda i, kind=kind: flash_attention_cuda(
+                    q, k, v, causal=causal, kind=kind)
+                row["ms"] = time_ms(run, dev, label=tag)
+                row["plain_ms"] = time_ms(lambda i: flash_attention_ref(
+                    q, k, v, causal=causal), dev, label=f"{tag} plain")
+                library = lambda i=0: \
+                    torch.nn.functional.scaled_dot_product_attention(
+                        ql, kl, vl, is_causal=causal)
+                row["library_ms"] = time_ms(library, dev,
+                                            label=f"{tag} library")
+                row["library_kernels"] = _kernel_names(library, dev)
+                row["call_ms"] = call_ms(lambda: run(0), dev)
+                nbytes, ops_count = _flash_work(b, s, h, kv, d, causal,
+                                                q.element_size())
+                row.update(bound_ms(nbytes, ops_count, FLASH_UNITS[kind],
+                                    () if kind == "tc" else ("f32", "3xtf32")))
+                del ql, kl, vl
+                timed[name] = dict(row)
+            emit("flash_attention", **row)
     return timed
 
 
@@ -455,11 +520,9 @@ def _ssd_work(b, q, h, p, g, n) -> tuple:
     return nbytes, ops_count
 
 
-def phase_ssd(dev, shapes=SSD_SHAPES) -> dict:
+def phase_ssd(dev, shapes=SSD_SHAPES, timed_at=SSD_TIMED) -> dict:
     """Both kernels against the plain version in float64.  Returns the rows
-    timed at the path's shape (the first): "tc" (the path's kernel) and
-    "simt" (the CUDA-core kernel at the same shape, its time before the
-    tensor-core kernel took the path)."""
+    that ``timed_at`` names, timed beside the plain version."""
     gen = torch.Generator(device=dev).manual_seed(3)
     timed = {}
     for b, q, h, p, g, n in shapes:
@@ -498,36 +561,22 @@ def phase_ssd(dev, shapes=SSD_SHAPES) -> dict:
                    "plain_f32_max_abs_err_each": {
                        nm: max_abs_err(a, w)
                        for nm, a, w in zip(names, plain32, want)}}
-            if (b, q, h, p, g, n) == shapes[0]:
+            name = timed_at.get(((b, q, h, p, g, n), kind))
+            if name:
                 run = lambda i, kind=kind: ssd_intra_cuda(x, da, B, C,
                                                           kind=kind)
-                row["ms"] = time_ms(run, dev, label=f"ssd {kind}")
+                row["ms"] = time_ms(run, dev, label=f"ssd {name}")
                 row["plain_ms"] = time_ms(
                     lambda i: ssd_intra_ref(x, da, B, C), dev,
-                    label=f"ssd {kind} plain")
+                    label=f"ssd {name} plain")
                 row["call_ms"] = call_ms(lambda: run(0), dev)
                 row["library_ms"] = None          # no single PyTorch call
-                nbytes, ops_count = _ssd_work(b, q, h, p, g, n)
-                t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-                t_f32 = ops_count / PEAK_OPS_PER_S[torch.float32] * 1e3
-                t_3xtf32 = 3 * ops_count / TF32_OPS_PER_S * 1e3
-                row["bound_bytes_ms"] = t_bytes
-                row["bound_ops_f32_ms"] = t_f32
-                row["bound_ops_3xtf32_ms"] = t_3xtf32
-                if kind == "tc":
-                    # 3xTF32 on the tensor cores takes the operations below
-                    # the bytes: the bound is the bytes
-                    t_ops, note = t_3xtf32, ("operations at the 3xTF32 "
-                                             "tensor-core rate")
-                else:
-                    t_ops, note = t_f32, ("operations at the float32 "
-                                          "CUDA-core rate")
-                row["bound_ms"] = max(t_bytes, t_ops)
-                row["bound_by"] = "bytes" if t_bytes >= t_ops else \
-                    "operations"
-                row["bound_note"] = (f"bytes {t_bytes:.4f} ms vs {note} "
-                                     f"{t_ops:.4f} ms")
-                timed[kind] = dict(row)
+                # 3xTF32 on the tensor cores takes the operations below the
+                # bytes: the tensor-core kernel's bound is the bytes
+                units = "3xtf32" if kind == "tc" else "f32"
+                row.update(bound_ms(*_ssd_work(b, q, h, p, g, n), units,
+                                    ("f32", "3xtf32")))
+                timed[name] = dict(row)
             emit("ssd_intra", **row)
     return timed
 
@@ -778,8 +827,20 @@ def _lm_kernel(cfg, dtype) -> str:
 
 # device kernel name (in the profiler's trace) of each launch counter
 DEVICE_KERNEL = {"flash_attention_tc": "flash_fwd_wgmma",
+                 "flash_attention_tf32": "flash_fwd_wgmma_tf32",
+                 "flash_attention_simt": "flash_fwd_simt",
                  "ssd_intra_tc": "ssd_intra_wgmma",
                  "ssd_intra_simt": "ssd_intra_kernel"}
+
+
+def _f32_cut(cfg, params, depth=CPU_CHECK_DEPTH):
+    """The first ``depth`` layers of the served parameters in float32, with
+    the cut config and its float32 plan."""
+    cut = dataclasses.replace(cfg, num_layers=depth)
+    plan = PlanConfig(param_dtype="float32", compute_dtype="float32")
+    small = dict(params, blocks=tree_map(lambda a: a[:depth],
+                                         params["blocks"]))
+    return cut, plan, tree_map(lambda a: a.float(), small)
 
 
 def _lm_cpu_check(cfg, params, prompt, dev, depth=CPU_CHECK_DEPTH,
@@ -788,11 +849,7 @@ def _lm_cpu_check(cfg, params, prompt, dev, depth=CPU_CHECK_DEPTH,
     of the prompt's first tokens on the card (kernels) and on the CPU
     (plain versions) must give the same last-token logits and greedy
     token.  The card's prefill launches are counted on their own."""
-    cut = dataclasses.replace(cfg, num_layers=depth)
-    plan = PlanConfig(param_dtype="float32", compute_dtype="float32")
-    small = dict(params, blocks=tree_map(lambda a: a[:depth],
-                                         params["blocks"]))
-    small = tree_map(lambda a: a.float(), small)
+    cut, plan, small = _f32_cut(cfg, params, depth)
     toks = prompt[:n_tokens]
     ops.reset_launches()
     card = _prefill_logits(cut, plan, small, toks, dev)
@@ -810,7 +867,7 @@ def _lm_cpu_check(cfg, params, prompt, dev, depth=CPU_CHECK_DEPTH,
            "token_card": t_card, "token_cpu": t_host,
            "near_tie": t_card != t_host, "gap": gap, "launches": launches}
     if dev.type == "cuda":
-        # in float32 the dense model's prefill takes the CUDA-core kernel
+        # in float32 the dense model's prefill takes the 3xTF32 kernel
         kernel = _lm_kernel(cfg, torch.float32)
         check(launches[kernel] == depth
               and all(n == 0 for k, n in launches.items() if k != kernel),
@@ -822,11 +879,12 @@ def _lm_cpu_check(cfg, params, prompt, dev, depth=CPU_CHECK_DEPTH,
 
 
 def _lm_ragged_check(cfg, dev, n_tokens: int = 61) -> dict:
-    """The family's smoke config (for the SSM family chunk 8, head width 16,
-    state 16: a shape only the CUDA-core SSD kernel takes) in float32 from
-    a seeded init: a prefill of a ragged prompt on the card (kernels) and
-    on the CPU (plain versions) must give the same last-token logits.  The
-    card's prefill launches are counted on their own."""
+    """The family's smoke config in float32 from a seeded init (dense: head
+    width 32, a width only the CUDA-core flash kernel takes; SSM: chunk 8,
+    head width 16, state 16, a shape only the CUDA-core SSD kernel takes): a
+    prefill of a ragged prompt on the card (kernels) and on the CPU (plain
+    versions) must give the same last-token logits.  The card's prefill
+    launches are counted on their own."""
     small = cfg.smoke()
     plan = PlanConfig(param_dtype="float32", compute_dtype="float32")
     cpu = torch.device("cpu")
@@ -896,7 +954,9 @@ def _device_profile(fn, dev, kernel: str, top: int = 5) -> dict:
         end = max(end, b)
         by_name[name] = by_name.get(name, 0.0) + (b - a) / 1e3
     busy /= 1e3
-    mine = [b - a for a, b, name in spans if kernel in name]
+    # the whole name: flash_fwd_wgmma is not flash_fwd_wgmma_tf32
+    word = re.compile(rf"\b{re.escape(kernel)}\b")
+    mine = [b - a for a, b, name in spans if word.search(name)]
     return {"wall_ms": wall, "device_busy_ms": busy if spans else None,
             "busy_share": busy / wall if spans else None,
             "device_ops": len(spans), "kernel": kernel,
@@ -1004,9 +1064,16 @@ def phase_lm(dev, name: str, cfg=None, slots=LM_SLOTS, max_len=LM_MAX_LEN,
             "decode_step": _device_profile(
                 lambda: decode(params, srv.cache, toks, pos), dev,
                 device_name)}
+        if cfg.family == "dense":
+            # the float32 prefill (the 3xTF32 kernel) at cpu_check's depth
+            cut, plan32, small = _f32_cut(cfg, params)
+            prefill32 = api.make_prefill(cut, shape, plan32)
+            row["profile"]["prefill_2048_f32"] = _device_profile(
+                lambda: prefill32(small, {"tokens": tok}), dev,
+                DEVICE_KERNEL[_lm_kernel(cfg, torch.float32)])
+            del small
     row["cpu_check"] = _lm_cpu_check(cfg, params, reqs[0].prompt, dev)
-    if cfg.family == "ssm":
-        row["ragged_check"] = _lm_ragged_check(cfg, dev)
+    row["ragged_check"] = _lm_ragged_check(cfg, dev)
     row["decode_vs_prefill"] = _decode_vs_prefill(cfg, plan, params,
                                                   reqs[0], dev)
     emit(f"lm_{cfg.family}", **row)
@@ -1021,17 +1088,18 @@ def _kernel_entry(name, source, replaces, launches, row) -> dict:
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row.get("library_ms"),
             "call_ms": row["call_ms"],
-            **{key: row[key] for key in ("bound_note", "bound_bytes_ms",
-                                         "bound_ops_f32_ms") if key in row}}
+            **{key: val for key, val in row.items()
+               if key.startswith("bound_ops_") or key == "bound_bytes_ms"}}
 
 
 def kernels_line(haar_row: dict, knn_row: dict, flash_rows: dict,
                  ssd_rows: dict, analytic: dict, lm_dense: dict,
                  lm_ssm: dict) -> dict:
     """Launches of each kernel on its own path: Haar and kNN on the
-    analytic, the tensor-core flash attention on dense LM serving
-    (bfloat16), the CUDA-core one on the dense LM's float32 prefill
-    (``cpu_check``), the tensor-core SSD on SSM serving, the CUDA-core one
+    analytic, the bfloat16 tensor-core flash attention on dense LM serving,
+    the 3xTF32 one on the dense LM's float32 prefill (``cpu_check``), the
+    CUDA-core one on the dense smoke config's ragged prefill
+    (``ragged_check``), the tensor-core SSD on SSM serving, the CUDA-core one
     on the SSM smoke config's ragged prefill (``ragged_check``)."""
     flash = "src/repro/kernels/flash_attention.py:73"
     ssd = "src/repro/kernels/ssd_scan.py:45"
@@ -1043,8 +1111,11 @@ def kernels_line(haar_row: dict, knn_row: dict, flash_rows: dict,
         _kernel_entry("flash_attention_tc", "flash_attention.cu", flash,
                       lm_dense["launches"]["flash_attention_tc"],
                       flash_rows["tc"]),
-        _kernel_entry("flash_attention_simt", "flash_attention.cu", flash,
+        _kernel_entry("flash_attention_tf32", "flash_attention.cu", flash,
                       lm_dense["cpu_check"]["launches"]
+                      ["flash_attention_tf32"], flash_rows["tf32"]),
+        _kernel_entry("flash_attention_simt", "flash_attention.cu", flash,
+                      lm_dense["ragged_check"]["launches"]
                       ["flash_attention_simt"], flash_rows["simt"]),
         _kernel_entry("ssd_intra_tc", "ssd_scan.cu", ssd,
                       lm_ssm["launches"]["ssd_intra_tc"], ssd_rows["tc"]),

@@ -15,11 +15,12 @@
 // here, so any S >= 1 works (the TPU kernel needs S divisible by its block).
 //
 // What bounds it on the card: on the dense prefill path (16 heads, S up to
-// 2048, d 128, bfloat16) attention does 4·H·d·S(S+1)/2 operations on
-// 4·H·S·d·2 bytes, far above the ridge point: it is bound by the bfloat16
-// tensor-core rate.
+// 2048, d 128) attention does 4·H·d·S(S+1)/2 operations on 4·H·S·d bytes
+// of each of q, k, v and o, far above the ridge point: it is bound by the
+// tensor-core rate of its dtype (bfloat16; float32 as 3xTF32, three TF32
+// products at 495 TFLOP/s).
 //
-// Two variants, chosen by the caller (kernels/flash_attention.py) by dtype
+// Three variants, chosen by the caller (kernels/flash_attention.py) by dtype
 // and head width:
 //
 // flash_fwd_wgmma: bfloat16 at d 64 and 128, on the tensor cores.  A block
@@ -50,16 +51,43 @@
 //   grid's slow axis runs from the last tile down), so the last wave is not
 //   made of the longest tiles.
 //
-// flash_fwd_simt: float32 at any d up to 256, and bfloat16 at the widths the
-//   tensor-core variant does not take, on the CUDA cores in float32 (tensor
-//   cores would compute a float32 product in TF32).  One block per (q-tile
-//   of 64 rows, head); four threads per query row, each owning d/4 of the
-//   row's columns, interleaved in float4 chunks so that the four threads of
-//   a row read neighbouring 16-byte words of a shared-memory K/V row.  Each
-//   K/V tile (32 keys, 16 at d > 128) is staged in shared memory as float32;
-//   scores of a tile stay in registers and the online softmax updates once
-//   per tile.  The head width is a template bound (64, 128 or 256); columns
-//   past d are zero.
+// flash_fwd_wgmma_tf32: float32 at d 64 and 128, on the tensor cores in
+//   3xTF32: TF32 keeps 10 mantissa bits and fails the float32 tolerance,
+//   so every operand is split into hi + lo (split_tf32, hopper.cuh) and each
+//   product is hi·hi + hi·lo + lo·hi into one float32 accumulator, three
+//   wgmma.m64nNk8.tf32 per k-step.  tf32 wgmma reads both operands K-major
+//   only, which fixes the layout: S = Q·Kᵀ reads Q and K as stored (d
+//   contiguous); O += P·V takes P from registers and needs Vᵀ (keys
+//   contiguous), which TMA cannot make from float32, so threads transpose
+//   V.  A block takes 64 query rows and 256 threads in two roles.  The
+//   consumer warpgroup keeps Q's hi in registers as the A fragments of S
+//   and Q's lo in shared memory; per tile of 64 keys it runs S (3·D/8
+//   wgmmas of N 64), the online softmax in registers (P stays float32, v's
+//   dtype), splits P into hi/lo A fragments and runs P·V (24 wgmmas).  The
+//   transform warpgroup, whose first thread issues the TMA copies into raw
+//   tiles, copies each K into hi and lo tiles and writes each V transposed
+//   into Vᵀ hi and lo tiles, its keys in the accumulator's order (key_at,
+//   hopper.cuh): the S accumulator gives a thread keys (2t, 2t + 1) of each
+//   group of 8 where tf32's A fragment wants K positions (t, t + 4), so P
+//   never moves between threads.  Shared memory binds the design (float32
+//   hi + lo take four times bfloat16's bytes: 224 KB at d 128): K and Vᵀ
+//   have one buffer each but mbarriers of their own, so the next K is
+//   written while P·V runs and the next Vᵀ while the next S runs, and the
+//   raw tiles let TMA bring the next tile while the current one computes.
+//   Tiles of 64 keys because with 32 the kernel was bound by the count of
+//   S's wgmmas (an m64n32k8 costs nearly an m64n64k8 on the H100), not by
+//   its bytes.  One block per SM; heaviest causal q-tiles first; element
+//   masks only on diagonal and ragged tiles.
+//
+// flash_fwd_simt: float32 and bfloat16 at the widths the tensor-core
+//   variants do not take (any d up to 256), on the CUDA cores in float32.
+//   One block per (q-tile of 64 rows, head); four threads per query row,
+//   each owning d/4 of the row's columns, interleaved in float4 chunks so
+//   that the four threads of a row read neighbouring 16-byte words of a
+//   shared-memory K/V row.  Each K/V tile (32 keys, 16 at d > 128) is staged
+//   in shared memory as float32; scores of a tile stay in registers and the
+//   online softmax updates once per tile.  The head width is a template
+//   bound (64, 128 or 256); columns past d are zero.
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -421,16 +449,17 @@ struct RowState {
   float m_a, m_b, l_a, l_b;
 };
 
-__device__ __forceinline__ void softmax_tile(float (&sc)[kBK / 2],
+template <int BK>
+__device__ __forceinline__ void softmax_tile(float (&sc)[BK / 2],
                                              RowState& st, float& al_a,
                                              float& al_b, int k0, int q0w,
                                              int row_a, int c2, int sk,
                                              float scale_log2, int causal) {
 #pragma unroll
-  for (int i = 0; i < kBK / 2; ++i) sc[i] *= scale_log2;
-  if ((causal && k0 + kBK - 1 > q0w) || k0 + kBK > sk) {
+  for (int i = 0; i < BK / 2; ++i) sc[i] *= scale_log2;
+  if ((causal && k0 + BK - 1 > q0w) || k0 + BK > sk) {
 #pragma unroll
-    for (int i = 0; i < kBK / 2; ++i) {
+    for (int i = 0; i < BK / 2; ++i) {
       const int kc = k0 + 8 * (i >> 2) + c2 + (i & 1);
       const int row = (i & 2) ? row_a + 8 : row_a;
       if (kc >= sk || (causal && kc > row)) sc[i] = kNegInf;
@@ -438,7 +467,7 @@ __device__ __forceinline__ void softmax_tile(float (&sc)[kBK / 2],
   }
   float mx_a = kNegInf, mx_b = kNegInf;
 #pragma unroll
-  for (int i = 0; i < kBK / 2; ++i) {
+  for (int i = 0; i < BK / 2; ++i) {
     if (i & 2) mx_b = fmaxf(mx_b, sc[i]);
     else mx_a = fmaxf(mx_a, sc[i]);
   }
@@ -454,7 +483,7 @@ __device__ __forceinline__ void softmax_tile(float (&sc)[kBK / 2],
   st.m_b = mn_b;
   float ps_a = 0.f, ps_b = 0.f;
 #pragma unroll
-  for (int i = 0; i < kBK / 2; ++i) {
+  for (int i = 0; i < BK / 2; ++i) {
     sc[i] = exp2f(sc[i] - ((i & 2) ? mn_b : mn_a));
     if (i & 2) ps_b += sc[i];
     else ps_a += sc[i];
@@ -583,8 +612,8 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap qmap,
       issue_qk<D>(sc, q_s, k_smem(0));
       wg_wait<0>();
       fence_regs(sc);
-      softmax_tile(sc, st, al_a, al_b, 0, q0w, row_a, c2, g.Sk, scale_log2,
-                   causal);
+      softmax_tile<kBK>(sc, st, al_a, al_b, 0, q0w, row_a, c2, g.Sk,
+                        scale_log2, causal);
       pack_p(sc, p);
     }
     // Tile t's P·V runs on the tensor cores while the softmax of tile t+1
@@ -605,8 +634,8 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap qmap,
       issue_pv<D>(acc, p, v_smem(t));
       wg_wait<1>();
       fence_regs(sc);
-      softmax_tile(sc, st, al_a, al_b, (t + 1) * kBK, q0w, row_a, c2, g.Sk,
-                   scale_log2, causal);
+      softmax_tile<kBK>(sc, st, al_a, al_b, (t + 1) * kBK, q0w, row_a, c2,
+                        g.Sk, scale_log2, causal);
       wg_wait<0>();
       fence_regs(acc);
       fence_regs(p);
@@ -654,28 +683,359 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap qmap,
 }
 
 // ---------------------------------------------------------------------------
-// Tensor-core variant: host side
+// Tensor-core variant in float32: 3xTF32 wgmma (flash_fwd_wgmma_tf32)
+// ---------------------------------------------------------------------------
+
+// D (64 x 64, float32) += A (64 x 8, tf32 in shared memory) * B (8 x 64,
+// tf32 in shared memory); both K-major with the 128-byte swizzle.
+__device__ __forceinline__ void wgmma_tf32_ss_n64(float (&d)[32], uint64_t da,
+                                                  uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, 1, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11,"
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31}, %32, %33, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db));
+}
+
+// Roles of the block's 256 threads: warps 0-3 the consumer warpgroup (64
+// query rows: the products and the softmax), warps 4-7 the transform
+// warpgroup (copies K into hi and lo tiles, transposes V into Vᵀ hi and
+// lo), whose first thread also issues the TMA copies.  One block per SM
+// (its shared memory), so every thread may keep up to 255 registers.
+constexpr int kF32Threads = 256;
+constexpr int kF32Rows = 64;
+constexpr int kF32BK = 64;                 // keys per tile
+
+// Shared memory of flash_fwd_wgmma_tf32 at head width D (64 or 128), from
+// a 1024-byte aligned base.  Every tile is made of [rows][32 floats] atoms
+// of 128-byte rows in the 128-byte swizzle.  In order: Q's lo (its hi lives
+// in the consumers' registers); K of one tile as hi and lo; Vᵀ of one tile
+// as hi and lo (rows = columns of d, K positions = keys in key_at order;
+// Q lands in Vᵀ's hi tiles, free until the first V); K and V of the next
+// tile as TMA lands them; eight mbarriers.  K and Vᵀ have one buffer each
+// but barriers of their own: the next K is written while P·V runs, the next
+// Vᵀ while the next S runs.  230,464 bytes at d 128, 115,776 at d 64.
+template <int D>
+struct F32Smem {
+  static constexpr int kQAtom = kF32Rows * 128;    // a [64][32] atom of Q
+  static constexpr int kQBytes = kF32Rows * D * 4;  // Q, or its lo
+  static constexpr int kTBytes = kF32BK * D * 4;    // one tile of K or V
+  static constexpr int kK = kQBytes;                // K hi, then K lo
+  static constexpr int kVt = kK + 2 * kTBytes;      // Vᵀ hi, then Vᵀ lo
+  static constexpr int kKRaw = kVt + 2 * kTBytes;
+  static constexpr int kVRaw = kKRaw + kTBytes;
+  static constexpr int kBarOff = kVRaw + kTBytes;
+  static constexpr int kBytes = kBarOff + 8 * 8;
+  static constexpr int kAlloc = kBytes + 1024;      // room to align
+  static_assert(kQBytes <= kTBytes, "Q does not fit in Vᵀ's hi tiles");
+  static_assert(kAlloc <= 232448, "more than a block's shared memory");
+};
+
+// The kernel's dynamic shared memory, addressed by offsets from this symbol
+// (so loads and stores compile to LDS and STS, not generic accesses).
+extern __shared__ __align__(16) uint8_t f32_smem[];
+
+template <typename T>
+__device__ __forceinline__ T& fsm(uint32_t off) {
+  return *reinterpret_cast<T*>(f32_smem + off);
+}
+
+// The 16-byte chunks [first, end) (step `step`) of a raw tile at `src`,
+// split: hi to `hi` (left in place when hi == src), lo to `lo`, at the
+// same offsets (the swizzle moves whole chunks, so a chunk's layout is the
+// same in every tile).
+__device__ __forceinline__ void split_copy(uint32_t src, uint32_t hi,
+                                           uint32_t lo, int first, int end,
+                                           int step) {
+  for (int u = first; u < end; u += step) {
+    const uint4 v = fsm<uint4>(src + 16 * u);
+    uint4 h, l;
+    split_tf32(__uint_as_float(v.x), h.x, l.x);
+    split_tf32(__uint_as_float(v.y), h.y, l.y);
+    split_tf32(__uint_as_float(v.z), h.z, l.z);
+    split_tf32(__uint_as_float(v.w), h.w, l.w);
+    if (hi != src) fsm<uint4>(hi + 16 * u) = h;
+    fsm<uint4>(lo + 16 * u) = l;
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(kF32Threads, 1)
+flash_fwd_wgmma_tf32(const __grid_constant__ CUtensorMap qmap,
+                     const __grid_constant__ CUtensorMap kmap,
+                     const __grid_constant__ CUtensorMap vmap,
+                     float* __restrict__ o, Geom g, float scale_log2,
+                     int causal) {
+  using L = F32Smem<D>;
+  constexpr int BK = kF32BK;
+  const uint32_t base = smem_u32(f32_smem);
+  const uint32_t pad = (1024 - (base & 1023)) & 1023;
+  const uint32_t qraw = pad + L::kVt;       // Q as TMA lands it
+  const uint32_t qbar = pad + L::kBarOff;   // Q has landed
+  const uint32_t qfree = qbar + 8;    // the consumers are done with it
+  const uint32_t kraw = qfree + 8;    // the next K has landed
+  const uint32_t vraw = kraw + 8;     // the next V has landed
+  const uint32_t kfull = vraw + 8;    // K's hi and lo tiles are written
+  const uint32_t vfull = kfull + 8;   // Vᵀ's hi and lo tiles are written
+  const uint32_t kempty = vfull + 8;  // S no longer reads K
+  const uint32_t vempty = kempty + 8; // P·V no longer reads Vᵀ
+  const auto bar = [&](uint32_t off) { return &fsm<uint64_t>(off); };
+
+  const int b = blockIdx.x / g.H;
+  const int h = blockIdx.x - b * g.H;
+  const int kvh = h / (g.H / g.KV);
+  // causal: the heaviest q-tiles (the last ones) are launched first
+  const int qt = causal ? (int)gridDim.y - 1 - (int)blockIdx.y
+                        : (int)blockIdx.y;
+  const int q0 = qt * kF32Rows;
+  const int last_row = min(q0 + kF32Rows, g.Sq) - 1;
+  const int k_tiles = (g.Sk + BK - 1) / BK;
+  const int n_tiles = causal ? min(k_tiles, last_row / BK + 1) : k_tiles;
+
+  if (threadIdx.x == 0) {
+    mbar_init(bar(qbar), 1);
+    mbar_init(bar(kraw), 1);
+    mbar_init(bar(vraw), 1);
+    mbar_init(bar(qfree), 4);    // the consumer warps
+    mbar_init(bar(kempty), 4);
+    mbar_init(bar(vempty), 4);
+    mbar_init(bar(kfull), 4);    // the transform warps
+    mbar_init(bar(vfull), 4);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  if (warp >= 4) {
+    // transform warpgroup.  Its first thread issues every TMA copy: Q, the
+    // first K and V at once, each next K (V) as soon as the current one
+    // has left its raw tile.
+    const int ptid = threadIdx.x - 128;
+    const auto load = [&](const CUtensorMap* map, uint32_t dst,
+                          uint32_t rb, int t) {
+      mbar_expect_tx(bar(rb), L::kTBytes);
+      for (int a = 0; a < D / 32; ++a)
+        tma_load(&fsm<uint8_t>(dst + a * BK * 128), map, bar(rb), 32 * a,
+                 kvh, t * BK, b);
+    };
+    const auto done = [&](uint32_t fullb) {
+      fence_proxy_async();
+      __syncwarp();
+      if (lane == 0) mbar_arrive(bar(fullb));
+      asm volatile("bar.sync 2, 128;\n" ::: "memory");  // the raw tile is read
+    };
+    if (ptid == 0) {
+      mbar_expect_tx(bar(qbar), L::kQBytes);
+      for (int a = 0; a < D / 32; ++a)
+        tma_load(&fsm<uint8_t>(qraw + a * L::kQAtom), &qmap, bar(qbar),
+                 32 * a, h, q0, b);
+      load(&kmap, pad + L::kKRaw, kraw, 0);
+      load(&vmap, pad + L::kVRaw, vraw, 0);
+    }
+    // V's transpose, 16 elements at a time: 4 keys (K positions 4j .. 4j +
+    // 3, keys key_at(4j + i)) by 4 columns, read as four 16-byte chunks of
+    // V's rows and written as four of Vᵀ's.  Lane l of a quarter warp takes
+    // j = l and column chunk 2 (l / 2) + x % 2 + 2 (x / 2 % 4) (mod 8), so
+    // that the reads and the writes of a quarter warp each fall on eight
+    // distinct 16-byte bank groups.
+    const int l = ptid & 7;
+    for (int t = 0; t < n_tiles; ++t) {
+      const int ph = t & 1;
+      mbar_wait(bar(kraw), ph);
+      mbar_wait(bar(kempty), ph ^ 1);          // S(t - 1) is done
+      split_copy(pad + L::kKRaw, pad + L::kK, pad + L::kK + L::kTBytes,
+                 ptid, L::kTBytes / 16, 128);
+      done(kfull);
+      if (ptid == 0 && t + 1 < n_tiles)
+        load(&kmap, pad + L::kKRaw, kraw, t + 1);
+
+      mbar_wait(bar(vraw), ph);
+      if (t == 0) mbar_wait(bar(qfree), 0);    // Q lies in Vᵀ's hi tiles
+      mbar_wait(bar(vempty), ph ^ 1);          // P·V(t - 1) is done
+#pragma unroll
+      for (int it = 0; it < BK * D / 2048; ++it) {
+        const int x = (ptid >> 3) + 16 * it;
+        const int cch = (2 * (l >> 1) + (x & 1) + 2 * ((x >> 1) & 3)) & 7;
+        const int catom = (x >> 3) % (D / 32);
+        const int katom = (x >> 3) / (D / 32);
+        const uint32_t vr = pad + L::kVRaw + catom * (BK * 128);
+        float4 r[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int key = 32 * katom + 8 * (l >> 1) + 2 * i + (l & 1);
+          r[i] = fsm<float4>(vr + key * 128 + (((cch ^ key) & 7) << 4));
+        }
+        const float col[4][4] = {{r[0].x, r[1].x, r[2].x, r[3].x},
+                                 {r[0].y, r[1].y, r[2].y, r[3].y},
+                                 {r[0].z, r[1].z, r[2].z, r[3].z},
+                                 {r[0].w, r[1].w, r[2].w, r[3].w}};
+        const uint32_t vt = pad + L::kVt + katom * (D * 128);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int c = 32 * catom + 4 * cch + e;
+          uint4 hi, lo;
+          split_tf32(col[e][0], hi.x, lo.x);
+          split_tf32(col[e][1], hi.y, lo.y);
+          split_tf32(col[e][2], hi.z, lo.z);
+          split_tf32(col[e][3], hi.w, lo.w);
+          const uint32_t off = vt + c * 128 + (((l ^ c) & 7) << 4);
+          fsm<uint4>(off) = hi;
+          fsm<uint4>(off + L::kTBytes) = lo;
+        }
+      }
+      done(vfull);
+      if (ptid == 0 && t + 1 < n_tiles)
+        load(&vmap, pad + L::kVRaw, vraw, t + 1);
+    }
+  } else {
+    // consumer warpgroup: query rows q0 .. q0 + 63
+    const int tid = threadIdx.x;
+    // accumulator layout of wgmma m64nN: this thread holds rows row_a and
+    // row_a + 8, columns 8 i + c2 and 8 i + c2 + 1 of every 8-column group
+    const int r0 = warp * 16 + (lane >> 2);
+    const int row_a = q0 + r0;
+    const int row_b = row_a + 8;
+    const int t4 = lane & 3;
+    const int c2 = 2 * t4;
+    const uint32_t q_lo = base + pad;
+    const uint32_t k_hi = base + pad + L::kK;
+    const uint32_t vt_hi = base + pad + L::kVt;
+
+    // Q's hi as the A fragments of S's D/8 k-steps (rows r0 and r0 + 8,
+    // columns 8 kk + t4 and + 4), its lo into the lo tiles
+    mbar_wait(bar(qbar), 0);
+    uint32_t qh[D / 2];
+#pragma unroll
+    for (int kk = 0; kk < D / 8; ++kk) {
+      const uint32_t at = qraw + (kk >> 2) * L::kQAtom;
+      const int col = 8 * (kk & 3) + t4;
+      qh[4 * kk] = fsm<uint32_t>(at + sw_off(r0, col)) & 0xffffe000u;
+      qh[4 * kk + 1] = fsm<uint32_t>(at + sw_off(r0 + 8, col)) & 0xffffe000u;
+      qh[4 * kk + 2] = fsm<uint32_t>(at + sw_off(r0, col + 4)) & 0xffffe000u;
+      qh[4 * kk + 3] =
+          fsm<uint32_t>(at + sw_off(r0 + 8, col + 4)) & 0xffffe000u;
+    }
+    split_copy(qraw, qraw, pad, tid, L::kQBytes / 16, 128);
+    fence_proxy_async();
+    __syncwarp();
+    if (lane == 0) mbar_arrive(bar(qfree));
+    asm volatile("bar.sync 1, 128;\n" ::: "memory");   // Q's lo is written
+
+    float acc[D / 2];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+    // running max (in log2 units) and this thread's part of the denominator
+    RowState st{kNegInf, kNegInf, 0.f, 0.f};
+    const auto release = [&](uint32_t emptyb) {
+      __syncwarp();
+      if (lane == 0) mbar_arrive(bar(emptyb));
+    };
+    for (int t = 0; t < n_tiles; ++t) {
+      // S = Q·Kᵀ: D/8 k-steps, three products each (Q hi from registers,
+      // Q lo from shared memory), one group
+      mbar_wait(bar(kfull), t & 1);
+      float sc[BK / 2];
+#pragma unroll
+      for (int i = 0; i < BK / 2; ++i) sc[i] = 0.f;
+      fence_regs(sc);
+      fence_regs(qh);
+      wg_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 8; ++kk) {
+        const uint32_t qo = (kk >> 2) * L::kQAtom + (kk & 3) * 32;
+        const uint32_t ko = (kk >> 2) * (BK * 128) + (kk & 3) * 32;
+        const uint64_t dql = sw128_desc(q_lo + qo, 16, 1024);
+        const uint64_t dkh = sw128_desc(k_hi + ko, 16, 1024);
+        const uint64_t dkl = sw128_desc(k_hi + L::kTBytes + ko, 16, 1024);
+        wgmma_tf32_n64(sc, qh + 4 * kk, dkh);
+        wgmma_tf32_n64(sc, qh + 4 * kk, dkl);
+        wgmma_tf32_ss_n64(sc, dql, dkh);
+      }
+      wg_commit();
+      wg_wait<0>();
+      fence_regs(sc);
+      fence_regs(qh);
+      release(kempty);
+      float al_a, al_b;
+      softmax_tile<BK>(sc, st, al_a, al_b, t * BK, q0, row_a, c2, g.Sk,
+                       scale_log2, causal);
+#pragma unroll
+      for (int i = 0; i < D / 2; ++i) acc[i] *= (i & 2) ? al_b : al_a;
+      // O += P·V: P in float32 (v's dtype) from the accumulator, split into
+      // hi and lo A fragments: K positions (t, t + 4) of each k-step hold
+      // the keys (2t, 2t + 1) that the accumulator gives this thread
+      uint32_t ph[BK / 2], pl[BK / 2];
+#pragma unroll
+      for (int kk = 0; kk < BK / 8; ++kk) {
+        split_tf32(sc[4 * kk], ph[4 * kk], pl[4 * kk]);              // (a, t)
+        split_tf32(sc[4 * kk + 2], ph[4 * kk + 1], pl[4 * kk + 1]);  // (b, t)
+        split_tf32(sc[4 * kk + 1], ph[4 * kk + 2], pl[4 * kk + 2]);  // (a, t+4)
+        split_tf32(sc[4 * kk + 3], ph[4 * kk + 3], pl[4 * kk + 3]);  // (b, t+4)
+      }
+      mbar_wait(bar(vfull), t & 1);
+      mma_batch<D, BK / 8>(acc, ph, pl, vt_hi, vt_hi + L::kTBytes, D * 128,
+                           0);
+      release(vempty);
+    }
+
+    float l_a = st.l_a, l_b = st.l_b;
+    l_a += __shfl_xor_sync(0xffffffffu, l_a, 1);
+    l_a += __shfl_xor_sync(0xffffffffu, l_a, 2);
+    l_b += __shfl_xor_sync(0xffffffffu, l_b, 1);
+    l_b += __shfl_xor_sync(0xffffffffu, l_b, 2);
+    const float den_a = fmaxf(l_a, 1e-30f);
+    const float den_b = fmaxf(l_b, 1e-30f);
+    float* ob = o + b * g.osb + h * g.osh;
+#pragma unroll
+    for (int i = 0; i < D / 8; ++i) {
+      const int col = 8 * i + c2;
+      if (row_a < g.Sq)
+        *reinterpret_cast<float2*>(ob + row_a * g.oss + col) =
+            make_float2(acc[4 * i] / den_a, acc[4 * i + 1] / den_a);
+      if (row_b < g.Sq)
+        *reinterpret_cast<float2*>(ob + row_b * g.oss + col) =
+            make_float2(acc[4 * i + 2] / den_b, acc[4 * i + 3] / den_b);
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// Tensor-core variants: host side
 // ---------------------------------------------------------------------------
 
 // Return code past the CUDA runtime's own and hopper.cuh's
 constexpr int kErrRegs = 10003;        // too few registers for setmaxnreg
 
-// A 4-D map over (batch, rows, heads, d) in bfloat16 with the given element
-// strides; boxes of [box_rows][64 columns], 128-byte swizzle, rows outside
-// the tensor read as zeros.
-int make_map(CUtensorMap* map, const void* base, int batch, int rows,
-             int heads, int d, long long sb, long long ss, long long sh,
-             int box_rows) {
+// A 4-D map over (batch, rows, heads, d) in bfloat16 or float32 with the
+// given element strides; boxes of [box_rows][128 bytes of columns] (64
+// bfloat16, 32 float32), 128-byte swizzle, rows outside the tensor read as
+// zeros.
+int make_map(CUtensorMap* map, const void* base, bool f32, int batch,
+             int rows, int heads, int d, long long sb, long long ss,
+             long long sh, int box_rows) {
   EncodeTiled enc = encoder();
   if (!enc) return kErrNoEncoder;
+  const int esize = f32 ? 4 : 2;
   cuuint64_t dims[4] = {(cuuint64_t)d, (cuuint64_t)heads, (cuuint64_t)rows,
                         (cuuint64_t)batch};
-  cuuint64_t strides[3] = {(cuuint64_t)sh * 2, (cuuint64_t)ss * 2,
-                           (cuuint64_t)sb * 2};
-  cuuint32_t box[4] = {64, 1, (cuuint32_t)box_rows, 1};
+  cuuint64_t strides[3] = {(cuuint64_t)(sh * esize), (cuuint64_t)(ss * esize),
+                           (cuuint64_t)(sb * esize)};
+  cuuint32_t box[4] = {(cuuint32_t)(128 / esize), 1, (cuuint32_t)box_rows, 1};
   cuuint32_t unit[4] = {1, 1, 1, 1};
-  CUresult r = enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
-                   const_cast<void*>(base), dims, strides, box, unit,
+  CUresult r = enc(map, f32 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
+                            : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+                   4, const_cast<void*>(base), dims, strides, box, unit,
                    CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
                    CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                    CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
@@ -702,9 +1062,11 @@ int launch_wgmma(const void* q, const void* k, const void* v, void* o,
   }
   if (setup) return setup;
   CUtensorMap qm, km, vm;
-  int rc = make_map(&qm, q, g.B, g.Sq, g.H, D, g.qsb, g.qss, g.qsh, 64);
-  if (!rc) rc = make_map(&km, k, g.B, g.Sk, g.KV, D, g.ksb, g.kss, g.ksh, kBK);
-  if (!rc) rc = make_map(&vm, v, g.B, g.Sk, g.KV, D, g.vsb, g.vss, g.vsh, kBK);
+  int rc = make_map(&qm, q, false, g.B, g.Sq, g.H, D, g.qsb, g.qss, g.qsh, 64);
+  if (!rc)
+    rc = make_map(&km, k, false, g.B, g.Sk, g.KV, D, g.ksb, g.kss, g.ksh, kBK);
+  if (!rc)
+    rc = make_map(&vm, v, false, g.B, g.Sk, g.KV, D, g.vsb, g.vss, g.vsh, kBK);
   if (rc) return rc;
   dim3 grid((unsigned)(g.B * g.H), (unsigned)((g.Sq + kTcBQ - 1) / kTcBQ));
   flash_fwd_wgmma<D><<<grid, kTcThreads, L::kAlloc, stream>>>(
@@ -714,48 +1076,96 @@ int launch_wgmma(const void* q, const void* k, const void* v, void* o,
 }
 
 template <int D>
-int tc_info(int* regs, int* smem, int* blocks) {
-  cudaFuncAttributes attr;
-  int rc = (int)cudaFuncGetAttributes(&attr, flash_fwd_wgmma<D>);
+int launch_wgmma_tf32(const void* q, const void* k, const void* v, void* o,
+                      const Geom& g, float scale, int causal,
+                      cudaStream_t stream) {
+  using L = F32Smem<D>;
+  static int setup = -1;     // once per process (one device)
+  if (setup < 0)
+    setup = (int)cudaFuncSetAttribute(
+        flash_fwd_wgmma_tf32<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        L::kAlloc);
+  if (setup) return setup;
+  CUtensorMap qm, km, vm;
+  int rc = make_map(&qm, q, true, g.B, g.Sq, g.H, D, g.qsb, g.qss, g.qsh,
+                    kF32Rows);
   if (!rc)
-    rc = (int)cudaFuncSetAttribute(flash_fwd_wgmma<D>,
-                                   cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                   TcSmem<D>::kAlloc);
+    rc = make_map(&km, k, true, g.B, g.Sk, g.KV, D, g.ksb, g.kss, g.ksh,
+                  kF32BK);
+  if (!rc)
+    rc = make_map(&vm, v, true, g.B, g.Sk, g.KV, D, g.vsb, g.vss, g.vsh,
+                  kF32BK);
+  if (rc) return rc;
+  dim3 grid((unsigned)(g.B * g.H),
+            (unsigned)((g.Sq + kF32Rows - 1) / kF32Rows));
+  flash_fwd_wgmma_tf32<D><<<grid, kF32Threads, L::kAlloc, stream>>>(
+      qm, km, vm, static_cast<float*>(o), g, scale * 1.4426950408889634f,
+      causal);
+  return (int)cudaGetLastError();
+}
+
+// Registers a thread, shared memory a block and blocks per SM of a kernel
+// launched with `threads` threads and `dyn` bytes of dynamic shared memory.
+template <typename K>
+int kernel_info(K kernel, int threads, int dyn, int* regs, int* smem,
+                int* blocks) {
+  cudaFuncAttributes attr;
+  int rc = (int)cudaFuncGetAttributes(&attr, kernel);
+  if (!rc)
+    rc = (int)cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, dyn);
   if (rc) return rc;
   *regs = attr.numRegs;
-  *smem = (int)attr.sharedSizeBytes + TcSmem<D>::kAlloc;
-  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      blocks, flash_fwd_wgmma<D>, kTcThreads, TcSmem<D>::kAlloc);
+  *smem = (int)attr.sharedSizeBytes + dyn;
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, kernel,
+                                                            threads, dyn);
 }
 
 }  // namespace
 
-// What a block of the tensor-core kernel at head width d (64 or 128) takes:
-// registers a thread at launch (before setmaxnreg), shared memory a block
-// (static and dynamic), and how many blocks fit on one SM of this device.
-extern "C" int flash_attention_tc_info(int d, int* regs, int* smem,
+// What a block of a tensor-core kernel at head width d (64 or 128) takes:
+// flash_fwd_wgmma (tf32 == 0) or flash_fwd_wgmma_tf32 (tf32 == 1).
+// Registers a thread at launch (before any setmaxnreg), shared memory a
+// block (static and dynamic), and how many blocks fit on one SM of this
+// device.
+extern "C" int flash_attention_tc_info(int d, int tf32, int* regs, int* smem,
                                        int* blocks) {
-  if (d == 64) return tc_info<64>(regs, smem, blocks);
-  if (d == 128) return tc_info<128>(regs, smem, blocks);
-  return (int)cudaErrorInvalidValue;
+  if (d != 64 && d != 128) return (int)cudaErrorInvalidValue;
+  if (tf32) {
+    if (d == 64)
+      return kernel_info(flash_fwd_wgmma_tf32<64>, kF32Threads,
+                         F32Smem<64>::kAlloc, regs, smem, blocks);
+    return kernel_info(flash_fwd_wgmma_tf32<128>, kF32Threads,
+                       F32Smem<128>::kAlloc, regs, smem, blocks);
+  }
+  if (d == 64)
+    return kernel_info(flash_fwd_wgmma<64>, kTcThreads, TcSmem<64>::kAlloc,
+                       regs, smem, blocks);
+  return kernel_info(flash_fwd_wgmma<128>, kTcThreads, TcSmem<128>::kAlloc,
+                     regs, smem, blocks);
 }
+
+// Kernels behind flash_attention_launch's `kind`
+constexpr int kKindSimt = 0;   // flash_fwd_simt: float32 or bfloat16, d <= 256
+constexpr int kKindTc = 1;     // flash_fwd_wgmma: bfloat16, d 64 or 128
+constexpr int kKindTf32 = 2;   // flash_fwd_wgmma_tf32: float32, d 64 or 128
 
 // q, o: (B, Sq, H, d); k, v: (B, Sk, KV, d); element strides of batch,
 // sequence and head for each (the last dimension is contiguous); one dtype
 // (float32 when is_bf16 == 0, else bfloat16).  1 <= d <= 256, Sk >= 1,
-// H % KV == 0, B·H <= 65535.  tensor_cores selects flash_fwd_wgmma, which
-// takes bfloat16 at d 64 or 128 with strides that are multiples of 8
-// elements and 16-byte aligned pointers; otherwise flash_fwd_simt.  scale
-// multiplies the float32 scores.  Launches on `stream`, does not
-// synchronise, and returns cudaGetLastError() after the launch (0 on
-// success), or one of the codes above.
+// H % KV == 0, B·H <= 65535.  kind selects the kernel (the constants
+// above); the two tensor-core kernels need strides that are multiples of 8
+// elements and 16-byte aligned pointers.  scale multiplies the float32
+// scores.  Launches on `stream`, does not synchronise, and returns
+// cudaGetLastError() after the launch (0 on success), or one of the codes
+// above.
 extern "C" int flash_attention_launch(
     const void* q, const void* k, const void* v, void* o, int B, int Sq,
     int Sk, int H, int KV, int d, long long qsb, long long qss,
     long long qsh, long long ksb, long long kss, long long ksh,
     long long vsb, long long vss, long long vsh, long long osb,
     long long oss, long long osh, float scale, int causal, int is_bf16,
-    int tensor_cores, void* stream) {
+    int kind, void* stream) {
   if (B < 0 || Sq < 0 || Sk < 1 || d < 1 || d > 256 || H < 1 || KV < 1 ||
       H % KV != 0 || (long long)B * H > 65535)
     return (int)cudaErrorInvalidValue;
@@ -763,11 +1173,18 @@ extern "C" int flash_attention_launch(
   const Geom g{B,   Sq,  Sk,  H,   KV,  d,   qsb, qss, qsh,
                ksb, kss, ksh, vsb, vss, vsh, osb, oss, osh};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (tensor_cores) {
-    if (!is_bf16 || (d != 64 && d != 128)) return (int)cudaErrorInvalidValue;
+  if (kind == kKindTc || kind == kKindTf32) {
+    if ((kind == kKindTc) != (is_bf16 != 0) || (d != 64 && d != 128))
+      return (int)cudaErrorInvalidValue;
+    if (kind == kKindTf32) {
+      if (d == 64)
+        return launch_wgmma_tf32<64>(q, k, v, o, g, scale, causal, s);
+      return launch_wgmma_tf32<128>(q, k, v, o, g, scale, causal, s);
+    }
     if (d == 64) return launch_wgmma<64>(q, k, v, o, g, scale, causal, s);
     return launch_wgmma<128>(q, k, v, o, g, scale, causal, s);
   }
+  if (kind != kKindSimt) return (int)cudaErrorInvalidValue;
   if (is_bf16)
     return dispatch_simt<__nv_bfloat16>(q, k, v, o, g, scale, causal, s);
   return dispatch_simt<float>(q, k, v, o, g, scale, causal, s);

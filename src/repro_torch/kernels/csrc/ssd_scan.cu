@@ -253,25 +253,6 @@ __host__ __device__ inline int tc_smem_bytes(int n) {
          32 + 1024;
 }
 
-// Byte offset of element (row, k), 0 <= k < 32, in a tile of 128-byte rows
-// under the 128-byte swizzle (16-byte chunk k/4 XOR row % 8), from a
-// 1024-byte aligned tile: the layout wgmma reads a K-major operand in.
-__device__ __forceinline__ uint32_t sw_off(int row, int k) {
-  return row * 128 + ((((k >> 2) ^ row) & 7) << 4) + ((k & 3) << 2);
-}
-
-// v = hi + lo for 3xTF32: hi is v with the 13 low mantissa bits cleared
-// (a tf32 value), lo = v - hi, exact in float32, of which the tensor cores
-// read the top 10 mantissa bits.  hi·hi + hi·lo + lo·hi then misses v's
-// product by about 2^-20 of it (lo·lo and lo's dropped bits), far inside
-// the float32 tolerance.  Two instructions: this split is the kernel's
-// most frequent operation, and sm_90 emulates cvt.rna.tf32.f32 in several.
-__device__ __forceinline__ void split_tf32(float v, uint32_t& hi,
-                                           uint32_t& lo) {
-  hi = __float_as_uint(v) & 0xffffe000u;
-  lo = __float_as_uint(v - __uint_as_float(hi));
-}
-
 // 2^x in one instruction (MUFU.EX2; results below 2^-126 flush to zero).
 __device__ __forceinline__ float ex2(float x) {
   float r;
@@ -283,107 +264,6 @@ __device__ __forceinline__ float ex2(float x) {
 // warpgroups may reach it from their own code paths.
 __device__ __forceinline__ void block_sync() {
   asm volatile("bar.sync 1, 256;\n" ::: "memory");
-}
-
-// D (64 x 64, float32) += A (64 x 8, tf32 in registers) * B (8 x 64,
-// tf32 in shared memory, K-major, 128-byte swizzle).
-__device__ __forceinline__ void wgmma_tf32_n64(float (&d)[32],
-                                               const uint32_t* a,
-                                               uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, 1, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
-      "{"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11,"
-      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23,"
-      "%24, %25, %26, %27, %28, %29, %30, %31}, "
-      "{%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db));
-}
-
-// D (64 x 128, float32) += A (64 x 8, tf32 in registers) * B (8 x 128,
-// tf32 in shared memory, K-major, 128-byte swizzle).
-__device__ __forceinline__ void wgmma_tf32_n128(float (&d)[64],
-                                               const uint32_t* a,
-                                               uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, 1, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 "
-      "{"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11,"
-      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23,"
-      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35,"
-      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59,"
-      "%60, %61, %62, %63}, "
-      "{%64, %65, %66, %67}, %68, p, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
-        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
-        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db));
-}
-
-template <int N>
-__device__ __forceinline__ void wgmma_tf32(float (&d)[N / 2],
-                                           const uint32_t* a, uint64_t db) {
-  if constexpr (N == 128) {
-    wgmma_tf32_n128(d, a, db);
-  } else {
-    wgmma_tf32_n64(d, a, db);
-  }
-}
-
-// One batch of kKB k-steps (one 32-column tile of K), issued as one wgmma
-// group and waited for: for k-step j the three products hi·hi, hi·lo,
-// lo·hi of A (registers ah/al[4 j .. 4 j + 3]) with the operand tile at
-// byte offset kt * tile + j * 32 of `hi` and `lo`.  No wgmma is issued
-// under a condition: ptxas serializes every wgmma of a kernel that has one
-// (C7520).
-template <int N>
-__device__ __forceinline__ void mma_batch(float (&d)[N / 2],
-                                          uint32_t (&ah)[4 * kKB],
-                                          uint32_t (&al)[4 * kKB],
-                                          uint32_t hi, uint32_t lo,
-                                          int tile, int kt) {
-  fence_regs(d);
-  fence_regs(ah);
-  fence_regs(al);
-  wg_fence();
-#pragma unroll
-  for (int j = 0; j < kKB; ++j) {
-    const uint32_t off = kt * tile + j * 32;
-    const uint64_t dh = sw128_desc(hi + off, 16, 1024);
-    const uint64_t dl = sw128_desc(lo + off, 16, 1024);
-    wgmma_tf32<N>(d, ah + 4 * j, dh);
-    wgmma_tf32<N>(d, ah + 4 * j, dl);
-    wgmma_tf32<N>(d, al + 4 * j, dh);
-  }
-  wg_commit();
-  wg_wait<0>();
-  fence_regs(d);
-  fence_regs(ah);
-  fence_regs(al);
 }
 
 // The tensor-core kernel's dynamic shared memory, addressed by byte offsets
@@ -415,17 +295,6 @@ struct TcBlock {
   uint32_t o_bhi, o_blo, o_xhi, o_xlo, o_stage, o_bar, o_cs, o_wk;
   uint32_t o_bbar, o_cbar;
 };
-
-// The key that K position kpos of the xᵀ tile holds.  Within each group of
-// eight, positions 0-3 hold the even keys and 4-7 the odd ones: the
-// accumulator of C·Bᵀ gives a thread the key pair (2t, 2t + 1) of each
-// group where tf32's A fragment wants K positions (t, t + 4), and a sum
-// over K does not depend on its order, so the tile takes the accumulator's
-// order and no value moves between threads.
-__device__ __forceinline__ int key_at(int kpos) {
-  const int e = kpos & 7;
-  return (kpos & ~7) | (e < 4 ? 2 * e : 2 * (e - 4) + 1);
-}
 
 // One thread: ask TMA for x of head hh, (128 keys) x (64 columns) in two
 // boxes of 32 columns with the 128-byte swizzle; columns past p land as
@@ -548,7 +417,7 @@ __device__ __forceinline__ void tc_warpgroup(const TcBlock& k) {
       split_tf32(sm<float>(tile + sw_off(r1, col + 4)), ah[4 * j + 3],
                  al[4 * j + 3]);
     }
-    mma_batch<KW>(gacc, ah, al, k.b_hi, k.b_lo, kBTile, kt);
+    mma_batch<KW, kKB>(gacc, ah, al, k.b_hi, k.b_lo, kBTile, kt);
   }
   block_sync();              // C's space becomes the xᵀ tiles
 
@@ -596,7 +465,7 @@ __device__ __forceinline__ void tc_warpgroup(const TcBlock& k) {
           split_tf32(m01, ah[4 * j + 2], al[4 * j + 2]);  // (r0, t + 4)
           split_tf32(m11, ah[4 * j + 3], al[4 * j + 3]);  // (r1, t + 4)
         }
-        mma_batch<64>(yacc, ah, al, k.x_hi, k.x_lo, kXTile, kb / kKB);
+        mma_batch<64, kKB>(yacc, ah, al, k.x_hi, k.x_lo, kXTile, kb / kKB);
       }
       float* y0 = k.y + (((size_t)k.c * kTcQ + r0) * k.h + hh) * k.p;
       float* y1 = k.y + (((size_t)k.c * kTcQ + r1) * k.h + hh) * k.p;
@@ -648,7 +517,7 @@ __device__ __forceinline__ void tc_warpgroup(const TcBlock& k) {
           split_tf32(bval(b11 + 1024 * kk) * w.y, ah[4 * j + 3],
                      al[4 * j + 3]);
         }
-        mma_batch<64>(sacc, ah, al, k.x_hi, k.x_lo, kXTile, kb / kKB);
+        mma_batch<64, kKB>(sacc, ah, al, k.x_hi, k.x_lo, kXTile, kb / kKB);
       }
       float* s0 = k.st + (((size_t)k.c * k.h + hh) * k.n + nn0) * k.p;
       float* s1 = k.st + (((size_t)k.c * k.h + hh) * k.n + nn1) * k.p;

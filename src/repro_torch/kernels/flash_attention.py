@@ -13,12 +13,15 @@ Two layouts, the same function:
 The kernels read either in place through element strides (the 3-D form is
 the 4-D one with one head), so a caller folds, expands and copies nothing.
 
-``flash_attention_cuda`` launches one of two kernels on CUDA tensors, chosen
-by ``variant`` from the dtype and head width alone: the tensor-core kernel
-(``wgmma``) for bfloat16 at ``TC_HEAD_DIMS``, the CUDA-core kernel for
-everything else (float32 stays off the tensor cores, which would compute it
-in TF32).  Each has its own launch counter, ``flash_attention_cuda.launches_tc``
-and ``.launches_simt``.  ``flash_attention_ref`` is the plain version, written
+``flash_attention_cuda`` launches one of three kernels on CUDA tensors,
+chosen by ``variant`` from the dtype and head width alone: at
+``TC_HEAD_DIMS`` the tensor-core kernels, ``wgmma`` in bfloat16 ("tc") and
+in 3xTF32 for float32 ("tf32": every operand split into two TF32 halves,
+three products each, so the result keeps float32's accuracy), and the
+CUDA-core kernel ("simt") for every other width.  ``kind=`` forces one (the
+CUDA-core kernel takes any shape).  Each has its own launch counter,
+``flash_attention_cuda.launches_tc``, ``.launches_tf32`` and
+``.launches_simt``.  ``flash_attention_ref`` is the plain version, written
 to the reference's oracle (``repro.kernels.ref.flash_attention_ref``): float32
 softmax over scores divided by sqrt(d), cast to q's dtype before the product
 with v.  The kernels compute the reference's TPU kernel instead (scores
@@ -35,13 +38,32 @@ import torch
 _DTYPES = (torch.float32, torch.bfloat16)
 MAX_HEAD_DIM = 256
 TC_HEAD_DIMS = (64, 128)
-MAX_HEADS = 65535          # B·H: the CUDA-core kernel's grid
+MAX_HEADS = 65535          # B·H: the kernels' grid
+SMEM_LIMIT = 232448        # bytes of shared memory a Hopper block may use
+_KIND_CODE = {"simt": 0, "tc": 1, "tf32": 2}   # flash_attention_launch's
 
 
 def variant(dtype: torch.dtype, d: int) -> str:
-    """Which kernel takes (dtype, head width): "tc" (tensor cores, wgmma)
-    or "simt" (CUDA cores)."""
-    return "tc" if dtype == torch.bfloat16 and d in TC_HEAD_DIMS else "simt"
+    """Which kernel takes (dtype, head width): "tc" (bfloat16 wgmma), "tf32"
+    (float32 3xTF32 wgmma), both at ``TC_HEAD_DIMS``, or "simt" (CUDA
+    cores)."""
+    if d not in TC_HEAD_DIMS:
+        return "simt"
+    return "tc" if dtype == torch.bfloat16 else "tf32"
+
+
+TF32_ROWS, TF32_KEYS = 64, 64   # query rows a block, keys a tile
+
+
+def tf32_smem_bytes(d: int) -> int:
+    """Shared memory one block of the float32 tensor-core kernel takes at
+    head width d (``F32Smem`` in ``csrc/flash_attention.cu``): Q's lo (64
+    rows), K and Vᵀ of one tile of 64 keys as hi and lo, the next K and V
+    as TMA lands them, eight mbarriers, and 1024 bytes to align the base."""
+    if d not in TC_HEAD_DIMS:
+        raise ValueError(f"the float32 tensor-core kernel takes d in "
+                         f"{TC_HEAD_DIMS}, not {d}")
+    return (TF32_ROWS * d * 4 + 6 * TF32_KEYS * d * 4) + 8 * 8 + 1024
 
 
 def _attend(q, k, v, causal):
@@ -92,24 +114,28 @@ def _lib():
     return lib
 
 
-def tc_occupancy(d: int) -> dict:
+def tc_occupancy(d: int, kind: str = "tc") -> dict:
     """Registers a thread (at launch, before ``setmaxnreg``), shared memory
-    a block and blocks per SM of the tensor-core kernel at head width d on
-    the current CUDA device."""
+    a block and blocks per SM of a tensor-core kernel ("tc" or "tf32") at
+    head width d on the current CUDA device."""
     import ctypes
+    if kind not in ("tc", "tf32"):
+        raise ValueError(f"no tensor-core kernel {kind!r}")
     fn = _lib().flash_attention_tc_info
-    fn.argtypes = [ctypes.c_int] + [ctypes.POINTER(ctypes.c_int)] * 3
+    fn.argtypes = [ctypes.c_int] * 2 + [ctypes.POINTER(ctypes.c_int)] * 3
     regs, smem, blocks = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
-    rc = fn(d, ctypes.byref(regs), ctypes.byref(smem), ctypes.byref(blocks))
+    rc = fn(d, int(kind == "tf32"), ctypes.byref(regs), ctypes.byref(smem),
+            ctypes.byref(blocks))
     if rc != 0:
         raise RuntimeError(f"flash_attention_tc_info failed: code {rc}")
     return {"registers": regs.value, "smem_bytes": smem.value,
             "blocks_per_sm": blocks.value}
 
 
-def _check(q, k, v):
-    """Raise on what neither kernel takes, layout first, then device and
-    dtype; returns the 4-D views and (B, Sq, Sk, H, KV, d)."""
+def _check(q, k, v, kind):
+    """Raise on what the kernel does not take, layout first, then dtype and
+    the kernel (``kind``, None for ``variant``), then device; returns the
+    4-D views, (B, Sq, Sk, H, KV, d) and the kernel's kind."""
     if q.ndim not in (3, 4) or k.ndim != q.ndim or v.ndim != q.ndim:
         raise ValueError(f"q, k and v must all be (BH, S, d) or "
                          f"(B, S, heads, d), got {q.ndim}-, {k.ndim}- and "
@@ -131,32 +157,43 @@ def _check(q, k, v):
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.stride(-1) != 1 and d > 1:
             raise ValueError(f"{name}'s last dimension must be contiguous")
-        if t.device.type != "cuda":
-            raise ValueError(f"flash_attention_cuda needs CUDA tensors, {name}"
-                             f" is on {t.device}")
         if t.dtype not in _DTYPES:
             raise TypeError(f"flash_attention_cuda takes float32 or bfloat16,"
                             f" {name} is {t.dtype}")
-        if t.device != q.device or t.dtype != q.dtype:
-            raise TypeError(f"{name} is {t.dtype} on {t.device}, q is "
-                            f"{q.dtype} on {q.device}")
-    return (q4, k4, v4), (B, sq, sk, H, KV, d)
+        if t.dtype != q.dtype:
+            raise TypeError(f"{name} is {t.dtype}, q is {q.dtype}")
+    fits = variant(q.dtype, d)
+    kind = fits if kind is None else kind
+    if kind not in ("simt", fits):
+        raise ValueError(f"no {kind!r} kernel for {q.dtype} at head width "
+                         f"{d} (variant: {fits!r})")
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if t.device.type != "cuda":
+            raise ValueError(f"flash_attention_cuda needs CUDA tensors, {name}"
+                             f" is on {t.device}")
+        if t.device != q.device:
+            raise ValueError(f"{name} is on {t.device}, q on {q.device}")
+    return (q4, k4, v4), (B, sq, sk, H, KV, d), kind
 
 
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                         *, causal: bool = True) -> torch.Tensor:
+                         *, causal: bool = True,
+                         kind: str | None = None) -> torch.Tensor:
     """Launch a kernel on q, k, v of one dtype (float32 or bfloat16) on one
     CUDA device, in either layout of the module docstring, with the last
-    dimension contiguous, 1 <= d <= 256.  The tensor-core kernel also needs
-    strides that are multiples of 8 elements and 16-byte aligned data.
-    Returns a new contiguous tensor in q's layout and dtype.  Raises on
-    anything else, and if the launch is refused."""
-    (q4, k4, v4), (B, sq, sk, H, KV, d) = _check(q, k, v)
-    kind = variant(q.dtype, d)
-    if kind == "tc":
+    dimension contiguous, 1 <= d <= 256.  ``kind`` is the kernel: None takes
+    ``variant(dtype, d)``; "simt" may be asked for at any shape (to compare
+    the kernels), "tc" and "tf32" only where ``variant`` names them.  The
+    tensor-core kernels also need strides that are multiples of 8 elements
+    and 16-byte aligned data.  Returns a new contiguous tensor in q's layout
+    and dtype.  Raises on anything else, and if the launch is refused;
+    layout, dtype and kernel are checked before the device, so a refusal
+    never builds a kernel."""
+    (q4, k4, v4), (B, sq, sk, H, KV, d), kind = _check(q, k, v, kind)
+    if kind != "simt":
         for name, t in (("q", q4), ("k", k4), ("v", v4)):
             if t.data_ptr() % 16 or any(st % 8 for st in t.stride()[:3]):
-                raise ValueError(f"the tensor-core kernel needs {name} "
+                raise ValueError(f"the tensor-core kernels need {name} "
                                  f"16-byte aligned with strides in multiples"
                                  f" of 8 elements, got {t.stride()}")
     out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
@@ -171,16 +208,16 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             B, sq, sk, H, KV, d,
             *q4.stride()[:3], *k4.stride()[:3], *v4.stride()[:3],
             *o4.stride()[:3], 1.0 / math.sqrt(d), int(causal),
-            int(q.dtype == torch.bfloat16), int(kind == "tc"), stream)
+            int(q.dtype == torch.bfloat16), _KIND_CODE[kind], stream)
     if rc != 0:
         raise RuntimeError(f"flash_attention {kind} kernel launch failed: "
                            f"code {rc}")
-    if kind == "tc":
-        flash_attention_cuda.launches_tc += 1
-    else:
-        flash_attention_cuda.launches_simt += 1
+    attr = f"launches_{kind}"
+    setattr(flash_attention_cuda, attr,
+            getattr(flash_attention_cuda, attr) + 1)
     return out
 
 
 flash_attention_cuda.launches_tc = 0
+flash_attention_cuda.launches_tf32 = 0
 flash_attention_cuda.launches_simt = 0

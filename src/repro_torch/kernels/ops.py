@@ -5,7 +5,8 @@ kernel, which raises on what it does not accept.  There is no override and
 no fallback: a CUDA tensor never reaches a plain version.  Each kernel's
 wrapper counts its launches (``haar_cuda.launches``,
 ``knn_scores_cuda.launches``; flash attention and SSD one count per
-variant, ``flash_attention_cuda.launches_tc`` and ``.launches_simt``,
+variant, ``flash_attention_cuda.launches_tc``, ``.launches_tf32`` and
+``.launches_simt``,
 ``ssd_intra_cuda.launches_tc`` and ``.launches_simt``), so a run can
 show that its main path went through the kernels.  ``flash_attention`` and
 ``ssd_intra`` carry the LM prefill path (``models.layers.attention_apply``,
@@ -25,6 +26,7 @@ from repro_torch.kernels.ssd_scan import ssd_intra_cuda, ssd_intra_ref
 COUNTERS = {"haar": (haar_cuda, "launches"),
             "knn_scores": (knn_scores_cuda, "launches"),
             "flash_attention_tc": (flash_attention_cuda, "launches_tc"),
+            "flash_attention_tf32": (flash_attention_cuda, "launches_tf32"),
             "flash_attention_simt": (flash_attention_cuda, "launches_simt"),
             "ssd_intra_tc": (ssd_intra_cuda, "launches_tc"),
             "ssd_intra_simt": (ssd_intra_cuda, "launches_simt")}

@@ -161,8 +161,11 @@ def test_every_engine_op_on_cuda_matches_cpu(cuda):
 
 @pytest.mark.parametrize("bh,s,d,causal,dtype", [
     (16, 2048, 128, True, torch.bfloat16),     # the dense prefill path
-    (16, 2048, 128, True, torch.float32),
+    (16, 2048, 128, True, torch.float32),      # its float32 prefill
+    (16, 2048, 64, True, torch.float32),
     (3, 1, 64, True, torch.float32),
+    (2, 77, 128, True, torch.float32),
+    (3, 200, 128, False, torch.float32),
     (3, 77, 80, True, torch.float32),
     (2, 1000, 64, True, torch.float32),
     (2, 333, 80, False, torch.float32),
@@ -171,7 +174,8 @@ def test_every_engine_op_on_cuda_matches_cpu(cuda):
 ])
 def test_flash_kernel_matches_plain(cuda, bh, s, d, causal, dtype):
     """Any length (ragged q and k tiles), any width up to 256; the
-    reference tests' tolerances."""
+    reference tests' tolerances.  Where a tensor-core kernel takes the
+    shape, the CUDA-core kernel (forced) is held to the same."""
     gen = torch.Generator(device=cuda).manual_seed(s)
     q, k, v = (torch.randn((bh, s, d), generator=gen, device=cuda).to(dtype)
                for _ in range(3))
@@ -184,6 +188,10 @@ def test_flash_kernel_matches_plain(cuda, bh, s, d, causal, dtype):
         want32 = flash_attention_ref(q.float(), k.float(), v.float(),
                                      causal=causal)
         assert float((got.float() - want32).abs().max()) <= 1.6e-2
+    if variant(dtype, d) != "simt":
+        simt = flash_attention_cuda(q, k, v, causal=causal, kind="simt")
+        torch.testing.assert_close(simt.float(), flash_attention_ref(
+            q, k, v, causal=causal).float(), rtol=tol, atol=tol)
 
 
 def _expand_fold(t, h):
@@ -205,6 +213,8 @@ def _expand_fold(t, h):
     (2, 129, 4, 2, 80, False, torch.float32),
     (1, 65, 4, 4, 128, True, torch.float32),
     (1, 63, 6, 2, 64, False, torch.float32),
+    (1, 333, 8, 2, 64, True, torch.float32),
+    (2, 130, 4, 2, 128, True, torch.float32),
 ])
 def test_flash_gqa_kernel_matches_plain(cuda, b, s, h, kv, d, causal, dtype):
     """The (B, S, H, d) form with KV heads read in place, against the plain
@@ -230,13 +240,14 @@ def test_flash_gqa_kernel_matches_plain(cuda, b, s, h, kv, d, causal, dtype):
         assert float((got.float() - want32).abs().max()) <= 1.6e-2
 
 
+@pytest.mark.parametrize("d", [128, 64])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_flash_kernel_reads_strided_inputs(cuda, dtype):
+def test_flash_kernel_reads_strided_inputs(cuda, dtype, d):
     """Non-contiguous q, k and v (heads-major storage, last dim contiguous)
     are read in place and give the contiguous inputs' result."""
     gen = torch.Generator(device=cuda).manual_seed(5)
-    q = torch.randn((2, 8, 200, 128), generator=gen, device=cuda).to(dtype)
-    k, v = (torch.randn((2, 2, 200, 128), generator=gen, device=cuda)
+    q = torch.randn((2, 8, 200, d), generator=gen, device=cuda).to(dtype)
+    k, v = (torch.randn((2, 2, 200, d), generator=gen, device=cuda)
             .to(dtype) for _ in range(2))
     q, k, v = (t.transpose(1, 2) for t in (q, k, v))
     assert not q.is_contiguous()
@@ -248,20 +259,22 @@ def test_flash_kernel_reads_strided_inputs(cuda, dtype):
 
 @pytest.mark.parametrize("dtype,d,kind", [(torch.bfloat16, 128, "tc"),
                                           (torch.bfloat16, 64, "tc"),
-                                          (torch.float32, 128, "simt"),
+                                          (torch.float32, 128, "tf32"),
+                                          (torch.float32, 64, "tf32"),
+                                          (torch.float32, 80, "simt"),
                                           (torch.bfloat16, 80, "simt")])
 def test_flash_variant_counters(cuda, dtype, d, kind):
-    """bfloat16 at d 64 and 128 launches only the tensor-core kernel, and
-    everything else only the CUDA-core kernel."""
+    """At d 64 and 128 bfloat16 launches only the bfloat16 tensor-core
+    kernel and float32 only the 3xTF32 one; every other width only the
+    CUDA-core kernel."""
     assert variant(dtype, d) == kind
     q = torch.randn((1, 70, 4, d), device=cuda).to(dtype)
     kv = torch.randn((1, 70, 2, d), device=cuda).to(dtype)
     ops.reset_launches()
     ops.flash_attention(q, kv, kv)
-    other = "simt" if kind == "tc" else "tc"
     counts = ops.launches()
-    assert counts[f"flash_attention_{kind}"] == 1
-    assert counts[f"flash_attention_{other}"] == 0
+    for other in ("tc", "tf32", "simt"):
+        assert counts[f"flash_attention_{other}"] == int(other == kind)
 
 
 _SSD_SHAPES = [

@@ -125,6 +125,7 @@ def test_ops_take_the_plain_version_for_cpu_tensors(monkeypatch):
     assert idx.dtype == torch.int32
     assert tops.launches() == {"haar": 0, "knn_scores": 0,
                                "flash_attention_tc": 0,
+                               "flash_attention_tf32": 0,
                                "flash_attention_simt": 0, "ssd_intra_tc": 0,
                                "ssd_intra_simt": 0}
 

@@ -157,8 +157,67 @@ def test_flash_launcher_refuses_before_building(monkeypatch):
         tflash.flash_attention_cuda(t, t[:, :, :4], t[:, :, :4])
     assert [tflash.variant(dt, d) for dt, d in [
         (torch.bfloat16, 64), (torch.bfloat16, 128), (torch.bfloat16, 80),
-        (torch.bfloat16, 256), (torch.float32, 128)]] == [
-            "tc", "tc", "simt", "simt", "simt"]
+        (torch.bfloat16, 256), (torch.float32, 128), (torch.float32, 64),
+        (torch.float32, 80)]] == [
+            "tc", "tc", "simt", "simt", "tf32", "tf32", "simt"]
+
+
+@pytest.mark.parametrize("kind,dtype,d", [
+    ("tf32", torch.float32, 80),       # a width only the CUDA cores take
+    ("tf32", torch.bfloat16, 128),     # bfloat16 goes to "tc"
+    ("tc", torch.float32, 64),         # float32 goes to "tf32"
+    ("wgmma", torch.float32, 128),     # no such kernel
+])
+def test_flash_forced_kind_refuses_before_building(monkeypatch, kind, dtype,
+                                                   d):
+    """A kernel forced with ``kind=`` at a dtype or width it does not take
+    is refused before nvcc or ctypes is touched, even for tensors on the
+    CPU, and no launch counter moves."""
+    from repro_torch.kernels import _build
+
+    def boom(*a, **k):
+        raise AssertionError("the launcher reached the build")
+    monkeypatch.setattr(_build, "load", boom)
+    q = torch.zeros((1, 70, 4, d), dtype=dtype)
+    kv = torch.zeros((1, 70, 2, d), dtype=dtype)
+    before = tops.launches()
+    with pytest.raises(ValueError, match=f"no '{kind}' kernel"):
+        tflash.flash_attention_cuda(q, kv, kv, kind=kind)
+    assert tops.launches() == before
+
+
+@pytest.mark.parametrize("d,total", [(64, 115776), (128, 230464)])
+def test_flash_tf32_shared_memory_fits(d, total):
+    """The float32 tensor-core kernel's layout fits in a Hopper block at
+    both widths, at the bytes that the built kernel reported on the H100
+    (``tc_occupancy(d, "tf32")``); a width it does not take has no
+    layout."""
+    assert tflash.tf32_smem_bytes(d) == total
+    assert total <= tflash.SMEM_LIMIT
+    with pytest.raises(ValueError, match="takes d in"):
+        tflash.tf32_smem_bytes(80)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_plain_f32_d64_ragged_matches_oracle_and_pallas(causal):
+    """The float32 tensor-core kernel's width (d 64) at a length that is
+    not a multiple of its 64-row and 64-key tiles: the plain version the
+    card's kernel is held against agrees with the oracle and the Pallas
+    kernel (which runs it in blocks of 8)."""
+    rng = np.random.default_rng(64)
+    q, k, v = (rng.normal(size=(2, 200, 64)).astype(np.float32)
+               for _ in range(3))
+    got = tref.flash_attention_ref(*map(torch.from_numpy, (q, k, v)),
+                                   causal=causal)
+    assert got.dtype == torch.float32 and got.shape == (2, 200, 64)
+    qj, kj, vj = map(jnp.asarray, (q, k, v))
+    want = jref.flash_attention_ref(qj, kj, vj, causal=causal)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-4,
+                               atol=1e-4)
+    pallas = flash_attention_pallas(qj, kj, vj, causal=causal, block_q=64,
+                                    block_k=64, interpret=True)
+    np.testing.assert_allclose(got.numpy(), np.asarray(pallas), rtol=1e-4,
+                               atol=1e-4)
 
 
 def _ssd_inputs(seed):
@@ -234,6 +293,7 @@ def test_lm_ops_take_the_plain_version_for_cpu_tensors(monkeypatch):
         torch.testing.assert_close(got, want, rtol=0, atol=0)
     assert tops.launches() == {"haar": 0, "knn_scores": 0,
                                "flash_attention_tc": 0,
+                               "flash_attention_tf32": 0,
                                "flash_attention_simt": 0, "ssd_intra_tc": 0,
                                "ssd_intra_simt": 0}
 
