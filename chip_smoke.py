@@ -12,9 +12,11 @@ Each phase prints one JSON line; any failure exits non-zero.  The line
 before the last lists every ported kernel with its launches on its path
 (Haar and kNN on the analytic, the bfloat16 tensor-core flash attention on
 the dense LM's bfloat16 serving, the float32 (3xTF32) one on its float32
-prefill check, the CUDA-core one on the dense smoke config's ragged prefill
-check, the tensor-core SSD on the SSM LM's serving, the CUDA-core one on
-the SSM smoke config's ragged prefill check), its error against the plain
+prefill check, the warp-level tensor-core one on the dense smoke config's
+ragged prefill check, the CUDA-core one on the flash phase's entry-point
+calls at widths that are not a multiple of 8, the tensor-core SSD on the
+SSM LM's serving, the CUDA-core one on the SSM smoke config's ragged
+prefill check), its error against the plain
 version, its time, the plain version's time, the bound and the yardstick
 library call's time.
 Times are device times: CUDA events around many back-to-back launches,
@@ -55,7 +57,8 @@ from repro_torch.kernels.haar import haar_cuda, haar_ref  # noqa: E402
 from repro_torch.kernels.flash_attention import (  # noqa: E402
     TC_HEAD_DIMS, flash_attention_cuda, flash_attention_ref, tc_occupancy,
     tf32_smem_bytes, variant)
-from repro_torch.kernels.knn import knn_scores_cuda, knn_scores_ref  # noqa: E402
+from repro_torch.kernels.knn import (  # noqa: E402
+    knn_scores_cuda, knn_scores_ref, variant as knn_variant)
 from repro_torch.kernels.ssd_scan import (  # noqa: E402
     ssd_intra_cuda, ssd_intra_ref, variant as ssd_variant)
 from repro_torch.models import api  # noqa: E402
@@ -80,7 +83,11 @@ ANALYTIC = (f"ARRAY(knn(tfidf(bin_hist(haar(waves, levels={LEVELS}), "
 QUICKSTART = ("ARRAY(matmul(RELATIONAL(select(A, column=value, lo=-0.5, "
               "hi=2.0)), B))")
 HAAR_SHAPES = [(4096, 16384, 6), (130, 256, 4), (3, 32, 1)]
-KNN_SHAPES = [(4096, 224, 1), (4096, 224, 64), (100, 48, 3)]
+# (N, V, B): the analytic's B 1 and a B 64 batch (both timed), then the two
+# kernels' boundary (B 8 the last of the matrix-vector kernel, B 9 the first
+# of the tensor-core one) at a ragged N and a V that is not a multiple of 8
+KNN_SHAPES = [(4096, 224, 1), (4096, 224, 64), (100, 48, 3), (1001, 227, 8),
+              (1001, 227, 9)]
 # kernel vs plain: Haar keeps the plain version's operation order, so it is
 # bitwise in float32; bfloat16 is held at the reference tests' tolerance.
 # knn sums in another order than the plain product: the reference tests'
@@ -93,8 +100,8 @@ L2_BYTES = 50e6
 # (BH, S, d, causal, dtype), the (BH, S, d) form; the first three are the
 # dense prefill's attention folded (internlm2: 16 heads of 128, a 2048-token
 # prompt) in bfloat16 and float32, and float32 at d 64, the rest ragged.
-# Every float32 shape that a tensor-core kernel takes is also checked on the
-# CUDA-core kernel.
+# Every float32 shape that a wgmma kernel takes, and every shape that the
+# warp-level kernel ("mma") takes, is also checked on the CUDA-core kernel.
 FLASH_SHAPES = [(16, 2048, 128, True, torch.bfloat16),
                 (16, 2048, 128, True, torch.float32),
                 (16, 2048, 64, True, torch.float32),
@@ -103,27 +110,45 @@ FLASH_SHAPES = [(16, 2048, 128, True, torch.bfloat16),
                 (2, 1000, 64, True, torch.float32),
                 (2, 1000, 80, False, torch.float32),
                 (3, 200, 128, False, torch.float32),
-                (3, 129, 17, True, torch.bfloat16)]
+                (3, 129, 17, True, torch.bfloat16),
+                (3, 150, 40, True, torch.bfloat16),
+                (3, 150, 40, False, torch.float32),
+                (2, 97, 256, True, torch.float32),
+                (2, 97, 256, False, torch.bfloat16)]
 # (B, S, H, KV, d, causal, dtype), the (B, S, H, d) form with the KV heads
 # read in place; first the paths' own shapes: internlm2's prefill (16 query
 # heads over 8 KV heads of 128) of 2048 tokens in bfloat16 (serving) and
 # float32 (the traced float32 prefill), of 256 in float32 (cpu_check), and
-# its smoke config's 61-token float32 prefill (ragged_check: head width 32)
+# its smoke config's 61-token float32 prefill (ragged_check: head width 32);
+# then zamba2-7b's attention (32 heads of 112, not on a path yet) at 2048
+# tokens in both dtypes, and ragged shapes
 FLASH_GQA_SHAPES = [(1, 2048, 16, 8, 128, True, torch.bfloat16),
                     (1, 2048, 16, 8, 128, True, torch.float32),
                     (1, 256, 16, 8, 128, True, torch.float32),
                     (1, 61, 4, 2, 32, True, torch.float32),
+                    (1, 2048, 32, 32, 112, True, torch.bfloat16),
+                    (1, 2048, 32, 32, 112, True, torch.float32),
                     (2, 1000, 4, 1, 64, False, torch.bfloat16),
                     (1, 65, 8, 2, 80, True, torch.bfloat16),
                     (2, 129, 6, 2, 128, True, torch.float32),
-                    (1, 333, 8, 2, 64, True, torch.float32)]
+                    (1, 333, 8, 2, 64, True, torch.float32),
+                    (1, 77, 8, 2, 40, True, torch.float32),
+                    (1, 130, 4, 2, 256, True, torch.bfloat16)]
 # the (shape, kernel) pairs that phase_flash times, with their row's name:
-# each kernel at its path's shape ("tc", "tf32", "simt"), and the folded
-# forms at 2048 tokens, where the CUDA-core kernel, forced, is the float32
-# kernel's time before the 3xTF32 one took the shape
+# each kernel at its path's shape ("tc", "tf32", "mma"); the CUDA-core
+# kernel, forced, at the warp-level kernel's path shape ("simt_before":
+# its time before "mma" took that path) and at zamba2's width, beside the
+# warp-level kernel there; and the folded forms at 2048 tokens, where the
+# CUDA-core kernel, forced, is the float32 kernel's time before the 3xTF32
+# one took the shape
 FLASH_TIMED = {(FLASH_GQA_SHAPES[0], "tc"): "tc",
                (FLASH_GQA_SHAPES[1], "tf32"): "tf32",
-               (FLASH_GQA_SHAPES[3], "simt"): "simt",
+               (FLASH_GQA_SHAPES[3], "mma"): "mma",
+               (FLASH_GQA_SHAPES[3], "simt"): "simt_before",
+               (FLASH_GQA_SHAPES[4], "mma"): "mma_d112_bf16",
+               (FLASH_GQA_SHAPES[4], "simt"): "simt_d112_bf16",
+               (FLASH_GQA_SHAPES[5], "mma"): "mma_d112_f32",
+               (FLASH_GQA_SHAPES[5], "simt"): "simt_d112_f32",
                (FLASH_SHAPES[0], "tc"): "tc_folded",
                (FLASH_SHAPES[1], "tf32"): "tf32_folded",
                (FLASH_SHAPES[1], "simt"): "simt_folded",
@@ -362,7 +387,7 @@ def phase_knn(dev, shapes=KNN_SHAPES, k: int = K) -> dict:
                   f"knn_scores {n}x{v} B{b} {dtype}: max err {err}")
             row = {"shape": {"N": n, "V": v, "B": b},
                    "dtype": str(dtype).replace("torch.", ""),
-                   "max_abs_err": err}
+                   "variant": knn_variant(b), "max_abs_err": err}
             if dtype == torch.float32:
                 kk = min(k, n)
                 idx_k = torch.topk(got, kk, dim=-1)[1]
@@ -389,7 +414,13 @@ def phase_knn(dev, shapes=KNN_SHAPES, k: int = K) -> dict:
                                          dev)
                 del trains
                 nbytes = (n * v + b * v) * train.element_size() + b * n * 4
-                row.update(bound_ms(nbytes, 2.0 * b * n * v, UNITS[dtype]))
+                # the tensor-core kernel does float32 as 3xTF32
+                units = UNITS[dtype]
+                if units == "f32" and knn_variant(b) == "tiled":
+                    units = "3xtf32"
+                row.update(bound_ms(nbytes, 2.0 * b * n * v, units,
+                                    ("f32", "3xtf32") if units != "bf16"
+                                    else ()))
                 if (b, dtype) == (shapes[0][2], torch.float32):
                     main = dict(row)
             emit("knn", **row)
@@ -431,16 +462,23 @@ def _kernel_names(fn, dev) -> list:
                    if e.device_type == torch.autograd.DeviceType.CUDA})
 
 
-# the units whose peak rate bounds each flash kernel's operations
-FLASH_UNITS = {"tc": "bf16", "tf32": "3xtf32", "simt": "f32"}
+def _flash_units(kind: str, dtype) -> str:
+    """The units whose peak rate bounds a flash kernel's operations: the
+    tensor cores in bfloat16 or as 3xTF32, or the CUDA cores in float32."""
+    if kind == "simt":
+        return "f32"
+    return "bf16" if dtype == torch.bfloat16 else "3xtf32"
 
 
 def phase_flash(dev, shapes=FLASH_SHAPES, gqa_shapes=FLASH_GQA_SHAPES,
                 timed_at=FLASH_TIMED) -> dict:
     """Every kernel against the plain version in both layouts: each shape on
-    the kernel that ``variant`` names, and each float32 shape that a
-    tensor-core kernel takes also on the CUDA-core kernel.  Returns the rows
-    that ``timed_at`` names, timed beside the plain version and SDPA."""
+    the kernel that ``variant`` names, through the entry point
+    (``ops.flash_attention``), and forced on the CUDA-core kernel where the
+    warp-level kernel takes the shape, or a wgmma kernel in float32.
+    Returns the rows that ``timed_at`` names, timed beside the plain version
+    and SDPA, and under "entry_launches" the launches of the entry-point
+    calls (the CUDA-core kernel's only caller on the card now)."""
     gen = torch.Generator(device=dev).manual_seed(2)
     # both forms as (shape as given, form, B, S, H, KV, d, causal, dtype);
     # (BH, S, d) is B 1 with H = KV = BH for the work it does
@@ -448,6 +486,7 @@ def phase_flash(dev, shapes=FLASH_SHAPES, gqa_shapes=FLASH_GQA_SHAPES,
               for shape in shapes]
              + [(shape, "B,S,H,d", *shape) for shape in gqa_shapes])
     timed = {}
+    entry = dict.fromkeys(ops.COUNTERS, 0)
     for given, form, b, s, h, kv, d, causal, dtype in cases:
         rnd = lambda *shape: torch.randn(shape, generator=gen,
                                          device=dev).to(dtype)
@@ -458,12 +497,19 @@ def phase_flash(dev, shapes=FLASH_SHAPES, gqa_shapes=FLASH_GQA_SHAPES,
             q, k, v = rnd(h, s, d), rnd(h, s, d), rnd(h, s, d)
             shape = {"BH": h, "S": s, "d": d}
         want = flash_attention_ref(q, k, v, causal=causal)
-        kinds = [variant(dtype, d)]
-        if dtype == torch.float32 and kinds[0] != "simt":
+        fits = variant(dtype, d)
+        kinds = [fits]
+        if fits == "mma" or (dtype == torch.float32 and fits != "simt"):
             kinds.append("simt")
         for kind in kinds:
             label = f"flash {kind} {shape} causal={causal} {dtype}"
-            got = flash_attention_cuda(q, k, v, causal=causal, kind=kind)
+            if kind == fits:
+                ops.reset_launches()
+                got = ops.flash_attention(q, k, v, causal=causal)
+                for key, n in ops.launches().items():
+                    entry[key] += n
+            else:
+                got = flash_attention_cuda(q, k, v, causal=causal, kind=kind)
             sync(dev)
             err = max_abs_err(got, want)
             tol = FLASH_TOL[dtype]
@@ -500,11 +546,19 @@ def phase_flash(dev, shapes=FLASH_SHAPES, gqa_shapes=FLASH_GQA_SHAPES,
                 row["call_ms"] = call_ms(lambda: run(0), dev)
                 nbytes, ops_count = _flash_work(b, s, h, kv, d, causal,
                                                 q.element_size())
-                row.update(bound_ms(nbytes, ops_count, FLASH_UNITS[kind],
-                                    () if kind == "tc" else ("f32", "3xtf32")))
+                units = _flash_units(kind, dtype)
+                row.update(bound_ms(nbytes, ops_count, units,
+                                    () if units == "bf16"
+                                    else ("f32", "3xtf32")))
                 del ql, kl, vl
                 timed[name] = dict(row)
             emit("flash_attention", **row)
+    emit("flash_attention_entry", launches=entry)
+    if dev.type == "cuda":
+        used = {variant(c[-1], c[-3]) for c in cases}
+        check(all(entry[f"flash_attention_{kind}"] > 0 for kind in used),
+              f"flash entry launches {entry}, want each of {sorted(used)}")
+    timed["entry_launches"] = entry
     return timed
 
 
@@ -709,7 +763,9 @@ def phase_analytic(dev, n_train=N_TRAIN, n_test=N_TEST, samples=SAMPLES,
     modes = [r.mode for r in results]
     check(modes[0] == "training", f"first query mode {modes[0]}")
     if dev.type == "cuda":
-        check(launches["haar"] > 0 and launches["knn_scores"] > 0,
+        # one test patient a query: the matrix-vector kNN kernel
+        check(launches["haar"] > 0 and launches["knn_scores"] > 0
+              and launches["knn_scores_gemv"] == launches["knn_scores"],
               f"main path did not launch both kernels: {launches}")
     prod = [sec for sec, m in zip(seconds, modes) if m == "production"]
     stage_ms = _stage_ms(dev, s.catalog["waves"].obj,
@@ -828,6 +884,7 @@ def _lm_kernel(cfg, dtype) -> str:
 # device kernel name (in the profiler's trace) of each launch counter
 DEVICE_KERNEL = {"flash_attention_tc": "flash_fwd_wgmma",
                  "flash_attention_tf32": "flash_fwd_wgmma_tf32",
+                 "flash_attention_mma": "flash_fwd_mma",
                  "flash_attention_simt": "flash_fwd_simt",
                  "ssd_intra_tc": "ssd_intra_wgmma",
                  "ssd_intra_simt": "ssd_intra_kernel"}
@@ -880,8 +937,8 @@ def _lm_cpu_check(cfg, params, prompt, dev, depth=CPU_CHECK_DEPTH,
 
 def _lm_ragged_check(cfg, dev, n_tokens: int = 61) -> dict:
     """The family's smoke config in float32 from a seeded init (dense: head
-    width 32, a width only the CUDA-core flash kernel takes; SSM: chunk 8,
-    head width 16, state 16, a shape only the CUDA-core SSD kernel takes): a
+    width 32, a width of the warp-level tensor-core flash kernel; SSM: chunk
+    8, head width 16, state 16, a shape only the CUDA-core SSD kernel takes): a
     prefill of a ragged prompt on the card (kernels) and on the CPU (plain
     versions) must give the same last-token logits.  The card's prefill
     launches are counted on their own."""
@@ -1098,9 +1155,12 @@ def kernels_line(haar_row: dict, knn_row: dict, flash_rows: dict,
     """Launches of each kernel on its own path: Haar and kNN on the
     analytic, the bfloat16 tensor-core flash attention on dense LM serving,
     the 3xTF32 one on the dense LM's float32 prefill (``cpu_check``), the
-    CUDA-core one on the dense smoke config's ragged prefill
-    (``ragged_check``), the tensor-core SSD on SSM serving, the CUDA-core one
-    on the SSM smoke config's ragged prefill (``ragged_check``)."""
+    warp-level one on the dense smoke config's ragged prefill
+    (``ragged_check``), the CUDA-core one on phase_flash's entry-point calls
+    (its only caller: widths that are not a multiple of 8), the tensor-core
+    SSD on SSM serving, the CUDA-core one on the SSM smoke config's ragged
+    prefill (``ragged_check``).  The CUDA-core flash kernel's times are its
+    forced row at the warp-level kernel's path shape."""
     flash = "src/repro/kernels/flash_attention.py:73"
     ssd = "src/repro/kernels/ssd_scan.py:45"
     return {"kernels": [
@@ -1114,9 +1174,12 @@ def kernels_line(haar_row: dict, knn_row: dict, flash_rows: dict,
         _kernel_entry("flash_attention_tf32", "flash_attention.cu", flash,
                       lm_dense["cpu_check"]["launches"]
                       ["flash_attention_tf32"], flash_rows["tf32"]),
-        _kernel_entry("flash_attention_simt", "flash_attention.cu", flash,
+        _kernel_entry("flash_attention_mma", "flash_attention.cu", flash,
                       lm_dense["ragged_check"]["launches"]
-                      ["flash_attention_simt"], flash_rows["simt"]),
+                      ["flash_attention_mma"], flash_rows["mma"]),
+        _kernel_entry("flash_attention_simt", "flash_attention.cu", flash,
+                      flash_rows["entry_launches"]["flash_attention_simt"],
+                      flash_rows["simt_before"]),
         _kernel_entry("ssd_intra_tc", "ssd_scan.cu", ssd,
                       lm_ssm["launches"]["ssd_intra_tc"], ssd_rows["tc"]),
         _kernel_entry("ssd_intra_simt", "ssd_scan.cu", ssd,

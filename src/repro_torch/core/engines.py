@@ -35,6 +35,7 @@ import torch
 
 from repro_torch.core.tables import (COOMatrix, ColumnarTable, DenseTensor,
                                      StreamBuffer, to_device, to_numpy)
+from repro_torch.kernels.haar import halves
 
 
 # ==========================================================================
@@ -48,7 +49,7 @@ def haar_1d_levels(x: torch.Tensor, levels: int) -> torch.Tensor:
     details = []
     a = x
     for _ in range(levels):
-        e, o = a[..., 0::2], a[..., 1::2]
+        e, o = halves(a)
         details.append((e - o) * inv)
         a = (e + o) * inv
     return torch.cat([a] + details[::-1], dim=-1)

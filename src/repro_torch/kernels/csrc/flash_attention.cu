@@ -20,7 +20,7 @@
 // tensor-core rate of its dtype (bfloat16; float32 as 3xTF32, three TF32
 // products at 495 TFLOP/s).
 //
-// Three variants, chosen by the caller (kernels/flash_attention.py) by dtype
+// Four variants, chosen by the caller (kernels/flash_attention.py) by dtype
 // and head width:
 //
 // flash_fwd_wgmma: bfloat16 at d 64 and 128, on the tensor cores.  A block
@@ -79,8 +79,31 @@
 //   its bytes.  One block per SM; heaviest causal q-tiles first; element
 //   masks only on diagonal and ragged tiles.
 //
-// flash_fwd_simt: float32 and bfloat16 at the widths the tensor-core
-//   variants do not take (any d up to 256), on the CUDA cores in float32.
+// flash_fwd_mma: float32 and bfloat16 at every other width that is a
+//   multiple of 8 up to 256 (the smoke configs' 32, zamba2's 112), on the
+//   warp-level tensor cores (mma.sync): bfloat16 m16n8k16 with float32
+//   sums, float32 as 3xTF32 m16n8k8 (hi·hi + hi·lo + lo·hi, split_tf32), so
+//   the float32 tolerance holds.  One warp owns 16 query rows; d is padded
+//   with zeros in shared memory to a multiple of 16, which sizes the
+//   registers and loops at compile time (one instantiation per width, so
+//   no product sits under a branch and ptxas can schedule the loads of a
+//   step ahead of its products).  K and V tiles (64 keys in bfloat16 up to
+//   d 128, else 32) are staged by cp.async into a double buffer (rows past
+//   S arrive as zeros).  S stays in registers, the online softmax reduces
+//   over the four threads of a quad by shuffles, and P feeds P·V from the S
+//   accumulator: in bfloat16 its pairs are m16n8k16's A fragment
+//   (fragments loaded by ldmatrix, V's transposed), in float32 V's rows are
+//   read in key_at's order.  The grid is sized from the work: a block has 4
+//   warps (64 rows), halved while B·H·(row tiles) would not cover the SMs,
+//   so the dense smoke config's 61-token prefill (4 heads) runs on 16 SMs,
+//   not 4; up to d 128 the launch bounds ask for three blocks an SM.
+//   What bounds it: the H100 issues one mma.sync an SM every 1.5 cycles
+//   (tools/mma_rate.py), two thirds of wgmma's rate, and float32 takes
+//   three of them a product.
+
+// flash_fwd_simt: float32 and bfloat16 at any d up to 256, on the CUDA
+//   cores in float32: the widths no tensor-core variant takes (not a
+//   multiple of 8), and the "before" of the others when forced.
 //   One block per (q-tile of 64 rows, head); four threads per query row,
 //   each owning d/4 of the row's columns, interleaved in float4 chunks so
 //   that the four threads of a row read neighbouring 16-byte words of a
@@ -267,13 +290,381 @@ int dispatch_simt(const void* q, const void* k, const void* v, void* o,
 }
 
 // ---------------------------------------------------------------------------
-// Tensor-core variant: bfloat16 wgmma (the other helpers: hopper.cuh)
+// Warp-level tensor-core variant (mma.sync): the other head widths
 // ---------------------------------------------------------------------------
 
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
+constexpr int kMmaMaxWarps = 4;   // 16 query rows a warp
+
+// keys per K/V tile: 64 for bfloat16 up to DP 128, else 32 (registers and
+// shared memory at DP 256 and in float32)
+template <typename T, int DP>
+__host__ __device__ constexpr int mma_bk() {
+  return sizeof(T) == 2 && DP <= 128 ? 64 : 32;
 }
+// Row stride of a tile in elements: DP plus 16 bytes, so that the eight
+// rows an ldmatrix (bfloat16) or a fragment load (float32) touches fall in
+// distinct banks.
+template <typename T, int DP>
+__host__ __device__ constexpr int mma_stride() {
+  return DP + 16 / (int)sizeof(T);
+}
+// Blocks an SM that the launch bounds ask for: three up to d 128 (their
+// tiles fit three an SM, and 168 registers a thread hold them); past d 128
+// one, so the accumulator of a row keeps its registers (with three, ptxas
+// spilled from d 160 in float32 and at 256 in bfloat16).
+template <int DP>
+__host__ __device__ constexpr int mma_min_blocks() {
+  return DP <= 128 ? 3 : 1;
+}
+// Q (16 rows a warp) and two buffers each of K and V
+template <typename T, int DP>
+__host__ __device__ constexpr int mma_smem_bytes(int warps) {
+  return (16 * warps + 4 * mma_bk<T, DP>()) * mma_stride<T, DP>() *
+         (int)sizeof(T);
+}
+
+// S (16 rows x BK keys) = Q·Kᵀ of one warp: qs the warp's 16 Q rows, kt
+// the K tile, both [row][S].  The fragments of k-step ks + 1 are loaded
+// before the products of ks are issued.
+template <int DP, int BK>
+__device__ __forceinline__ void mma_scores(float (&sc)[BK / 8][4],
+                                           const __nv_bfloat16* qs,
+                                           const __nv_bfloat16* kt,
+                                           int lane) {
+  constexpr int S = mma_stride<__nv_bfloat16, DP>();
+  uint32_t qf[2][4], kf[2][BK / 16][4];
+  const __nv_bfloat16* qa = qs + (lane & 15) * S + (lane >> 4) * 8;
+  // (keys 16p.., d 16ks), (16p.., 16ks + 8), (16p + 8.., 16ks),
+  // (16p + 8.., 16ks + 8): the B fragments of key tiles 2p and 2p + 1
+  const __nv_bfloat16* ka =
+      kt + ((lane >> 4) * 8 + (lane & 7)) * S + ((lane >> 3) & 1) * 8;
+  auto load = [&](int ks, int buf) {
+    ldmatrix_x4(qf[buf], qa + 16 * ks);
+#pragma unroll
+    for (int p = 0; p < BK / 16; ++p)
+      ldmatrix_x4(kf[buf][p], ka + 16 * p * S + 16 * ks);
+  };
+  load(0, 0);
+#pragma unroll
+  for (int ks = 0; ks < DP / 16; ++ks) {
+    if (ks + 1 < DP / 16) load(ks + 1, (ks + 1) & 1);
+#pragma unroll
+    for (int p = 0; p < BK / 16; ++p) {
+      mma_bf16(sc[2 * p], qf[ks & 1], kf[ks & 1][p][0], kf[ks & 1][p][1]);
+      mma_bf16(sc[2 * p + 1], qf[ks & 1], kf[ks & 1][p][2],
+               kf[ks & 1][p][3]);
+    }
+  }
+}
+
+template <int DP, int BK>
+__device__ __forceinline__ void mma_scores(float (&sc)[BK / 8][4],
+                                           const float* qs, const float* kt,
+                                           int lane) {
+  constexpr int S = mma_stride<float, DP>();
+  const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int ks = 0; ks < DP / 8; ++ks) {
+    const float* qa = qs + g * S + 8 * ks + t;
+    const float av[4] = {qa[0], qa[8 * S], qa[4], qa[8 * S + 4]};
+    uint32_t ah[4], al[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) split_tf32(av[i], ah[i], al[i]);
+#pragma unroll
+    for (int j = 0; j < BK / 8; ++j) {
+      const float* kb = kt + (8 * j + g) * S + 8 * ks + t;
+      uint32_t bh0, bl0, bh1, bl1;
+      split_tf32(kb[0], bh0, bl0);
+      split_tf32(kb[4], bh1, bl1);
+      mma_3xtf32(sc[j], ah, al, bh0, bh1, bl0, bl1);
+    }
+  }
+}
+
+// acc (16 rows x DP) += P·V, P from the S accumulator (already
+// exponentiated), rounded to bfloat16 as the A fragments of m16n8k16: the
+// accumulator pairs of key tiles 2kk and 2kk + 1 are that fragment.  V's
+// fragments for the next pair of column tiles are loaded before the
+// products of this pair.
+template <int DP, int BK>
+__device__ __forceinline__ void mma_pv(float (&acc)[DP / 8][4],
+                                       const float (&sc)[BK / 8][4],
+                                       const __nv_bfloat16* vt, int lane) {
+  constexpr int S = mma_stride<__nv_bfloat16, DP>();
+  constexpr int NP = DP / 16;
+  // transposed: (keys 16kk.., d 16np), (16kk + 8.., 16np), (16kk..,
+  // 16np + 8), (16kk + 8.., 16np + 8): the B fragments of column tiles 2np
+  // and 2np + 1
+  const __nv_bfloat16* va =
+      vt + (((lane >> 3) & 1) * 8 + (lane & 7)) * S + (lane >> 4) * 8;
+#pragma unroll
+  for (int kk = 0; kk < BK / 16; ++kk) {
+    const uint32_t a[4] = {pack_bf16(sc[2 * kk][0], sc[2 * kk][1]),
+                           pack_bf16(sc[2 * kk][2], sc[2 * kk][3]),
+                           pack_bf16(sc[2 * kk + 1][0], sc[2 * kk + 1][1]),
+                           pack_bf16(sc[2 * kk + 1][2], sc[2 * kk + 1][3])};
+    uint32_t vf[2][4];
+    ldmatrix_x4_trans(vf[0], va + 16 * kk * S);
+#pragma unroll
+    for (int np = 0; np < NP; ++np) {
+      if (np + 1 < NP)
+        ldmatrix_x4_trans(vf[(np + 1) & 1], va + 16 * kk * S + 16 * (np + 1));
+      mma_bf16(acc[2 * np], a, vf[np & 1][0], vf[np & 1][1]);
+      mma_bf16(acc[2 * np + 1], a, vf[np & 1][2], vf[np & 1][3]);
+    }
+  }
+}
+
+// float32: P stays float32 (v's dtype) and is split for 3xTF32.  The
+// accumulator gives a thread keys (2t, 2t + 1) of each key tile where the
+// A fragment wants K positions (t, t + 4): the K positions take key_at's
+// order (hopper.cuh), so the B fragment reads V's rows 2t and 2t + 1 and
+// no value of P moves between threads.
+template <int DP, int BK>
+__device__ __forceinline__ void mma_pv(float (&acc)[DP / 8][4],
+                                       const float (&sc)[BK / 8][4],
+                                       const float* vt, int lane) {
+  constexpr int S = mma_stride<float, DP>();
+  const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int j = 0; j < BK / 8; ++j) {
+    const float pv[4] = {sc[j][0], sc[j][2], sc[j][1], sc[j][3]};
+    uint32_t ph[4], pl[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) split_tf32(pv[i], ph[i], pl[i]);
+    const float* vr = vt + (8 * j + 2 * t) * S + g;
+#pragma unroll
+    for (int n = 0; n < DP / 8; ++n) {
+      uint32_t bh0, bl0, bh1, bl1;
+      split_tf32(vr[8 * n], bh0, bl0);
+      split_tf32(vr[S + 8 * n], bh1, bl1);
+      mma_3xtf32(acc[n], ph, pl, bh0, bh1, bl0, bl1);
+    }
+  }
+}
+
+__device__ __forceinline__ void store2(float* dst, float a, float b) {
+  *reinterpret_cast<float2*>(dst) = make_float2(a, b);
+}
+__device__ __forceinline__ void store2(__nv_bfloat16* dst, float a,
+                                       float b) {
+  *reinterpret_cast<uint32_t*>(dst) = pack_bf16(a, b);
+}
+
+// DP: the head width d (a multiple of 8) rounded up to 16, which sizes the
+// registers and loops; columns d..DP-1 are zeros in shared memory and are
+// not stored.  One block: blockDim.x / 32 warps of 16 query rows.
+template <typename T, int DP>
+__global__ void __launch_bounds__(32 * kMmaMaxWarps, mma_min_blocks<DP>())
+flash_fwd_mma(const T* __restrict__ q, const T* __restrict__ k,
+              const T* __restrict__ v, T* __restrict__ o, Geom g,
+              float scale_log2, int causal) {
+  constexpr int BK = mma_bk<T, DP>();
+  constexpr int S = mma_stride<T, DP>();
+  constexpr int E = 16 / sizeof(T);       // elements a 16-byte copy moves
+  constexpr int NT = BK / 8;              // key tiles of the S accumulator
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int nthreads = blockDim.x;
+  const int bq = nthreads / 2;            // 16 rows a warp
+  T* qs = reinterpret_cast<T*>(smem_raw); // [bq][S]
+  T* ks = qs + bq * S;                    // [2][BK][S]
+  T* vs = ks + 2 * BK * S;                // [2][BK][S]
+
+  const int b = blockIdx.x / g.H;
+  const int h = blockIdx.x - b * g.H;
+  const int kvh = h / (g.H / g.KV);
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * bq;   // heaviest first
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int d = g.d, sq = g.Sq, sk = g.Sk;
+  const int chunks = d / E;               // 16-byte copies a row
+  const T* qb = q + b * g.qsb + h * g.qsh;
+  const T* kb = k + b * g.ksb + kvh * g.ksh;
+  const T* vb = v + b * g.vsb + kvh * g.vsh;
+
+  // columns d..DP-1 of every row are zeros (no copy writes them): the
+  // bfloat16 k-steps of 16 read them when d is not a multiple of 16
+  const int pad = DP - d;
+  for (int i = threadIdx.x; i < (bq + 4 * BK) * pad; i += nthreads) {
+    const int r = i / pad;
+    qs[r * S + d + (i - r * pad)] = T(0.f);
+  }
+  for (int i = threadIdx.x; i < bq * chunks; i += nthreads) {
+    const int r = i / chunks;
+    const int c = (i - r * chunks) * E;
+    const bool in = q0 + r < sq;
+    cp_async16(qs + r * S + c, in ? qb + (q0 + r) * g.qss + c : qb,
+               in ? 16 : 0);
+  }
+  // keys past Sk arrive as zeros: P is 0 there, and V must not be NaN
+  auto load_kv = [&](int tile, int buf) {
+    T* kd = ks + buf * BK * S;
+    T* vd = vs + buf * BK * S;
+    for (int i = threadIdx.x; i < BK * chunks; i += nthreads) {
+      const int r = i / chunks;
+      const int c = (i - r * chunks) * E;
+      const int key = tile * BK + r;
+      const bool in = key < sk;
+      cp_async16(kd + r * S + c, in ? kb + key * g.kss + c : kb, in ? 16 : 0);
+      cp_async16(vd + r * S + c, in ? vb + key * g.vss + c : vb, in ? 16 : 0);
+    }
+  };
+  // causal: key tiles that start past the block's last row are skipped
+  const int kend = causal ? min(sk, q0 + bq) : sk;
+  const int ntiles = (kend + BK - 1) / BK;
+  load_kv(0, 0);
+  cp_async_commit();
+
+  const int qw = q0 + 16 * warp;          // the warp's first row
+  const int gr = lane >> 2, t = lane & 3;
+  float acc[DP / 8][4];
+#pragma unroll
+  for (int n = 0; n < DP / 8; ++n)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) acc[n][i] = 0.f;
+  float m[2] = {kNegInf, kNegInf};        // rows qw + gr and qw + gr + 8
+  float l[2] = {0.f, 0.f};                // this thread's part of the sum
+
+  for (int tile = 0; tile < ntiles; ++tile) {
+    if (tile + 1 < ntiles) {
+      load_kv(tile + 1, (tile + 1) & 1);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const int k0 = tile * BK;
+    // rows past Sq, and tiles wholly above this warp's diagonal, are idle
+    if (qw < sq && !(causal && k0 > qw + 15)) {
+      const T* kt = ks + (tile & 1) * BK * S;
+      const T* vt = vs + (tile & 1) * BK * S;
+      float sc[NT][4];
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) sc[j][i] = 0.f;
+      mma_scores<DP, BK>(sc, qs + 16 * warp * S, kt, lane);
+
+      // online softmax over this tile, in the log2 domain
+      const bool edge = k0 + BK > sk || (causal && k0 + BK - 1 > qw);
+      float mx[2] = {kNegInf, kNegInf};
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          float x = sc[j][i] * scale_log2;
+          if (edge) {
+            const int key = k0 + 8 * j + 2 * t + (i & 1);
+            const int row = qw + gr + 8 * (i >> 1);
+            if (key >= sk || (causal && key > row)) x = kNegInf;
+          }
+          sc[j][i] = x;
+          mx[i >> 1] = fmaxf(mx[i >> 1], x);
+        }
+      float alpha[2];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+        const float m_new = fmaxf(m[r], mx[r]);
+        alpha[r] = exp2f(m[r] - m_new);
+        m[r] = m_new;
+      }
+      float psum[2] = {0.f, 0.f};
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          sc[j][i] = exp2f(sc[j][i] - m[i >> 1]);
+          psum[i >> 1] += sc[j][i];
+        }
+#pragma unroll
+      for (int r = 0; r < 2; ++r) l[r] = l[r] * alpha[r] + psum[r];
+#pragma unroll
+      for (int n = 0; n < DP / 8; ++n) {
+        acc[n][0] *= alpha[0];
+        acc[n][1] *= alpha[0];
+        acc[n][2] *= alpha[1];
+        acc[n][3] *= alpha[1];
+      }
+      mma_pv<DP, BK>(acc, sc, vt, lane);
+    }
+    __syncthreads();                      // before the buffer is refilled
+  }
+
+  T* ob = o + b * g.osb + h * g.osh;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+    const int row = qw + gr + 8 * r;
+    if (row < sq) {
+      const float den = fmaxf(l[r], 1e-30f);
+#pragma unroll
+      for (int n = 0; n < DP / 8; ++n)
+        if (8 * n < d)
+          store2(ob + row * g.oss + 8 * n + 2 * t, acc[n][2 * r] / den,
+                 acc[n][2 * r + 1] / den);
+    }
+  }
+}
+
+// Warps a block at this shape: 4 (64 rows), halved while the blocks would
+// not cover the SMs, so a short prompt is spread over many SMs.
+inline int mma_warps(const Geom& g) {
+  const int sms = sm_count();
+  int warps = kMmaMaxWarps;
+  while (warps > 1 && (long long)g.B * g.H *
+                              ((g.Sq + 16 * warps - 1) / (16 * warps)) <
+                          sms)
+    warps >>= 1;
+  return warps;
+}
+
+template <typename T, int DP>
+int launch_mma(const void* q, const void* k, const void* v, void* o,
+               const Geom& g, float scale, int causal, cudaStream_t stream) {
+  static int setup = -1;     // once per process (one device)
+  if (setup < 0)
+    setup = (int)cudaFuncSetAttribute(
+        flash_fwd_mma<T, DP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        mma_smem_bytes<T, DP>(kMmaMaxWarps));
+  if (setup) return setup;
+  const int warps = mma_warps(g);
+  dim3 grid((unsigned)(g.B * g.H),
+            (unsigned)((g.Sq + 16 * warps - 1) / (16 * warps)));
+  if (grid.y > 65535u) return (int)cudaErrorInvalidConfiguration;
+  flash_fwd_mma<T, DP><<<grid, 32 * warps, mma_smem_bytes<T, DP>(warps),
+                         stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<T*>(o), g,
+      scale * 1.4426950408889634f, causal);
+  return (int)cudaGetLastError();
+}
+
+// The head width rounded up to 16: the kernel's registers and loops are
+// sized by it at compile time, so no step of a product is under a branch.
+template <typename T>
+int dispatch_mma(const void* q, const void* k, const void* v, void* o,
+                 const Geom& g, float scale, int causal, cudaStream_t s) {
+  switch ((g.d + 15) / 16) {
+#define FLASH_MMA_CASE(n) \
+  case n:                 \
+    return launch_mma<T, 16 * n>(q, k, v, o, g, scale, causal, s);
+    FLASH_MMA_CASE(1) FLASH_MMA_CASE(2) FLASH_MMA_CASE(3) FLASH_MMA_CASE(4)
+    FLASH_MMA_CASE(5) FLASH_MMA_CASE(6) FLASH_MMA_CASE(7) FLASH_MMA_CASE(8)
+    FLASH_MMA_CASE(9) FLASH_MMA_CASE(10) FLASH_MMA_CASE(11)
+    FLASH_MMA_CASE(12) FLASH_MMA_CASE(13) FLASH_MMA_CASE(14)
+    FLASH_MMA_CASE(15) FLASH_MMA_CASE(16)
+#undef FLASH_MMA_CASE
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}
+
+// ---------------------------------------------------------------------------
+// Tensor-core variant: bfloat16 wgmma (the other helpers: hopper.cuh)
+// ---------------------------------------------------------------------------
 
 // D (64 x 128, float32) += A (64 x 16, shared memory) * B (16 x 128, shared
 // memory, K-major); scale_d == 0 starts D from zero.
@@ -1149,13 +1540,14 @@ extern "C" int flash_attention_tc_info(int d, int tf32, int* regs, int* smem,
 constexpr int kKindSimt = 0;   // flash_fwd_simt: float32 or bfloat16, d <= 256
 constexpr int kKindTc = 1;     // flash_fwd_wgmma: bfloat16, d 64 or 128
 constexpr int kKindTf32 = 2;   // flash_fwd_wgmma_tf32: float32, d 64 or 128
+constexpr int kKindMma = 3;    // flash_fwd_mma: either dtype, d % 8 == 0
 
 // q, o: (B, Sq, H, d); k, v: (B, Sk, KV, d); element strides of batch,
 // sequence and head for each (the last dimension is contiguous); one dtype
 // (float32 when is_bf16 == 0, else bfloat16).  1 <= d <= 256, Sk >= 1,
 // H % KV == 0, B·H <= 65535.  kind selects the kernel (the constants
-// above); the two tensor-core kernels need strides that are multiples of 8
-// elements and 16-byte aligned pointers.  scale multiplies the float32
+// above); the three tensor-core kernels need strides that are multiples of
+// 8 elements and 16-byte aligned pointers.  scale multiplies the float32
 // scores.  Launches on `stream`, does not synchronise, and returns
 // cudaGetLastError() after the launch (0 on success), or one of the codes
 // above.
@@ -1183,6 +1575,12 @@ extern "C" int flash_attention_launch(
     }
     if (d == 64) return launch_wgmma<64>(q, k, v, o, g, scale, causal, s);
     return launch_wgmma<128>(q, k, v, o, g, scale, causal, s);
+  }
+  if (kind == kKindMma) {
+    if (d % 8) return (int)cudaErrorInvalidValue;
+    if (is_bf16)
+      return dispatch_mma<__nv_bfloat16>(q, k, v, o, g, scale, causal, s);
+    return dispatch_mma<float>(q, k, v, o, g, scale, causal, s);
   }
   if (kind != kKindSimt) return (int)cudaErrorInvalidValue;
   if (is_bf16)

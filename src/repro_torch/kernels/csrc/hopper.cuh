@@ -3,16 +3,19 @@
 // wgmma shared-memory descriptor with the 128-byte swizzle, wgmma's fence /
 // commit / wait, the register fence that keeps the compiler from touching
 // an in-flight wgmma's registers, the proxy fence that makes the threads'
-// own shared-memory stores visible to wgmma, and the 3xTF32 pieces (the
-// hi/lo split, the tf32 wgmma wrappers and their three-product batch, the
-// swizzled offset and the key order of a transposed operand).  Each .cu
-// that includes it builds into its own library, so everything here is
-// internal to that library (an unnamed namespace).  On the host side: the
-// tensor-map encoder, looked up once in libcuda with dlsym, so a library
-// links against nothing new.
+// own shared-memory stores visible to wgmma, the 3xTF32 pieces (the hi/lo
+// split, the tf32 wgmma wrappers and their three-product batch, the
+// swizzled offset and the key order of a transposed operand), and the
+// warp-level pieces (mma.sync in bfloat16 and tf32, ldmatrix, cp.async).
+// Each .cu that includes it builds into its own library, so everything here
+// is internal to that library (an unnamed namespace).  On the host side:
+// the SM count, and the tensor-map encoder, looked up once in libcuda with
+// dlsym, so a library links against nothing new.
 #pragma once
 
 #include <cuda.h>
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
 #include <dlfcn.h>
 #include <stdint.h>
 
@@ -240,6 +243,89 @@ __device__ __forceinline__ int key_at(int kpos) {
   return (kpos & ~7) | (e < 4 ? 2 * e : 2 * (e - 4) + 1);
 }
 
+// ---------------------------------------------------------------------------
+// Warp-level tensor cores (mma.sync), ldmatrix and cp.async: for kernels
+// whose tiles are too small or too odd in width for wgmma's 64 rows
+// ---------------------------------------------------------------------------
+
+// 16 bytes from global to shared memory, asynchronously; the bytes past
+// src_bytes (0..16) are filled with zeros, so a row past the tensor's end
+// costs no read.  dst and src are 16-byte aligned.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(smem_u32(dst)), "l"(src), "r"(src_bytes) : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+// Wait until at most N committed groups of this thread are pending.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
+}
+
+// Four 8 x 8 matrices of 16-bit values from shared memory: lane l gives the
+// address of row l % 8 of matrix l / 8 (16 bytes, 16-byte aligned) and
+// receives, in r[i], elements (l / 4, 2 (l % 4) .. + 1) of matrix i; with
+// .trans, elements (2 (l % 4) .. + 1, l / 4).
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_u32(p)));
+}
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
+                                                  const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_u32(p)));
+}
+
+// D (16 x 8, float32) += A (16 x 16, bfloat16) * B (16 x 8, bfloat16).
+// With g = lane / 4 and t = lane % 4: a = {(g, 2t), (g + 8, 2t),
+// (g, 2t + 8), (g + 8, 2t + 8)} as bfloat16 pairs along k; b = {(2t, g),
+// (2t + 8, g)} as pairs along k; d = {(g, 2t), (g, 2t + 1), (g + 8, 2t),
+// (g + 8, 2t + 1)}.
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t* a,
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// D (16 x 8, float32) += A (16 x 8, tf32) * B (8 x 8, tf32): a = {(g, t),
+// (g + 8, t), (g, t + 4), (g + 8, t + 4)}, b = {(t, g), (t + 4, g)}, d as
+// in mma_bf16.
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t* a,
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// The float32 product of 3xTF32 on mma_tf32: the two small terms first,
+// then hi·hi, into one accumulator.
+__device__ __forceinline__ void mma_3xtf32(float (&d)[4], const uint32_t* ah,
+                                           const uint32_t* al, uint32_t bh0,
+                                           uint32_t bh1, uint32_t bl0,
+                                           uint32_t bl1) {
+  mma_tf32(d, al, bh0, bh1);
+  mma_tf32(d, ah, bl0, bl1);
+  mma_tf32(d, ah, bh0, bh1);
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
 // Return codes of the launchers past the CUDA runtime's own
 constexpr int kErrNoEncoder = 10001;   // libcuda has no cuTensorMapEncodeTiled
 constexpr int kErrEncode = 10002;      // libcuda refused a tensor map
@@ -250,6 +336,20 @@ typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
                                 CUtensorMapInterleave, CUtensorMapSwizzle,
                                 CUtensorMapL2promotion,
                                 CUtensorMapFloatOOBfill);
+
+// Streaming multiprocessors of the current device, asked once per process
+// (one device); 0 if the runtime refuses.
+int sm_count() {
+  static int sms = 0;
+  if (!sms) {
+    int dev = 0;
+    if (cudaGetDevice(&dev) != cudaSuccess ||
+        cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
+            cudaSuccess)
+      sms = 0;
+  }
+  return sms;
+}
 
 EncodeTiled encoder() {
   static EncodeTiled fn = nullptr;

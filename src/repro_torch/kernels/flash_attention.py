@@ -13,20 +13,23 @@ Two layouts, the same function:
 The kernels read either in place through element strides (the 3-D form is
 the 4-D one with one head), so a caller folds, expands and copies nothing.
 
-``flash_attention_cuda`` launches one of three kernels on CUDA tensors,
+``flash_attention_cuda`` launches one of four kernels on CUDA tensors,
 chosen by ``variant`` from the dtype and head width alone: at
 ``TC_HEAD_DIMS`` the tensor-core kernels, ``wgmma`` in bfloat16 ("tc") and
 in 3xTF32 for float32 ("tf32": every operand split into two TF32 halves,
-three products each, so the result keeps float32's accuracy), and the
-CUDA-core kernel ("simt") for every other width.  ``kind=`` forces one (the
-CUDA-core kernel takes any shape).  Each has its own launch counter,
-``flash_attention_cuda.launches_tc``, ``.launches_tf32`` and
-``.launches_simt``.  ``flash_attention_ref`` is the plain version, written
-to the reference's oracle (``repro.kernels.ref.flash_attention_ref``): float32
-softmax over scores divided by sqrt(d), cast to q's dtype before the product
-with v.  The kernels compute the reference's TPU kernel instead (scores
-multiplied by 1/sqrt(d), online softmax, P rounded to v's dtype); the two
-agree within the reference tests' tolerances (float32 1e-4, bfloat16 3e-2).
+three products each, so the result keeps float32's accuracy); at every
+other width that is a multiple of 8 the warp-level tensor-core kernel
+("mma": ``mma.sync``, bfloat16 or 3xTF32); and the CUDA-core kernel
+("simt") for the widths left.  ``kind=`` forces one (the CUDA-core kernel
+takes any shape).  Each has its own launch counter,
+``flash_attention_cuda.launches_tc``, ``.launches_tf32``,
+``.launches_mma`` and ``.launches_simt``.  ``flash_attention_ref`` is the
+plain version, written to the reference's oracle
+(``repro.kernels.ref.flash_attention_ref``): float32 softmax over scores
+divided by sqrt(d), cast to q's dtype before the product with v.  The
+kernels compute the reference's TPU kernel instead (scores multiplied by
+1/sqrt(d), online softmax, P rounded to v's dtype); the two agree within
+the reference tests' tolerances (float32 1e-4, bfloat16 3e-2).
 The causal mask is top-left aligned: query i sees keys 0..i.
 """
 from __future__ import annotations
@@ -40,16 +43,20 @@ MAX_HEAD_DIM = 256
 TC_HEAD_DIMS = (64, 128)
 MAX_HEADS = 65535          # B·H: the kernels' grid
 SMEM_LIMIT = 232448        # bytes of shared memory a Hopper block may use
-_KIND_CODE = {"simt": 0, "tc": 1, "tf32": 2}   # flash_attention_launch's
+MMA_WIDTH_STEP = 8          # the "mma" kernel takes d in multiples of this
+_KIND_CODE = {"simt": 0, "tc": 1, "tf32": 2, "mma": 3}   # the launcher's
 
 
 def variant(dtype: torch.dtype, d: int) -> str:
     """Which kernel takes (dtype, head width): "tc" (bfloat16 wgmma), "tf32"
-    (float32 3xTF32 wgmma), both at ``TC_HEAD_DIMS``, or "simt" (CUDA
-    cores)."""
-    if d not in TC_HEAD_DIMS:
-        return "simt"
-    return "tc" if dtype == torch.bfloat16 else "tf32"
+    (float32 3xTF32 wgmma), both at ``TC_HEAD_DIMS``; "mma" (warp-level
+    tensor cores) at every other multiple of ``MMA_WIDTH_STEP`` up to
+    ``MAX_HEAD_DIM``; or "simt" (CUDA cores) for the rest."""
+    if d in TC_HEAD_DIMS:
+        return "tc" if dtype == torch.bfloat16 else "tf32"
+    if d % MMA_WIDTH_STEP == 0 and 0 < d <= MAX_HEAD_DIM:
+        return "mma"
+    return "simt"
 
 
 TF32_ROWS, TF32_KEYS = 64, 64   # query rows a block, keys a tile
@@ -183,12 +190,12 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     CUDA device, in either layout of the module docstring, with the last
     dimension contiguous, 1 <= d <= 256.  ``kind`` is the kernel: None takes
     ``variant(dtype, d)``; "simt" may be asked for at any shape (to compare
-    the kernels), "tc" and "tf32" only where ``variant`` names them.  The
-    tensor-core kernels also need strides that are multiples of 8 elements
-    and 16-byte aligned data.  Returns a new contiguous tensor in q's layout
-    and dtype.  Raises on anything else, and if the launch is refused;
-    layout, dtype and kernel are checked before the device, so a refusal
-    never builds a kernel."""
+    the kernels), "tc", "tf32" and "mma" only where ``variant`` names them.
+    The tensor-core kernels also need strides that are multiples of 8
+    elements and 16-byte aligned data.  Returns a new contiguous tensor in
+    q's layout and dtype.  Raises on anything else, and if the launch is
+    refused; layout, dtype and kernel are checked before the device, so a
+    refusal never builds a kernel."""
     (q4, k4, v4), (B, sq, sk, H, KV, d), kind = _check(q, k, v, kind)
     if kind != "simt":
         for name, t in (("q", q4), ("k", k4), ("v", v4)):
@@ -220,4 +227,5 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 flash_attention_cuda.launches_tc = 0
 flash_attention_cuda.launches_tf32 = 0
+flash_attention_cuda.launches_mma = 0
 flash_attention_cuda.launches_simt = 0

@@ -16,16 +16,31 @@ INV_SQRT2 = 1.0 / math.sqrt(2.0)
 _DTYPES = (torch.float32, torch.bfloat16)
 
 
+def halves(a: torch.Tensor):
+    """The even and odd elements of a's last axis.  Where their lengths
+    neither match nor broadcast (neither is 1), ValueError: the reference's
+    jnp arithmetic refuses the same shapes, and PyTorch's own RuntimeError
+    would be indistinguishable from a device fault."""
+    e, o = a[..., 0::2], a[..., 1::2]
+    ne, no = e.shape[-1], o.shape[-1]
+    if ne != no and 1 not in (ne, no):
+        raise ValueError(f"haar: a level of length {a.shape[-1]} does not "
+                         f"halve (even {ne}, odd {no})")
+    return e, o
+
+
 def haar_ref(x: torch.Tensor, levels: int) -> torch.Tensor:
     """Multi-level Haar DWT over the last axis: [a_L, d_L, ..., d_1].
 
     Arithmetic runs in the input dtype, 1/sqrt(2) included, so a bfloat16
-    input rounds after every add/sub and every multiply."""
+    input rounds after every add/sub and every multiply.  Even and odd
+    halves of unequal lengths broadcast as in the reference where one of
+    them has length 1; any other mismatch raises ValueError (``halves``)."""
     inv = torch.tensor(INV_SQRT2, dtype=x.dtype, device=x.device)
     details = []
     a = x
     for _ in range(levels):
-        e, o = a[..., 0::2], a[..., 1::2]
+        e, o = halves(a)
         details.append((e - o) * inv)
         a = (e + o) * inv
     return torch.cat([a] + details[::-1], dim=-1)

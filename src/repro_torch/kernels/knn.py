@@ -1,9 +1,15 @@
 """kNN dot-product scores test @ trainᵀ: the hand-written CUDA kernel
 (``csrc/knn.cu``) and, beside it, its plain PyTorch version, plus top-k.
 
-``knn_scores_cuda`` launches the kernel on CUDA tensors; ``knn_scores_ref``
-is the plain version.  Top-k runs outside the kernel (``torch.topk``) and
-its indices are returned as int32, the reference's index dtype.
+``knn_scores_cuda`` launches one of two kernels on CUDA tensors, chosen by
+``variant`` from the number of test rows B alone: "gemv", a matrix-vector
+kernel bound by the latency of its loads, for B <= ``GEMV_MAX_B`` (the
+analytic's B = 1), and "tiled", a tensor-core product that reads train
+once, for larger B.  Each has its own launch counter
+(``knn_scores_cuda.launches_gemv``, ``.launches_tiled``) beside the total
+``.launches``.  ``knn_scores_ref`` is the plain version.  Top-k runs
+outside the kernel (``torch.topk``) and its indices are returned as int32,
+the reference's index dtype.
 """
 from __future__ import annotations
 
@@ -11,6 +17,14 @@ from __future__ import annotations
 import torch
 
 _DTYPES = (torch.float32, torch.bfloat16)
+GEMV_MAX_B = 8
+_KIND_CODE = {"gemv": 0, "tiled": 1}     # knn_scores_launch's
+
+
+def variant(b: int) -> str:
+    """Which kernel takes B test rows: "gemv" up to ``GEMV_MAX_B``, else
+    "tiled"."""
+    return "gemv" if b <= GEMV_MAX_B else "tiled"
 
 
 def knn_scores_ref(train: torch.Tensor, test: torch.Tensor) -> torch.Tensor:
@@ -38,16 +52,17 @@ def _lib():
         lib.knn_scores_launch.argtypes = [ctypes.c_void_p, ctypes.c_void_p,
                                           ctypes.c_void_p, ctypes.c_int,
                                           ctypes.c_int, ctypes.c_int,
-                                          ctypes.c_int, ctypes.c_void_p]
+                                          ctypes.c_int, ctypes.c_int,
+                                          ctypes.c_void_p]
         lib.knn_scores_launch.restype = ctypes.c_int
     return lib
 
 
 def knn_scores_cuda(train: torch.Tensor, test: torch.Tensor) -> torch.Tensor:
-    """Launch the scores kernel: train (N, V), test (B, V), both contiguous
-    CUDA tensors of one dtype (float32 or bfloat16) on one device.  Returns
-    (B, N) float32.  Raises on anything else, and if the launch is
-    refused."""
+    """Launch the scores kernel that ``variant(B)`` names: train (N, V),
+    test (B, V), both contiguous CUDA tensors of one dtype (float32 or
+    bfloat16) on one device.  Returns (B, N) float32.  Raises on anything
+    else, and if the launch is refused."""
     for name, t in (("train", train), ("test", test)):
         if t.device.type != "cuda":
             raise ValueError(f"knn_scores_cuda needs CUDA tensors, {name} is "
@@ -72,16 +87,23 @@ def knn_scores_cuda(train: torch.Tensor, test: torch.Tensor) -> torch.Tensor:
     out = torch.empty((b, n), dtype=torch.float32, device=train.device)
     if n == 0 or b == 0:
         return out
+    kind = variant(b)
     lib = _lib()
     with torch.cuda.device(train.device):
         stream = torch.cuda.current_stream(train.device).cuda_stream
         rc = lib.knn_scores_launch(train.data_ptr(), test.data_ptr(),
                                    out.data_ptr(), n, b, v,
-                                   int(train.dtype == torch.bfloat16), stream)
+                                   int(train.dtype == torch.bfloat16),
+                                   _KIND_CODE[kind], stream)
     if rc != 0:
-        raise RuntimeError(f"knn_scores kernel launch failed: cudaError {rc}")
+        raise RuntimeError(f"knn_scores {kind} kernel launch failed: "
+                           f"cudaError {rc}")
     knn_scores_cuda.launches += 1
+    attr = f"launches_{kind}"
+    setattr(knn_scores_cuda, attr, getattr(knn_scores_cuda, attr) + 1)
     return out
 
 
 knn_scores_cuda.launches = 0
+knn_scores_cuda.launches_gemv = 0
+knn_scores_cuda.launches_tiled = 0

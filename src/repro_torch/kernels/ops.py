@@ -3,10 +3,11 @@
 A CPU tensor takes the plain PyTorch version; a CUDA tensor takes the CUDA
 kernel, which raises on what it does not accept.  There is no override and
 no fallback: a CUDA tensor never reaches a plain version.  Each kernel's
-wrapper counts its launches (``haar_cuda.launches``,
-``knn_scores_cuda.launches``; flash attention and SSD one count per
-variant, ``flash_attention_cuda.launches_tc``, ``.launches_tf32`` and
-``.launches_simt``,
+wrapper counts its launches (``haar_cuda.launches``;
+``knn_scores_cuda.launches`` in all and ``.launches_gemv`` and
+``.launches_tiled`` per kernel; flash attention and SSD one count per
+variant, ``flash_attention_cuda.launches_tc``, ``.launches_tf32``,
+``.launches_mma`` and ``.launches_simt``,
 ``ssd_intra_cuda.launches_tc`` and ``.launches_simt``), so a run can
 show that its main path went through the kernels.  ``flash_attention`` and
 ``ssd_intra`` carry the LM prefill path (``models.layers.attention_apply``,
@@ -25,8 +26,11 @@ from repro_torch.kernels.ssd_scan import ssd_intra_cuda, ssd_intra_ref
 # launch counters: name -> (wrapper, attribute)
 COUNTERS = {"haar": (haar_cuda, "launches"),
             "knn_scores": (knn_scores_cuda, "launches"),
+            "knn_scores_gemv": (knn_scores_cuda, "launches_gemv"),
+            "knn_scores_tiled": (knn_scores_cuda, "launches_tiled"),
             "flash_attention_tc": (flash_attention_cuda, "launches_tc"),
             "flash_attention_tf32": (flash_attention_cuda, "launches_tf32"),
+            "flash_attention_mma": (flash_attention_cuda, "launches_mma"),
             "flash_attention_simt": (flash_attention_cuda, "launches_simt"),
             "ssd_intra_tc": (ssd_intra_cuda, "launches_tc"),
             "ssd_intra_simt": (ssd_intra_cuda, "launches_simt")}

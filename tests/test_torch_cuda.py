@@ -11,7 +11,8 @@ from repro_torch.kernels import ops
 from repro_torch.kernels.haar import haar_cuda, haar_ref
 from repro_torch.kernels.flash_attention import (flash_attention_cuda,
                                                  flash_attention_ref, variant)
-from repro_torch.kernels.knn import knn_scores_cuda, knn_scores_ref
+from repro_torch.kernels.knn import (knn_scores_cuda, knn_scores_ref,
+                                     variant as knn_variant)
 from repro_torch.kernels.ssd_scan import (ssd_intra_cuda, ssd_intra_ref,
                                           variant as ssd_variant)
 
@@ -34,16 +35,39 @@ def test_haar_kernel_bitwise_equals_plain(cuda, n, t, levels, dtype):
                                rtol=0, atol=0)
 
 
+# chip_smoke.KNN_SHAPES and more: B at both ends of each regime, ragged N,
+# V not a multiple of 8 (element-wise loads) or longer than a chunk
 @pytest.mark.parametrize("n,v,b", [(64, 128, 4), (100, 48, 3), (4096, 224, 1),
-                                   (33, 2050, 9)])
+                                   (33, 2050, 9), (4096, 224, 64),
+                                   (1001, 227, 8), (1001, 227, 9),
+                                   (517, 600, 2), (130, 40, 130)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_knn_kernel_matches_plain(cuda, n, v, b, dtype):
     train = torch.randn((n, v), device=cuda).to(dtype)
     test = torch.randn((b, v), device=cuda).to(dtype)
     tol = dict(rtol=2e-2, atol=0.3) if dtype == torch.bfloat16 \
         else dict(rtol=1e-4, atol=1e-3)
-    torch.testing.assert_close(knn_scores_cuda(train, test),
-                               knn_scores_ref(train, test), **tol)
+    got = knn_scores_cuda(train, test)
+    want = knn_scores_ref(train, test)
+    torch.testing.assert_close(got, want, **tol)
+    if dtype == torch.float32:             # as chip_smoke.phase_knn
+        kk = min(11, n)
+        assert torch.equal(torch.topk(got, kk)[1], torch.topk(want, kk)[1])
+
+
+@pytest.mark.parametrize("b,kind", [(1, "gemv"), (8, "gemv"), (9, "tiled"),
+                                    (64, "tiled")])
+def test_knn_variant_counters(cuda, b, kind):
+    """ops.knn_scores launches the kernel that knn.variant names for B,
+    once, and counts it in the total too."""
+    assert knn_variant(b) == kind
+    ops.reset_launches()
+    ops.knn_scores(torch.randn((300, 224), device=cuda),
+                   torch.randn((b, 224), device=cuda))
+    counts = ops.launches()
+    assert counts["knn_scores"] == 1
+    for other in ("gemv", "tiled"):
+        assert counts[f"knn_scores_{other}"] == int(other == kind)
 
 
 def test_kernels_refuse_what_they_do_not_take(cuda):
@@ -171,6 +195,16 @@ def test_every_engine_op_on_cuda_matches_cpu(cuda):
     (2, 333, 80, False, torch.float32),
     (4, 129, 17, True, torch.bfloat16),
     (2, 65, 200, True, torch.float32),
+    (2, 65, 200, False, torch.bfloat16),
+    (3, 150, 40, True, torch.bfloat16),        # chip_smoke's d 40 and 256
+    (3, 150, 40, False, torch.float32),
+    (2, 97, 256, True, torch.float32),
+    (2, 97, 256, False, torch.bfloat16),
+    (4, 61, 32, True, torch.float32),
+    (2, 300, 112, True, torch.bfloat16),
+    (2, 300, 112, True, torch.float32),
+    (5, 1, 8, True, torch.float32),
+    (3, 33, 24, False, torch.bfloat16),
 ])
 def test_flash_kernel_matches_plain(cuda, bh, s, d, causal, dtype):
     """Any length (ragged q and k tiles), any width up to 256; the
@@ -215,6 +249,12 @@ def _expand_fold(t, h):
     (1, 63, 6, 2, 64, False, torch.float32),
     (1, 333, 8, 2, 64, True, torch.float32),
     (2, 130, 4, 2, 128, True, torch.float32),
+    (1, 61, 4, 2, 32, True, torch.float32),      # the dense ragged_check
+    (1, 77, 8, 2, 40, True, torch.float32),      # chip_smoke's mma shapes
+    (1, 130, 4, 2, 256, True, torch.bfloat16),
+    (1, 1000, 4, 1, 80, True, torch.float32),
+    (1, 513, 8, 8, 112, True, torch.bfloat16),
+    (2, 200, 8, 4, 112, False, torch.float32),
 ])
 def test_flash_gqa_kernel_matches_plain(cuda, b, s, h, kv, d, causal, dtype):
     """The (B, S, H, d) form with KV heads read in place, against the plain
@@ -240,7 +280,7 @@ def test_flash_gqa_kernel_matches_plain(cuda, b, s, h, kv, d, causal, dtype):
         assert float((got.float() - want32).abs().max()) <= 1.6e-2
 
 
-@pytest.mark.parametrize("d", [128, 64])
+@pytest.mark.parametrize("d", [128, 64, 112, 40])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_kernel_reads_strided_inputs(cuda, dtype, d):
     """Non-contiguous q, k and v (heads-major storage, last dim contiguous)
@@ -261,19 +301,24 @@ def test_flash_kernel_reads_strided_inputs(cuda, dtype, d):
                                           (torch.bfloat16, 64, "tc"),
                                           (torch.float32, 128, "tf32"),
                                           (torch.float32, 64, "tf32"),
-                                          (torch.float32, 80, "simt"),
-                                          (torch.bfloat16, 80, "simt")])
+                                          (torch.float32, 80, "mma"),
+                                          (torch.bfloat16, 80, "mma"),
+                                          (torch.float32, 32, "mma"),
+                                          (torch.bfloat16, 112, "mma"),
+                                          (torch.float32, 17, "simt"),
+                                          (torch.bfloat16, 17, "simt")])
 def test_flash_variant_counters(cuda, dtype, d, kind):
     """At d 64 and 128 bfloat16 launches only the bfloat16 tensor-core
-    kernel and float32 only the 3xTF32 one; every other width only the
-    CUDA-core kernel."""
+    kernel and float32 only the 3xTF32 one; every other multiple of 8 only
+    the warp-level tensor-core kernel; the widths left only the CUDA-core
+    kernel."""
     assert variant(dtype, d) == kind
     q = torch.randn((1, 70, 4, d), device=cuda).to(dtype)
     kv = torch.randn((1, 70, 2, d), device=cuda).to(dtype)
     ops.reset_launches()
     ops.flash_attention(q, kv, kv)
     counts = ops.launches()
-    for other in ("tc", "tf32", "simt"):
+    for other in ("tc", "tf32", "mma", "simt"):
         assert counts[f"flash_attention_{other}"] == int(other == kind)
 
 
@@ -346,6 +391,17 @@ def test_lm_kernels_refuse_what_they_do_not_take(cuda):
     odd = wide[:, :, :, 1:65]
     with pytest.raises(ValueError, match="multiples of 8"):
         flash_attention_cuda(odd, odd, odd)
+    # the same at a width of the warp-level kernel
+    wide = torch.zeros((1, 8, 6, 88), device=cuda, dtype=torch.bfloat16)
+    odd = wide[:, :, :, 1:81]
+    assert variant(torch.bfloat16, 80) == "mma"
+    with pytest.raises(ValueError, match="multiples of 8"):
+        flash_attention_cuda(odd, odd, odd)
+    before = ops.launches()
+    q = torch.zeros((1, 8, 4, 17), device=cuda)
+    with pytest.raises(ValueError, match="no 'mma' kernel"):
+        flash_attention_cuda(q, q, q, kind="mma")
+    assert ops.launches() == before
 
 
 @pytest.mark.parametrize("name", ["internlm2-1.8b", "mamba2-370m"])

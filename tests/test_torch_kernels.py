@@ -109,6 +109,30 @@ def test_knn_topk_indices_match_reference(n, v, b, k):
                                    rtol=1e-4, atol=1e-3)
 
 
+@pytest.mark.parametrize("b,kind", [(1, "gemv"), (8, "gemv"), (9, "tiled"),
+                                    (64, "tiled")])
+def test_knn_variant_by_batch(b, kind):
+    """The matrix-vector kernel up to 8 test rows (the analytic's B = 1),
+    the tensor-core product above."""
+    assert tknn.variant(b) == kind
+
+
+def test_knn_launcher_refuses_before_building(monkeypatch):
+    """What the kNN kernels do not take is refused before nvcc or ctypes is
+    touched, and no launch counter moves."""
+    from repro_torch.kernels import _build, ops
+
+    def boom(*a, **k):
+        raise AssertionError("the launcher reached the build")
+    monkeypatch.setattr(_build, "load", boom)
+    before = ops.launches()
+    train = torch.zeros((16, 8))
+    for test in (torch.zeros((9, 8)), torch.zeros((1, 8))):
+        with pytest.raises(ValueError, match="CUDA"):
+            tknn.knn_scores_cuda(train, test)
+    assert ops.launches() == before
+
+
 def test_ops_take_the_plain_version_for_cpu_tensors(monkeypatch):
     """A CPU tensor never reaches a kernel launcher, and so never moves a
     launch counter."""
@@ -124,8 +148,10 @@ def test_ops_take_the_plain_version_for_cpu_tensors(monkeypatch):
     idx, _ = tops.knn(x, x[:2], 2)
     assert idx.dtype == torch.int32
     assert tops.launches() == {"haar": 0, "knn_scores": 0,
+                               "knn_scores_gemv": 0, "knn_scores_tiled": 0,
                                "flash_attention_tc": 0,
                                "flash_attention_tf32": 0,
+                               "flash_attention_mma": 0,
                                "flash_attention_simt": 0, "ssd_intra_tc": 0,
                                "ssd_intra_simt": 0}
 

@@ -141,7 +141,8 @@ def test_flash_plain_gqa_matches_oracle_and_pallas(seed):
 def test_flash_launcher_refuses_before_building(monkeypatch):
     """KV heads that do not divide the query heads, and a last dimension
     that is not contiguous, are refused before nvcc or ctypes is touched;
-    the dispatch picks the tensor cores for bfloat16 at d 64 and 128 only."""
+    the dispatch picks the wgmma kernels at d 64 and 128 only, the
+    warp-level tensor cores at the other multiples of 8."""
     from repro_torch.kernels import _build
 
     def boom(*a, **k):
@@ -159,14 +160,31 @@ def test_flash_launcher_refuses_before_building(monkeypatch):
         (torch.bfloat16, 64), (torch.bfloat16, 128), (torch.bfloat16, 80),
         (torch.bfloat16, 256), (torch.float32, 128), (torch.float32, 64),
         (torch.float32, 80)]] == [
-            "tc", "tc", "simt", "simt", "tf32", "tf32", "simt"]
+            "tc", "tc", "mma", "mma", "tf32", "tf32", "mma"]
+
+
+@pytest.mark.parametrize("d,bf16_kind,f32_kind", [
+    (64, "tc", "tf32"), (128, "tc", "tf32"),      # the wgmma kernels
+    (8, "mma", "mma"), (32, "mma", "mma"), (40, "mma", "mma"),
+    (80, "mma", "mma"), (112, "mma", "mma"), (256, "mma", "mma"),
+    (17, "simt", "simt"), (1, "simt", "simt"), (100, "simt", "simt"),
+    (255, "simt", "simt")])
+def test_flash_variant_by_width(d, bf16_kind, f32_kind):
+    """"tc"/"tf32" at d 64 and 128, "mma" at every other multiple of 8 up
+    to 256, "simt" for the widths left."""
+    assert tflash.variant(torch.bfloat16, d) == bf16_kind
+    assert tflash.variant(torch.float32, d) == f32_kind
 
 
 @pytest.mark.parametrize("kind,dtype,d", [
-    ("tf32", torch.float32, 80),       # a width only the CUDA cores take
+    ("tf32", torch.float32, 80),       # a width of the warp-level kernel
     ("tf32", torch.bfloat16, 128),     # bfloat16 goes to "tc"
     ("tc", torch.float32, 64),         # float32 goes to "tf32"
     ("wgmma", torch.float32, 128),     # no such kernel
+    ("mma", torch.float32, 17),        # a width only the CUDA cores take
+    ("mma", torch.bfloat16, 17),
+    ("mma", torch.bfloat16, 64),       # a wgmma kernel's width
+    ("tc", torch.bfloat16, 112),       # the warp-level kernel's width
 ])
 def test_flash_forced_kind_refuses_before_building(monkeypatch, kind, dtype,
                                                    d):
@@ -218,6 +236,31 @@ def test_flash_plain_f32_d64_ragged_matches_oracle_and_pallas(causal):
                                     block_k=64, interpret=True)
     np.testing.assert_allclose(got.numpy(), np.asarray(pallas), rtol=1e-4,
                                atol=1e-4)
+
+
+@pytest.mark.parametrize("d", [40, 112])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_flash_plain_mma_widths_match_oracle_and_pallas(d, causal, dtype):
+    """Widths of the warp-level tensor-core kernel (d 40 and zamba2-7b's
+    112) at 40 tokens, short of one 64-row tile: the plain version the
+    card's kernel is held against agrees with the oracle and the Pallas
+    kernel (blocks of 8)."""
+    rng = np.random.default_rng(d)
+    qkv = [rng.normal(size=(2, 40, d)).astype(np.float32) for _ in range(3)]
+    if dtype == "bf16":
+        pairs = [bf16_pair(a) for a in qkv]
+    else:
+        pairs = [(jnp.asarray(a), torch.from_numpy(a)) for a in qkv]
+    tol = 3e-2 if dtype == "bf16" else 1e-4
+    (qj, qt), (kj, kt), (vj, vt) = pairs
+    got = tref.flash_attention_ref(qt, kt, vt, causal=causal)
+    assert got.dtype == qt.dtype and got.shape == (2, 40, d)
+    want = jref.flash_attention_ref(qj, kj, vj, causal=causal)
+    np.testing.assert_allclose(_f32(got), _f32(want), rtol=tol, atol=tol)
+    pallas = flash_attention_pallas(qj, kj, vj, causal=causal, block_q=8,
+                                    block_k=8, interpret=True)
+    np.testing.assert_allclose(_f32(got), _f32(pallas), rtol=tol, atol=tol)
 
 
 def _ssd_inputs(seed):
@@ -292,8 +335,10 @@ def test_lm_ops_take_the_plain_version_for_cpu_tensors(monkeypatch):
                          tref.ssd_intra_ref(x, da, B, C)):
         torch.testing.assert_close(got, want, rtol=0, atol=0)
     assert tops.launches() == {"haar": 0, "knn_scores": 0,
+                               "knn_scores_gemv": 0, "knn_scores_tiled": 0,
                                "flash_attention_tc": 0,
                                "flash_attention_tf32": 0,
+                               "flash_attention_mma": 0,
                                "flash_attention_simt": 0, "ssd_intra_tc": 0,
                                "ssd_intra_simt": 0}
 
