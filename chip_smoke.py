@@ -2,23 +2,27 @@
 holds each against its plain PyTorch version on the card, and drives the
 port's paths through their entry points: the quickstart's cross-island
 query and the §IV-B wavelet-signature kNN analytic at 4096 patients through
-``connect()``, then LM serving (``BatchServer`` prefill + continuous-
-batching decode) of internlm2-1.8b and mamba2-370m at full width and depth,
-with bfloat16 parameters from the port's seeded init.
+``connect()`` (plan-level fusion on: tfidf -> knn as one CUDA graph
+replay), the same analytic served by ``QueryServer`` over a resilient
+session with the 64 test patients as one batch (cold race, throughput,
+shedding, failover, tracing, warm restart), then LM serving
+(``BatchServer`` prefill + continuous-batching decode) of internlm2-1.8b
+and mamba2-370m at full width and depth, with bfloat16 parameters from the
+port's seeded init.
 
 Run on a machine with one CUDA card:  python3 chip_smoke.py
 
 Each phase prints one JSON line; any failure exits non-zero.  The line
 before the last lists every ported kernel with its launches on its path
-(Haar and kNN on the analytic, the bfloat16 tensor-core flash attention on
-the dense LM's bfloat16 serving, the float32 (3xTF32) one on its float32
-prefill check, the warp-level tensor-core one on the dense smoke config's
-ragged prefill check, the CUDA-core one on the flash phase's entry-point
-calls at widths that are not a multiple of 8, the tensor-core SSD on the
-SSM LM's serving, the CUDA-core one on the SSM smoke config's ragged
-prefill check), its error against the plain
-version, its time, the plain version's time, the bound and the yardstick
-library call's time.
+(Haar and kNN on the analytic, the tensor-core kNN on the serving phase,
+the bfloat16 tensor-core flash attention on the dense LM's bfloat16
+serving, the float32 (3xTF32) one on its float32 prefill check, the
+warp-level tensor-core one on the dense smoke config's ragged prefill
+check, the CUDA-core one on the flash phase's entry-point calls at widths
+that are not a multiple of 8, the tensor-core SSD on the SSM LM's
+serving, the CUDA-core one on the SSM smoke config's ragged prefill
+check), its error against the plain version, its time, the plain
+version's time, the bound and the yardstick library call's time.
 Times are device times: CUDA events around many back-to-back launches,
 divided by their count (``time_ms``); ``call_ms`` beside them is the old
 one-call figure, what the path pays per call with the host's work.  The
@@ -46,7 +50,8 @@ import torch
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
 from repro_torch.configs import PlanConfig, ShapeConfig, get_arch  # noqa: E402
-from repro_torch.core import DenseTensor, connect, execute_plan  # noqa: E402
+from repro_torch.core import (DenseTensor, EngineHealth, array,  # noqa: E402
+                              connect, execute_plan, fuseplan)
 from repro_torch.core import middleware as mw  # noqa: E402
 from repro_torch.core.engines import ENGINES  # noqa: E402
 from repro_torch.core.middleware import _plan_from_key  # noqa: E402
@@ -64,7 +69,8 @@ from repro_torch.kernels.ssd_scan import (  # noqa: E402
 from repro_torch.models import api  # noqa: E402
 from repro_torch.models import transformer as T  # noqa: E402
 from repro_torch.models.util import tree_leaves, tree_map  # noqa: E402
-from repro_torch.runtime import BatchServer, Request  # noqa: E402
+from repro_torch.runtime import (BatchServer, EngineFaultInjector,  # noqa: E402
+                                 Overloaded, QueryServer, Request)
 
 # H100 SXM published peaks (NVIDIA data sheet): HBM rate, and operations a
 # second of each kind of unit: float32 outside the tensor cores, dense
@@ -82,6 +88,20 @@ ANALYTIC = (f"ARRAY(knn(tfidf(bin_hist(haar(waves, levels={LEVELS}), "
             f"nbins={NBINS}, levels={LEVELS})), test_hist, k={K}))")
 QUICKSTART = ("ARRAY(matmul(RELATIONAL(select(A, column=value, lo=-0.5, "
               "hi=2.0)), B))")
+# the serving phase's query: the analytic over all 64 test patients at once
+# (one 64 x 224 test batch, so kNN runs at B 64 on the tensor-core kernel)
+SERVING = ANALYTIC.replace("test_hist", "test_batch")
+# post-order positions of tfidf and knn in both queries: the one fusable
+# chain, a segment when the plan puts both on dense_array (the production
+# plan can move to another known plan while monitor means settle)
+FUSED_TAIL = (2, 3)
+# analytic: production serves timed with fusion on and off, alternating
+FUSE_COMPARE_SERVES = 12
+# serving: cold racers, warm requests a throughput run, request threads,
+# the shedding batch and its bound, the failover waves' shape
+SERVE_COLD, SERVE_WARM, SERVE_WORKERS = 16, 64, 8
+SHED_BATCH, SHED_PENDING = 32, 2
+FAILOVER_WAVES = (256, 1024)
 HAAR_SHAPES = [(4096, 16384, 6), (130, 256, 4), (3, 32, 1)]
 # (N, V, B): the analytic's B 1 and a B 64 batch (both timed), then the two
 # kernels' boundary (B 8 the last of the matrix-vector kernel, B 9 the first
@@ -199,6 +219,13 @@ class SmokeFailure(RuntimeError):
 def check(cond: bool, what: str) -> None:
     if not cond:
         raise SmokeFailure(what)
+
+
+def fusable(plan_key: str) -> bool:
+    """Whether the plan puts the analytic's tfidf -> knn on dense_array,
+    the one chain that fuses."""
+    engines = dict(_plan_from_key(plan_key).assignment)
+    return all(engines[p] == "dense_array" for p in FUSED_TAIL)
 
 
 def emit(phase: str, **fields) -> None:
@@ -372,6 +399,9 @@ def phase_haar(dev, shapes=HAAR_SHAPES) -> dict:
 
 
 def phase_knn(dev, shapes=KNN_SHAPES, k: int = K) -> dict:
+    """Both kernels against the plain version at every shape; returns the
+    timed float32 rows by B (1: the analytic's gemv, 64: the serving
+    phase's tiled)."""
     gen = torch.Generator(device=dev).manual_seed(1)
     main = {}
     for n, v, b in shapes:
@@ -421,8 +451,8 @@ def phase_knn(dev, shapes=KNN_SHAPES, k: int = K) -> dict:
                 row.update(bound_ms(nbytes, 2.0 * b * n * v, units,
                                     ("f32", "3xtf32") if units != "bf16"
                                     else ()))
-                if (b, dtype) == (shapes[0][2], torch.float32):
-                    main = dict(row)
+                if dtype == torch.float32:
+                    main[b] = dict(row)
             emit("knn", **row)
     return main
 
@@ -713,21 +743,35 @@ def _leaves(obj):
     return [x for x in leaves(obj) if isinstance(x, torch.Tensor)]
 
 
-def phase_analytic(dev, n_train=N_TRAIN, n_test=N_TEST, samples=SAMPLES,
-                   train_plans=36, cpu_checks=4) -> dict:
-    """The §IV-B analytic through connect(): training on the first test
-    patient, production for the rest; accuracy must beat the majority
-    class by the example's margin."""
+def analytic_data(dev, n_train=N_TRAIN, n_test=N_TEST,
+                  samples=SAMPLES) -> dict:
+    """The analytic's patients from ``ecg_waveforms(seed=0)``: training
+    waveforms and labels on the host, and the test patients' histograms on
+    ``dev``, made with the plain Haar (data preparation, as the example
+    does; no kernel launch)."""
     t0 = time.perf_counter()
     waves, labels = ecg_waveforms(n_train + n_test, samples, seed=0)
-    train_w, test_w = waves[:n_train], waves[n_train:]
-    train_y, test_y = labels[:n_train], labels[n_train:]
-    # test patients' histograms with the plain Haar (data preparation, as
-    # the example does; no kernel launch)
+    test_w = waves[n_train:]
     test_hists = ENGINES["dense_array"].run(
         "bin_hist", {"nbins": NBINS, "levels": LEVELS},
         DenseTensor(haar_ref(torch.from_numpy(test_w).to(dev), LEVELS)),
         device=dev).data
+    return {"train_w": waves[:n_train], "train_y": labels[:n_train],
+            "test_y": labels[n_train:], "test_hists": test_hists,
+            "samples": samples, "seconds": time.perf_counter() - t0}
+
+
+def phase_analytic(dev, data, train_plans=36, cpu_checks=4,
+                   compare_serves=FUSE_COMPARE_SERVES) -> dict:
+    """The §IV-B analytic through connect(): training on the first test
+    patient, production for the rest, with plan-level fusion on (the
+    default: tfidf -> knn as one CUDA graph replay); accuracy must beat the
+    majority class by the example's margin."""
+    t0 = time.perf_counter()
+    train_w, train_y, test_y = data["train_w"], data["train_y"], \
+        data["test_y"]
+    test_hists = data["test_hists"]
+    n_train, n_test = len(train_w), len(test_y)
     s = connect(device=dev, train_plans=train_plans)
     # a one-shot run: usage drift (peak RSS grows as training casts 67M-row
     # tables) must not re-train mid-run, as the repo's benchmarks pin it
@@ -736,7 +780,7 @@ def phase_analytic(dev, n_train=N_TRAIN, n_test=N_TEST, samples=SAMPLES,
                engine="dense_array")
     check(s.catalog["waves"].obj.data.device.type == dev.type,
           "waves not homed on the session device")
-    setup_s = time.perf_counter() - t0
+    setup_s = time.perf_counter() - t0 + data["seconds"]
 
     ops.reset_launches()
     results, seconds = [], []
@@ -768,10 +812,24 @@ def phase_analytic(dev, n_train=N_TRAIN, n_test=N_TEST, samples=SAMPLES,
               and launches["knn_scores_gemv"] == launches["knn_scores"],
               f"main path did not launch both kernels: {launches}")
     prod = [sec for sec, m in zip(seconds, modes) if m == "production"]
+    # every production serve whose plan puts tfidf -> knn on dense_array
+    # ran it as one fused segment, and no capture or replay fell back (a
+    # broken segment would hide one)
+    prod_res = [r for r in results if r.mode == "production"]
+    wrong = [(r.plan_key, r.fused_segments) for r in prod_res
+             if bool(r.fused_segments) != fusable(r.plan_key)]
+    broken = fuseplan.broken_keys()
+    check(s.bigdawg.fusion_fallbacks == 0 and not broken,
+          f"analytic fusion fell back {s.bigdawg.fusion_fallbacks}x, "
+          f"broken segments {broken}")
+    fused_serves = sum(bool(r.fused_segments) for r in prod_res)
+    check(fused_serves > 0 and not wrong,
+          f"analytic fused {fused_serves} of {len(prod_res)} production "
+          f"serves; fused where the plan says otherwise: {wrong}")
     stage_ms = _stage_ms(dev, s.catalog["waves"].obj,
                          DenseTensor(test_hists[:1]))
     row = {"patients": {"train": n_train, "test": n_test,
-                        "samples": samples},
+                        "samples": data["samples"]},
            "levels": LEVELS, "nbins": NBINS, "k": K,
            "train_plans": train_plans, "setup_s": setup_s,
            "training_s": seconds[0],
@@ -782,14 +840,53 @@ def phase_analytic(dev, n_train=N_TRAIN, n_test=N_TEST, samples=SAMPLES,
            if prod else None,
            "production_ms_mean": statistics.mean(prod) * 1e3
            if prod else None,
+           "fused_serves": fused_serves,
+           "fusable_plans": sorted({r.plan_key for r in prod_res
+                                    if fusable(r.plan_key)}),
+           "other_plans": sorted({r.plan_key for r in prod_res
+                                  if not fusable(r.plan_key)}),
+           "fusion_fallbacks": s.bigdawg.fusion_fallbacks,
+           "broken_keys": broken,
+           "fused_segments": [list(seg) for seg in results[-1].fused_segments],
            "stage_ms": stage_ms,
            "accuracy": acc, "baseline": base, "launches": launches,
            "peak_mem_gb": torch.cuda.max_memory_allocated(dev) / 1e9
            if dev.type == "cuda" else None}
     row["cpu_check"] = _cpu_check(results[-1].plan_key, train_w, test_hists,
                                   results, cpu_checks)
+    row["fuse_compare"] = _fuse_compare(s, test_hists, compare_serves)
     emit("analytic", **row)
     return row
+
+
+def _fuse_compare(s, test_hists, n: int) -> dict:
+    """Production ms of the analytic with fusion on and off, alternating
+    serve by serve over the first ``n`` test patients (after the main
+    path's counts were read); on one plan both must give the same
+    neighbours."""
+    ms = {True: [], False: []}
+    for i in range(n):
+        s.register("test_hist", DenseTensor(test_hists[i:i + 1]),
+                   engine="dense_array")
+        got = {}
+        for fuse in (True, False):
+            s.bigdawg.fuse = fuse
+            t0 = time.perf_counter()
+            res = s.execute(ANALYTIC)
+            ms[fuse].append((time.perf_counter() - t0) * 1e3)
+            check(res.mode == "production" and bool(res.fused_segments)
+                  == (fuse and fusable(res.plan_key)),
+                  f"fuse={fuse}: {res.mode} on {res.plan_key}, segments "
+                  f"{res.fused_segments}")
+            got[fuse] = (res.plan_key, res.value.data)
+        check(got[True][0] != got[False][0]
+              or torch.equal(got[True][1], got[False][1]),
+              f"patient {i}: fused and unfused neighbours differ")
+    s.bigdawg.fuse = True
+    return {"serves": n,
+            "fused_ms_median": statistics.median(ms[True]),
+            "unfused_ms_median": statistics.median(ms[False]),
+            "fused_ms": ms[True], "unfused_ms": ms[False]}
 
 
 def _stage_ms(dev, waves, test_hist) -> dict:
@@ -846,6 +943,278 @@ def _cpu_check(plan_key: str, train_w, test_hists, results, n: int) -> dict:
             near_ties += 1
     return {"patients": n, "plan": plan_key, "differing": differing,
             "near_ties": near_ties}
+
+
+# -- polystore serving ------------------------------------------------------
+
+def _same_neighbours(got, want, feats, test, what: str) -> int:
+    """``got`` and ``want`` (B, K) indices hold the same neighbours for every
+    row, or differ only in near-ties (a score within 1e-5 relative of the
+    row's k-th, from the plain scores of ``feats`` and ``test``); returns
+    how many indices differ."""
+    if torch.equal(got, want):
+        return 0
+    scores = knn_scores_ref(feats, test)
+    differing = 0
+    for r in range(got.shape[0]):
+        a, b = set(got[r].tolist()), set(want[r].tolist())
+        if a == b:
+            continue
+        kth = float(torch.topk(scores[r], got.shape[1])[0][-1])
+        for j in a ^ b:
+            differing += 1
+            check(abs(float(scores[r, j]) - kth) <= 1e-5 * abs(kth),
+                  f"{what}: row {r} neighbour {j} differs, no near-tie")
+    return differing
+
+
+def _timed(srv) -> list:
+    """Record each request's latency through ``srv.submit`` (the
+    admission's own call), waiting on the signature lock included."""
+    lat, submit = [], srv.submit
+
+    def timed(query, degrade=False):
+        t0 = time.perf_counter()
+        rep = submit(query, degrade=degrade)
+        lat.append(time.perf_counter() - t0)
+        return rep
+
+    srv.submit = timed
+    return lat
+
+
+def _pct(values, q: float) -> float:
+    return float(np.percentile(np.asarray(values) * 1e3, q))
+
+
+def phase_serving(dev, data, state_dir: str, train_plans=36,
+                  cold=SERVE_COLD, warm=SERVE_WARM, workers=SERVE_WORKERS,
+                  failover_waves=FAILOVER_WAVES) -> dict:
+    """``QueryServer`` over a resilient session at the analytic's full size:
+    the 64 test patients as one 64 x 224 batch (kNN at B 64, the tiled
+    kernel, inside the fused tfidf -> knn graph).  Six checks: a cold race
+    trains once; warm throughput, with the kNN launches credited across
+    graph replays and the fused neighbours equal to an unfused serve's;
+    shedding beyond ``max_pending``; failover and recovery of a small
+    portable query under injected outages; a traced warm serve; a warm
+    restart from ``persist()`` with zero plan enumerations."""
+    train_w = data["train_w"]
+    batch = data["test_hists"]
+    state = os.path.join(state_dir, "monitor.json")
+    q = lambda: bigdawg(SERVING)
+
+    def session():
+        s = connect(state, device=dev, resilient=True,
+                    train_plans=train_plans)
+        # isolate the serving checks from usage-drift retraining (peak RSS
+        # only grows in one process) and from the millisecond-noise re-plan
+        # trigger, as the reference's serving tests and benchmarks do
+        s.bigdawg.monitor.DRIFT_THRESHOLD = float("inf")
+        s.bigdawg.replan_factor = float("inf")
+        s.register("waves", DenseTensor(torch.from_numpy(train_w)),
+                   engine="dense_array")
+        s.register("test_batch", DenseTensor(batch), engine="dense_array")
+        return s
+
+    row = {"patients": {"train": len(train_w), "test_batch": len(batch)}}
+    # features of the training patients with the plain versions (no launch)
+    feats = ENGINES["dense_array"].run("tfidf", {}, ENGINES["dense_array"].run(
+        "bin_hist", {"nbins": NBINS, "levels": LEVELS},
+        DenseTensor(haar_ref(torch.from_numpy(train_w).to(dev), LEVELS)),
+        device=dev), device=dev).data
+
+    # 1. cold race: racing requests on a fresh session train once
+    s = session()
+    t0 = time.perf_counter()
+    reports = s.server(max_pending=cold).submit_many(
+        [q() for _ in range(cold)], workers=workers)
+    cold_s = time.perf_counter() - t0
+    modes = [r.mode for r in reports]
+    check(modes.count("training") == 1
+          and modes.count("production") == cold - 1
+          and s.bigdawg.metrics.value("server.trainings") == 1,
+          f"cold race modes {modes}")
+    first = next(r for r in reports if r.mode == "production").result.data
+    check(first.dtype == torch.int32 and tuple(first.shape) == (len(batch), K)
+          and first.device.type == dev.type,
+          f"serving result {first.dtype} {tuple(first.shape)} {first.device}")
+    ties = sum(_same_neighbours(r.result.data, first, feats, batch,
+                                "cold race") for r in reports)
+    row["cold_race"] = {"requests": cold, "workers": workers,
+                        "seconds": cold_s, "modes": dict(
+                            (m, modes.count(m)) for m in set(modes)),
+                        "plans_tried": next(
+                            r.plans_tried for r in reports
+                            if r.mode == "training"),
+                        "plan": reports[-1].plan_key,
+                        "near_tie_indices": ties}
+
+    # 2. warm throughput, the kNN launches credited across graph replays
+    srv = s.server()
+    lat = _timed(srv)
+    fused0 = s.bigdawg.fused_serves
+    ops.reset_launches()
+    runs, served = {}, []
+    for w in (workers, 1):
+        del lat[:]
+        out = srv.serve([q() for _ in range(warm)], workers=w)
+        runs[w] = {"rps": out["rps"], "seconds": out["seconds"],
+                   "shed": out["shed"], "latency_ms_p50": _pct(lat, 50),
+                   "latency_ms_p95": _pct(lat, 95)}
+        served += out["reports"]
+        seen = [(r.mode, r.status, r.fused_segments, r.plan_key)
+                for r in out["reports"]]
+        check(out["shed"] == 0 and all(
+            mode == "production" and status == "ok"
+            and bool(segs) == fusable(key)
+            for mode, status, segs, key in seen),
+            f"warm serves at {w} workers: {seen}")
+    launches = ops.launches()
+    fused = s.bigdawg.fused_serves - fused0
+    n_fusable = sum(fusable(r.plan_key) for r in served)
+    check(fused == n_fusable > 0,
+          f"{fused} warm serves fused, {n_fusable} on a fusable plan")
+    if dev.type == "cuda":
+        # one kNN launch a fused serve, every one a replay of the graph
+        check(launches["knn_scores_tiled"] == n_fusable
+              and launches["knn_scores"] == n_fusable,
+              f"warm serving launches {launches}, want kNN tiled = "
+              f"{n_fusable}")
+    last = served[-1]
+    plain = QueryServer(s.bigdawg, fuse=False).submit(q())
+    s.bigdawg.fuse = True
+    check(not plain.fused_segments, "a fuse=False server fused")
+    _same_neighbours(plain.result.data, last.result.data, feats, batch,
+                     "fused vs unfused serving")
+    row["warm"] = {"requests": warm, "by_workers": runs,
+                   "fused_serves": fused, "launches": launches,
+                   "plans": sorted({r.plan_key for r in served}),
+                   "serve_ms_median": statistics.median(
+                       r.seconds * 1e3 for r in served)}
+
+    # 3. shedding beyond max_pending
+    shed0 = s.bigdawg.metrics.value("server.shed")
+    out = s.server(max_pending=SHED_PENDING).submit_many(
+        [q() for _ in range(SHED_BATCH)], workers=workers)
+    shed = [r for r in out if isinstance(r, Overloaded)]
+    served = [r for r in out if not isinstance(r, Overloaded)]
+    shed_stat = s.bigdawg.metrics.value("server.shed") - shed0
+    check(shed and shed_stat == len(shed)
+          and len(shed) + len(served) == SHED_BATCH
+          and all(r.reason == "max_pending" for r in shed)
+          and all(r.mode == "production" for r in served),
+          f"shedding: {len(shed)} shed ({shed_stat} counted), "
+          f"{len(served)} served of {SHED_BATCH}")
+    row["shedding"] = {"batch": SHED_BATCH, "max_pending": SHED_PENDING,
+                       "shed": len(shed), "served": len(served)}
+
+    # 4. failover and recovery on a small portable query (each node has at
+    # least two capable engines), with an injected clock
+    row["failover"] = _failover(dev, failover_waves)
+
+    # 5. a traced warm serve: one connected span tree, tfidf and knn as
+    # engine_op children of one fused_segment
+    s.bigdawg.tracer.enabled = True
+    for _ in range(5):                 # a serve on a fusable plan
+        rep = srv.submit(q())
+        if fusable(rep.plan_key):
+            break
+    s.bigdawg.tracer.enabled = False
+    spans = rep.trace.spans
+    sids = {sp["sid"] for sp in spans}
+    segs = rep.trace.find("fused_segment")
+    kids = [sp for sp in spans if segs and sp["parent"] == segs[0]["sid"]]
+    check(sum(sp["parent"] is None for sp in spans) == 1
+          and all(sp["parent"] in sids for sp in spans
+                  if sp["parent"] is not None),
+          "serving trace is not one connected tree")
+    check(len(segs) == 1 and [(k["name"], k["attrs"].get("op"))
+                              for k in kids]
+          == [("engine_op", "tfidf"), ("engine_op", "knn")],
+          f"serving trace segments {segs}, children {kids}")
+    row["trace"] = {"spans": len(spans),
+                    "names": sorted({sp["name"] for sp in spans}),
+                    "fused_segment_ms": segs[0]["seconds"] * 1e3}
+
+    # 6. restart: persist, then a new session on the same state serves
+    # production with zero plan enumerations
+    srv.persist()
+    enumerations = []
+    real_dp = mw.dp_plans
+
+    def counting_dp(*a, **kw):
+        enumerations.append(1)
+        return real_dp(*a, **kw)
+
+    mw.dp_plans = counting_dp
+    try:
+        s2 = session()
+        srv2 = s2.server()
+        again = [srv2.submit(q()) for _ in range(4)]
+    finally:
+        mw.dp_plans = real_dp
+    check(all(r.mode == "production" for r in again) and not enumerations,
+          f"restart modes {[r.mode for r in again]}, "
+          f"{len(enumerations)} enumerations")
+    ties = sum(_same_neighbours(r.result.data, first, feats, batch,
+                                "restart") for r in again)
+    row["restart"] = {"serves": len(again), "enumerations": len(enumerations),
+                      "modes": [r.mode for r in again],
+                      "near_tie_indices": ties}
+    row["broken_keys"] = fuseplan.broken_keys()
+    row["fusion_fallbacks"] = s.bigdawg.fusion_fallbacks
+    row["stats"] = dict(srv.stats)
+    check(not row["broken_keys"] and row["fusion_fallbacks"] == 0,
+          f"serving fusion fell back: {row['broken_keys']}")
+    del s, s2, srv, srv2, feats
+    emit("serving", **row)
+    return row
+
+
+def _failover(dev, shape) -> dict:
+    """The reference test's portable query ``tfidf(haar(waves, levels=2))``
+    on a ``shape`` waveform table on the card: fail every engine of the
+    incumbent plan, serve degraded (no ``EngineDown`` reaches the caller),
+    recover and advance the clock past the cooldown, and the next serve
+    restores the incumbent."""
+    t = [0.0]
+    inj = EngineFaultInjector()
+    health = EngineHealth(failure_threshold=2, cooldown_s=5.0,
+                          time_fn=lambda: t[0], injector=inj)
+    f = connect(device=dev, health=health, train_plans=2, train_repeats=1)
+    f.bigdawg.monitor.DRIFT_THRESHOLD = float("inf")
+    f.bigdawg.replan_factor = float("inf")
+    f.register("waves", DenseTensor(torch.from_numpy(
+        np.random.default_rng(0).normal(size=shape).astype(np.float32))),
+        engine="dense_array")
+    pq = array.tfidf(array.haar("waves", levels=2))
+    f.execute(pq, mode="training")
+    ok = f.execute(pq)
+    incumbent = ok.plan_key
+    down = sorted({eng for _, eng in _plan_from_key(incumbent).assignment})
+    for eng in down:
+        inj.fail_engine(eng)
+    deg = [f.execute(pq) for _ in range(2)]
+    for r in deg:
+        used = {eng for _, eng in _plan_from_key(r.plan_key).assignment}
+        check(r.status == "degraded" and not used & set(down)
+              and tuple(r.value.data.shape) == shape
+              and bool(torch.isfinite(r.value.data).all()),
+              f"failover serve {r.status} on {r.plan_key}, down {down}")
+    check(deg[0].failovers >= 1 and deg[1].failovers == 0,
+          f"failovers {[r.failovers for r in deg]}")
+    for eng in down:
+        inj.recover(eng)
+    t[0] += 5.0
+    rec = f.execute(pq)
+    check(rec.status == "ok" and rec.plan_key == incumbent,
+          f"recovery served {rec.status} on {rec.plan_key}, incumbent "
+          f"{incumbent}")
+    return {"waves": list(shape), "incumbent": incumbent, "down": down,
+            "degraded_plans": [r.plan_key for r in deg],
+            "failovers": deg[0].failovers, "faults_fired": inj.faults_fired,
+            "recovered_plan": rec.plan_key,
+            "breaker_trips": health.trips()}
 
 
 # -- LM serving -----------------------------------------------------------------
@@ -1149,11 +1518,13 @@ def _kernel_entry(name, source, replaces, launches, row) -> dict:
                if key.startswith("bound_ops_") or key == "bound_bytes_ms"}}
 
 
-def kernels_line(haar_row: dict, knn_row: dict, flash_rows: dict,
-                 ssd_rows: dict, analytic: dict, lm_dense: dict,
-                 lm_ssm: dict) -> dict:
-    """Launches of each kernel on its own path: Haar and kNN on the
-    analytic, the bfloat16 tensor-core flash attention on dense LM serving,
+def kernels_line(haar_row: dict, knn_rows: dict, flash_rows: dict,
+                 ssd_rows: dict, analytic: dict, serving: dict,
+                 lm_dense: dict, lm_ssm: dict) -> dict:
+    """Launches of each kernel on its own path: Haar and kNN (all kernels,
+    the matrix-vector one at B 1) on the analytic, the tensor-core kNN at
+    B 64 on the serving phase's warm run (credited across CUDA graph
+    replays), the bfloat16 tensor-core flash attention on dense LM serving,
     the 3xTF32 one on the dense LM's float32 prefill (``cpu_check``), the
     warp-level one on the dense smoke config's ragged prefill
     (``ragged_check``), the CUDA-core one on phase_flash's entry-point calls
@@ -1167,7 +1538,11 @@ def kernels_line(haar_row: dict, knn_row: dict, flash_rows: dict,
         _kernel_entry("haar", "haar.cu", "src/repro/kernels/haar.py:32",
                       analytic["launches"]["haar"], haar_row),
         _kernel_entry("knn_scores", "knn.cu", "src/repro/kernels/knn.py:34",
-                      analytic["launches"]["knn_scores"], knn_row),
+                      analytic["launches"]["knn_scores"], knn_rows[1]),
+        _kernel_entry("knn_scores_tiled", "knn.cu",
+                      "src/repro/kernels/knn.py:34",
+                      serving["warm"]["launches"]["knn_scores_tiled"],
+                      knn_rows[64]),
         _kernel_entry("flash_attention_tc", "flash_attention.cu", flash,
                       lm_dense["launches"]["flash_attention_tc"],
                       flash_rows["tc"]),
@@ -1196,18 +1571,23 @@ def main() -> int:
     t0 = time.perf_counter()
     phase_device(dev)
     haar_row = phase_haar(dev)
-    knn_row = phase_knn(dev)
+    knn_rows = phase_knn(dev)
     flash_rows = phase_flash(dev)
     ssd_rows = phase_ssd(dev)
     with tempfile.TemporaryDirectory(prefix="chip-smoke-") as state_dir:
         phase_quickstart(dev, state_dir)
-    analytic = phase_analytic(dev)
+    data = analytic_data(dev)
+    analytic = phase_analytic(dev, data)
+    with tempfile.TemporaryDirectory(prefix="chip-smoke-") as state_dir:
+        serving = phase_serving(dev, data, state_dir)
+    del data
     lm_dense = phase_lm(dev, "internlm2-1.8b")
     lm_ssm = phase_lm(dev, "mamba2-370m")
     emit("total", seconds=time.perf_counter() - t0,
          host_behind=HOST_BEHIND)
-    print(json.dumps(kernels_line(haar_row, knn_row, flash_rows, ssd_rows,
-                                  analytic, lm_dense, lm_ssm)), flush=True)
+    print(json.dumps(kernels_line(haar_row, knn_rows, flash_rows, ssd_rows,
+                                  analytic, serving, lm_dense, lm_ssm)),
+          flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -1,6 +1,7 @@
 # The paper's primary contribution — the BigDAWG polystore middleware, on
 # PyTorch tensors with hand-written CUDA kernels for the dense engine's hot
-# ops.  Plan-level fusion and the process pool are not ported yet.
+# ops; plan-level fusion runs each fused segment as one CUDA graph replay.
+# The process pool is not ported yet.
 from repro_torch.core.tables import (DenseTensor, ColumnarTable, COOMatrix,
                                      StreamBuffer, resolve_device)
 from repro_torch.core.ops import PolyOp, Ref, SCOPE_OP
@@ -23,6 +24,8 @@ from repro_torch.core.errors import (BigDAWGError, EngineDown, Overloaded,
 from repro_torch.core.health import CircuitBreaker, EngineHealth
 from repro_torch.core.executor import (execute_plan, ExecutionResult,
                                        topo_levels, host_pool)
+from repro_torch.core.fuseplan import (FusedPlan, FusedSegment, fuse_plan,
+                                       query_fingerprint)
 from repro_torch.core.deltaplan import (UpdatePlan, apply_update, delta_name,
                                         derive)
 from repro_torch.core.middleware import (BigDAWG, CachedPlan,
@@ -47,7 +50,8 @@ __all__ = [
     "Plan", "enumerate_plans", "find_containers", "plan_containers",
     "plan_cost", "dp_plans", "exhaustive_plans", "estimate_sizes",
     "estimate_sizes_shapes", "Monitor", "usage_snapshot", "execute_plan",
-    "ExecutionResult", "topo_levels", "host_pool",
+    "ExecutionResult", "topo_levels", "host_pool", "FusedPlan",
+    "FusedSegment", "fuse_plan", "query_fingerprint",
     "UpdatePlan", "apply_update", "delta_name", "derive",
     "BigDAWG", "CachedPlan", "MaterializedView",
     "Report", "default_plan_cache_path", "default_view_cache_path",

@@ -32,6 +32,8 @@ textual ``BIGDAWG(ISLAND(...))`` syntax, or a mix — and returns structured
     res.per_node_seconds    # post-order position -> measured seconds
     res.cast_bytes          # bytes the migrator moved across boundaries
 
+    srv = s.server(max_pending=64)   # bounded-admission QueryServer
+
 ``BigDAWG.execute`` (returning the raw ``Report``) and the module-level
 island objects (``repro_torch.core.array`` etc.) remain supported as the low-level
 API — ``Session`` is a veneer over them, so both surfaces share one catalog,
@@ -238,11 +240,15 @@ class Session:
 
     def server(self, max_pending: Optional[int] = None,
                latency_target_s: Optional[float] = None):
-        """A ``QueryServer`` over this session's middleware.  Not ported
-        yet: raises ``NotImplementedError``."""
-        raise NotImplementedError(
-            "Session.server() needs runtime/server.py, which is not ported "
-            "yet (ROADMAP queue 1, 'Serving stack')")
+        """A ``QueryServer`` over this session's middleware — concurrent
+        admission (``submit_many``/``serve``) with optional bounded
+        admission: with ``max_pending=N``, batch overflow beyond N in-flight
+        requests is shed (``stats["shed"]``) instead of queued;
+        ``latency_target_s`` switches to the adaptive AIMD bound with
+        degrade-before-shed (see ``QueryServer``)."""
+        from repro_torch.runtime.server import QueryServer
+        return QueryServer(self.bigdawg, max_pending=max_pending,
+                           latency_target_s=latency_target_s)
 
     def metrics(self, merged: bool = True) -> Dict[str, Any]:
         """Point-in-time snapshot of the middleware's telemetry registry:
@@ -297,8 +303,10 @@ def connect(state_path: Optional[str] = None, *,
     failover re-planning (pass ``health=EngineHealth(...)`` instead to tune
     thresholds or plug in a fault injector).  Remaining keyword arguments go
     to ``BigDAWG`` — ``train_plans``, ``explore_budget``, ``calibrate``,
-    ``replan_factor``, ``health``, ``fuse`` (plan-level kernel fusion;
-    default off, and not ported yet),
+    ``replan_factor``, ``health``, ``fuse`` (plan-level fusion of warm
+    serves, default on: each dense_array chain runs as one CUDA graph
+    replay on the card, one eager call on the CPU; ``fuse=False`` forces
+    node-by-node dispatch),
     ``incremental`` (streaming IVM: ``True`` — the default — patches
     materialized views after ``append()`` when the cost model prices the
     delta path cheaper than recomputing, ``"force"`` skips the gate,
@@ -310,8 +318,8 @@ def connect(state_path: Optional[str] = None, *,
 
     ``device`` is where the catalog's containers live and every op runs:
     ``None`` (the default) means the CUDA card, and raises when there is
-    none — pass ``device="cpu"`` to run on the CPU.  ``fuse=True`` and
-    ``processes=N`` are not ported yet and raise ``NotImplementedError``.
+    none — pass ``device="cpu"`` to run on the CPU.  ``processes=N`` is not
+    ported yet and raises ``NotImplementedError``.
     """
     if processes is not None and processes > 1:
         raise NotImplementedError(

@@ -69,15 +69,19 @@ def _scale_slices(T: int, levels: int):
 def _div(num, den: float) -> torch.Tensor:
     """``num / den`` as a true elementwise division.  (A Python-scalar
     divisor may run as a multiply by its reciprocal on CUDA, which rounds
-    differently from the reference; a device tensor divisor does not.)"""
-    return torch.div(num, torch.tensor(den, dtype=num.dtype,
-                                       device=num.device))
+    differently from the reference; a device tensor divisor does not.)
+    The scalar is made on the device by ``torch.full``, a fill kernel: no
+    host-to-device copy, so no stream synchronize, and a CUDA graph can
+    capture it (``core.fuseplan``)."""
+    return torch.div(num, torch.full((), den, dtype=num.dtype,
+                                     device=num.device))
 
 
 def _rdiv(num: float, den: torch.Tensor) -> torch.Tensor:
     """``num / den`` for a scalar numerator, as a true division (the
-    reflected operator computes ``reciprocal(den) * num``)."""
-    return torch.div(torch.tensor(num, dtype=den.dtype, device=den.device),
+    reflected operator computes ``reciprocal(den) * num``); the scalar as
+    in ``_div``."""
+    return torch.div(torch.full((), num, dtype=den.dtype, device=den.device),
                      den)
 
 

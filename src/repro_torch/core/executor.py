@@ -142,17 +142,17 @@ class ExecutionResult:
     # modes, where the format carries one) — shape feedback for downstream
     # matmul/transpose output estimates
     shape_obs: Dict[int, Tuple[int, ...]] = field(default_factory=dict)
-    # position groups that executed as single compiled segments this run
+    # position groups that executed as single fused segments this run
     # (empty when fusion was off, nothing was fusable, or every segment
     # fell back)
     fused_segments: Tuple[Tuple[int, ...], ...] = ()
-    # fused segments that failed to trace/compile/run THIS run and were
+    # fused segments that failed to capture/run THIS run and were
     # re-executed node-by-node (each also marks its key sticky-broken)
     fusion_fallbacks: int = 0
-    # fused segments whose compiled callable paid trace+compile THIS run
-    # (first serve of a segment signature at these shapes) — the middleware
-    # keeps such a serve's wall time out of the plan's measured mean so a
-    # one-off compile spike can never trigger a divergence re-plan
+    # fused segments that paid their warm-up and CUDA graph capture THIS
+    # run (first serve of a segment signature at these shapes) — the
+    # middleware keeps such a serve's wall time out of the plan's measured
+    # mean so a one-off capture spike can never trigger a divergence re-plan
     fusion_cold_compiles: int = 0
 
 
@@ -319,8 +319,20 @@ def execute_plan(query: PolyOp, plan: Plan, catalog,
     mismatches) propagate unchanged: they would fail identically on every
     engine, so retrying them elsewhere is never correct.
 
-    ``fused`` (plan-level fusion) is not ported yet: passing one raises
-    ``NotImplementedError`` (ROADMAP queue 1, "Plan-level fusion").
+    ``fused`` (a ``core.fuseplan.FusedPlan`` for this plan) opts concurrent
+    dispatch into fused execution: each segment runs as ONE host task — the
+    migrator casts its external inputs onto the segment engine (cast-in),
+    one callable evaluates the whole chain with intermediates on device (a
+    CUDA graph replay on the card), and the segment's measured seconds are
+    attributed back to member nodes pro-rata by predicted cost
+    (``per_node_seconds`` keeps its meaning for the monitor, drift
+    re-planning and the straggler detectors).  ``health.before_op`` still
+    fires per member op, so fault-injection and breakers see fused serves
+    exactly like unfused ones.  Any fused-call failure falls back to
+    node-by-node execution of the members inside the same task (sticky per
+    segment signature — see ``fuseplan.mark_broken``), so fusion can never
+    turn a servable query into an error.  Sequential (training) mode
+    ignores ``fused``: per-node calibration timings must stay pure.
 
     ``device`` is the session's device: every engine op and every cast
     that builds a dense tensor puts its output there.
@@ -329,10 +341,6 @@ def execute_plan(query: PolyOp, plan: Plan, catalog,
     ``engine_op`` / ``fused_segment`` / ``cast`` child spans under the
     caller's span — no extra clock reads beyond the timings this function
     takes anyway, and zero work when None."""
-    if fused is not None:
-        raise NotImplementedError(
-            "plan-level fusion is not ported yet (ROADMAP queue 1, "
-            "'Plan-level fusion')")
     amap = plan.engine_map(query)
     migrator = Migrator(cost_model=cost_model, trace=trace, device=device)
     values: Dict[int, Any] = {}
@@ -380,7 +388,153 @@ def execute_plan(query: PolyOp, plan: Plan, catalog,
             health.record_failure(engine)
             raise EngineDown(engine, op, exc) from exc
 
-    if concurrent:
+    fused_ran: List[Tuple[int, ...]] = []
+    fallbacks = [0]
+    cold_compiles = [0]
+
+    if concurrent and fused is not None and getattr(fused, "segments", ()):
+        from repro_torch.core import fuseplan
+        nodes = query.nodes()
+        node_at = {pos: n for pos, n in enumerate(nodes)}
+        uid_at = {pos: n.uid for pos, n in enumerate(nodes)}
+
+        def run_segment(seg):
+            """One host task for a whole fused segment: cast-in the external
+            inputs, run the segment (one CUDA graph replay on the card;
+            intermediates stay on device), attribute the measured seconds
+            pro-rata.  A broken (or
+            just-failed) segment executes its members node-by-node inside
+            the SAME task — identical results, one sticky mark per key."""
+            eng = ENGINES[seg.engine]
+            tn = time.perf_counter()
+            try:
+                if health is not None:
+                    for op in seg.ops:       # breakers/injectors see every
+                        health.before_op(eng.name, op)   # member op
+                out = None
+                if not fuseplan.is_broken(seg.key):
+                    try:
+                        if fused.injector is not None:
+                            fused.injector.on_fuse(seg.key)
+                        ext_objs = [
+                            migrator.to_engine(
+                                catalog[src].obj if kind == "ref"
+                                else values[uid_at[src]], eng.name)
+                            for kind, src in seg.ext_sources]
+                        out, was_cold = fuseplan.run_fused_segment(
+                            seg, ext_objs, device)
+                        fused_ran.append(seg.positions)
+                        if was_cold:
+                            cold_compiles[0] += 1
+                    except Exception as exc:
+                        # capture/replay failure: never an error for the
+                        # caller — mark sticky, count, re-run unfused below
+                        fuseplan.mark_broken(seg.key, repr(exc))
+                        fallbacks[0] += 1
+                        out = None
+                if out is None:
+                    out = _segment_unfused(seg, eng)
+            except Exception as exc:
+                _engine_fail(exc, eng.name, seg.ops[-1])
+                raise
+            dt = time.perf_counter() - tn
+            for p, w in zip(seg.positions, seg.weights):
+                per_node[uid_at[p]] = dt * w
+            if trace is not None:
+                # one fused_segment span, with per-member engine_op children
+                # carrying the same pro-rata attribution per_node got
+                sid = trace.static_child("fused_segment", dt,
+                                         engine=seg.engine,
+                                         positions=list(seg.positions))
+                for p, w in zip(seg.positions, seg.weights):
+                    trace.trace.static("engine_op", sid, dt * w,
+                                       op=node_at[p].op, engine=seg.engine)
+            return uid_at[seg.root_pos], out
+
+        def _segment_unfused(seg, eng):
+            """Node-by-node fallback, inline in the segment's task.  Member
+            intermediates land in ``values`` so size/shape feedback is as
+            complete as an unfused serve's."""
+            out = None
+            for p in seg.positions:
+                node = node_at[p]
+                args = _gather_args(node, eng, catalog, values, migrator)
+                out = eng.run(node.op, node.attrs, *args, device=device)
+                values[node.uid] = out
+            return out
+
+        # collapse the DAG to units (fused segments + leftover plain nodes)
+        # level them by longest path, like topo_levels over the unit graph.
+        # Post-order guarantees a unit's depth is final before any outside
+        # consumer reads it (a segment's members all precede its consumer).
+        seg_at: Dict[int, int] = {}      # position -> segment index
+        for si, seg in enumerate(fused.segments):
+            for p in seg.positions:
+                seg_at[p] = si
+
+        def unit_of(pos: int):
+            si = seg_at.get(pos)
+            return ("s", si) if si is not None else ("n", pos)
+
+        pos_of = {n.uid: p for p, n in enumerate(nodes)}
+        depth: Dict[Tuple[str, int], int] = {}
+        for pos, node in enumerate(nodes):
+            u = unit_of(pos)
+            d = depth.get(u, 0)
+            for inp in node.inputs:
+                if isinstance(inp, PolyOp):
+                    iu = unit_of(pos_of[inp.uid])
+                    if iu != u:
+                        d = max(d, depth[iu] + 1)
+            depth[u] = d
+        unit_levels: List[List[Tuple[str, int]]] = []
+        for u, d in depth.items():
+            while len(unit_levels) <= d:
+                unit_levels.append([])
+            unit_levels[d].append(u)
+        n_levels = len(unit_levels)
+
+        def run_unit(u):
+            kind, x = u
+            return run_segment(fused.segments[x]) if kind == "s" \
+                else run_node(node_at[x])
+
+        workers = host_workers if host_workers is not None else \
+            int(os.environ.get("REPRO_HOST_WORKERS", 0)) or \
+            DEFAULT_HOST_WORKERS
+        pool = host_pool(workers) if workers > 1 else None
+        for level in unit_levels:
+            outs = []
+            use_pool = pool is not None and len(level) > 1
+            if use_pool and host_workers is None and cost_model is not None:
+                # same predicted-seconds gate as the unfused path; a
+                # segment's task prediction sums its members'
+                floor_s = HOST_TASK_GATE_FACTOR * _dispatch_overhead(
+                    cost_model, workers)
+
+                def _unit_pred(u):
+                    kind, x = u
+                    ps = [x] if kind == "n" else \
+                        list(fused.segments[x].positions)
+                    return sum(_task_pred_seconds(
+                        node_at[p], amap[uid_at[p]], catalog, values,
+                        cost_model) for p in ps)
+                use_pool = sum(1 for u in level
+                               if _unit_pred(u) >= floor_s) >= 2
+            if not use_pool:
+                for u in level:
+                    uid, out = run_unit(u)
+                    values[uid] = out
+                    outs.append(out)
+            else:
+                futs = [pool.submit(run_unit, u) for u in level]
+                for fut in futs:
+                    uid, out = fut.result()
+                    values[uid] = out
+                    outs.append(out)
+            for out in outs:
+                _block(out)
+    elif concurrent:
         lvls = topo_levels(query)
         n_levels = len(lvls)
         workers = host_workers if host_workers is not None else \
@@ -464,6 +618,11 @@ def execute_plan(query: PolyOp, plan: Plan, catalog,
     # seconds the monitor records and the replan comparison consumes
     for pos, node in enumerate(query.nodes()):
         obj = values.get(node.uid)
+        if obj is None:
+            # fused-segment interior: stayed on device inside the segment,
+            # so there is nothing to measure (the monitor keeps whatever it
+            # learned from unfused serves of this signature)
+            continue
         size_obs[pos] = observed_nbytes(obj)
         shp = observed_shape(obj)
         if shp is not None:
@@ -471,7 +630,8 @@ def execute_plan(query: PolyOp, plan: Plan, catalog,
     return ExecutionResult(result, total, migrator.bytes_moved,
                            migrator.n_casts, plan, per_node, node_obs,
                            list(migrator.events), n_levels, size_obs,
-                           shape_obs)
+                           shape_obs, tuple(fused_ran), fallbacks[0],
+                           cold_compiles[0])
 
 
 def merge_shard_results(merge: str, parts, by: Optional[str] = None):

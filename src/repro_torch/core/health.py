@@ -283,10 +283,10 @@ class EngineHealth:
     def _straggler(self, engine: str):
         det = self._stragglers.get(engine)
         if det is None:
-            # the detector lives in runtime/fault.py, not ported yet
-            raise NotImplementedError(
-                "straggler detection needs runtime/fault.py, which is not "
-                "ported yet (ROADMAP queue 1, 'Serving stack')")
+            from repro_torch.runtime.fault import StragglerDetector
+            det = StragglerDetector(z_threshold=self._straggler_z,
+                                    warmup=self._straggler_warmup)
+            self._stragglers[engine] = det
         return det
 
     # -- introspection ------------------------------------------------------

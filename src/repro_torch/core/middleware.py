@@ -91,11 +91,6 @@ from repro_torch.core.signature import signature
 MASK_SEP = "@!"
 
 
-# what the unported parts of the slice raise (ROADMAP.md, queue 1)
-_FUSION_TODO = ("plan-level fusion is not ported yet (ROADMAP queue 1, "
-                "'Plan-level fusion'); use fuse=False")
-
-
 def masked_sig(sig: str, mask: FrozenSet[str]) -> str:
     return sig + MASK_SEP + "+".join(sorted(mask))
 
@@ -301,7 +296,7 @@ class BigDAWG:
                  replan_factor: float = REPLAN_FACTOR,
                  explore_budget: float = EXPLORE_BUDGET,
                  health: Optional[EngineHealth] = None,
-                 fuse: bool = False, fusion_injector: Any = None,
+                 fuse: bool = True, fusion_injector: Any = None,
                  incremental: Union[bool, str] = True,
                  trace: bool = False, metrics: Any = None,
                  metrics_path: Optional[str] = None, device=None):
@@ -309,8 +304,6 @@ class BigDAWG:
         # dense cast lives on this device; None means the CUDA card, and a
         # host without one raises instead of quietly running on the CPU
         self.device = tables.resolve_device(device)
-        if fuse or fusion_injector is not None:
-            raise NotImplementedError(_FUSION_TODO)
         self.catalog: Dict[str, CatalogEntry] = {}
         # name -> shardplan.ShardInfo for tables registered with shards=N
         # (the shard parts live in the catalog as "name#i")
@@ -356,8 +349,13 @@ class BigDAWG:
         # serve_seconds/failovers/fusion/ivm stats) live in the metrics
         # registry, exposed under their historical names via _metric_prop
         self.explore_budget = explore_budget
-        # plan-level kernel fusion is not ported yet: fuse=True raises (here
-        # and, if flipped later, on the next production serve)
+        # plan-level fusion (core.fuseplan): production serves execute each
+        # cached plan's same-engine fusable chains as single callables — one
+        # CUDA graph replay over the hand kernels on the card.  Safe to flip
+        # at runtime (the FusedPlan rides the cache entry; fuse=False simply
+        # stops passing it to the executor).  fusion_injector
+        # (runtime.fault.FusionFaultInjector) is the capture-failure seam
+        # for the fallback fault tests
         self.fuse = fuse
         self.fusion_injector = fusion_injector
         # incremental view maintenance (core.deltaplan): warm serves whose
@@ -856,11 +854,27 @@ class BigDAWG:
 
     def _fused_for(self, query: PolyOp, plan: Plan,
                    entry: Optional[CachedPlan]):
-        """The FusedPlan to serve ``plan`` with: None while fusion is off,
-        and fusion is not ported yet, so turning it on raises."""
+        """The FusedPlan to serve ``plan`` with (None when fusion is off).
+        Cached on the plan-cache entry and reused only when both the plan
+        key and the query's EXACT structural fingerprint still match —
+        signatures bin constant attrs, so two queries can share a signature
+        (and this entry) yet need differently-closed-over callables."""
         if not self.fuse:
             return None
-        raise NotImplementedError(_FUSION_TODO)
+        from repro_torch.core import fuseplan
+        fp = fuseplan.query_fingerprint(query)
+        with self._cache_lock:
+            f = entry.fused if entry is not None else None
+            if f is not None and f.plan_key == plan.key \
+                    and f.fingerprint == fp:
+                return f
+        f = fuseplan.fuse_plan(query, plan, self.catalog,
+                               cost_model=self.cost_model,
+                               injector=self.fusion_injector)
+        with self._cache_lock:
+            if entry is not None:
+                entry.fused = f
+        return f
 
     def _note_fusion(self, res: ExecutionResult) -> None:
         """Roll one serve's fusion outcome into the lifetime counters."""

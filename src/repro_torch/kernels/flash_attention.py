@@ -38,6 +38,8 @@ import math
 
 import torch
 
+from repro_torch.kernels import counters
+
 _DTYPES = (torch.float32, torch.bfloat16)
 MAX_HEAD_DIM = 256
 TC_HEAD_DIMS = (64, 128)
@@ -219,9 +221,7 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if rc != 0:
         raise RuntimeError(f"flash_attention {kind} kernel launch failed: "
                            f"code {rc}")
-    attr = f"launches_{kind}"
-    setattr(flash_attention_cuda, attr,
-            getattr(flash_attention_cuda, attr) + 1)
+    counters.count(flash_attention_cuda, f"launches_{kind}")
     return out
 
 

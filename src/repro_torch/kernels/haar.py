@@ -12,6 +12,8 @@ import math
 
 import torch
 
+from repro_torch.kernels import counters
+
 INV_SQRT2 = 1.0 / math.sqrt(2.0)
 _DTYPES = (torch.float32, torch.bfloat16)
 
@@ -85,7 +87,7 @@ def haar_cuda(x: torch.Tensor, levels: int) -> torch.Tensor:
                              int(x.dtype == torch.bfloat16), stream)
     if rc != 0:
         raise RuntimeError(f"haar kernel launch failed: cudaError {rc}")
-    haar_cuda.launches += 1
+    counters.count(haar_cuda, "launches")
     return out
 
 

@@ -16,6 +16,8 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import counters
+
 _DTYPES = (torch.float32, torch.bfloat16)
 GEMV_MAX_B = 8
 _KIND_CODE = {"gemv": 0, "tiled": 1}     # knn_scores_launch's
@@ -98,9 +100,7 @@ def knn_scores_cuda(train: torch.Tensor, test: torch.Tensor) -> torch.Tensor:
     if rc != 0:
         raise RuntimeError(f"knn_scores {kind} kernel launch failed: "
                            f"cudaError {rc}")
-    knn_scores_cuda.launches += 1
-    attr = f"launches_{kind}"
-    setattr(knn_scores_cuda, attr, getattr(knn_scores_cuda, attr) + 1)
+    counters.count(knn_scores_cuda, "launches", f"launches_{kind}")
     return out
 
 

@@ -9,7 +9,9 @@ wrapper counts its launches (``haar_cuda.launches``;
 variant, ``flash_attention_cuda.launches_tc``, ``.launches_tf32``,
 ``.launches_mma`` and ``.launches_simt``,
 ``ssd_intra_cuda.launches_tc`` and ``.launches_simt``), so a run can
-show that its main path went through the kernels.  ``flash_attention`` and
+show that its main path went through the kernels.  The counts are
+thread-safe, and a CUDA graph replay of captured launches credits them
+again (``kernels.counters``).  ``flash_attention`` and
 ``ssd_intra`` carry the LM prefill path (``models.layers.attention_apply``,
 ``models.ssm.ssd_chunked``).
 """
@@ -17,6 +19,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import counters
 from repro_torch.kernels.flash_attention import (flash_attention_cuda,
                                                  flash_attention_ref)
 from repro_torch.kernels.haar import haar_cuda, haar_ref
@@ -87,9 +90,8 @@ def ssd_intra(x: torch.Tensor, da: torch.Tensor, B: torch.Tensor,
 
 
 def reset_launches() -> None:
-    for fn, attr in COUNTERS.values():
-        setattr(fn, attr, 0)
+    counters.reset(COUNTERS.values())
 
 
 def launches() -> dict:
-    return {name: getattr(fn, attr) for name, (fn, attr) in COUNTERS.items()}
+    return counters.read(COUNTERS)

@@ -20,6 +20,8 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import counters
+
 SMEM_LIMIT = 232448          # bytes of shared memory a Hopper block may use
 _TILE = 32                   # output rows per tile in the CUDA-core kernel
 TC_CHUNK = 128               # the tensor-core kernel's one chunk length
@@ -162,10 +164,7 @@ def ssd_intra_cuda(x: torch.Tensor, da: torch.Tensor, B: torch.Tensor,
     if rc != 0:
         raise RuntimeError(f"ssd_intra {kind} kernel launch failed: "
                            f"code {rc}")
-    if kind == "tc":
-        ssd_intra_cuda.launches_tc += 1
-    else:
-        ssd_intra_cuda.launches_simt += 1
+    counters.count(ssd_intra_cuda, f"launches_{kind}")
     return y, states, decay
 
 

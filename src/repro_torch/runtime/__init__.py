@@ -1,8 +1,14 @@
-# The telemetry registry and the LM BatchServer are ported so far; the
-# QueryServer, trainer and fault injectors are ROADMAP queue-1 items.
-from repro_torch.runtime.server import BatchServer, Request
+# The serving loops, fault injectors and telemetry registry are ported; the
+# trainer and WorkerKillInjector are ROADMAP queue-1 items.
+from repro_torch.runtime.fault import (EngineFaultInjector, FailureInjector,
+                                       FusionFaultInjector, SimulatedFailure,
+                                       StragglerDetector)
+from repro_torch.runtime.server import (BatchServer, Overloaded, QueryServer,
+                                        Request, Shed, StatsView)
 from repro_torch.runtime.telemetry import (Histogram, Metrics,
                                            default_metrics_path, load_merged)
 
-__all__ = ["BatchServer", "Histogram", "Metrics", "Request",
-           "default_metrics_path", "load_merged"]
+__all__ = ["BatchServer", "EngineFaultInjector", "FailureInjector",
+           "FusionFaultInjector", "Histogram", "Metrics", "Overloaded",
+           "QueryServer", "Request", "Shed", "SimulatedFailure", "StatsView",
+           "StragglerDetector", "default_metrics_path", "load_merged"]

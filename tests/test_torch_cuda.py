@@ -6,7 +6,8 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.core import DenseTensor, connect
+from repro_torch.core import (BigDAWG, DenseTensor, Plan, Ref, array,
+                              connect, fuseplan)
 from repro_torch.kernels import ops
 from repro_torch.kernels.haar import haar_cuda, haar_ref
 from repro_torch.kernels.flash_attention import (flash_attention_cuda,
@@ -437,3 +438,105 @@ def test_smoke_batch_server_on_cuda_launches_the_kernels(cuda, name):
                                             ssm.state_dim)
     assert launches[kernel] == cfg.num_layers * 3
     assert all(n == 0 for name, n in launches.items() if name != kernel)
+
+
+# -- plan-level fusion: CUDA graph capture and replay -------------------------
+
+def _fusion_case(cuda, query_fn, n=64, v=48, b=1, seed=0):
+    """(segment, ext containers on the card) of the one fused segment of
+    ``query_fn(array, Ref)`` under the all-dense plan."""
+    rng = np.random.default_rng(seed)
+    bd = BigDAWG(device=cuda)
+    bd.register("H", DenseTensor(torch.from_numpy(
+        rng.poisson(2.0, size=(n, v)).astype(np.float32))), "dense_array")
+    bd.register("Q", DenseTensor(torch.from_numpy(
+        rng.poisson(2.0, size=(b, v)).astype(np.float32))), "dense_array")
+    bd.register("X", DenseTensor(torch.from_numpy(
+        rng.normal(size=(n, v)).astype(np.float32))), "dense_array")
+    q = query_fn(array, Ref)
+    plan = Plan(tuple((i, "dense_array") for i in range(len(q.nodes()))))
+    (seg,) = fuseplan.fuse_plan(q, plan, bd.catalog).segments
+    ext = [bd.catalog[name].obj for kind, name in seg.ext_sources]
+    return seg, ext
+
+
+def _eager(seg, ext, cuda):
+    """The lowered function run once eagerly on the card, no graph."""
+    fn = fuseplan.compiled_segment(seg)
+    fills = tuple(torch.full((), float(o.fill), device=cuda) for o in ext)
+    vcs = tuple(torch.full((), o.valid_count, dtype=torch.int64,
+                           device=cuda) for o in ext)
+    return fn(tuple(o.data for o in ext), fills, vcs)[0]
+
+
+_KNN_SEGMENT = lambda a, Ref: a.knn(a.tfidf(Ref("H")), Ref("Q"), k=5)
+
+
+@pytest.mark.parametrize("b", [1, 64])
+def test_graph_replay_equals_the_eager_lowered_function(cuda, b):
+    """tfidf -> knn, the analytic's segment, at B 1 (gemv) and B 64 (tiled):
+    the cold run (warm-up, capture, replay) and warm replays give the eager
+    function's indices, and each replay credits one kNN launch."""
+    fuseplan.reset_cache()
+    seg, ext = _fusion_case(cuda, _KNN_SEGMENT, n=300, v=224, b=b)
+    want = _eager(seg, ext, cuda)
+    cold_out, cold = fuseplan.run_fused_segment(seg, ext, cuda)
+    ops.reset_launches()
+    outs = [fuseplan.run_fused_segment(seg, ext, cuda) for _ in range(3)]
+    launches = ops.launches()
+    assert cold and not any(c for _, c in outs)
+    for out in [cold_out] + [o for o, _ in outs]:
+        assert torch.equal(out.data, want) and out.data.dtype == torch.int32
+    assert launches["knn_scores"] == 3
+    assert launches[f"knn_scores_{knn_variant(b)}"] == 3
+    assert not fuseplan.broken_keys()
+
+
+def test_graph_sees_a_changed_fill_and_count_between_replays(cuda):
+    fuseplan.reset_cache()
+    seg, (x,) = _fusion_case(
+        cuda, lambda a, Ref: a.scale(a.select(Ref("X"), lo=0.0), factor=2.0))
+    first, _ = fuseplan.run_fused_segment(seg, [x], cuda)
+    second, _ = fuseplan.run_fused_segment(
+        seg, [DenseTensor(x.data, fill=-7.0)], cuda)
+    mask = x.data >= 0.0
+    torch.testing.assert_close(first.data, torch.where(mask, x.data, 0.0) * 2)
+    torch.testing.assert_close(second.data,
+                               torch.where(mask, x.data, -7.0) * 2)
+    seg, (x,) = _fusion_case(
+        cuda, lambda a, Ref: a.scale(a.count(Ref("X")), factor=0.5))
+    a, _ = fuseplan.run_fused_segment(seg, [DenseTensor(x.data, 29)], cuda)
+    b, _ = fuseplan.run_fused_segment(seg, [DenseTensor(x.data, 13)], cuda)
+    assert (float(a.data), float(b.data)) == (14.5, 6.5)
+
+
+def test_graph_replay_does_not_overwrite_an_earlier_result(cuda):
+    fuseplan.reset_cache()
+    seg, (x,) = _fusion_case(
+        cuda, lambda a, Ref: a.scale(a.select(Ref("X"), lo=0.0), factor=2.0))
+    first, _ = fuseplan.run_fused_segment(seg, [x], cuda)
+    keep = first.data.clone()
+    fuseplan.run_fused_segment(seg, [DenseTensor(-x.data)], cuda)
+    torch.cuda.synchronize(cuda)
+    assert torch.equal(first.data, keep)
+
+
+def test_eight_threads_replaying_one_segment_agree(cuda):
+    from concurrent.futures import ThreadPoolExecutor
+    fuseplan.reset_cache()
+    seg, ext = _fusion_case(cuda, _KNN_SEGMENT, n=300, v=224, b=64)
+    want = _eager(seg, ext, cuda)
+    # each thread its own test batch, so a replay that read another
+    # thread's buffers would give the wrong neighbours
+    batches = [DenseTensor(ext[1].data.roll(i, dims=0)) for i in range(8)]
+    wants = [_eager(seg, [ext[0], q], cuda) for q in batches]
+    with ThreadPoolExecutor(8) as pool:
+        outs = list(pool.map(
+            lambda i: [fuseplan.run_fused_segment(seg, [ext[0], batches[i]],
+                                                  cuda)[0].data
+                       for _ in range(10)], range(8)))
+    torch.cuda.synchronize(cuda)
+    for got, w in zip(outs, wants):
+        assert all(torch.equal(g, w) for g in got)
+    assert torch.equal(wants[0], want)
+    assert not fuseplan.broken_keys()
