@@ -5,16 +5,23 @@ query and the §IV-B wavelet-signature kNN analytic at 4096 patients through
 ``connect()`` (plan-level fusion on: tfidf -> knn as one CUDA graph
 replay), the same analytic served by ``QueryServer`` over a resilient
 session with the 64 test patients as one batch (cold race, throughput,
-shedding, failover, tracing, warm restart), then LM serving
+shedding, failover, tracing, warm restart), the process pool on the same
+state (``procpool``: a master in a fresh process that never initializes
+CUDA drives pools of 1, 2 and 4 workers on the card, the analytic's front
+half over 4 row-range shards, an append through a pool and a worker
+killed mid-request; streaming views patched after appends in this
+process), then LM serving
 (``BatchServer`` prefill + continuous-batching decode) of internlm2-1.8b
 and mamba2-370m at full width and depth, with bfloat16 parameters from the
 port's seeded init.
 
 Run on a machine with one CUDA card:  python3 chip_smoke.py
 
-Each phase prints one JSON line; any failure exits non-zero.  The line
+Each phase prints one JSON line (procpool one a section); any failure exits
+non-zero.  The line
 before the last lists every ported kernel with its launches on its path
 (Haar and kNN on the analytic, the tensor-core kNN on the serving phase,
+and both in the procpool phase's workers as ``pool_launches``,
 the bfloat16 tensor-core flash attention on the dense LM's bfloat16
 serving, the float32 (3xTF32) one on its float32 prefill check, the
 warp-level tensor-core one on the dense smoke config's ragged prefill
@@ -35,6 +42,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import math
+import multiprocessing
 import os
 import re
 import statistics
@@ -42,6 +50,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import traceback
 from pathlib import Path
 
 import numpy as np
@@ -50,8 +59,8 @@ import torch
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
 from repro_torch.configs import PlanConfig, ShapeConfig, get_arch  # noqa: E402
-from repro_torch.core import (DenseTensor, EngineHealth, array,  # noqa: E402
-                              connect, execute_plan, fuseplan)
+from repro_torch.core import (DenseTensor, EngineHealth, ProcPool,  # noqa: E402
+                              array, connect, execute_plan, fuseplan)
 from repro_torch.core import middleware as mw  # noqa: E402
 from repro_torch.core.engines import ENGINES  # noqa: E402
 from repro_torch.core.middleware import _plan_from_key  # noqa: E402
@@ -69,8 +78,10 @@ from repro_torch.kernels.ssd_scan import (  # noqa: E402
 from repro_torch.models import api  # noqa: E402
 from repro_torch.models import transformer as T  # noqa: E402
 from repro_torch.models.util import tree_leaves, tree_map  # noqa: E402
+from repro_torch.core.tables import host_copy  # noqa: E402
 from repro_torch.runtime import (BatchServer, EngineFaultInjector,  # noqa: E402
-                                 Overloaded, QueryServer, Request)
+                                 Overloaded, QueryServer, Request,
+                                 WorkerKillInjector)
 
 # H100 SXM published peaks (NVIDIA data sheet): HBM rate, and operations a
 # second of each kind of unit: float32 outside the tensor cores, dense
@@ -102,6 +113,22 @@ FUSE_COMPARE_SERVES = 12
 SERVE_COLD, SERVE_WARM, SERVE_WORKERS = 16, 64, 8
 SHED_BATCH, SHED_PENDING = 32, 2
 FAILOVER_WAVES = (256, 1024)
+# procpool: worker counts of the warm runs, warm requests a run and client
+# threads; the scatter run's shards, workers, planner breadth and timed
+# serves a mode; the stream run's appends and rows an append; the kill
+# run's requests and the execute dispatch its injector kills; how long the
+# phase's master may stay silent
+POOL_SIZES, POOL_WARM, POOL_CLIENTS = (1, 2, 4), 64, 8
+SCATTER_SHARDS, SCATTER_WORKERS, SCATTER_TRAIN_PLANS = 4, 2, 2
+SCATTER_SERVES = 6
+STREAM_APPENDS, STREAM_ROWS = 8, 64
+KILL_REQUESTS, KILL_ON_DISPATCH = 16, 3
+POOL_MASTER_TIMEOUT_S = 300
+# the analytic's front half (examples/polystore_analytic.py:28-29): row-wise,
+# so it scatters over row-range shards and patches a view after appends
+FRONT_HALF = (f"ARRAY(bin_hist(haar(waves, levels={LEVELS}), nbins={NBINS}, "
+              f"levels={LEVELS}))")
+STREAM_QUERY = FRONT_HALF.replace("waves", "S")
 HAAR_SHAPES = [(4096, 16384, 6), (130, 256, 4), (3, 32, 1)]
 # (N, V, B): the analytic's B 1 and a B 64 batch (both timed), then the two
 # kernels' boundary (B 8 the last of the matrix-vector kernel, B 9 the first
@@ -1217,6 +1244,556 @@ def _failover(dev, shape) -> dict:
             "breaker_trips": health.trips()}
 
 
+# -- process pool, sharded scatter-gather, streaming views ---------------------
+
+def _pin_worker(bd) -> None:
+    """``worker_init`` of the procpool phase's pools: hold each worker's
+    middleware to its cached plans, as the serving phase pins its sessions
+    (no usage-drift retraining: a worker's peak RSS is not the process's
+    that trained; no re-plan on millisecond timing noise)."""
+    bd.monitor.DRIFT_THRESHOLD = float("inf")
+    bd.replan_factor = float("inf")
+
+
+def _note(conn, step: str, **fields) -> None:
+    """Progress of the pool master, printed by the parent to stderr as it
+    arrives (where a slow or stuck step shows), one JSON line a step."""
+    conn.send(("note", {"step": step, **fields}))
+
+
+def _serving_pool(inp: dict, processes: int, **kw):
+    """A pool of ``processes`` workers on the card over the serving phase's
+    state (its monitor, calibration and plan cache, shared), with the
+    training patients and the test batch registered: ``(pool, seconds to
+    start and register)``."""
+    t0 = time.perf_counter()
+    pool = ProcPool(processes, state_path=inp["state"], resilient=True,
+                    train_plans=36, device=inp["device"],
+                    worker_init=_pin_worker, **kw)
+    pool.register("waves", DenseTensor(inp["train_w"]), "dense_array")
+    pool.register("test_batch", DenseTensor(inp["test_batch"]),
+                  "dense_array")
+    check(all(pid is not None for pid in pool.ping()),
+          f"pool of {processes} did not start")
+    return pool, time.perf_counter() - t0
+
+
+def _unique(arrays) -> list:
+    """The distinct arrays of ``arrays``, in first-seen order."""
+    out, seen = [], set()
+    for a in arrays:
+        key = (a.shape, str(a.dtype), a.tobytes())
+        if key not in seen:
+            seen.add(key)
+            out.append(a)
+    return out
+
+
+def _by_plan(reps) -> dict:
+    """Plan key -> (serves, distinct neighbour arrays) of pool reports: the
+    monitor may move a warm signature between known plans while its means
+    settle, and each plan's answer is held against the in-process serve of
+    that plan."""
+    out = {}
+    for r in reps:
+        check(isinstance(r.result.data, np.ndarray)
+              and r.result.data.dtype == np.int32,
+              f"pool result {type(r.result.data)} on {r.plan_key}")
+        out.setdefault(r.plan_key, []).append(r.result.data)
+    return {key: (len(nbs), _unique(nbs)) for key, nbs in out.items()}
+
+
+def _fragment_engines(trace, op: str) -> list:
+    """Per worker-side request root of a traced pool serve (one a fragment
+    or one for an unsharded serve), the engines its ``op`` spans ran on."""
+    spans = {sp["sid"]: sp for sp in trace.spans}
+    master = next(sp["sid"] for sp in trace.spans if sp["parent"] is None)
+    roots = [sp["sid"] for sp in trace.spans
+             if sp["parent"] == master and sp["name"] == "request"]
+    out = {sid: [] for sid in roots}
+    for sp in trace.spans:
+        if sp["name"] != "engine_op" or sp["attrs"].get("op") != op:
+            continue
+        sid = sp["parent"]
+        while sid is not None and sid not in out:
+            sid = spans[sid]["parent"]
+        check(sid is not None, f"{op} span outside a worker request")
+        out[sid].append(sp["attrs"]["engine"])
+    return [out[sid] for sid in roots]
+
+
+def _pool_warm(conn, inp: dict, processes: int) -> dict:
+    """``QueryServer`` over a pool of ``processes`` workers on the card:
+    warm-up serves (each worker loads the kernels and captures its graph),
+    the card's used memory read by the parent, then the warm run with the
+    workers' launch counts zeroed before and read after, and for 2 workers
+    a traced serve."""
+    pool, start_s = _serving_pool(inp, processes)
+    _note(conn, "warm.started", processes=processes, start_s=start_s)
+    q = lambda: bigdawg(SERVING)
+    try:
+        srv = QueryServer(pool)
+        t0 = time.perf_counter()
+        warmup = srv.submit_many([q() for _ in range(2 * processes)],
+                                 workers=processes)
+        warmup_s = time.perf_counter() - t0
+        _note(conn, "warm.warmed", processes=processes, seconds=warmup_s,
+              serve_s=[r.seconds for r in warmup],
+              modes=[r.mode for r in warmup])
+        check(all(r.mode == "production" for r in warmup),
+              f"pool of {processes} warm-up modes "
+              f"{[r.mode for r in warmup]}: the plan cache did not serve")
+        conn.send(("mem", processes))
+        used_gb = conn.recv()
+        pool.launches(reset=True)
+        lat = _timed(srv)
+        out = srv.serve([q() for _ in range(POOL_WARM)],
+                        workers=POOL_CLIENTS)
+        launches = pool.launches()
+        reps = out["reports"]
+        _note(conn, "warm.served", processes=processes,
+              seconds=out["seconds"])
+        seen = [(r.mode, r.status, r.fused_segments, r.plan_key)
+                for r in reps]
+        check(out["shed"] == 0 and len(reps) == POOL_WARM and all(
+            mode == "production" and status == "ok"
+            and bool(segs) == fusable(key)
+            for mode, status, segs, key in seen),
+            f"pool of {processes}: warm serves {seen}")
+        n_fusable = sum(fusable(r.plan_key) for r in reps)
+        # one tensor-core kNN launch a fused serve, in the workers
+        check(n_fusable > 0 and (inp["device"] is not None or (
+            launches["knn_scores_tiled"] == n_fusable
+            and launches["knn_scores"] == n_fusable)),
+              f"pool of {processes}: launches {launches}, {n_fusable} "
+              f"serves on a fusable plan")
+        row = {"processes": processes, "start_s": start_s,
+               "warmup_serves": len(warmup), "warmup_s": warmup_s,
+               "requests": POOL_WARM, "clients": POOL_CLIENTS,
+               "rps": out["rps"], "seconds": out["seconds"],
+               "latency_ms_p50": _pct(lat, 50),
+               "latency_ms_p95": _pct(lat, 95),
+               "serve_ms_median": statistics.median(
+                   r.seconds * 1e3 for r in reps),
+               "used_gb": used_gb, "launches": launches,
+               "dispatches": pool.dispatches, "by_plan": _by_plan(reps)}
+        if processes == 2:
+            row["trace"] = _pool_trace(pool, q)
+        return row
+    finally:
+        pool.close()
+
+
+def _pool_trace(pool, q) -> dict:
+    """A traced warm serve through the pool: the master's spans and the
+    worker's in one tree, the worker's ``fused_segment`` holding tfidf and
+    knn on dense_array (the kNN kernel ran in the worker as a replay)."""
+    for i in range(4):                  # a serve on a fusable plan
+        rep = pool.execute(q(), trace_ctx=(f"pool-trace-{i}", None))
+        if fusable(rep.plan_key):
+            break
+    spans = rep.trace.spans
+    sids = {sp["sid"] for sp in spans}
+    segs = rep.trace.find("fused_segment")
+    kids = [sp for sp in spans if segs and sp["parent"] == segs[0]["sid"]]
+    check(sum(sp["parent"] is None for sp in spans) == 1
+          and all(sp["parent"] in sids for sp in spans
+                  if sp["parent"] is not None),
+          "pool trace is not one connected tree")
+    check(len(segs) == 1 and segs[0]["attrs"]["engine"] == "dense_array"
+          and [(k["name"], k["attrs"].get("op"), k["attrs"].get("engine"))
+               for k in kids]
+          == [("engine_op", "tfidf", "dense_array"),
+              ("engine_op", "knn", "dense_array")],
+          f"pool trace segments {segs}, children {kids}")
+    names = sorted({sp["name"] for sp in spans})
+    check({"worker_dispatch", "queue_wait"} <= set(names),
+          f"pool trace lacks the master's spans: {names}")
+    return {"spans": len(spans), "names": names, "plan": rep.plan_key,
+            "fused_segment_ms": segs[0]["seconds"] * 1e3}
+
+
+def _pool_scatter(conn, inp: dict) -> dict:
+    """The training patients registered with ``shards=SCATTER_SHARDS`` on a
+    pool of ``SCATTER_WORKERS``: the analytic's front half served scattered
+    and whole, alternating, with the workers' launch counts zeroed before
+    the first serve (training included) and read after; a traced scattered
+    serve names the engine that ran haar in each fragment."""
+    fq = lambda: bigdawg(FRONT_HALF)
+    pool = ProcPool(SCATTER_WORKERS, state_path=inp["state"],
+                    train_plans=SCATTER_TRAIN_PLANS, device=inp["device"],
+                    worker_init=_pin_worker, scatter="always")
+    try:
+        pool.register("waves", DenseTensor(inp["train_w"]), "dense_array",
+                      shards=SCATTER_SHARDS)
+        pool.launches(reset=True)
+        _note(conn, "scatter.started")
+        train_s = {}
+        for mode in ("always", "never"):
+            pool.scatter = mode
+            t0 = time.perf_counter()
+            pool.execute(fq())          # trains each signature once
+            train_s[mode] = time.perf_counter() - t0
+            _note(conn, "scatter.trained", mode=mode, seconds=train_s[mode])
+        ms = {"always": [], "never": []}
+        results, plans = [], {"always": set(), "never": set()}
+        for _ in range(SCATTER_SERVES):
+            for mode in ("always", "never"):
+                pool.scatter = mode
+                t0 = time.perf_counter()
+                rep = pool.execute(fq())
+                ms[mode].append((time.perf_counter() - t0) * 1e3)
+                check(rep.mode == "production"
+                      and rep.shards == (SCATTER_SHARDS if mode == "always"
+                                         else 0),
+                      f"scatter={mode}: {rep.mode}, {rep.shards} shards")
+                plans[mode].add(rep.plan_key)
+                results.append(rep.result.data)
+        pool.scatter = "always"
+        traced = pool.execute(fq(), trace_ctx=("pool-scatter", None))
+        launches = pool.launches()
+        haar = _fragment_engines(traced.trace, "haar")
+        check(len(haar) == SCATTER_SHARDS
+              and all(len(e) == 1 for e in haar),
+              f"traced scatter serve: haar engines per fragment {haar}")
+        unique = _unique(results + [traced.result.data])
+        check(len(unique) == 1,
+              f"scatter and whole serves differ: {len(unique)} results")
+        return {"shards": SCATTER_SHARDS, "workers": SCATTER_WORKERS,
+                "train_plans": SCATTER_TRAIN_PLANS,
+                "training_s": train_s, "serves_each": SCATTER_SERVES,
+                "always_ms_median": statistics.median(ms["always"]),
+                "never_ms_median": statistics.median(ms["never"]),
+                "always_ms": ms["always"], "never_ms": ms["never"],
+                "plans": {m: sorted(p) for m, p in plans.items()},
+                "scatter_serves": pool.scatter_serves,
+                "haar_engines": [e[0] for e in haar],
+                "launches": launches, "result": unique[0]}
+    finally:
+        pool.close()
+
+
+def _pool_stream(conn, inp: dict) -> dict:
+    """A streaming registration on a 2-worker pool: one append fans out to
+    both workers, then worker 0 is killed and its replacement replays the
+    current rows; every serve after the append covers the grown table."""
+    sq = lambda: bigdawg(STREAM_QUERY)
+    pool = ProcPool(2, train_plans=1, train_repeats=1, incremental="force",
+                    device=inp["device"], worker_init=_pin_worker)
+    try:
+        pool.register("S", DenseTensor(inp["train_w"]), "dense_array",
+                      streaming=True)
+        for _ in range(2):              # each worker materializes its view
+            pool.execute(sq())
+        _note(conn, "stream_pool.trained")
+        version = pool.append("S", DenseTensor(inp["stream_rows"]))
+        before = [pool.execute(sq()) for _ in range(2)]
+        pool.workers[0].proc.kill()
+        pool.workers[0].proc.join(timeout=30)
+        t0 = time.perf_counter()
+        after = [pool.execute(sq()) for _ in range(2)]
+        respawn_s = time.perf_counter() - t0
+        check(pool.respawns == 1, f"stream pool respawns {pool.respawns}")
+        return {"version": version, "respawns": pool.respawns,
+                "respawn_serves_s": respawn_s,
+                "incremental": [r.incremental for r in before + after],
+                "rows": [r.result.data.shape[0] for r in before + after],
+                "results": _unique([r.result.data for r in before + after])}
+    finally:
+        pool.close()
+
+
+def _pool_kill(conn, inp: dict) -> dict:
+    """``KILL_REQUESTS`` warm requests through a 2-worker pool whose
+    injector SIGKILLs the worker that request ``KILL_ON_DISPATCH`` went
+    to, mid-request: every request is served, one respawn."""
+    q = lambda: bigdawg(SERVING)
+    inj = WorkerKillInjector(kill_on_dispatch=KILL_ON_DISPATCH)
+    pool, start_s = _serving_pool(inp, 2, kill_injector=inj)
+    _note(conn, "kill.started", start_s=start_s)
+    try:
+        lat, reps = [], []
+        for _ in range(KILL_REQUESTS):
+            t0 = time.perf_counter()
+            reps.append(pool.execute(q()))
+            lat.append((time.perf_counter() - t0) * 1e3)
+        check(len(reps) == KILL_REQUESTS and inj.kills == 1
+              and pool.respawns == 1
+              and all(r.mode == "production" for r in reps),
+              f"kill run: {len(reps)} served, {inj.kills} kills, "
+              f"{pool.respawns} respawns, modes {[r.mode for r in reps]}")
+        return {"requests": KILL_REQUESTS, "served": len(reps),
+                "kill_on_dispatch": KILL_ON_DISPATCH, "kills": inj.kills,
+                "respawns": pool.respawns,
+                "breaker_trips": pool.breaker_trips, "start_s": start_s,
+                "killed_request_ms": lat[KILL_ON_DISPATCH - 1],
+                "other_ms_median": statistics.median(
+                    lat[:KILL_ON_DISPATCH - 1] + lat[KILL_ON_DISPATCH:]),
+                "latency_ms": lat,
+                "modes": sorted({r.mode for r in reps}),
+                "by_plan": _by_plan(reps)}
+    finally:
+        pool.close()
+
+
+def _pool_master(conn, inp: dict) -> None:
+    """The procpool phase's master, in a freshly spawned process: it gets
+    numpy inputs, drives the pools, and sends its row back through
+    ``conn`` (asking the parent for the card's used memory on the way).
+    It never initializes CUDA: its last check."""
+    try:
+        row = {"cpu_count": os.cpu_count(),
+               "warm": {str(p): _pool_warm(conn, inp, p)
+                        for p in POOL_SIZES},
+               "scatter": _pool_scatter(conn, inp),
+               "stream_pool": _pool_stream(conn, inp),
+               "kill": _pool_kill(conn, inp),
+               "jax_loaded": "jax" in sys.modules,
+               "cuda_initialized": torch.cuda.is_initialized()}
+        conn.send(("row", row))
+    except BaseException:
+        conn.send(("error", traceback.format_exc()))
+        raise
+    finally:
+        conn.close()
+
+
+def _used_gb(dev):
+    """The card's used memory, every process's, in GB (None off the card)."""
+    if dev.type != "cuda":
+        return None
+    free, total = torch.cuda.mem_get_info(dev)
+    return (total - free) / 1e9
+
+
+def _run_pool_master(dev, inp: dict) -> dict:
+    """Spawn the phase's master, print its progress notes to stderr,
+    answer its memory questions with ``torch.cuda.mem_get_info`` here, and
+    return its row; any failure in the master, or a master silent for
+    ``POOL_MASTER_TIMEOUT_S``, fails the phase."""
+    ctx = multiprocessing.get_context("spawn")
+    conn, child = ctx.Pipe()
+    t0 = time.perf_counter()
+    proc = ctx.Process(target=_pool_master, args=(child, inp),
+                       name="chip-smoke-pool-master")
+    proc.start()
+    child.close()
+    try:
+        while True:
+            if not conn.poll(POOL_MASTER_TIMEOUT_S):
+                raise SmokeFailure(f"pool master silent for "
+                                   f"{POOL_MASTER_TIMEOUT_S} s")
+            try:
+                kind, payload = conn.recv()
+            except EOFError:
+                raise SmokeFailure(f"pool master died (exit code "
+                                   f"{proc.exitcode})") from None
+            if kind == "note":
+                print(json.dumps({"procpool_note": payload, "t": round(
+                    time.perf_counter() - t0, 3)}), file=sys.stderr,
+                      flush=True)
+            elif kind == "mem":
+                conn.send(_used_gb(dev))
+            elif kind == "error":
+                raise SmokeFailure(f"pool master failed:\n{payload}")
+            else:
+                row = payload
+                break
+        proc.join(timeout=60)
+        check(proc.exitcode == 0, f"pool master exit code {proc.exitcode}")
+        return row
+    finally:
+        if proc.is_alive():
+            proc.terminate()
+            proc.join(timeout=30)
+
+
+def _stream_views(dev, train_w, blocks) -> tuple:
+    """In-process streaming views on the card: the training patients as a
+    streaming table in a session that always patches its view
+    (``incremental="force"``) and in one that always recomputes, the same
+    appends to both, a warm serve of each after each append; then the
+    default gate (``incremental=True``) on one more append of the same
+    size.  Returns the row and the recompute's result after the first
+    append."""
+    twins = {}
+    for name, mode in (("delta", "force"), ("full", False)):
+        s = connect(device=dev, incremental=mode, train_plans=1,
+                    train_repeats=1)
+        s.bigdawg.monitor.DRIFT_THRESHOLD = float("inf")
+        s.bigdawg.replan_factor = float("inf")
+        s.register("S", DenseTensor(train_w), engine="dense_array",
+                   streaming=True)
+        s.execute(STREAM_QUERY, mode="training")
+        twins[name] = s
+    ms = {"delta": [], "full": []}
+    first_append = None
+    for i, block in enumerate(blocks[:STREAM_APPENDS]):
+        got = {}
+        for name, s in twins.items():
+            s.append("S", DenseTensor(block))
+            t0 = time.perf_counter()
+            res = s.execute(STREAM_QUERY)
+            sync(dev)
+            ms[name].append((time.perf_counter() - t0) * 1e3)
+            got[name] = (res.incremental, host_copy(res.value).data)
+        rows = len(train_w) + (i + 1) * STREAM_ROWS
+        check(got["delta"][0] is True and got["full"][0] is False,
+              f"append {i}: incremental {got['delta'][0]} / "
+              f"{got['full'][0]}")
+        check(got["delta"][1].shape == (rows, (LEVELS + 1) * NBINS)
+              and np.array_equal(got["delta"][1], got["full"][1]),
+              f"append {i}: the patched view differs from the recompute")
+        if i == 0:
+            first_append = got["full"][1]
+    bd = twins["delta"].bigdawg
+    check(bd.ivm_serves == STREAM_APPENDS and bd.ivm_fallbacks == 0,
+          f"ivm serves {bd.ivm_serves}, fallbacks {bd.ivm_fallbacks}")
+    # the default gate on one more append of the same size: a finding,
+    # not a check; its answer must still equal the recompute
+    bd.incremental = True
+    gate = {}
+    for name, s in twins.items():
+        s.append("S", DenseTensor(blocks[STREAM_APPENDS]))
+        res = s.execute(STREAM_QUERY)
+        gate[name] = (res.incremental, host_copy(res.value).data)
+    check(np.array_equal(gate["delta"][1], gate["full"][1]),
+          "gated serve differs from the recompute")
+    row = {"rows": len(train_w), "appends": STREAM_APPENDS,
+           "rows_each": STREAM_ROWS,
+           "append_mib": blocks[0].nbytes / 2 ** 20,
+           "delta_ms_median": statistics.median(ms["delta"]),
+           "full_ms_median": statistics.median(ms["full"]),
+           "delta_ms": ms["delta"], "full_ms": ms["full"],
+           "ivm_serves": STREAM_APPENDS, "ivm_fallbacks": 0,
+           "plan": twins["full"].bigdawg.plan_cache[next(iter(
+               twins["full"].bigdawg.plan_cache))].plan.key,
+           "default_gate": {"incremental": gate["delta"][0],
+                            "ivm_fallbacks": bd.ivm_fallbacks}}
+    del twins, bd
+    return row, first_append
+
+
+def phase_procpool(dev, data, state_dir: str) -> dict:
+    """The process pool, sharded scatter-gather and streaming views at the
+    analytic's full size, inside the serving phase's state directory (the
+    workers open its monitor, calibration and plan cache, shared, and
+    serve warm).  In this process: the in-process references (the
+    ``QueryServer`` neighbours, the unsharded front half) and the streaming
+    views.  In a freshly spawned master that never initializes CUDA: the
+    warm runs at 1, 2 and 4 workers, the scattered and whole front half,
+    an append through a pool with a respawn, and a worker killed
+    mid-request.  Emits one line a section."""
+    t_phase = time.perf_counter()
+    train_w = data["train_w"]
+    batch = data["test_hists"]
+    state = os.path.join(state_dir, "monitor.json")
+    eng = ENGINES["dense_array"]
+    feats = eng.run("tfidf", {}, eng.run(
+        "bin_hist", {"nbins": NBINS, "levels": LEVELS},
+        DenseTensor(haar_ref(torch.from_numpy(train_w).to(dev), LEVELS)),
+        device=dev), device=dev).data
+    # the in-process front half on the same data
+    f = connect(device=dev, train_plans=SCATTER_TRAIN_PLANS)
+    f.register("waves", DenseTensor(torch.from_numpy(train_w)),
+               engine="dense_array")
+    f.execute(FRONT_HALF, mode="training")
+    want_front = host_copy(f.execute(FRONT_HALF).value).data
+    del f
+    samples = train_w.shape[1]
+    blocks = ecg_waveforms((STREAM_APPENDS + 1) * STREAM_ROWS, samples,
+                           seed=1)[0].reshape(STREAM_APPENDS + 1,
+                                              STREAM_ROWS, samples)
+    stream, first_append = _stream_views(dev, train_w, blocks)
+    emit("procpool", section="stream", **stream)
+    torch.cuda.empty_cache()
+    parent_gb = _used_gb(dev)
+
+    # the workers' device: None is the card, as in every entry point
+    inp = {"state": state, "device": None if dev.type == "cuda" else str(dev),
+           "train_w": train_w, "test_batch": batch.cpu().numpy(),
+           "stream_rows": blocks[0]}
+    row = _run_pool_master(dev, inp)
+    check(row["cuda_initialized"] is False,
+          "the pool master initialized CUDA")
+    check(row["jax_loaded"] is False, "the pool master loaded jax")
+
+    # the in-process QueryServer on the same state, and the in-process
+    # serve of every plan the pools served
+    s = connect(state, device=dev, resilient=True, train_plans=36)
+    s.bigdawg.monitor.DRIFT_THRESHOLD = float("inf")
+    s.bigdawg.replan_factor = float("inf")
+    s.register("waves", DenseTensor(torch.from_numpy(train_w)),
+               engine="dense_array")
+    s.register("test_batch", DenseTensor(batch), engine="dense_array")
+    ref_rep = s.server().submit(bigdawg(SERVING))
+    check(ref_rep.mode == "production", f"in-process serve {ref_rep.mode}")
+    in_process = {ref_rep.plan_key: ref_rep.result.data.cpu()}
+
+    def same(by_plan, what):
+        """Every pool answer has the shape of the in-process serve of its
+        plan, and where the plan runs knn on dense_array (the one engine
+        whose knn scores each test row) the same neighbours, or near-ties.
+        Off dense_array a batch's answer is the reference's (1, k) quirk,
+        and kv_sparse's scatter of the batch into one vector picks its
+        values in no fixed order (ROADMAP queue 3).  Returns the near-tie
+        count and each plan's serves."""
+        ties = 0
+        for key, (_, nbs) in by_plan.items():
+            if key not in in_process:
+                in_process[key] = execute_plan(
+                    bigdawg(SERVING), _plan_from_key(key), s.catalog,
+                    device=dev).value.data.cpu()
+            want = in_process[key]
+            per_row = dict(_plan_from_key(key).assignment)[
+                FUSED_TAIL[1]] == "dense_array"
+            for nb in nbs:
+                check(tuple(nb.shape) == tuple(want.shape),
+                      f"{what} on {key}: {nb.shape} vs {tuple(want.shape)}")
+                if per_row:
+                    ties += _same_neighbours(torch.from_numpy(nb), want,
+                                             feats, batch, f"{what} on {key}")
+        return ties, {key: n for key, (n, _) in by_plan.items()}
+
+    for p, w in row["warm"].items():
+        w["near_tie_indices"], w["plans"] = same(w.pop("by_plan"),
+                                                 f"pool of {p}")
+        w["in_process_plan"] = ref_rep.plan_key
+        w["used_gb_beyond_parent"] = None if parent_gb is None \
+            else w["used_gb"] - parent_gb
+        emit("procpool", section="warm", **w)
+    sc = row["scatter"]
+    got = sc.pop("result")
+    check(np.array_equal(got, want_front),
+          "scattered front half differs from the in-process serve")
+    check(sc["scatter_serves"] == SCATTER_SERVES + 2,
+          f"scatter serves {sc['scatter_serves']}")
+    check(dev.type != "cuda" or sc["launches"]["haar"] > 0,
+          f"no Haar launch in the scatter workers: {sc['launches']}")
+    emit("procpool", section="scatter", bitwise_equal=True, **sc)
+    sp = row["stream_pool"]
+    results = sp.pop("results")
+    check(len(results) == 1 and np.array_equal(results[0], first_append)
+          and sp["rows"] == [len(train_w) + STREAM_ROWS] * 4,
+          f"pool append: rows {sp['rows']}, {len(results)} distinct results")
+    emit("procpool", section="stream_pool", **sp)
+    kill = row["kill"]
+    kill["near_tie_indices"], kill["plans"] = same(kill.pop("by_plan"),
+                                                   "kill run")
+    kill["in_process_plan"] = ref_rep.plan_key
+    del s, in_process
+    emit("procpool", section="kill", **kill)
+    out = {"warm": row["warm"], "scatter": sc, "stream": stream,
+           "stream_pool": sp, "kill": kill, "cpu_count": row["cpu_count"],
+           "parent_used_gb": parent_gb,
+           "seconds": time.perf_counter() - t_phase}
+    emit("procpool", section="master", cpu_count=row["cpu_count"],
+         cuda_initialized=row["cuda_initialized"],
+         jax_loaded=row["jax_loaded"], parent_used_gb=parent_gb,
+         seconds=out["seconds"])
+    return out
+
+
 # -- LM serving -----------------------------------------------------------------
 
 def _lm_prompts(cfg, n_req: int, one_token: bool) -> list:
@@ -1520,11 +2097,12 @@ def _kernel_entry(name, source, replaces, launches, row) -> dict:
 
 def kernels_line(haar_row: dict, knn_rows: dict, flash_rows: dict,
                  ssd_rows: dict, analytic: dict, serving: dict,
-                 lm_dense: dict, lm_ssm: dict) -> dict:
+                 procpool: dict, lm_dense: dict, lm_ssm: dict) -> dict:
     """Launches of each kernel on its own path: Haar and kNN (all kernels,
     the matrix-vector one at B 1) on the analytic, the tensor-core kNN at
     B 64 on the serving phase's warm run (credited across CUDA graph
-    replays), the bfloat16 tensor-core flash attention on dense LM serving,
+    replays; ``pool_launches``: in the procpool phase's workers over its
+    three warm runs, and Haar's in its scatter run's workers), the bfloat16 tensor-core flash attention on dense LM serving,
     the 3xTF32 one on the dense LM's float32 prefill (``cpu_check``), the
     warp-level one on the dense smoke config's ragged prefill
     (``ragged_check``), the CUDA-core one on phase_flash's entry-point calls
@@ -1534,15 +2112,19 @@ def kernels_line(haar_row: dict, knn_rows: dict, flash_rows: dict,
     forced row at the warp-level kernel's path shape."""
     flash = "src/repro/kernels/flash_attention.py:73"
     ssd = "src/repro/kernels/ssd_scan.py:45"
+    pool_knn = sum(w["launches"]["knn_scores_tiled"]
+                   for w in procpool["warm"].values())
     return {"kernels": [
-        _kernel_entry("haar", "haar.cu", "src/repro/kernels/haar.py:32",
-                      analytic["launches"]["haar"], haar_row),
+        dict(_kernel_entry("haar", "haar.cu", "src/repro/kernels/haar.py:32",
+                           analytic["launches"]["haar"], haar_row),
+             pool_launches=procpool["scatter"]["launches"]["haar"]),
         _kernel_entry("knn_scores", "knn.cu", "src/repro/kernels/knn.py:34",
                       analytic["launches"]["knn_scores"], knn_rows[1]),
-        _kernel_entry("knn_scores_tiled", "knn.cu",
-                      "src/repro/kernels/knn.py:34",
-                      serving["warm"]["launches"]["knn_scores_tiled"],
-                      knn_rows[64]),
+        dict(_kernel_entry("knn_scores_tiled", "knn.cu",
+                           "src/repro/kernels/knn.py:34",
+                           serving["warm"]["launches"]["knn_scores_tiled"],
+                           knn_rows[64]),
+             pool_launches=pool_knn),
         _kernel_entry("flash_attention_tc", "flash_attention.cu", flash,
                       lm_dense["launches"]["flash_attention_tc"],
                       flash_rows["tc"]),
@@ -1580,13 +2162,15 @@ def main() -> int:
     analytic = phase_analytic(dev, data)
     with tempfile.TemporaryDirectory(prefix="chip-smoke-") as state_dir:
         serving = phase_serving(dev, data, state_dir)
+        procpool = phase_procpool(dev, data, state_dir)
     del data
     lm_dense = phase_lm(dev, "internlm2-1.8b")
     lm_ssm = phase_lm(dev, "mamba2-370m")
     emit("total", seconds=time.perf_counter() - t0,
          host_behind=HOST_BEHIND)
     print(json.dumps(kernels_line(haar_row, knn_rows, flash_rows, ssd_rows,
-                                  analytic, serving, lm_dense, lm_ssm)),
+                                  analytic, serving, procpool, lm_dense,
+                                  lm_ssm)),
           flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

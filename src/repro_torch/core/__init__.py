@@ -1,7 +1,7 @@
 # The paper's primary contribution — the BigDAWG polystore middleware, on
 # PyTorch tensors with hand-written CUDA kernels for the dense engine's hot
-# ops; plan-level fusion runs each fused segment as one CUDA graph replay.
-# The process pool is not ported yet.
+# ops; plan-level fusion runs each fused segment as one CUDA graph replay,
+# and the process pool fans requests out to worker processes on the card.
 from repro_torch.core.tables import (DenseTensor, ColumnarTable, COOMatrix,
                                      StreamBuffer, resolve_device)
 from repro_torch.core.ops import PolyOp, Ref, SCOPE_OP
@@ -37,6 +37,7 @@ from repro_torch.core.qlang import bigdawg
 from repro_torch.core.reqpool import RequestPool
 from repro_torch.core.shardplan import (ScatterGather, ShardInfo, analyze,
                                         analyze_catalog, run_scatter_gather)
+from repro_torch.core.procpool import ProcPool, worker_channel
 from repro_torch.core.api import IslandNamespace, Result, Session, connect
 
 __all__ = [
@@ -60,6 +61,6 @@ __all__ = [
     "QueryParseError", "is_engine_failure", "CircuitBreaker", "EngineHealth",
     "NULL_TRACER", "Span", "Trace", "Tracer",
     "RequestPool", "bigdawg", "ScatterGather", "ShardInfo", "analyze",
-    "analyze_catalog", "run_scatter_gather",
+    "analyze_catalog", "run_scatter_gather", "ProcPool", "worker_channel",
     "IslandNamespace", "Result", "Session", "connect",
 ]

@@ -311,21 +311,33 @@ def connect(state_path: Optional[str] = None, *,
     materialized views after ``append()`` when the cost model prices the
     delta path cheaper than recomputing, ``"force"`` skips the gate,
     ``False`` disables materialization entirely), ``trace`` (``trace=True``
-    records a per-request span tree on every ``Result.trace``),
-    ``metrics_path``
+    records a per-request span tree on every ``Result.trace`` — including
+    worker-side spans on a ``processes=`` session), ``metrics_path``
     (where the telemetry registry persists; defaults to
     ``<root>.metrics.json`` beside the monitor DB)...
 
     ``device`` is where the catalog's containers live and every op runs:
     ``None`` (the default) means the CUDA card, and raises when there is
-    none — pass ``device="cpu"`` to run on the CPU.  ``processes=N`` is not
-    ported yet and raises ``NotImplementedError``.
+    none — pass ``device="cpu"`` to run on the CPU.
+
+    ``processes=N`` backs the session with a ``core.procpool.ProcPool`` —
+    N worker processes each running a full middleware stack on ``device``
+    (each worker resolves it; this process never touches the card),
+    sharing plans and monitor history through the ``state_path`` files,
+    with sharded scatter–gather execution for ``register(..., shards=)``
+    tables.  A worker that finds no card fails the first call that reaches
+    it with ``EngineDown``.  Close the session (or use it as a context
+    manager) to stop the workers.
     """
     if processes is not None and processes > 1:
-        raise NotImplementedError(
-            "connect(processes=) needs core/procpool.py, which is not "
-            "ported yet (ROADMAP queue 1, 'Process pool, sharding, "
-            "streaming views')")
+        if bigdawg is not None or monitor is not None:
+            raise ValueError("processes= builds its own per-worker "
+                             "middleware; it cannot be combined with "
+                             "bigdawg=/monitor=")
+        from repro_torch.core.procpool import ProcPool
+        return Session(ProcPool(processes=processes, state_path=state_path,
+                                resilient=resilient, device=device,
+                                **bigdawg_kwargs))
     if bigdawg is not None:
         if state_path or monitor or resilient or bigdawg_kwargs or \
                 device is not None:

@@ -223,20 +223,32 @@ def device_ready(obj, device):
     return obj
 
 
+def _host_scalar(v):
+    """A metadata field as a plain Python value: a 0-d tensor (a fused
+    select's valid-count is one) becomes its ``item()``."""
+    return v.item() if is_tensor(v) else v
+
+
 def host_copy(obj):
     """Numpy-leafed clone of a container — host-resident state (streaming
-    tables, persisted views) never holds device tensors."""
+    tables, persisted views) never holds device tensors, and what crosses
+    the process pool's pipes never carries a ``torch.Tensor``: metadata
+    fields are turned into Python values too."""
     if isinstance(obj, ColumnarTable):
         return ColumnarTable({c: to_numpy(v) for c, v in obj.columns.items()},
                              valid=to_numpy(obj.valid))
     if isinstance(obj, COOMatrix):
         return COOMatrix(to_numpy(obj.rows), to_numpy(obj.cols),
-                         to_numpy(obj.vals), tuple(obj.shape))
+                         to_numpy(obj.vals),
+                         tuple(int(_host_scalar(n)) for n in obj.shape))
     if isinstance(obj, DenseTensor):
         return DenseTensor(to_numpy(obj.data),
-                           valid_count=obj.valid_count, fill=obj.fill)
+                           valid_count=int(_host_scalar(obj.valid_count)),
+                           fill=_host_scalar(obj.fill))
     if isinstance(obj, StreamBuffer):
-        return StreamBuffer(to_numpy(obj.data), obj.t0)
+        return StreamBuffer(to_numpy(obj.data), _host_scalar(obj.t0))
+    if is_tensor(obj):
+        return to_numpy(obj)
     return obj
 
 

@@ -1,8 +1,8 @@
 # The serving loops, fault injectors and telemetry registry are ported; the
-# trainer and WorkerKillInjector are ROADMAP queue-1 items.
+# trainer is a ROADMAP queue-1 item.
 from repro_torch.runtime.fault import (EngineFaultInjector, FailureInjector,
                                        FusionFaultInjector, SimulatedFailure,
-                                       StragglerDetector)
+                                       StragglerDetector, WorkerKillInjector)
 from repro_torch.runtime.server import (BatchServer, Overloaded, QueryServer,
                                         Request, Shed, StatsView)
 from repro_torch.runtime.telemetry import (Histogram, Metrics,
@@ -11,4 +11,5 @@ from repro_torch.runtime.telemetry import (Histogram, Metrics,
 __all__ = ["BatchServer", "EngineFaultInjector", "FailureInjector",
            "FusionFaultInjector", "Histogram", "Metrics", "Overloaded",
            "QueryServer", "Request", "Shed", "SimulatedFailure", "StatsView",
-           "StragglerDetector", "default_metrics_path", "load_merged"]
+           "StragglerDetector", "WorkerKillInjector", "default_metrics_path",
+           "load_merged"]

@@ -7,12 +7,12 @@ detection the caller notifies the monitor (the BigDAWG drift path: the plan
 that was optimal under training-time conditions is re-evaluated).
 
 The port of ``repro.runtime.fault`` (pure Python, copied).
-``WorkerKillInjector`` comes with the process pool (ROADMAP queue 1,
-"Process pool, sharding, streaming views").
 """
 from __future__ import annotations
 
 import math
+import os
+import signal
 import threading
 import time
 from dataclasses import dataclass, field
@@ -123,6 +123,46 @@ class FusionFaultInjector:
             self.fired.append(key)
         raise SimulatedFailure(
             f"injected fused-segment compile failure for {key!r}")
+
+
+class WorkerKillInjector:
+    """Process-level fault source for the multi-process pool: plugged into
+    ``core.procpool.ProcPool(kill_injector=...)``, its ``on_dispatch`` hook
+    fires in the master right after an execute request is written to a
+    worker's pipe — SIGKILL at that instant lands MID-REQUEST, the hardest
+    point in the RPC lifecycle (the message may or may not have been picked
+    up; either way the master must detect the death, respawn, and retry or
+    surface a clean ``EngineDown``, never hang).
+
+        inj = WorkerKillInjector(kill_on_dispatch=3)   # 3rd execute dispatch
+        pool = ProcPool(2, kill_injector=inj)
+
+    ``target_worker`` restricts the kill to one worker index; ``kills``
+    counts delivered signals.  One-shot by default (``repeat=False``)."""
+
+    def __init__(self, kill_on_dispatch: int = 1,
+                 target_worker: Optional[int] = None, repeat: bool = False):
+        self.kill_on_dispatch = kill_on_dispatch
+        self.target_worker = target_worker
+        self.repeat = repeat
+        self.kills = 0
+        self._count = 0
+        self._lock = threading.Lock()
+
+    def on_dispatch(self, widx: int, pid: int) -> None:
+        with self._lock:
+            if self.target_worker is not None and widx != self.target_worker:
+                return
+            self._count += 1
+            due = (self._count == self.kill_on_dispatch if not self.repeat
+                   else self._count % self.kill_on_dispatch == 0)
+            if not due:
+                return
+            self.kills += 1
+        try:
+            os.kill(pid, signal.SIGKILL)
+        except (ProcessLookupError, PermissionError):
+            pass                           # already gone — death still lands
 
 
 @dataclass

@@ -21,8 +21,9 @@ an AIMD one keyed to the serve-latency EWMA and admits the overflow below
 twice the bound *degraded* (always-up engines) before it sheds.
 ``persist()`` flushes monitor, calibration and plan cache, so a restarted
 server serves warm.  ``stats`` is a dict-shaped view (``StatsView``) over
-the middleware's ``Metrics`` registry.  ``processes=N > 1`` is not ported
-yet and raises.
+the middleware's ``Metrics`` registry.  ``processes=N > 1`` serves through
+a ``core.procpool.ProcPool`` of N worker processes behind the same
+admission logic (``close()`` stops them).
 """
 from __future__ import annotations
 
@@ -280,13 +281,17 @@ class QueryServer:
                  processes: Optional[int] = None,
                  fuse: Optional[bool] = None,
                  incremental: Optional[Any] = None):
-        # ``processes=N`` (a pool of worker processes behind the same
-        # admission logic) needs core/procpool.py, which is not ported yet
+        # ``processes=N`` lifts the middleware into a core.procpool.ProcPool
+        # — N worker processes each owning a full middleware stack on the
+        # middleware's device, sharing plans through the monitor/plan-cache
+        # files — so batch admission fans across interpreters instead of
+        # threads under one GIL.  The pool duck-types the middleware surface
+        # (execute/persist/health/breaker_trips), so the admission logic
+        # below is unchanged.
         if processes is not None and processes > 1:
-            raise NotImplementedError(
-                "QueryServer(processes=) needs core/procpool.py, which is "
-                "not ported yet (ROADMAP queue 1, 'Process pool, sharding, "
-                "streaming views')")
+            from repro_torch.core.procpool import ProcPool
+            if not isinstance(bigdawg, ProcPool):
+                bigdawg = ProcPool.from_bigdawg(bigdawg, processes)
         self.bd = bigdawg
         # fuse=True/False overrides the middleware's plan-level kernel
         # fusion knob for this server; None leaves the middleware's own

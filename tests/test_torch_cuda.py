@@ -540,3 +540,35 @@ def test_eight_threads_replaying_one_segment_agree(cuda):
         assert all(torch.equal(g, w) for g in got)
     assert torch.equal(wants[0], want)
     assert not fuseplan.broken_keys()
+
+
+def test_pool_on_the_card_gives_the_in_process_result(cuda):
+    """A 2-worker pool with its workers on the card, driven from a freshly
+    spawned master as ``chip_smoke.py``'s procpool phase drives it: the
+    scattered (2 shards) and unscattered front half of the analytic are
+    bitwise equal to the in-process serve, the workers launched the Haar
+    kernel, and the master never initialized CUDA (nor loaded JAX)."""
+    import multiprocessing
+    import _torch_pool
+    from repro_torch.core.qlang import bigdawg
+    data = _torch_pool.waves(64, 1024)
+    ctx = multiprocessing.get_context("spawn")
+    parent, child = ctx.Pipe()
+    proc = ctx.Process(target=_torch_pool.master_serves,
+                       args=(child, None, data, 4, 16, 2))
+    proc.start()
+    child.close()
+    assert parent.poll(300), "pool master did not answer"
+    out = parent.recv()
+    proc.join(timeout=60)
+    assert proc.exitcode == 0
+    assert out["cuda_initialized"] is False and out["jax"] is False
+    assert out["leaf_types"] == ["ndarray"]
+    assert out["always"][1] == 2 and out["never"][1] == 0
+    assert out["launches"]["haar"] > 0
+    bd = BigDAWG(train_plans=1, train_repeats=1, device=cuda)
+    bd.register("waves", DenseTensor(torch.from_numpy(data)), "dense_array")
+    want = bd.execute(bigdawg(_torch_pool.front_half(4, 16)),
+                      mode="training").result.data.cpu().numpy()
+    np.testing.assert_array_equal(out["always"][0], want)
+    np.testing.assert_array_equal(out["never"][0], want)

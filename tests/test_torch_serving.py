@@ -329,8 +329,26 @@ def test_traced_warm_serve_holds_the_fused_segment():
                                                 "add", "scale"]
 
 
-def test_unported_process_pool_still_raises():
-    with pytest.raises(NotImplementedError, match="Process pool"):
-        QueryServer(_bd(), processes=2)
-    with pytest.raises(NotImplementedError, match="Process pool"):
-        T.connect(device="cpu", processes=2)
+def test_unported_process_pool_still_raises(monkeypatch):
+    """The process pool is ported now: ``processes=2`` lifts a CPU
+    middleware into a 2-worker pool behind the same admission logic, and
+    ``connect(processes=2)`` opens a pool-backed session; both give the
+    in-process result."""
+    # one OpenMP thread in the spawned workers: the suite runs beside
+    # timing-based tests of the reference
+    monkeypatch.setenv("OMP_NUM_THREADS", "1")
+    bd = _bd()
+    q = T.array.count(T.relational.select("waves", column="value", lo=0.5))
+    want = int(bd.execute(q, mode="training").result.data)
+    srv = QueryServer(bd, processes=2)
+    try:
+        assert isinstance(srv.bd, T.ProcPool) and srv.bd.n == 2
+        reports = srv.submit_many([q, q], workers=2)
+        assert [int(r.result.data) for r in reports] == [want, want]
+        assert srv.stats["requests"] == 2
+    finally:
+        srv.close()
+    with T.connect(device="cpu", processes=2, train_plans=1) as s:
+        s.register("waves", T.DenseTensor(torch.from_numpy(_waves(24))),
+                   engine="dense_array")
+        assert int(s.execute(q).value.data) == want

@@ -145,22 +145,41 @@ def test_port_serves_a_reference_state_directory_warm(tmp_path, monkeypatch):
                                atol=1e-4)
 
 
-def test_unported_hooks_raise_not_implemented():
-    """The process pool is the one hook still unported (ROADMAP queue 1,
-    item 4); the serving stack and plan-level fusion, which raised here
-    before, now work."""
-    with pytest.raises(NotImplementedError, match="procpool"):
-        T.connect(device="cpu", processes=2)
+def test_unported_hooks_raise_not_implemented(monkeypatch):
+    """The process pool, the last polystore hook that raised here, is
+    ported: ``processes=2`` now serves on the CPU through both entry
+    points (the serving stack and plan-level fusion were ported before it).
+    The LM side's unported families still raise, naming their ROADMAP
+    item."""
+    # one OpenMP thread in the spawned workers: the suite runs beside
+    # timing-based tests of the reference
+    monkeypatch.setenv("OMP_NUM_THREADS", "1")
+    from repro_torch.models import api as tapi
+    from repro_torch.configs import get_arch
     from repro_torch.runtime import QueryServer
-    s = T.connect(device="cpu")
+    ones = T.DenseTensor(torch.ones((3, 3)))
+    with T.connect(device="cpu", processes=2, train_plans=1) as ps:
+        assert isinstance(ps.bigdawg, T.ProcPool)
+        ps.register("W", ones, engine="dense_array")
+        res = ps.execute(T.array.count("W"), mode="training")
+        assert int(res.value.data) == 9
+    s = T.connect(device="cpu", train_plans=1)
     assert s.bigdawg.fuse is True
-    with pytest.raises(NotImplementedError, match="procpool"):
-        QueryServer(s.bigdawg, processes=2)
+    s.register("W", ones, engine="dense_array")
+    srv = QueryServer(s.bigdawg, processes=2)
+    try:
+        assert isinstance(srv.bd, T.ProcPool)
+        assert int(srv.submit(T.array.count("W")).result.data) == 9
+    finally:
+        srv.close()
     assert isinstance(s.server(), QueryServer)
     assert T.connect(device="cpu", fuse=True).bigdawg.fuse is True
     health = T.EngineHealth()
     health.after_plan([("dense_array", 0.1)])
     assert health._stragglers["dense_array"].n == 1
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        tapi.init_params(get_arch("zamba2-7b").smoke(), torch.Generator(),
+                         device="cpu")
 
 
 def _imports(path: Path):
