@@ -13,13 +13,17 @@ killed mid-request; streaming views patched after appends in this
 process), then LM serving
 (``BatchServer`` prefill + continuous-batching decode) of internlm2-1.8b
 and mamba2-370m at full width and depth, with bfloat16 parameters from the
-port's seeded init.
+port's seeded init, and last LM training of the same two models
+(``train``: the kernels' gradients against the plain versions, a float32
+step on the card against the CPU, full-depth steps from ``TokenStream``
+batches through ``ShardedLoader``, and a ``Trainer`` run with injected
+failures against an uninterrupted one).
 
 Run on a machine with one CUDA card:  python3 chip_smoke.py
 
-Each phase prints one JSON line (procpool one a section); any failure exits
-non-zero.  The line
-before the last lists every ported kernel with its launches on its path
+Each phase prints one JSON line (procpool and train one a section); any
+failure exits non-zero.  The line before the last lists every ported
+kernel with its launches on its path
 (Haar and kNN on the analytic, the tensor-core kNN on the serving phase,
 and both in the procpool phase's workers as ``pool_launches``,
 the bfloat16 tensor-core flash attention on the dense LM's bfloat16
@@ -28,8 +32,10 @@ warp-level tensor-core one on the dense smoke config's ragged prefill
 check, the CUDA-core one on the flash phase's entry-point calls at widths
 that are not a multiple of 8, the tensor-core SSD on the SSM LM's
 serving, the CUDA-core one on the SSM smoke config's ragged prefill
-check), its error against the plain version, its time, the plain
-version's time, the bound and the yardstick library call's time.
+check; ``train_launches``: the tensor-core flash and SSD kernels in the
+train phase's steps, forward and remat recompute), its error against the
+plain version, its time, the plain version's time, the bound and the
+yardstick library call's time.
 Times are device times: CUDA events around many back-to-back launches,
 divided by their count (``time_ms``); ``call_ms`` beside them is the old
 one-call figure, what the path pays per call with the host's work.  The
@@ -65,7 +71,10 @@ from repro_torch.core import middleware as mw  # noqa: E402
 from repro_torch.core.engines import ENGINES  # noqa: E402
 from repro_torch.core.middleware import _plan_from_key  # noqa: E402
 from repro_torch.core.qlang import bigdawg  # noqa: E402
-from repro_torch.data import ecg_waveforms  # noqa: E402
+from repro_torch.ckpt import CheckpointManager  # noqa: E402
+from repro_torch.convert import train_state_from_numpy  # noqa: E402
+from repro_torch.data import (ShardedLoader, TokenStream,  # noqa: E402
+                              ecg_waveforms)
 from repro_torch.kernels import _build, ops  # noqa: E402
 from repro_torch.kernels.haar import haar_cuda, haar_ref  # noqa: E402
 from repro_torch.kernels.flash_attention import (  # noqa: E402
@@ -77,11 +86,12 @@ from repro_torch.kernels.ssd_scan import (  # noqa: E402
     ssd_intra_cuda, ssd_intra_ref, variant as ssd_variant)
 from repro_torch.models import api  # noqa: E402
 from repro_torch.models import transformer as T  # noqa: E402
-from repro_torch.models.util import tree_leaves, tree_map  # noqa: E402
+from repro_torch.tree import tree_leaves, tree_map  # noqa: E402
+from repro_torch.optim import AdamW  # noqa: E402
 from repro_torch.core.tables import host_copy  # noqa: E402
 from repro_torch.runtime import (BatchServer, EngineFaultInjector,  # noqa: E402
-                                 Overloaded, QueryServer, Request,
-                                 WorkerKillInjector)
+                                 FailureInjector, Overloaded, QueryServer,
+                                 Request, Trainer, WorkerKillInjector)
 
 # H100 SXM published peaks (NVIDIA data sheet): HBM rate, and operations a
 # second of each kind of unit: float32 outside the tensor cores, dense
@@ -237,6 +247,44 @@ CPU_CHECK_TOKENS, CPU_CHECK_DEPTH, CPU_CHECK_TOL = 256, 2, 1e-3
 # round at other places over the whole depth; a token that differs must be
 # a near-tie, its prefill logit within this margin of the prefill's argmax
 DECODE_NEAR_TIE = 0.5
+# LM training (phase "train"): batch at S 2048 per model, full width and
+# depth, PlanConfig defaults (bfloat16 compute, float32 master and moments,
+# block remat, attention and loss chunks of 1024); one warm-up step, then
+# TRAIN_STEPS timed ones, with AdamW at TRAIN_LR
+TRAIN_BATCH = {"internlm2-1.8b": 4, "mamba2-370m": 8}
+TRAIN_SEQ, TRAIN_STEPS, TRAIN_LR = 2048, 8, 1e-3
+# grad_check: gradients through the kernels' autograd Functions against
+# autograd through the plain versions, the largest error over the
+# gradient's largest magnitude: 1e-4 in float32, 2e-2 in bfloat16
+GRAD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+# flash (B, S, H, KV, d, dtype): internlm2's layer at B 1, and in bfloat16
+# also at the batch of its full-depth train steps, and the dense smoke
+# config's heads at S 256; SSD (b, Q, h, p, g, n): mamba2's chunks of one
+# 2048-token sequence (16) and of its full-depth train steps' batch (8 x
+# 16), and the SSM smoke config's chunk 8.  Each forward output is also held
+# against the plain version at FLASH_TOL / SSD_TOL.
+FLASH_GRAD_SHAPES = [(1, 2048, 16, 8, 128, torch.bfloat16),
+                     (TRAIN_BATCH["internlm2-1.8b"], 2048, 16, 8, 128,
+                      torch.bfloat16),
+                     (1, 2048, 16, 8, 128, torch.float32),
+                     (2, 256, 4, 2, 32, torch.bfloat16),
+                     (2, 256, 4, 2, 32, torch.float32)]
+SSD_GRAD_SHAPES = [(16, 128, 32, 64, 1, 128),
+                   (TRAIN_BATCH["mamba2-370m"] * 16, 128, 32, 64, 1, 128),
+                   (8, 8, 16, 16, 1, 16)]
+# train cpu_check: one float32 train step at full width and this depth,
+# batch and length on the card and on the CPU from one state: loss 1e-4
+# relative, grad norm 1e-3, each master leaf atol 1e-3 / rtol 3e-3 (the
+# reference's allowance for a reordered first Adam step), and each leaf's
+# gradient within TRAIN_GRAD_TOL of its largest magnitude (the CPU tests'
+# tolerance for a gradient leaf against the reference)
+TRAIN_CHECK_DEPTH, TRAIN_CHECK_BATCH, TRAIN_CHECK_SEQ = 2, 2, 256
+TRAIN_GRAD_TOL = 1e-4
+# restart: mamba2-370m at full width and this depth; a run with failures
+# injected at RESTART_FAIL_AT, a checkpoint every RESTART_CKPT_EVERY steps,
+# gives the uninterrupted run's losses within 1e-4 relative
+RESTART_DEPTH, RESTART_BATCH, RESTART_SEQ = 4, 4, 512
+RESTART_STEPS, RESTART_CKPT_EVERY, RESTART_FAIL_AT = 12, 5, (7, 11)
 
 
 class SmokeFailure(RuntimeError):
@@ -527,6 +575,32 @@ def _flash_units(kind: str, dtype) -> str:
     return "bf16" if dtype == torch.bfloat16 else "3xtf32"
 
 
+def _flash_out_check(got, q, k, v, causal, label) -> dict:
+    """A flash kernel's output against the plain version on the same inputs
+    at FLASH_TOL; a bfloat16 output also against the plain version in
+    float32, at FLASH_BF16_VS_F32_TOL.  Returns the errors."""
+    dtype = q.dtype
+    with torch.no_grad():
+        want = flash_attention_ref(q, k, v, causal=causal)
+    err, tol = max_abs_err(got, want), FLASH_TOL[dtype]
+    check(got.dtype == dtype and got.shape == q.shape,
+          f"{label}: {got.dtype} {tuple(got.shape)}")
+    check(torch.allclose(got.float(), want.float(), rtol=tol, atol=tol),
+          f"{label}: max err {err}")
+    row = {"max_abs_err": err, "tol": tol}
+    if dtype == torch.bfloat16:
+        del want
+        with torch.no_grad():
+            want32 = flash_attention_ref(q.float(), k.float(), v.float(),
+                                         causal=causal)
+        err32 = max_abs_err(got, want32)
+        check(err32 <= FLASH_BF16_VS_F32_TOL,
+              f"{label} bfloat16 vs float32 plain: max err {err32}")
+        row["max_abs_err_vs_f32"] = err32
+        row["tol_vs_f32"] = FLASH_BF16_VS_F32_TOL
+    return row
+
+
 def phase_flash(dev, shapes=FLASH_SHAPES, gqa_shapes=FLASH_GQA_SHAPES,
                 timed_at=FLASH_TIMED) -> dict:
     """Every kernel against the plain version in both layouts: each shape on
@@ -553,7 +627,6 @@ def phase_flash(dev, shapes=FLASH_SHAPES, gqa_shapes=FLASH_GQA_SHAPES,
         else:
             q, k, v = rnd(h, s, d), rnd(h, s, d), rnd(h, s, d)
             shape = {"BH": h, "S": s, "d": d}
-        want = flash_attention_ref(q, k, v, causal=causal)
         fits = variant(dtype, d)
         kinds = [fits]
         if fits == "mma" or (dtype == torch.float32 and fits != "simt"):
@@ -568,23 +641,10 @@ def phase_flash(dev, shapes=FLASH_SHAPES, gqa_shapes=FLASH_GQA_SHAPES,
             else:
                 got = flash_attention_cuda(q, k, v, causal=causal, kind=kind)
             sync(dev)
-            err = max_abs_err(got, want)
-            tol = FLASH_TOL[dtype]
-            check(got.dtype == dtype and got.shape == q.shape,
-                  f"{label}: {got.dtype} {tuple(got.shape)}")
-            check(torch.allclose(got.float(), want.float(), rtol=tol,
-                                 atol=tol), f"{label}: max err {err}")
             row = {"form": form, "shape": shape, "causal": causal,
                    "dtype": str(dtype).replace("torch.", ""),
-                   "variant": kind, "max_abs_err": err, "tol": tol}
-            if dtype == torch.bfloat16:
-                want32 = flash_attention_ref(q.float(), k.float(), v.float(),
-                                             causal=causal)
-                err32 = max_abs_err(got, want32)
-                check(err32 <= FLASH_BF16_VS_F32_TOL,
-                      f"{label} bfloat16 vs float32 plain: max err {err32}")
-                row["max_abs_err_vs_f32"] = err32
-                row["tol_vs_f32"] = FLASH_BF16_VS_F32_TOL
+                   "variant": kind,
+                   **_flash_out_check(got, q, k, v, causal, label)}
             if (given, kind) in timed_at:
                 name = timed_at[given, kind]
                 tag = f"flash {name}"
@@ -631,6 +691,27 @@ def _ssd_work(b, q, h, p, g, n) -> tuple:
     return nbytes, ops_count
 
 
+SSD_OUTPUTS = ("y", "states", "decay")
+
+
+def _ssd_out_check(got, want, label) -> tuple:
+    """An SSD kernel's (y, states, decay) against the plain version in
+    float64 (``want``) at SSD_TOL, the absolute tolerance of y and states
+    scaled by their largest |value|.  Returns (errors, absolute
+    tolerances)."""
+    errs, atols = [], []
+    for name, a, w, (rtol, atol) in zip(SSD_OUTPUTS, got, want, SSD_TOL):
+        check(a.dtype == torch.float32 and a.shape == w.shape,
+              f"{label} {name} {a.dtype} {tuple(a.shape)}")
+        if name != "decay":
+            atol *= float(w.abs().max())
+        errs.append(max_abs_err(a, w))
+        atols.append(atol)
+        check(torch.allclose(a.double(), w, rtol=rtol, atol=atol),
+              f"{label} {name}: max err {errs[-1]}, atol {atol}")
+    return errs, atols
+
+
 def phase_ssd(dev, shapes=SSD_SHAPES, timed_at=SSD_TIMED) -> dict:
     """Both kernels against the plain version in float64.  Returns the rows
     that ``timed_at`` names, timed beside the plain version."""
@@ -646,32 +727,22 @@ def phase_ssd(dev, shapes=SSD_SHAPES, timed_at=SSD_TIMED) -> dict:
         C = torch.randn((b, q, g, n), generator=gen, device=dev)
         want = ssd_intra_ref(*(t.double() for t in (x, da, B, C)))
         plain32 = ssd_intra_ref(x, da, B, C)
-        names = ("y", "states", "decay")
         kinds = ["tc", "simt"] if ssd_variant(q, p, n) == "tc" else ["simt"]
         for kind in kinds:
             got = ssd_intra_cuda(x, da, B, C, kind=kind)
             sync(dev)
-            errs = [max_abs_err(a, w) for a, w in zip(got, want)]
-            atols = []
-            for name, a, w, (rtol, atol) in zip(names, got, want, SSD_TOL):
-                check(a.dtype == torch.float32 and a.shape == w.shape,
-                      f"ssd {kind} {name} {a.dtype} {tuple(a.shape)}")
-                if name != "decay":
-                    atol *= float(w.abs().max())
-                atols.append(atol)
-                check(torch.allclose(a.double(), w, rtol=rtol, atol=atol),
-                      f"ssd {kind} {name} at {(b, q, h, p, g, n)}: max err "
-                      f"{max_abs_err(a, w)}, atol {atol}")
+            errs, atols = _ssd_out_check(
+                got, want, f"ssd {kind} at {(b, q, h, p, g, n)}")
             row = {"shape": {"b": b, "Q": q, "h": h, "p": p, "g": g, "n": n},
                    "variant": kind, "dtype": "float32",
                    "max_abs_err": max(errs),
-                   "max_abs_err_each": dict(zip(names, errs)),
-                   "atol_each": dict(zip(names, atols)),
+                   "max_abs_err_each": dict(zip(SSD_OUTPUTS, errs)),
+                   "atol_each": dict(zip(SSD_OUTPUTS, atols)),
                    "max_abs_each": {nm: float(w.abs().max())
-                                    for nm, w in zip(names, want)},
+                                    for nm, w in zip(SSD_OUTPUTS, want)},
                    "plain_f32_max_abs_err_each": {
                        nm: max_abs_err(a, w)
-                       for nm, a, w in zip(names, plain32, want)}}
+                       for nm, a, w in zip(SSD_OUTPUTS, plain32, want)}}
             name = timed_at.get(((b, q, h, p, g, n), kind))
             if name:
                 run = lambda i, kind=kind: ssd_intra_cuda(x, da, B, C,
@@ -1939,7 +2010,8 @@ def _device_profile(fn, dev, kernel: str, top: int = 5) -> dict:
     CUDA activity only: host wall ms of the call (ending in a synchronize),
     the device's busy ms (union of its kernel and copy intervals), the busy
     share, the device ms and launches of the hand kernel whose name
-    contains ``kernel``, and the kernels that took the most device time."""
+    contains ``kernel``, the device ms by kind of work (``_kind``), and
+    the kernels that took the most device time."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     sync(dev)
@@ -1951,11 +2023,12 @@ def _device_profile(fn, dev, kernel: str, top: int = 5) -> dict:
     spans = sorted((e.time_range.start, e.time_range.end, e.name)
                    for e in prof.events()
                    if e.device_type == torch.autograd.DeviceType.CUDA)
-    busy, end, by_name = 0.0, float("-inf"), {}
+    busy, end, by_name, by_kind = 0.0, float("-inf"), {}, {}
     for a, b, name in spans:
         busy += max(0.0, b - max(a, end))
         end = max(end, b)
         by_name[name] = by_name.get(name, 0.0) + (b - a) / 1e3
+        by_kind[_kind(name)] = by_kind.get(_kind(name), 0.0) + (b - a) / 1e3
     busy /= 1e3
     # the whole name: flash_fwd_wgmma is not flash_fwd_wgmma_tf32
     word = re.compile(rf"\b{re.escape(kernel)}\b")
@@ -1964,7 +2037,24 @@ def _device_profile(fn, dev, kernel: str, top: int = 5) -> dict:
             "busy_share": busy / wall if spans else None,
             "device_ops": len(spans), "kernel": kernel,
             "kernel_ms": sum(mine) / 1e3, "kernel_launches": len(mine),
+            "by_kind_ms": by_kind,
             "top_ms": sorted(by_name.items(), key=lambda kv: -kv[1])[:top]}
+
+
+def _kind(name: str) -> str:
+    """The kind of work of a device kernel, from its name: a hand kernel,
+    a matrix product (cuBLAS / CUTLASS), a copy or cast, a reduction, other
+    elementwise work."""
+    n = name.lower()
+    if any(w in n for w in ("flash_fwd", "ssd_intra", "haar", "knn_")):
+        return "hand"
+    if any(w in n for w in ("gemm", "nvjet", "cutlass", "xmma")):
+        return "gemm"
+    if "copy" in n or n.startswith(("memcpy", "memset")):
+        return "copy"
+    if "reduce" in n or "softmax" in n or "scan" in n:
+        return "reduce"
+    return "elementwise" if "elementwise" in n else "other"
 
 
 def phase_lm(dev, name: str, cfg=None, slots=LM_SLOTS, max_len=LM_MAX_LEN,
@@ -2083,6 +2173,352 @@ def phase_lm(dev, name: str, cfg=None, slots=LM_SLOTS, max_len=LM_MAX_LEN,
     return row
 
 
+# -- LM training --------------------------------------------------------------
+
+def _rel_err(a: torch.Tensor, b: torch.Tensor) -> float:
+    """max |a - b| over the largest |b|."""
+    return float((a.float() - b.float()).abs().max()
+                 / b.float().abs().max().clamp_min(1e-30))
+
+
+def _grad_check(dev) -> list:
+    """Gradients through the kernels' autograd Functions (kernel forward,
+    plain backward) against autograd through the plain versions, on the
+    card, and the Functions' forward outputs against the plain versions;
+    and the device ms of a forward and backward each way.  The SSD backward
+    recomputes from the inputs alone, so its gradients show the wiring and
+    its forward check holds the kernel; the flash backward reads the
+    kernel's output."""
+    rows = []
+    for b, s, h, kv, d, dtype in FLASH_GRAD_SHAPES:
+        gen = torch.Generator(device=dev).manual_seed(s + d)
+        q = torch.randn((b, s, h, d), generator=gen, device=dev).to(dtype)
+        k, v = (torch.randn((b, s, kv, d), generator=gen, device=dev)
+                .to(dtype) for _ in range(2))
+        do = torch.randn((b, s, h, d), generator=gen, device=dev).to(dtype)
+        ins = [t.requires_grad_(True) for t in (q, k, v)]
+        kernel = "flash_attention_" + variant(dtype, d)
+        ops.reset_launches()
+        out = ops.flash_attention(*ins, causal=True)
+        got = torch.autograd.grad(out, ins, do)
+        sync(dev)
+        launches = ops.launches()
+        want = torch.autograd.grad(flash_attention_ref(*ins, causal=True),
+                                   ins, do)
+        errs = {f"d{n}": _rel_err(a, w) for n, a, w in zip("qkv", got, want)}
+        row = {"kernel": "flash_attention", "shape": [b, s, h, kv, d],
+               "dtype": str(dtype).removeprefix("torch."),
+               "variant": kernel, "grad_fn": type(out.grad_fn).__name__,
+               "rel_err": errs, "tol": GRAD_TOL[dtype],
+               "forward": _flash_out_check(
+                   out.detach(), *(t.detach() for t in ins), True,
+                   f"grad_check flash forward {[b, s, h, kv, d]} {dtype}"),
+               "launches": launches[kernel],
+               "fwd_bwd_ms": time_ms(lambda i: torch.autograd.grad(
+                   ops.flash_attention(*ins, causal=True), ins, do), dev,
+                   n=10, warmup=2, label=f"flash fwd+bwd {dtype}"),
+               "plain_fwd_bwd_ms": time_ms(lambda i: torch.autograd.grad(
+                   flash_attention_ref(*ins, causal=True), ins, do), dev,
+                   n=10, warmup=2, label=f"flash plain fwd+bwd {dtype}")}
+        rows.append(row)
+        emit("train", section="grad_check", **row)
+        check(row["grad_fn"] == "FlashAttentionBackward"
+              and (dev.type != "cuda" or launches[kernel] == 1),
+              f"grad_check {row['shape']}: the forward left the kernel "
+              f"({row['grad_fn']}, {launches})")
+        check(all(e <= GRAD_TOL[dtype] for e in errs.values()),
+              f"grad_check flash {row['shape']} {dtype}: {errs}")
+    for b, q, h, p, g, n in SSD_GRAD_SHAPES:
+        gen = torch.Generator(device=dev).manual_seed(q)
+        x = torch.randn((b, q, h, p), generator=gen, device=dev)
+        da = -torch.nn.functional.softplus(
+            torch.randn((b, q, h), generator=gen, device=dev))
+        B = torch.randn((b, q, g, n), generator=gen, device=dev)
+        C = torch.randn((b, q, g, n), generator=gen, device=dev)
+        ins = [t.requires_grad_(True) for t in (x, da, B, C)]
+        kernel = "ssd_intra_" + ssd_variant(q, p, n)
+        ops.reset_launches()
+        outs = ops.ssd_intra(*ins)
+        cots = [torch.randn(o.shape, generator=gen, device=dev)
+                for o in outs]
+        got = torch.autograd.grad(outs, ins, cots)
+        sync(dev)
+        launches = ops.launches()
+        want = torch.autograd.grad(ssd_intra_ref(*ins), ins, cots)
+        errs = {f"d{n_}": _rel_err(a, w)
+                for n_, a, w in zip(("x", "da", "B", "C"), got, want)}
+        with torch.no_grad():
+            want = ssd_intra_ref(*(t.double() for t in ins))
+        fwd_errs, fwd_atols = _ssd_out_check(
+            [o.detach() for o in outs], want,
+            f"grad_check ssd forward {[b, q, h, p, g, n]}")
+        del want
+        row = {"kernel": "ssd_intra", "shape": [b, q, h, p, g, n],
+               "dtype": "float32", "variant": kernel,
+               "grad_fn": type(outs[0].grad_fn).__name__, "rel_err": errs,
+               "tol": GRAD_TOL[torch.float32],
+               "forward": {"max_abs_err_each": dict(zip(SSD_OUTPUTS,
+                                                        fwd_errs)),
+                           "atol_each": dict(zip(SSD_OUTPUTS, fwd_atols))},
+               "launches": launches[kernel],
+               "grad_max": {f"d{n_}": float(a.abs().max()) for n_, a in
+                            zip(("x", "da", "B", "C"), got)},
+               "fwd_bwd_ms": time_ms(lambda i: torch.autograd.grad(
+                   ops.ssd_intra(*ins), ins, cots), dev, n=10, warmup=2,
+                   label="ssd fwd+bwd"),
+               "plain_fwd_bwd_ms": time_ms(lambda i: torch.autograd.grad(
+                   ssd_intra_ref(*ins), ins, cots), dev, n=10, warmup=2,
+                   label="ssd plain fwd+bwd")}
+        rows.append(row)
+        emit("train", section="grad_check", **row)
+        check(row["grad_fn"] == "SSDIntraBackward"
+              and (dev.type != "cuda" or launches[kernel] == 1),
+              f"grad_check {row['shape']}: the forward left the kernel "
+              f"({row['grad_fn']}, {launches})")
+        check(all(v > 0 for v in row["grad_max"].values()),
+              f"grad_check ssd {row['shape']}: a zero gradient")
+        check(all(e <= GRAD_TOL[torch.float32] for e in errs.values()),
+              f"grad_check ssd {row['shape']}: {errs}")
+    return rows
+
+
+def _train_cpu_check(dev, name: str) -> dict:
+    """One float32 train step at full width and TRAIN_CHECK_DEPTH, from one
+    state (``train_state_from_numpy`` of a seeded init) on the card
+    (kernels, twice a layer under block remat) and on the CPU (plain
+    versions)."""
+    cfg = dataclasses.replace(get_arch(name), num_layers=TRAIN_CHECK_DEPTH)
+    plan = PlanConfig(param_dtype="float32", compute_dtype="float32",
+                      master_dtype="float32")
+    opt = AdamW(learning_rate=TRAIN_LR)
+    tree = tree_map(lambda t: t.cpu().numpy(), api.init_train_state(
+        cfg, plan, torch.Generator(device=dev).manual_seed(0), opt, dev))
+    tokens = TokenStream(cfg.vocab_size, TRAIN_CHECK_BATCH, TRAIN_CHECK_SEQ,
+                         seed=0).batch_at(0)
+    step = api.make_train_step(cfg, plan, opt)
+    ops.reset_launches()
+    card, m_card = step(train_state_from_numpy(tree, dev),
+                        {"tokens": tokens.to(dev)})
+    sync(dev)
+    launches = ops.launches()
+    t0 = time.perf_counter()
+    host, m_host = step(train_state_from_numpy(tree, "cpu"),
+                        {"tokens": tokens})
+    host_s = time.perf_counter() - t0
+    del tree
+    # the largest |card - cpu| - 3e-3 |cpu| over the master's leaves
+    worst, worst_leaf = max(
+        (float(((a.cpu() - w).abs() - 3e-3 * w.abs()).max()), k)
+        for (k, a), w in zip(_leaf_paths(card["master"]),
+                             tree_leaves(host["master"])))
+    # each leaf's gradient: the first step's moment m, (1 - b1) times the
+    # clipped gradient, against the CPU's over its largest magnitude (a
+    # leaf whose gradient is lost on the card reads 1; the master's first
+    # Adam step moves no element by more than lr and cannot show it)
+    grad_worst, grad_worst_leaf = max(
+        (_rel_err(a.cpu(), w), k)
+        for (k, a), w in zip(_leaf_paths(card["opt"]["m"]),
+                             tree_leaves(host["opt"]["m"])))
+    row = {"model": cfg.name, "layers": cfg.num_layers,
+           "batch": TRAIN_CHECK_BATCH, "seq": TRAIN_CHECK_SEQ,
+           "dtype": "float32", "loss_card": float(m_card["loss"]),
+           "loss_cpu": float(m_host["loss"]),
+           "grad_norm_card": float(m_card["grad_norm"]),
+           "grad_norm_cpu": float(m_host["grad_norm"]),
+           "master_worst_excess": worst, "master_worst_leaf": worst_leaf,
+           "master_tol": {"atol": 1e-3, "rtol": 3e-3},
+           "grad_worst_rel_err": grad_worst,
+           "grad_worst_leaf": grad_worst_leaf, "grad_tol": TRAIN_GRAD_TOL,
+           "cpu_step_s": host_s,
+           "launches": launches}
+    row["loss_rel_err"] = abs(row["loss_card"] - row["loss_cpu"]) \
+        / abs(row["loss_cpu"])
+    row["grad_norm_rel_err"] = abs(row["grad_norm_card"]
+                                   - row["grad_norm_cpu"]) \
+        / abs(row["grad_norm_cpu"])
+    emit("train", section="cpu_check", **row)
+    kernel = _lm_kernel(cfg, torch.float32)
+    check(dev.type != "cuda" or (
+        launches[kernel] == 2 * cfg.num_layers
+        and all(n == 0 for k, n in launches.items() if k != kernel)),
+          f"train cpu_check {name}: launches {launches}, want {kernel} = "
+          f"2 x {cfg.num_layers}")
+    check(row["loss_rel_err"] <= 1e-4,
+          f"train cpu_check {name}: loss {row['loss_card']} vs "
+          f"{row['loss_cpu']}")
+    check(row["grad_norm_rel_err"] <= 1e-3,
+          f"train cpu_check {name}: grad norm {row['grad_norm_card']} vs "
+          f"{row['grad_norm_cpu']}")
+    check(worst <= 1e-3, f"train cpu_check {name}: master {worst_leaf} off "
+          f"by {worst} beyond rtol 3e-3")
+    check(grad_worst <= TRAIN_GRAD_TOL,
+          f"train cpu_check {name}: gradient of {grad_worst_leaf} off by "
+          f"{grad_worst} of its largest magnitude")
+    return row
+
+
+def _leaf_paths(tree, prefix=""):
+    """(path, leaf) pairs of a tree in ``tree_leaves`` order."""
+    if isinstance(tree, dict):
+        return [pair for k, v in tree.items()
+                for pair in _leaf_paths(v, f"{prefix}/{k}" if prefix else k)]
+    return [(prefix, tree)]
+
+
+def _train_full(dev, name: str, batch: int) -> dict:
+    """Train steps of the full model (PlanConfig defaults) on batches of
+    ``TokenStream(seed=0)`` through ``ShardedLoader``: one warm-up step and
+    TRAIN_STEPS timed ones (host clock from the call to the loss read,
+    which waits for the card), each step's launches counted on their own;
+    then one more step traced under ``torch.profiler``."""
+    cfg = get_arch(name)
+    plan = PlanConfig()
+    opt = AdamW(learning_rate=TRAIN_LR)
+    cuda = dev.type == "cuda"
+    if cuda:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    state = api.init_train_state(cfg, plan,
+                                 torch.Generator(device=dev).manual_seed(0),
+                                 opt, dev)
+    sync(dev)
+    init_s = time.perf_counter() - t0
+    n_params = sum(t.numel() for t in tree_leaves(state["master"]))
+    stream = TokenStream(cfg.vocab_size, batch, TRAIN_SEQ, seed=0)
+    loader = ShardedLoader(lambda i: {"tokens": stream.batch_at(i)},
+                           device=dev)
+    step = api.make_train_step(cfg, plan, opt)
+    kernel = _lm_kernel(cfg, torch.bfloat16)
+    losses, step_ms, per_step, wait_ms = [], [], [], []
+    try:
+        for i in range(1 + TRAIN_STEPS):
+            t1 = time.perf_counter()
+            b = next(loader)
+            wait_ms.append((time.perf_counter() - t1) * 1e3)
+            ops.reset_launches()
+            t1 = time.perf_counter()
+            state, metrics = step(state, b)
+            losses.append(float(metrics["loss"]))       # waits for the card
+            dt = (time.perf_counter() - t1) * 1e3
+            per_step.append(ops.launches())
+            if i:
+                step_ms.append(dt)
+        peak = torch.cuda.max_memory_allocated(dev) / 1e9 if cuda else None
+        profile = _device_profile(lambda: step(state, b), dev,
+                                  DEVICE_KERNEL[kernel], top=12) \
+            if cuda else None
+    finally:
+        loader.close()
+    med = statistics.median(step_ms)
+    row = {"model": cfg.name, "family": cfg.family, "params": n_params,
+           "layers": cfg.num_layers, "batch": batch, "seq": TRAIN_SEQ,
+           "compute_dtype": plan.compute_dtype, "remat": plan.remat,
+           "init_s": init_s, "losses": losses, "step_ms": step_ms,
+           "step_ms_median": med,
+           "tokens_per_s": batch * TRAIN_SEQ / (med / 1e3),
+           "loader_wait_ms": wait_ms, "peak_mem_gb": peak,
+           "launches_per_step": per_step[-1], "kernel": kernel,
+           "launches": sum(c[kernel] for c in per_step),
+           "profile": profile}
+    emit("train", section="steps", **row)
+    check(all(math.isfinite(x) for x in losses),
+          f"train {name}: a loss is not finite: {losses}")
+    check(statistics.mean(losses[-2:]) < statistics.mean(losses[:2]),
+          f"train {name}: losses did not fall: {losses}")
+    # the forward and its recompute under block remat: twice a layer
+    for counts in per_step:
+        check(not cuda or (
+            counts[kernel] == 2 * cfg.num_layers
+            and all(n == 0 for k, n in counts.items() if k != kernel)),
+              f"train {name}: launches {counts}, want {kernel} = "
+              f"2 x {cfg.num_layers} a step")
+    del state, metrics, b
+    if cuda:
+        torch.cuda.empty_cache()
+    return row
+
+
+def _train_restart(dev) -> dict:
+    """``Trainer.run`` against ``Trainer.run_with_restarts`` with injected
+    failures, mamba2-370m at full width and RESTART_DEPTH, from one state;
+    then the times of an async save and of a restore onto the card."""
+    cfg = dataclasses.replace(get_arch("mamba2-370m"),
+                              num_layers=RESTART_DEPTH)
+    plan = PlanConfig()
+    opt = AdamW(learning_rate=TRAIN_LR)
+    state0 = api.init_train_state(cfg, plan,
+                                  torch.Generator(device=dev).manual_seed(1),
+                                  opt, dev)
+    stream = TokenStream(cfg.vocab_size, RESTART_BATCH, RESTART_SEQ, seed=0)
+    batch_fn = lambda i: {"tokens": stream.batch_at(i).to(dev)}
+    step = api.make_train_step(cfg, plan, opt)
+    with tempfile.TemporaryDirectory(prefix="chip-smoke-ckpt-") as d:
+        clean = Trainer(step, batch_fn, CheckpointManager(f"{d}/clean"),
+                        ckpt_every=RESTART_CKPT_EVERY)
+        t0 = time.perf_counter()
+        clean.run(state0, RESTART_STEPS)
+        clean_s = time.perf_counter() - t0
+        faulty = Trainer(step, batch_fn, CheckpointManager(f"{d}/faulty"),
+                         ckpt_every=RESTART_CKPT_EVERY,
+                         injector=FailureInjector(set(RESTART_FAIL_AT)))
+        t0 = time.perf_counter()
+        final, restarts = faulty.run_with_restarts(state0, RESTART_STEPS)
+        faulty_s = time.perf_counter() - t0
+        mgr = CheckpointManager(f"{d}/timing", keep_last=1)
+        sync(dev)
+        t0 = time.perf_counter()
+        mgr.save(1, final)
+        save_call_s = time.perf_counter() - t0
+        mgr.wait()
+        save_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        restored, _ = mgr.restore(final, device=dev)
+        sync(dev)
+        restore_s = time.perf_counter() - t0
+        same = all(torch.equal(a, b) for a, b in
+                   zip(tree_leaves(final), tree_leaves(restored)))
+        nbytes = sum(t.numel() * t.element_size() for t in tree_leaves(final))
+    a = {h["step"]: h["loss"] for h in clean.history}
+    b = {h["step"]: h["loss"] for h in faulty.history}
+    errs = [abs(a[i] - b[i]) / abs(a[i]) for i in sorted(a)] \
+        if set(a) == set(b) else None
+    row = {"model": cfg.name, "layers": cfg.num_layers,
+           "batch": RESTART_BATCH, "seq": RESTART_SEQ,
+           "steps": RESTART_STEPS, "ckpt_every": RESTART_CKPT_EVERY,
+           "fail_at": list(RESTART_FAIL_AT), "restarts": restarts,
+           "losses_clean": [a[i] for i in sorted(a)],
+           "losses_restarted": [b[i] for i in sorted(b)],
+           "loss_rel_err_max": max(errs) if errs else None,
+           "clean_s": clean_s, "restarted_s": faulty_s,
+           "state_gb": nbytes / 1e9, "save_call_s": save_call_s,
+           "save_s": save_s, "restore_s": restore_s,
+           "restored_equal": same}
+    emit("train", section="restart", **row)
+    check(restarts == len(RESTART_FAIL_AT),
+          f"restart: {restarts} restarts, want {len(RESTART_FAIL_AT)}")
+    check(errs is not None and max(errs) <= 1e-4,
+          f"restart: losses differ: {a} vs {b}")
+    check(same, "restart: a restored leaf differs from the saved one")
+    return row
+
+
+def phase_train(dev) -> dict:
+    """LM training of the dense and SSM families on the card: the kernels'
+    gradients (``grad_check``), a train step on the card against the CPU
+    (``cpu_check``), full-width full-depth steps, and restarts from
+    checkpoints."""
+    t0 = time.perf_counter()
+    out = {"grad_check": _grad_check(dev),
+           "cpu_check": {n: _train_cpu_check(dev, n) for n in TRAIN_BATCH},
+           "steps": {n: _train_full(dev, n, b)
+                     for n, b in TRAIN_BATCH.items()},
+           "restart": _train_restart(dev)}
+    out["seconds"] = time.perf_counter() - t0
+    emit("train", section="total", seconds=out["seconds"])
+    return out
+
+
 def _kernel_entry(name, source, replaces, launches, row) -> dict:
     return {"name": name, "route": "cuda",
             "source": f"src/repro_torch/kernels/csrc/{source}",
@@ -2097,7 +2533,8 @@ def _kernel_entry(name, source, replaces, launches, row) -> dict:
 
 def kernels_line(haar_row: dict, knn_rows: dict, flash_rows: dict,
                  ssd_rows: dict, analytic: dict, serving: dict,
-                 procpool: dict, lm_dense: dict, lm_ssm: dict) -> dict:
+                 procpool: dict, lm_dense: dict, lm_ssm: dict,
+                 train: dict) -> dict:
     """Launches of each kernel on its own path: Haar and kNN (all kernels,
     the matrix-vector one at B 1) on the analytic, the tensor-core kNN at
     B 64 on the serving phase's warm run (credited across CUDA graph
@@ -2108,8 +2545,11 @@ def kernels_line(haar_row: dict, knn_rows: dict, flash_rows: dict,
     (``ragged_check``), the CUDA-core one on phase_flash's entry-point calls
     (its only caller: widths that are not a multiple of 8), the tensor-core
     SSD on SSM serving, the CUDA-core one on the SSM smoke config's ragged
-    prefill (``ragged_check``).  The CUDA-core flash kernel's times are its
-    forced row at the warp-level kernel's path shape."""
+    prefill (``ragged_check``).  ``train_launches``: the bfloat16
+    tensor-core flash and SSD kernels in the train phase's full-depth steps
+    (forward and remat recompute), the 3xTF32 flash kernel in its float32
+    ``cpu_check`` step.  The CUDA-core flash kernel's times are its forced
+    row at the warp-level kernel's path shape."""
     flash = "src/repro/kernels/flash_attention.py:73"
     ssd = "src/repro/kernels/ssd_scan.py:45"
     pool_knn = sum(w["launches"]["knn_scores_tiled"]
@@ -2125,20 +2565,25 @@ def kernels_line(haar_row: dict, knn_rows: dict, flash_rows: dict,
                            serving["warm"]["launches"]["knn_scores_tiled"],
                            knn_rows[64]),
              pool_launches=pool_knn),
-        _kernel_entry("flash_attention_tc", "flash_attention.cu", flash,
-                      lm_dense["launches"]["flash_attention_tc"],
-                      flash_rows["tc"]),
-        _kernel_entry("flash_attention_tf32", "flash_attention.cu", flash,
-                      lm_dense["cpu_check"]["launches"]
-                      ["flash_attention_tf32"], flash_rows["tf32"]),
+        dict(_kernel_entry("flash_attention_tc", "flash_attention.cu",
+                           flash, lm_dense["launches"]["flash_attention_tc"],
+                           flash_rows["tc"]),
+             train_launches=train["steps"]["internlm2-1.8b"]["launches"]),
+        dict(_kernel_entry("flash_attention_tf32", "flash_attention.cu",
+                           flash, lm_dense["cpu_check"]["launches"]
+                           ["flash_attention_tf32"], flash_rows["tf32"]),
+             train_launches=train["cpu_check"]["internlm2-1.8b"]["launches"]
+             ["flash_attention_tf32"]),
         _kernel_entry("flash_attention_mma", "flash_attention.cu", flash,
                       lm_dense["ragged_check"]["launches"]
                       ["flash_attention_mma"], flash_rows["mma"]),
         _kernel_entry("flash_attention_simt", "flash_attention.cu", flash,
                       flash_rows["entry_launches"]["flash_attention_simt"],
                       flash_rows["simt_before"]),
-        _kernel_entry("ssd_intra_tc", "ssd_scan.cu", ssd,
-                      lm_ssm["launches"]["ssd_intra_tc"], ssd_rows["tc"]),
+        dict(_kernel_entry("ssd_intra_tc", "ssd_scan.cu", ssd,
+                           lm_ssm["launches"]["ssd_intra_tc"],
+                           ssd_rows["tc"]),
+             train_launches=train["steps"]["mamba2-370m"]["launches"]),
         _kernel_entry("ssd_intra_simt", "ssd_scan.cu", ssd,
                       lm_ssm["ragged_check"]["launches"]["ssd_intra_simt"],
                       ssd_rows["simt"]),
@@ -2166,11 +2611,12 @@ def main() -> int:
     del data
     lm_dense = phase_lm(dev, "internlm2-1.8b")
     lm_ssm = phase_lm(dev, "mamba2-370m")
+    train = phase_train(dev)
     emit("total", seconds=time.perf_counter() - t0,
          host_behind=HOST_BEHIND)
     print(json.dumps(kernels_line(haar_row, knn_rows, flash_rows, ssd_rows,
                                   analytic, serving, procpool, lm_dense,
-                                  lm_ssm)),
+                                  lm_ssm, train)),
           flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -10,7 +10,10 @@ they are.
 ``params_from_numpy(tree, device, dtype)`` turns the reference's LM
 parameter tree with numpy leaves (``jax.tree.map(np.asarray, params)``)
 into the port's parameters: the port keeps the reference's names and
-layouts, so the map is name for name.
+layouts, so the map is name for name.  ``train_state_from_numpy(tree,
+device)`` does the same for a whole train state (``master``, ``opt.m``,
+``opt.v``, ``opt.count``, ``step`` and, with int8 error feedback, ``ef``),
+so that both packages can train on from one state.
 """
 from __future__ import annotations
 
@@ -53,18 +56,24 @@ def _tensor(a: np.ndarray) -> torch.Tensor:
     return torch.from_numpy(a)
 
 
+def _tree(tree, dev):
+    if isinstance(tree, dict):
+        return {k: _tree(v, dev) for k, v in tree.items()}
+    return _tensor(tree).to(dev)
+
+
 def params_from_numpy(tree, device, dtype=None):
     """The port's parameter dict of a numpy-leafed reference parameter tree
     (nested dicts), on ``device``.  With ``dtype``, floating leaves are cast
     to it except the float32-sensitive ones (``models.api.F32_SENSITIVE``),
     as ``cast_params`` does."""
     from repro_torch.models.api import cast_params
-    dev = tables.resolve_device(device)
-
-    def conv(node):
-        if isinstance(node, dict):
-            return {k: conv(v) for k, v in node.items()}
-        return _tensor(node).to(dev)
-
-    params = conv(tree)
+    params = _tree(tree, tables.resolve_device(device))
     return params if dtype is None else cast_params(params, dtype)
+
+
+def train_state_from_numpy(tree, device):
+    """The port's train state of a numpy-leafed reference train state
+    (``jax.tree.map(np.asarray, state)``), name for name and dtype for
+    dtype, on ``device``."""
+    return _tree(tree, tables.resolve_device(device))

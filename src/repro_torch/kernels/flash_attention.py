@@ -31,6 +31,16 @@ kernels compute the reference's TPU kernel instead (scores multiplied by
 1/sqrt(d), online softmax, P rounded to v's dtype); the two agree within
 the reference tests' tolerances (float32 1e-4, bfloat16 3e-2).
 The causal mask is top-left aligned: query i sees keys 0..i.
+
+``FlashAttention`` is the ``torch.autograd.Function`` of training: its
+forward is ``flash_attention_cuda`` (the kernel's output, launched once per
+call and counted), its backward ``flash_attention_bwd``, the gradient of
+softmax attention written out in plain PyTorch.  The TPU kernel has no
+backward kernel (the reference differentiates its jnp attention), so
+neither has the port yet.  The backward reads the kernel's O for
+D = rowsum(dO·O), recomputes P one block of at most 1024 query rows at a
+time (the reference's ``attn_chunk``), and sums dK and dV over each group
+of H // KV query heads.
 """
 from __future__ import annotations
 
@@ -229,3 +239,76 @@ flash_attention_cuda.launches_tc = 0
 flash_attention_cuda.launches_tf32 = 0
 flash_attention_cuda.launches_mma = 0
 flash_attention_cuda.launches_simt = 0
+
+
+BWD_BLOCK = 1024           # query rows whose P the backward holds at once
+
+
+def flash_attention_bwd(q, k, v, o, do, *, causal: bool = True,
+                        block: int = BWD_BLOCK):
+    """(dq, dk, dv) of softmax attention at q, k, v, in either layout of
+    the module docstring, given its output ``o`` and the output's gradient
+    ``do``.  Per block of ``block`` query rows: S = q·kᵀ (in the inputs'
+    dtype, as the forward's plain version takes it), P = softmax(S/sqrt(d))
+    in float32, dV += Pᵀ·dO, dS = P∘(dO·Vᵀ − D) with D = rowsum(dO∘O),
+    dQ = dS·K/sqrt(d), dK += dSᵀ·Q/sqrt(d); P and dS enter the products in
+    the inputs' dtype, dK and dV are summed in float32.  Under a causal mask
+    a block reads only the keys its last row sees."""
+    q4, k4, v4, o4, do4 = (t.unsqueeze(2) if t.ndim == 3 else t
+                           for t in (q, k, v, o, do))
+    B, sq, H, d = q4.shape
+    sk, KV = k4.shape[1], k4.shape[2]
+    G = H // KV
+    dt, f32 = q.dtype, torch.float32
+    scale = 1.0 / math.sqrt(d)
+    qg = q4.reshape(B, sq, KV, G, d)            # head h = kv·G + g
+    dog = do4.reshape(B, sq, KV, G, d)
+    D = (dog.to(f32) * o4.reshape(B, sq, KV, G, d).to(f32)).sum(-1)
+    D = D.permute(0, 2, 3, 1)                   # (B, KV, G, sq)
+    dq = torch.empty_like(qg)
+    dk = torch.zeros((B, sk, KV, d), dtype=f32, device=q.device)
+    dv = torch.zeros((B, sk, KV, d), dtype=f32, device=q.device)
+    for q0 in range(0, sq, block):
+        q1 = min(q0 + block, sq)
+        kend = min(q1, sk) if causal else sk
+        qb, dob = qg[:, q0:q1], dog[:, q0:q1]
+        kb, vb = k4[:, :kend], v4[:, :kend]
+        s = torch.einsum("bqkgd,bskd->bkgqs", qb, kb).to(f32)
+        s.mul_(scale)
+        if causal:
+            rows = torch.arange(q0, q1, device=q.device)
+            keys = torch.arange(kend, device=q.device)
+            s.masked_fill_(rows[:, None] < keys[None, :], float("-inf"))
+        p = torch.softmax(s, dim=-1)
+        del s
+        dv[:, :kend] += torch.einsum("bkgqs,bqkgd->bskd", p.to(dt), dob)
+        ds = torch.einsum("bqkgd,bskd->bkgqs", dob, vb).to(f32)
+        ds.sub_(D[..., q0:q1, None]).mul_(p).mul_(scale)
+        del p
+        ds = ds.to(dt)
+        dq[:, q0:q1] = torch.einsum("bkgqs,bskd->bqkgd", ds, kb)
+        dk[:, :kend] += torch.einsum("bkgqs,bqkgd->bskd", ds, qb)
+    dq = dq.reshape(q4.shape)
+    if q.ndim == 3:
+        return dq[:, :, 0], dk[:, :, 0].to(dt), dv[:, :, 0].to(dt)
+    return dq, dk.to(dt), dv.to(dt)
+
+
+class FlashAttention(torch.autograd.Function):
+    """Attention with a gradient: the kernel forward
+    (``flash_attention_cuda``), the plain backward (``flash_attention_bwd``).
+    ``kernels.ops.flash_attention`` applies it to every CUDA tensor."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal: bool):
+        o = flash_attention_cuda(q, k, v, causal=causal)
+        ctx.save_for_backward(q, k, v, o)
+        ctx.causal = causal
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, o, do.contiguous(),
+                                         causal=ctx.causal)
+        return dq, dk, dv, None

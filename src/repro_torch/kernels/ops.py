@@ -12,19 +12,26 @@ variant, ``flash_attention_cuda.launches_tc``, ``.launches_tf32``,
 show that its main path went through the kernels.  The counts are
 thread-safe, and a CUDA graph replay of captured launches credits them
 again (``kernels.counters``).  ``flash_attention`` and
-``ssd_intra`` carry the LM prefill path (``models.layers.attention_apply``,
-``models.ssm.ssd_chunked``).
+``ssd_intra`` carry the LM prefill and training paths
+(``models.layers.attention_apply``, ``models.ssm.ssd_chunked``).  A CUDA
+tensor goes through the kernel's ``torch.autograd.Function``
+(``FlashAttention``, ``SSDIntra``: the kernel forward, a plain PyTorch
+backward), which records a backward node only when an input requires a
+gradient, and launches the kernel once either way; a CPU tensor goes
+through the plain version, which autograd differentiates.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.kernels import counters
-from repro_torch.kernels.flash_attention import (flash_attention_cuda,
+from repro_torch.kernels.flash_attention import (FlashAttention,
+                                                 flash_attention_cuda,
                                                  flash_attention_ref)
 from repro_torch.kernels.haar import haar_cuda, haar_ref
 from repro_torch.kernels.knn import (knn_scores_cuda, knn_scores_ref, top_k)
-from repro_torch.kernels.ssd_scan import ssd_intra_cuda, ssd_intra_ref
+from repro_torch.kernels.ssd_scan import (SSDIntra, ssd_intra_cuda,
+                                          ssd_intra_ref)
 
 # launch counters: name -> (wrapper, attribute)
 COUNTERS = {"haar": (haar_cuda, "launches"),
@@ -75,7 +82,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if _route(q, "flash_attention"):
         q, k, v = (t if t.stride(-1) == 1 else t.contiguous()
                    for t in (q, k, v))
-        return flash_attention_cuda(q, k, v, causal=causal)
+        return FlashAttention.apply(q, k, v, causal)
     return flash_attention_ref(q, k, v, causal=causal)
 
 
@@ -84,7 +91,7 @@ def ssd_intra(x: torch.Tensor, da: torch.Tensor, B: torch.Tensor,
     """Intra-chunk SSD over (b, Q, ...) chunks: (y, states, chunk_decay);
     on the card the kernel that ``ssd_scan.variant`` names for the shape."""
     if _route(x, "ssd_intra"):
-        return ssd_intra_cuda(x.contiguous(), da.contiguous(),
+        return SSDIntra.apply(x.contiguous(), da.contiguous(),
                               B.contiguous(), C.contiguous())
     return ssd_intra_ref(x, da, B, C)
 

@@ -15,6 +15,12 @@ float32): the chunk's output, its contribution to the state decayed to the
 chunk's end, and exp(sum da).  Given float64 inputs, the plain version
 computes and returns states and decay in float64, to hold the kernel
 against.
+
+``SSDIntra`` is the ``torch.autograd.Function`` of training: its forward is
+``ssd_intra_cuda`` (the kernel's outputs, launched once per call and
+counted), its backward ``ssd_intra_bwd``, the vector-Jacobian product of
+the float32 formula (``ssd_intra_ref``, recomputed from the saved inputs).
+The TPU kernel has no backward kernel; neither has the port yet.
 """
 from __future__ import annotations
 
@@ -170,3 +176,28 @@ def ssd_intra_cuda(x: torch.Tensor, da: torch.Tensor, B: torch.Tensor,
 
 ssd_intra_cuda.launches_tc = 0
 ssd_intra_cuda.launches_simt = 0
+
+
+def ssd_intra_bwd(x, da, B, C, dy, dstates, ddecay):
+    """(dx, dda, dB, dC): the gradient of ``ssd_intra_ref``'s (y, states,
+    chunk_decay) at (x, da, B, C) against (dy, dstates, ddecay), by autograd
+    through the plain version in float32."""
+    with torch.enable_grad():
+        ins = [t.detach().requires_grad_(True) for t in (x, da, B, C)]
+        outs = ssd_intra_ref(*ins)
+        return torch.autograd.grad(outs, ins, (dy, dstates, ddecay))
+
+
+class SSDIntra(torch.autograd.Function):
+    """The intra-chunk SSD with a gradient: the kernel forward
+    (``ssd_intra_cuda``), the plain backward (``ssd_intra_bwd``).
+    ``kernels.ops.ssd_intra`` applies it to every CUDA tensor."""
+
+    @staticmethod
+    def forward(ctx, x, da, B, C):
+        ctx.save_for_backward(x, da, B, C)
+        return ssd_intra_cuda(x, da, B, C)
+
+    @staticmethod
+    def backward(ctx, dy, dstates, ddecay):
+        return ssd_intra_bwd(*ctx.saved_tensors, dy, dstates, ddecay)

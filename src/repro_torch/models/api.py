@@ -1,16 +1,21 @@
-"""Model API of the port: the serving part of ``repro.models.api``.
+"""Model API of the port: the serving and training parts of
+``repro.models.api``.
 
   init_params(cfg, gen, plan, device)   -> parameter dict
   cast_params(params, dtype)            -> same dict, float leaves cast
+  get_loss_fn(cfg, plan)                -> f(params, batch) -> scalar
+  init_train_state(cfg, plan, gen, optimizer, device)
+                                        -> {"master", "opt", "step"[, "ef"]}
+  make_train_step(cfg, plan, optimizer) -> f(state, batch) -> (state, metrics)
   make_prefill(cfg, shape, plan)        -> f(params, batch) -> (logits, cache, pos)
   make_decode_step(cfg, shape, plan)    -> f(params, cache, tokens, pos) -> (tok, cache)
   count_params(cfg)                     -> parameter count (shapes only)
 
 Families ``dense`` and ``ssm`` are ported; ``moe``, ``vlm``, ``hybrid`` and
-``encdec`` raise ``NotImplementedError`` naming their ROADMAP item.  The
-train step and partition specs are not ported yet (ROADMAP.md queue 1, LM
-side).  Prefill and decode run under ``torch.inference_mode()``; decode
-updates the cache in place.
+``encdec`` raise ``NotImplementedError`` naming their ROADMAP item, and so
+do the partition specs.  Prefill and decode run under
+``torch.inference_mode()`` (decode updates the cache in place); the train
+step runs with gradients and returns a new state, as the reference's does.
 """
 from __future__ import annotations
 
@@ -23,7 +28,8 @@ from repro_torch.core.tables import resolve_device
 from repro_torch.models import ssm_lm
 from repro_torch.models import transformer as T
 from repro_torch.models.layers import not_ported
-from repro_torch.models.util import tree_leaves
+from repro_torch.tree import tree_leaves, tree_map, tree_unflatten
+from repro_torch.optim.compression import int8_ef_compress, int8_ef_init
 
 F32_SENSITIVE = {"router", "A_log", "dt_bias", "Dskip"}
 PORTED_FAMILIES = ("dense", "ssm")
@@ -61,6 +67,12 @@ def cast_params(params, dtype):
     return {k: one(k, v) for k, v in params.items()}
 
 
+def get_loss_fn(cfg: ArchConfig, plan: PlanConfig):
+    if _family(cfg) == "dense":
+        return lambda p, b: T.lm_loss(cfg, plan, p, b["tokens"])
+    return lambda p, b: ssm_lm.ssm_lm_loss(cfg, plan, p, b["tokens"])
+
+
 def make_prefill(cfg: ArchConfig, shape: ShapeConfig, plan: PlanConfig):
     max_len = shape.seq_len
     if _family(cfg) == "dense":
@@ -85,6 +97,75 @@ def init_cache(cfg: ArchConfig, batch: int, max_len: int, dtype, device):
     if _family(cfg) == "dense":
         return T.init_cache(cfg, batch, max_len, dtype, device)
     return ssm_lm.init_ssm_cache(cfg, batch, dtype, device)
+
+
+# --------------------------------------------------------------------------
+# train step
+# --------------------------------------------------------------------------
+
+def init_train_state(cfg: ArchConfig, plan: PlanConfig, gen, optimizer,
+                     device=None):
+    """Master parameters in ``plan.master_dtype`` drawn from ``gen`` (as
+    ``init_params``), the optimizer's state, a 0-d int32 step and, with
+    ``grad_compression == "int8_ef"``, the error-feedback residuals.
+    ``device=None`` means the CUDA card."""
+    mplan = plan.with_(param_dtype=plan.master_dtype)
+    master = init_params(cfg, gen, mplan, device)
+    state = {"master": master, "opt": optimizer.init(master),
+             "step": torch.zeros((), dtype=torch.int32,
+                                 device=tree_leaves(master)[0].device)}
+    if plan.grad_compression == "int8_ef":
+        state["ef"] = int8_ef_init(master)
+    return state
+
+
+def make_train_step(cfg: ArchConfig, plan: PlanConfig, optimizer):
+    """``train_step(state, batch) -> (new_state, {"loss", "grad_norm",
+    "lr"})``: the loss of the master cast to ``plan.compute_dtype``, its
+    float32 gradient (summed over ``plan.accum`` microbatches, one after
+    the other, then averaged), the optional int8 error-feedback
+    compression, and the optimizer's update.  The state passed in is not
+    changed."""
+    loss_fn = get_loss_fn(cfg, plan)
+    compute_dt = getattr(torch, plan.compute_dtype)
+
+    def value_and_grad(master, mb):
+        with torch.enable_grad():
+            leaves = [p.detach().requires_grad_(True)
+                      for p in tree_leaves(master)]
+            loss = loss_fn(cast_params(tree_unflatten(master, leaves),
+                                       compute_dt), mb)
+            grads = torch.autograd.grad(loss, leaves)
+        return loss.detach(), tree_unflatten(
+            master, [g.to(torch.float32) for g in grads])
+
+    def train_step(state, batch):
+        master = state["master"]
+        if plan.accum > 1:
+            A = plan.accum
+            mbs = tree_map(lambda x: x.reshape((A, x.shape[0] // A)
+                                               + tuple(x.shape[1:])), batch)
+            loss, grads = None, None
+            for i in range(A):
+                l, g = value_and_grad(master,
+                                      tree_map(lambda x: x[i], mbs))
+                loss = l if loss is None else loss + l
+                grads = g if grads is None else tree_map(torch.add, grads, g)
+            loss = loss / A
+            grads = tree_map(lambda g: g / A, grads)
+        else:
+            loss, grads = value_and_grad(master, batch)
+
+        new_state = dict(state)
+        if plan.grad_compression == "int8_ef":
+            grads, new_state["ef"] = int8_ef_compress(grads, state["ef"])
+        new_master, new_opt, stats = optimizer.update(grads, state["opt"],
+                                                      master)
+        new_state.update(master=new_master, opt=new_opt,
+                         step=state["step"] + 1)
+        return new_state, {"loss": loss, **stats}
+
+    return train_step
 
 
 def count_params(cfg: ArchConfig, active_only: bool = False) -> int:

@@ -7,15 +7,17 @@ functions take (params, inputs) and use ``torch.einsum`` in the reference's
 index order.  The port runs on one device, so the reference's sharding
 constraints (``pcon``) are dropped.
 
-Prefill attention (causal self-attention, the only kind the ported families
-run) goes through the flash-attention kernel, ``kernels.ops.flash_attention``,
-in place of the reference's query-chunked jnp ``sdpa_chunked``, with the
-GQA KV heads read in place (no expanded or folded copies); cross and
-non-causal attention come with the encoder-decoder and vision-language
-families.  Decode attention is plain PyTorch, as in the reference, and
-writes the new key and value into the cache IN PLACE (the reference returns
-an updated copy): at full width the internlm2 cache is gigabytes, and no
-caller needs the old one.
+Full-sequence attention in prefill and training (causal self-attention,
+the only kind the ported families run) goes through the flash-attention
+kernel, ``kernels.ops.flash_attention``, in place of the reference's
+query-chunked jnp ``sdpa_chunked``, with the GQA KV heads read in place (no
+expanded or folded copies); with gradients it is the kernel's
+``autograd.Function``, whose plain backward recomputes P in blocks of
+``sdpa_chunked``'s 1024 query rows.  Cross and non-causal attention come
+with the encoder-decoder and vision-language families.  Decode attention
+is plain PyTorch, as in the reference, and writes the new key and value
+into the cache IN PLACE (the reference returns an updated copy): at full
+width the internlm2 cache is gigabytes, and no caller needs the old one.
 
 Multi-head latent attention (MLA, refused by ``transformer``) and
 context-parallel decode are not ported yet; reaching them raises
@@ -147,9 +149,9 @@ def _expand_kv(k, n_rep):
 
 
 def attention_apply(p, cfg: ArchConfig, x, positions):
-    """Causal self-attention over the full sequence (prefill), on the
-    flash kernel, which reads q (B, S, H, hd) and the KV heads of k and v
-    (B, S, KV, hd) in place.  Returns (out, (k, v))."""
+    """Causal self-attention over the full sequence (prefill, training), on
+    the flash kernel, which reads q (B, S, H, hd) and the KV heads of k and
+    v (B, S, KV, hd) in place.  Returns (out, (k, v))."""
     q = torch.einsum("bsd,dhk->bshk", x, p["wq"])
     k = torch.einsum("bsd,dhk->bshk", x, p["wk"])
     v = torch.einsum("bsd,dhk->bshk", x, p["wv"])

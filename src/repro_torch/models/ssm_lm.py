@@ -1,10 +1,11 @@
 """Pure-SSM LM (mamba2-370m): stacked Mamba2 blocks, no attention anywhere.
 
-The port of ``repro.models.ssm_lm`` for the serving path.  Prefill runs the
-SSD kernel once per layer (``ssm.ssd_chunked``); decode is plain PyTorch and
-writes each layer's new SSM and conv state into the cache IN PLACE (the
-reference returns a new cache).  The loss (``ssm_lm_loss``) is not ported
-yet (ROADMAP.md queue 1, LM side).
+The port of ``repro.models.ssm_lm``: init, loss, prefill and decode.  The
+forward runs the SSD kernel once per layer (``ssm.ssd_chunked``; in
+training its ``autograd.Function``), with each block's activations
+recomputed in the backward pass when ``plan.remat == "block"``.  Decode is
+plain PyTorch and writes each layer's new SSM and conv state into the cache
+IN PLACE (the reference returns a new cache).
 """
 from __future__ import annotations
 
@@ -13,8 +14,10 @@ import torch
 from repro_torch.configs.base import ArchConfig, PlanConfig
 from repro_torch.models import layers as L
 from repro_torch.models import ssm
-from repro_torch.models.transformer import padded_vocab
-from repro_torch.models.util import stack_scan, tree_map
+from repro_torch.models.transformer import (lm_loss_from_hidden,
+                                           next_token_targets, padded_vocab)
+from repro_torch.models.util import remat, stack_scan
+from repro_torch.tree import tree_map
 
 
 def init_ssm_lm(cfg: ArchConfig, gen, plan: PlanConfig = PlanConfig(),
@@ -37,8 +40,17 @@ def ssm_hidden(cfg: ArchConfig, plan: PlanConfig, params, embeds,
                                    L.rms_norm(x, lp["ln"], cfg.norm_eps))
         return x + h, (state if collect_state else None)
 
+    if plan.remat == "block":
+        body = remat(body)
     x, states = stack_scan(body, embeds, params["blocks"])
     return L.rms_norm(x, params["final_norm"], cfg.norm_eps), states
+
+
+def ssm_lm_loss(cfg, plan, params, tokens, aux_coef=0.0):
+    e = params["emb"][tokens.to(torch.long)]
+    hidden, _ = ssm_hidden(cfg, plan, params, e)
+    return lm_loss_from_hidden(cfg, plan, params, hidden,
+                               *next_token_targets(tokens))
 
 
 def init_ssm_cache(cfg: ArchConfig, batch: int, dtype,

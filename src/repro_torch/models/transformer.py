@@ -1,15 +1,18 @@
-"""Decoder-only transformer LM, dense/GQA: init, prefill and decode.
+"""Decoder-only transformer LM, dense/GQA: init, loss, prefill and decode.
 
-The port of ``repro.models.transformer`` for the serving path.  Layers are
+The port of ``repro.models.transformer`` for the dense family.  Layers are
 stacked as in the reference (every block leaf has a leading layer axis) and
-walked by a Python loop.  Prefill attention runs on the flash-attention
-kernel (``layers.attention_apply``); decode is plain PyTorch and updates
-the KV cache IN PLACE, layer by layer (the reference threads a new cache
-through its loop): at full width the internlm2 cache for 8 slots of 4096
-tokens is 3.2 GB in bfloat16.
+walked by a Python loop; with ``plan.remat == "block"`` each block's
+activations are recomputed in the backward pass, as the reference's
+``jax.remat`` over its scan body.  Prefill and training attention run on
+the flash-attention kernel (``layers.attention_apply``; in training its
+``autograd.Function``); decode is plain PyTorch and updates the KV cache IN
+PLACE, layer by layer (the reference threads a new cache through its loop):
+at full width the internlm2 cache for 8 slots of 4096 tokens is 3.2 GB in
+bfloat16.  The loss takes the sequence in chunks of ``plan.loss_chunk``
+and recomputes each chunk's float32 logits in the backward pass.
 
-MoE and MLA blocks and the loss (``lm_loss``, ``lm_loss_from_hidden``) are
-not ported yet and raise ``NotImplementedError``.
+MoE and MLA blocks are not ported yet and raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -19,7 +22,8 @@ import torch
 
 from repro_torch.configs.base import ArchConfig, PlanConfig
 from repro_torch.models import layers as L
-from repro_torch.models.util import stack_scan, tree_map
+from repro_torch.models.util import remat, stack_scan
+from repro_torch.tree import tree_map
 
 
 def padded_vocab(cfg: ArchConfig) -> int:
@@ -93,6 +97,8 @@ def lm_hidden(cfg: ArchConfig, plan: PlanConfig, params, embeds, positions,
         x, cache = block_apply(lp, cfg, x, positions)
         return x, (cache if collect_cache else None)
 
+    if plan.remat == "block":
+        body = remat(body)
     x, caches = stack_scan(body, embeds, params["blocks"])
     return L.rms_norm(x, params["final_norm"], cfg.norm_eps), {"main": caches}
 
@@ -106,12 +112,62 @@ def unembed(cfg: ArchConfig, params, x):
     return torch.einsum("...d,vd->...v", x, head).to(torch.float32)
 
 
-def lm_loss_from_hidden(cfg, plan, params, hidden, targets, mask):
-    raise L.not_ported("the LM loss", "LM side, training")
+# --------------------------------------------------------------------------
+# loss (sequence-chunked)
+# --------------------------------------------------------------------------
+
+def lm_loss_from_hidden(cfg: ArchConfig, plan: PlanConfig, params, hidden,
+                        targets, mask):
+    """hidden: (B, S, D); targets/mask: (B, S).  Mean NLL over mask.
+
+    The sequence goes in chunks of ``plan.loss_chunk`` (the whole sequence
+    when that does not divide S), each chunk's float32 logits recomputed in
+    the backward pass; the target logit is taken by ``gather``, the same
+    sum as the reference's one-hot product."""
+    S = hidden.shape[1]
+    head = params["emb"] if "head" not in params else params["head"]
+    chunk = min(plan.loss_chunk, S)
+    if S % chunk:
+        chunk = S
+    maskf = mask.to(torch.float32)
+
+    def chunk_loss(xc, tc, mc):
+        logits = torch.einsum("bsd,vd->bsv", xc, head).to(torch.float32)
+        lse = torch.logsumexp(logits, dim=-1)
+        tgt = torch.gather(logits, -1, tc.to(torch.long)[..., None])[..., 0]
+        return torch.sum((lse - tgt) * mc)
+
+    total = sum(remat(chunk_loss)(hidden[:, i:i + chunk],
+                                  targets[:, i:i + chunk],
+                                  maskf[:, i:i + chunk])
+                for i in range(0, S, chunk))
+    return total / torch.clamp(torch.sum(maskf), min=1.0)
 
 
-def lm_loss(cfg, plan, params, tokens, extra_embeds=None, aux_coef=0.01):
-    raise L.not_ported("the LM loss", "LM side, training")
+def lm_loss(cfg: ArchConfig, plan: PlanConfig, params, tokens,
+            extra_embeds: Optional[torch.Tensor] = None, aux_coef=0.01):
+    """Next-token loss.  tokens: (B, S).  The reference adds ``aux_coef`` x
+    the MoE balance loss, which a dense stack does not have; prepended
+    embeddings (``extra_embeds``) belong to the vision-language family."""
+    if extra_embeds is not None:
+        raise L.not_ported("the LM loss over prepended embeddings",
+                           "LM side, vlm")
+    e = embed_tokens(cfg, params, tokens)
+    Bsz, S, _ = e.shape
+    positions = torch.arange(S, device=e.device)
+    hidden, _ = lm_hidden(cfg, plan, params, e, positions)
+    return lm_loss_from_hidden(cfg, plan, params, hidden,
+                               *next_token_targets(tokens))
+
+
+def next_token_targets(tokens):
+    """(targets, mask) of next-token prediction: each position's next
+    token, and a mask that drops the last position (whose target wraps)."""
+    Bsz, S = tokens.shape
+    targets = torch.cat([tokens[:, 1:], tokens[:, :1]], dim=1)
+    mask = torch.ones((Bsz, S), dtype=torch.float32, device=tokens.device)
+    mask[:, -1] = 0.0
+    return targets, mask
 
 
 # --------------------------------------------------------------------------

@@ -42,7 +42,7 @@ from repro_torch.core.reqpool import RequestPool
 # The pre-taxonomy name for a shed request's result slot, kept as an alias
 # of ``Overloaded`` as in the reference
 Shed = Overloaded
-from repro_torch.models.util import tree_leaves, tree_map
+from repro_torch.tree import tree_leaves, tree_map
 
 
 @dataclass

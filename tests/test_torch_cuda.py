@@ -440,6 +440,102 @@ def test_smoke_batch_server_on_cuda_launches_the_kernels(cuda, name):
     assert all(n == 0 for name, n in launches.items() if name != kernel)
 
 
+# -- training: the kernels' gradients and a train step ------------------------
+
+def _rel_err(a, b) -> float:
+    """max |a - b| over the largest |b|."""
+    return float((a.float() - b.float()).abs().max()
+                 / b.float().abs().max().clamp_min(1e-30))
+
+
+@pytest.mark.parametrize("b,s,h,kv,d", [(2, 256, 4, 2, 32),   # dense smoke
+                                        (1, 512, 16, 8, 128)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_gradient_through_the_kernel_matches_plain(cuda, b, s, h, kv,
+                                                         d, dtype):
+    """ops.flash_attention with inputs that require a gradient: the kernel
+    forward (launched, counted) and the plain backward, against autograd
+    through the plain version (chip_smoke's grad_check tolerances)."""
+    gen = torch.Generator(device=cuda).manual_seed(s + d)
+    q = torch.randn((b, s, h, d), generator=gen, device=cuda).to(dtype)
+    k, v = (torch.randn((b, s, kv, d), generator=gen, device=cuda).to(dtype)
+            for _ in range(2))
+    do = torch.randn((b, s, h, d), generator=gen, device=cuda).to(dtype)
+    ins = [t.requires_grad_(True) for t in (q, k, v)]
+    ops.reset_launches()
+    got = torch.autograd.grad(ops.flash_attention(*ins, causal=True), ins,
+                              do)
+    assert ops.launches()["flash_attention_" + variant(dtype, d)] == 1
+    want = torch.autograd.grad(flash_attention_ref(*ins, causal=True), ins,
+                               do)
+    tol = 2e-2 if dtype == torch.bfloat16 else 1e-4
+    for name, a, w in zip("qkv", got, want):
+        assert a.dtype == dtype and a.shape == w.shape
+        assert _rel_err(a, w) <= tol, (name, _rel_err(a, w))
+
+
+@pytest.mark.parametrize("b,q,h,p,g,n", [(8, 8, 16, 16, 1, 16),   # smoke
+                                         (4, 128, 32, 64, 1, 128)])
+def test_ssd_gradient_through_the_kernel_matches_plain(cuda, b, q, h, p, g,
+                                                       n):
+    x, da, B, C = _ssd_inputs(cuda, b, q, h, p, g, n)
+    ins = [t.requires_grad_(True) for t in (x, da, B, C)]
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    ops.reset_launches()
+    outs = ops.ssd_intra(*ins)
+    assert ops.launches()["ssd_intra_" + ssd_variant(q, p, n)] == 1
+    cots = [torch.randn(o.shape, generator=gen, device=cuda) for o in outs]
+    got = torch.autograd.grad(outs, ins, cots)
+    want = torch.autograd.grad(ssd_intra_ref(*ins), ins, cots)
+    for name, a, w in zip(("x", "da", "B", "C"), got, want):
+        assert float(a.abs().max()) > 0, name
+        assert _rel_err(a, w) <= 1e-4, (name, _rel_err(a, w))
+
+
+@pytest.mark.parametrize("name", ["internlm2-1.8b", "mamba2-370m"])
+def test_smoke_train_step_on_cuda_matches_cpu(cuda, name):
+    """One float32 train step of the smoke config from one state on the
+    card (kernels, twice a layer under block remat) and on the CPU (plain
+    versions): chip_smoke's cpu_check at the smoke size, each leaf's
+    gradient within 1e-4 of its largest magnitude."""
+    from repro_torch.configs import PlanConfig, get_arch
+    from repro_torch.data import TokenStream
+    from repro_torch.models import api
+    from repro_torch.tree import tree_leaves, tree_map
+    from repro_torch.optim import AdamW
+    cfg = get_arch(name).smoke()
+    plan = PlanConfig(param_dtype="float32", compute_dtype="float32")
+    opt = AdamW(learning_rate=1e-3)
+    state = api.init_train_state(cfg, plan, torch.Generator().manual_seed(0),
+                                 opt, "cpu")
+    batch = {"tokens": TokenStream(cfg.vocab_size, 2, 256).batch_at(0)}
+    step = api.make_train_step(cfg, plan, opt)
+    ops.reset_launches()
+    card, m_card = step(tree_map(lambda t: t.to(cuda), state),
+                        tree_map(lambda t: t.to(cuda), batch))
+    launches = ops.launches()
+    host, m_host = step(state, batch)
+    if cfg.family == "dense":
+        kernel = "flash_attention_" + variant(torch.float32, cfg.head_dim)
+    else:
+        kernel = "ssd_intra_" + ssd_variant(cfg.ssm.chunk, cfg.ssm.head_dim,
+                                            cfg.ssm.state_dim)
+    assert launches[kernel] == 2 * cfg.num_layers
+    np.testing.assert_allclose(float(m_card["loss"]), float(m_host["loss"]),
+                               rtol=1e-4)
+    np.testing.assert_allclose(float(m_card["grad_norm"]),
+                               float(m_host["grad_norm"]), rtol=1e-3)
+    for a, w in zip(tree_leaves(card["master"]), tree_leaves(host["master"])):
+        np.testing.assert_allclose(a.cpu().numpy(), w.numpy(), rtol=3e-3,
+                                   atol=1e-3)
+    # each leaf's gradient, as the first step's moment m: a leaf whose
+    # gradient is lost on the card reads 1 here, while its master moves by
+    # under lr and passes the check above
+    for i, (a, w) in enumerate(zip(tree_leaves(card["opt"]["m"]),
+                                   tree_leaves(host["opt"]["m"]))):
+        assert _rel_err(a.cpu(), w) <= 1e-4, (i, _rel_err(a.cpu(), w))
+
+
 # -- plan-level fusion: CUDA graph capture and replay -------------------------
 
 def _fusion_case(cuda, query_fn, n=64, v=48, b=1, seed=0):

@@ -25,7 +25,7 @@ from repro_torch.convert import params_from_numpy
 from repro_torch.models import api as tapi
 from repro_torch.models import layers as TL
 from repro_torch.models import ssm as TM
-from repro_torch.models.util import tree_leaves, tree_map
+from repro_torch.tree import tree_leaves, tree_map
 from repro_torch.runtime import BatchServer as TBatchServer
 from repro_torch.runtime import Request as TRequest
 
