@@ -11,13 +11,14 @@ CUDA drives pools of 1, 2 and 4 workers on the card, the analytic's front
 half over 4 row-range shards, an append through a pool and a worker
 killed mid-request; streaming views patched after appends in this
 process), then LM serving
-(``BatchServer`` prefill + continuous-batching decode) of internlm2-1.8b
-and mamba2-370m at full width and depth, with bfloat16 parameters from the
-port's seeded init, and last LM training of the same two models
-(``train``: the kernels' gradients against the plain versions, a float32
-step on the card against the CPU, full-depth steps from ``TokenStream``
-batches through ``ShardedLoader``, and a ``Trainer`` run with injected
-failures against an uninterrupted one).
+(``BatchServer`` prefill + continuous-batching decode) of internlm2-1.8b,
+mamba2-370m and deepseek-v2-lite-16b (MoE, MLA) at full width and depth
+and of grok-1-314b (MoE) at full width and depth 2, with bfloat16
+parameters from the port's seeded init, and last LM training of
+internlm2, mamba2 and deepseek (at depth 3) (``train``: the kernels'
+gradients against the plain versions, a float32 step on the card against
+the CPU, steps from ``TokenStream`` batches through ``ShardedLoader``, and
+a ``Trainer`` run with injected failures against an uninterrupted one).
 
 Run on a machine with one CUDA card:  python3 chip_smoke.py
 
@@ -28,8 +29,8 @@ kernel with its launches on its path
 and both in the procpool phase's workers as ``pool_launches``,
 the bfloat16 tensor-core flash attention on the dense LM's bfloat16
 serving, the float32 (3xTF32) one on its float32 prefill check, the
-warp-level tensor-core one on the dense smoke config's ragged prefill
-check, the CUDA-core one on the flash phase's entry-point calls at widths
+warp-level tensor-core one on deepseek's MLA serving at head width 192,
+the CUDA-core one on the flash phase's entry-point calls at widths
 that are not a multiple of 8, the tensor-core SSD on the SSM LM's
 serving, the CUDA-core one on the SSM smoke config's ragged prefill
 check; ``train_launches``: the tensor-core flash and SSD kernels in the
@@ -85,6 +86,7 @@ from repro_torch.kernels.knn import (  # noqa: E402
 from repro_torch.kernels.ssd_scan import (  # noqa: E402
     ssd_intra_cuda, ssd_intra_ref, variant as ssd_variant)
 from repro_torch.models import api  # noqa: E402
+from repro_torch.models import moe as M  # noqa: E402
 from repro_torch.models import transformer as T  # noqa: E402
 from repro_torch.tree import tree_leaves, tree_map  # noqa: E402
 from repro_torch.optim import AdamW  # noqa: E402
@@ -172,19 +174,26 @@ FLASH_SHAPES = [(16, 2048, 128, True, torch.bfloat16),
                 (3, 150, 40, False, torch.float32),
                 (2, 97, 256, True, torch.float32),
                 (2, 97, 256, False, torch.bfloat16)]
+# deepseek-v2-lite's MLA prefill of 2048 tokens (16 heads, q and k 192
+# wide: qk_nope 128 + qk_rope 64; v 128, zero-padded to 192 on the path)
+# and grok-1's (48 query heads over 8 KV heads of 128), both bfloat16
+MLA_FLASH_SHAPE = (1, 2048, 16, 16, 192, True, torch.bfloat16)
+MLA_V_WIDTH = 128
+GROK_FLASH_SHAPE = (1, 2048, 48, 8, 128, True, torch.bfloat16)
 # (B, S, H, KV, d, causal, dtype), the (B, S, H, d) form with the KV heads
 # read in place; first the paths' own shapes: internlm2's prefill (16 query
 # heads over 8 KV heads of 128) of 2048 tokens in bfloat16 (serving) and
 # float32 (the traced float32 prefill), of 256 in float32 (cpu_check), and
 # its smoke config's 61-token float32 prefill (ragged_check: head width 32);
 # then zamba2-7b's attention (32 heads of 112, not on a path yet) at 2048
-# tokens in both dtypes, and ragged shapes
+# tokens in both dtypes, the MoE models' prefills, and ragged shapes
 FLASH_GQA_SHAPES = [(1, 2048, 16, 8, 128, True, torch.bfloat16),
                     (1, 2048, 16, 8, 128, True, torch.float32),
                     (1, 256, 16, 8, 128, True, torch.float32),
                     (1, 61, 4, 2, 32, True, torch.float32),
                     (1, 2048, 32, 32, 112, True, torch.bfloat16),
                     (1, 2048, 32, 32, 112, True, torch.float32),
+                    MLA_FLASH_SHAPE, GROK_FLASH_SHAPE,
                     (2, 1000, 4, 1, 64, False, torch.bfloat16),
                     (1, 65, 8, 2, 80, True, torch.bfloat16),
                     (2, 129, 6, 2, 128, True, torch.float32),
@@ -195,7 +204,8 @@ FLASH_GQA_SHAPES = [(1, 2048, 16, 8, 128, True, torch.bfloat16),
 # each kernel at its path's shape ("tc", "tf32", "mma"); the CUDA-core
 # kernel, forced, at the warp-level kernel's path shape ("simt_before":
 # its time before "mma" took that path) and at zamba2's width, beside the
-# warp-level kernel there; and the folded forms at 2048 tokens, where the
+# warp-level kernel there; the MoE models' prefills (MLA at d 192 on "mma",
+# grok's group of 6 on "tc"); and the folded forms at 2048 tokens, where the
 # CUDA-core kernel, forced, is the float32 kernel's time before the 3xTF32
 # one took the shape
 FLASH_TIMED = {(FLASH_GQA_SHAPES[0], "tc"): "tc",
@@ -206,6 +216,8 @@ FLASH_TIMED = {(FLASH_GQA_SHAPES[0], "tc"): "tc",
                (FLASH_GQA_SHAPES[4], "simt"): "simt_d112_bf16",
                (FLASH_GQA_SHAPES[5], "mma"): "mma_d112_f32",
                (FLASH_GQA_SHAPES[5], "simt"): "simt_d112_f32",
+               (MLA_FLASH_SHAPE, "mma"): "mma_d192",
+               (GROK_FLASH_SHAPE, "tc"): "tc_gqa6",
                (FLASH_SHAPES[0], "tc"): "tc_folded",
                (FLASH_SHAPES[1], "tf32"): "tf32_folded",
                (FLASH_SHAPES[1], "simt"): "simt_folded",
@@ -243,23 +255,36 @@ LM_SLOTS, LM_MAX_LEN, LM_REQUESTS, LM_NEW_TOKENS = 8, 4096, 16, 32
 # (float32 sums in other orders through two layers), and the greedy token
 # must be equal or a near-tie within that tolerance
 CPU_CHECK_TOKENS, CPU_CHECK_DEPTH, CPU_CHECK_TOL = 256, 2, 1e-3
+# decode_vs_cpu (the MoE family): the served parameters' first layers in
+# float32 (deepseek 2, grok 1: 26 GB of float32 on the host), this many
+# slots prefilled with prompts of lengths in [16, 48], then decode steps
+DECODE_CHECK_SLOTS, DECODE_CHECK_PROMPT, DECODE_CHECK_STEPS = 8, (16, 49), 4
+# grok-1 serves at full width and this depth, fewer requests (its
+# published 64 layers are 633 GB in bfloat16)
+GROK_DEPTH, GROK_REQUESTS = 2, 4
 # decode_vs_prefill: in bfloat16 the kernel prefill and the plain decode
 # round at other places over the whole depth; a token that differs must be
 # a near-tie, its prefill logit within this margin of the prefill's argmax
 DECODE_NEAR_TIE = 0.5
 # LM training (phase "train"): batch at S 2048 per model, full width and
-# depth, PlanConfig defaults (bfloat16 compute, float32 master and moments,
-# block remat, attention and loss chunks of 1024); one warm-up step, then
-# TRAIN_STEPS timed ones, with AdamW at TRAIN_LR
-TRAIN_BATCH = {"internlm2-1.8b": 4, "mamba2-370m": 8}
+# depth (deepseek-v2-lite at TRAIN_DEPTH: its dense first layer and two MoE
+# layers, 1.67 B parameters), PlanConfig defaults (bfloat16 compute,
+# float32 master and moments, block remat, attention and loss chunks of
+# 1024); one warm-up step, then TRAIN_STEPS timed ones, with AdamW at
+# TRAIN_LR
+TRAIN_BATCH = {"internlm2-1.8b": 4, "mamba2-370m": 8,
+               "deepseek-v2-lite-16b": 4}
+TRAIN_DEPTH = {"deepseek-v2-lite-16b": 3}
 TRAIN_SEQ, TRAIN_STEPS, TRAIN_LR = 2048, 8, 1e-3
 # grad_check: gradients through the kernels' autograd Functions against
 # autograd through the plain versions, the largest error over the
 # gradient's largest magnitude: 1e-4 in float32, 2e-2 in bfloat16
 GRAD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
-# flash (B, S, H, KV, d, dtype): internlm2's layer at B 1, and in bfloat16
-# also at the batch of its full-depth train steps, and the dense smoke
-# config's heads at S 256; SSD (b, Q, h, p, g, n): mamba2's chunks of one
+# flash (B, S, H, KV, d, dtype[, v width]): internlm2's layer at B 1, and
+# in bfloat16 also at the batch of its full-depth train steps, the dense
+# smoke config's heads at S 256, and deepseek's MLA at its train steps'
+# batch (v zero-padded from 128 to q's 192, the gradient of o's padded
+# columns zero, as on the path); SSD (b, Q, h, p, g, n): mamba2's chunks of one
 # 2048-token sequence (16) and of its full-depth train steps' batch (8 x
 # 16), and the SSM smoke config's chunk 8.  Each forward output is also held
 # against the plain version at FLASH_TOL / SSD_TOL.
@@ -268,7 +293,11 @@ FLASH_GRAD_SHAPES = [(1, 2048, 16, 8, 128, torch.bfloat16),
                       torch.bfloat16),
                      (1, 2048, 16, 8, 128, torch.float32),
                      (2, 256, 4, 2, 32, torch.bfloat16),
-                     (2, 256, 4, 2, 32, torch.float32)]
+                     (2, 256, 4, 2, 32, torch.float32),
+                     (TRAIN_BATCH["deepseek-v2-lite-16b"], 2048, 16, 16, 192,
+                      torch.bfloat16, MLA_V_WIDTH),
+                     (TRAIN_BATCH["deepseek-v2-lite-16b"], 2048, 16, 16, 192,
+                      torch.float32, MLA_V_WIDTH)]
 SSD_GRAD_SHAPES = [(16, 128, 32, 64, 1, 128),
                    (TRAIN_BATCH["mamba2-370m"] * 16, 128, 32, 64, 1, 128),
                    (8, 8, 16, 16, 1, 16)]
@@ -532,13 +561,15 @@ def phase_knn(dev, shapes=KNN_SHAPES, k: int = K) -> dict:
     return main
 
 
-def _flash_work(b, s, h, kv, d, causal, esize) -> tuple:
+def _flash_work(b, s, h, kv, d, causal, esize, vd=None) -> tuple:
     """(bytes, operations) of one attention call: q, k and v read once and
     o written once (k and v at their KV heads); the query-key pairs that
-    the mask keeps, 4 operations each (a multiply-add in each product)."""
+    the mask keeps, a multiply-add a pair and width in each product.  v and
+    o are ``vd`` wide (d by default): MLA's v before its padding."""
+    vd = d if vd is None else vd
     pairs = s * (s + 1) / 2 if causal else s * s
-    nbytes = (2.0 * b * s * h * d + 2.0 * b * s * kv * d) * esize
-    return nbytes, 4.0 * b * h * d * pairs
+    nbytes = (b * s * (h + kv) * d + b * s * (kv + h) * vd) * esize
+    return nbytes, 2.0 * b * h * (d + vd) * pairs
 
 
 def _sdpa_layout(q, k, v):
@@ -667,6 +698,24 @@ def phase_flash(dev, shapes=FLASH_SHAPES, gqa_shapes=FLASH_GQA_SHAPES,
                 row.update(bound_ms(nbytes, ops_count, units,
                                     () if units == "bf16"
                                     else ("f32", "3xtf32")))
+                if given == MLA_FLASH_SHAPE:
+                    # MLA's own function: v 128 wide, which the kernel
+                    # takes padded to q's 192 (a third of the P·V
+                    # products on zero columns); SDPA takes it as it is
+                    vu = vl[..., :MLA_V_WIDTH].contiguous()
+                    unpadded = lambda i=0: \
+                        torch.nn.functional.scaled_dot_product_attention(
+                            ql, kl, vu, is_causal=causal)
+                    row["library_unpadded_ms"] = time_ms(
+                        unpadded, dev, label=f"{tag} library unpadded")
+                    row["library_unpadded_kernels"] = _kernel_names(
+                        unpadded, dev)
+                    row["v_width"] = MLA_V_WIDTH
+                    row["pv_products_on_padding"] = (d - MLA_V_WIDTH) / d
+                    row["bound_unpadded_ms"] = bound_ms(*_flash_work(
+                        b, s, h, kv, d, causal, q.element_size(),
+                        MLA_V_WIDTH), units)["bound_ms"]
+                    del vu
                 del ql, kl, vl
                 timed[name] = dict(row)
             emit("flash_attention", **row)
@@ -1891,11 +1940,14 @@ def _prefill_logits(cfg, plan, params, tokens: np.ndarray, dev):
 
 def _lm_kernel(cfg, dtype) -> str:
     """The launch counter of the kernel that a prefill of ``cfg`` in
-    ``dtype`` runs in every layer."""
-    if cfg.family == "dense":
-        return "flash_attention_" + variant(dtype, cfg.head_dim)
-    return "ssd_intra_" + ssd_variant(cfg.ssm.chunk, cfg.ssm.head_dim,
-                                      cfg.ssm.state_dim)
+    ``dtype`` runs in every layer: SSD, or flash attention at the q/k head
+    width (MLA: qk_nope + qk_rope)."""
+    if cfg.family == "ssm":
+        return "ssd_intra_" + ssd_variant(cfg.ssm.chunk, cfg.ssm.head_dim,
+                                          cfg.ssm.state_dim)
+    d = cfg.head_dim if cfg.mla is None \
+        else cfg.mla.qk_nope_head_dim + cfg.mla.qk_rope_head_dim
+    return "flash_attention_" + variant(dtype, d)
 
 
 # device kernel name (in the profiler's trace) of each launch counter
@@ -1907,13 +1959,29 @@ DEVICE_KERNEL = {"flash_attention_tc": "flash_fwd_wgmma",
                  "ssd_intra_simt": "ssd_intra_kernel"}
 
 
+def _cut(cfg, depth: int):
+    """``cfg`` at ``depth`` layers; an MoE model keeps its dense first
+    layers (``prefix_blocks``) first, as many as the depth holds."""
+    cut = dataclasses.replace(cfg, num_layers=depth)
+    if cfg.moe is not None:
+        cut = dataclasses.replace(cut, moe=dataclasses.replace(
+            cfg.moe, first_dense_layers=min(cfg.moe.first_dense_layers,
+                                            depth)))
+    return cut
+
+
 def _f32_cut(cfg, params, depth=CPU_CHECK_DEPTH):
     """The first ``depth`` layers of the served parameters in float32, with
     the cut config and its float32 plan."""
-    cut = dataclasses.replace(cfg, num_layers=depth)
+    cut = _cut(cfg, depth)
     plan = PlanConfig(param_dtype="float32", compute_dtype="float32")
-    small = dict(params, blocks=tree_map(lambda a: a[:depth],
-                                         params["blocks"]))
+    n_prefix = T.prefix_layers(cut)
+    small = {k: v for k, v in params.items() if k != "prefix_blocks"}
+    small["blocks"] = tree_map(lambda a: a[:depth - n_prefix],
+                               params["blocks"])
+    if n_prefix:
+        small["prefix_blocks"] = tree_map(lambda a: a[:n_prefix],
+                                          params["prefix_blocks"])
     return cut, plan, tree_map(lambda a: a.float(), small)
 
 
@@ -1922,7 +1990,9 @@ def _lm_cpu_check(cfg, params, prompt, dev, depth=CPU_CHECK_DEPTH,
     """The first two layers of the served parameters in float32: a prefill
     of the prompt's first tokens on the card (kernels) and on the CPU
     (plain versions) must give the same last-token logits and greedy
-    token.  The card's prefill launches are counted on their own."""
+    token.  The card's prefill launches are counted on their own.  A
+    float32 prefill takes the 3xTF32 flash kernel at the model's width
+    ("tf32" at 128, "mma" at MLA's 192)."""
     cut, plan, small = _f32_cut(cfg, params, depth)
     toks = prompt[:n_tokens]
     ops.reset_launches()
@@ -1941,7 +2011,6 @@ def _lm_cpu_check(cfg, params, prompt, dev, depth=CPU_CHECK_DEPTH,
            "token_card": t_card, "token_cpu": t_host,
            "near_tie": t_card != t_host, "gap": gap, "launches": launches}
     if dev.type == "cuda":
-        # in float32 the dense model's prefill takes the 3xTF32 kernel
         kernel = _lm_kernel(cfg, torch.float32)
         check(launches[kernel] == depth
               and all(n == 0 for k, n in launches.items() if k != kernel),
@@ -2005,6 +2074,77 @@ def _decode_vs_prefill(cfg, plan, params, req, dev, k=8) -> dict:
     return row
 
 
+def _decode_vs_cpu(cfg, params, dev, depth: int) -> dict:
+    """The MoE family's decode check.  An MoE decode step routes all slots
+    as one group (deepseek at 8 slots: capacity 1 an expert), a prefill one
+    sequence, so a decode is not the function that a longer prefill
+    computes, even in the reference.  Instead the first ``depth`` layers
+    of the served parameters in float32 serve DECODE_CHECK_SLOTS requests
+    through ``BatchServer`` on the card (kernels) and on the CPU (plain
+    versions): every slot prefilled, then DECODE_CHECK_STEPS decode steps
+    over all of them.  The tokens must be equal, and every cache leaf
+    within CPU_CHECK_TOL."""
+    cut, plan, small = _f32_cut(cfg, params, depth)
+    rng = np.random.default_rng(2)
+    prompts = [rng.integers(0, cut.vocab_size, int(n)).astype(np.int32)
+               for n in rng.integers(*DECODE_CHECK_PROMPT,
+                                     DECODE_CHECK_SLOTS)]
+    max_len = DECODE_CHECK_PROMPT[1] + DECODE_CHECK_STEPS + 1
+    shape = ShapeConfig("check", "decode", max_len, DECODE_CHECK_SLOTS)
+    prefill = api.make_prefill(cut, shape, plan)
+
+    def serve(p, d):
+        srv = BatchServer(
+            slots=DECODE_CHECK_SLOTS, max_len=max_len,
+            prefill_fn=lambda p_, t: prefill(p_, {"tokens": t}),
+            decode_fn=api.make_decode_step(cut, shape, plan), params=p,
+            init_cache_fn=lambda b, ml: api.init_cache(cut, b, ml,
+                                                       torch.float32, d))
+        reqs = [Request(i, pr, DECODE_CHECK_STEPS + 1)
+                for i, pr in enumerate(prompts)]
+        srv.run(reqs)
+        return [r.out_tokens for r in reqs], srv
+
+    ops.reset_launches()
+    card_tokens, card = serve(small, dev)
+    sync(dev)
+    launches = ops.launches()
+    host = tree_map(lambda a: a.cpu(), small)
+    del small
+    t0 = time.perf_counter()
+    host_tokens, cpu = serve(host, torch.device("cpu"))
+    host_s = time.perf_counter() - t0
+    del host
+    errs = {"/".join(path): max_abs_err(card_leaf.cpu(), host_leaf)
+            for path, card_leaf, host_leaf in (
+                ((g, k), card.cache[g][k], cpu.cache[g][k])
+                for g in cpu.cache for k in cpu.cache[g])}
+    row = {"depth": depth, "slots": DECODE_CHECK_SLOTS,
+           "prompt_lengths": [len(p) for p in prompts],
+           "decode_steps": card.stats["decode_steps"],
+           "tokens_equal": card_tokens == host_tokens,
+           "tokens_card": card_tokens, "tokens_cpu": host_tokens,
+           "cache_max_abs_err": errs, "tol": CPU_CHECK_TOL,
+           "cpu_s": host_s, "launches": launches}
+    if dev.type == "cuda":
+        kernel = _lm_kernel(cut, torch.float32)
+        check(launches[kernel] == depth * DECODE_CHECK_SLOTS
+              and all(n == 0 for k, n in launches.items() if k != kernel),
+              f"decode_vs_cpu launches {launches}, want {kernel} = "
+              f"{depth} x {DECODE_CHECK_SLOTS}")
+    check(card.stats["decode_steps"] == cpu.stats["decode_steps"]
+          == DECODE_CHECK_STEPS, f"decode_vs_cpu: {card.stats} / "
+          f"{cpu.stats}")
+    check(card_tokens == host_tokens,
+          f"decode_vs_cpu tokens: card {card_tokens}, cpu {host_tokens}")
+    for path in errs:
+        g, k = path.split("/")
+        check(torch.allclose(card.cache[g][k].cpu(), cpu.cache[g][k],
+                             rtol=CPU_CHECK_TOL, atol=CPU_CHECK_TOL),
+              f"decode_vs_cpu cache {path} differs by {errs[path]}")
+    return row
+
+
 def _device_profile(fn, dev, kernel: str, top: int = 5) -> dict:
     """One call of ``fn`` (warmed up first) under ``torch.profiler`` with
     CUDA activity only: host wall ms of the call (ending in a synchronize),
@@ -2043,13 +2183,18 @@ def _device_profile(fn, dev, kernel: str, top: int = 5) -> dict:
 
 def _kind(name: str) -> str:
     """The kind of work of a device kernel, from its name: a hand kernel,
-    a matrix product (cuBLAS / CUTLASS), a copy or cast, a reduction, other
-    elementwise work."""
+    a matrix product (cuBLAS / CUTLASS), a sort or search (the MoE
+    dispatch's top-k and inverse), a gather or index (its slots), a copy
+    or cast, a reduction, other elementwise work."""
     n = name.lower()
     if any(w in n for w in ("flash_fwd", "ssd_intra", "haar", "knn_")):
         return "hand"
     if any(w in n for w in ("gemm", "nvjet", "cutlass", "xmma")):
         return "gemm"
+    if "sort" in n or "searchsorted" in n:
+        return "sort"
+    if any(w in n for w in ("gather", "scatter", "index")):
+        return "gather"
     if "copy" in n or n.startswith(("memcpy", "memset")):
         return "copy"
     if "reduce" in n or "softmax" in n or "scan" in n:
@@ -2058,12 +2203,19 @@ def _kind(name: str) -> str:
 
 
 def phase_lm(dev, name: str, cfg=None, slots=LM_SLOTS, max_len=LM_MAX_LEN,
-             n_req=LM_REQUESTS, new_tokens=LM_NEW_TOKENS) -> dict:
+             n_req=LM_REQUESTS, new_tokens=LM_NEW_TOKENS, phase=None,
+             cpu_check=True, decode_check_depth=CPU_CHECK_DEPTH) -> dict:
     """Serve ``n_req`` requests (plus a 1-token prompt for the dense model)
-    through ``BatchServer.run`` at full width and depth, bfloat16
-    parameters (``PlanConfig`` defaults) from the port's seeded init."""
+    through ``BatchServer.run`` at full width (and full depth unless
+    ``cfg`` cuts it), bfloat16 parameters (``PlanConfig`` defaults) from
+    the port's seeded init; then the checks against the CPU in float32
+    (``cpu_check``: not for a model whose two float32 layers would not fit
+    the host) and of decode (``decode_vs_prefill``; the MoE family's
+    ``decode_vs_cpu`` at ``decode_check_depth``)."""
     cfg = cfg or get_arch(name)
     plan = PlanConfig()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
     kernel = _lm_kernel(cfg, torch.bfloat16)
     t0 = time.perf_counter()
     params = api.init_params(cfg, torch.Generator(device=dev).manual_seed(0),
@@ -2165,11 +2317,28 @@ def phase_lm(dev, name: str, cfg=None, slots=LM_SLOTS, max_len=LM_MAX_LEN,
                 lambda: prefill32(small, {"tokens": tok}), dev,
                 DEVICE_KERNEL[_lm_kernel(cfg, torch.float32)])
             del small
-    row["cpu_check"] = _lm_cpu_check(cfg, params, reqs[0].prompt, dev)
+        if cfg.moe is not None:
+            # one MoE layer on a 2048-token hidden: the expert products,
+            # the dispatch's sorts and the gathers apart from attention
+            moe = tree_map(lambda a: a[0], params["blocks"]["moe"])
+            h = torch.randn((1, 2048, cfg.d_model), device=dev,
+                            generator=torch.Generator(device=dev)
+                            .manual_seed(3)).to(torch.bfloat16)
+            row["profile"]["moe_layer_2048"] = _device_profile(
+                torch.inference_mode()(lambda: M.moe_apply(
+                    moe, cfg, h, group_size=plan.moe_group_size)), dev,
+                device_name)
+            del moe, h
+    if cpu_check:
+        row["cpu_check"] = _lm_cpu_check(cfg, params, reqs[0].prompt, dev)
     row["ragged_check"] = _lm_ragged_check(cfg, dev)
-    row["decode_vs_prefill"] = _decode_vs_prefill(cfg, plan, params,
-                                                  reqs[0], dev)
-    emit(f"lm_{cfg.family}", **row)
+    if cfg.moe is not None:
+        row["decode_vs_cpu"] = _decode_vs_cpu(cfg, params, dev,
+                                              decode_check_depth)
+    else:
+        row["decode_vs_prefill"] = _decode_vs_prefill(cfg, plan, params,
+                                                      reqs[0], dev)
+    emit(phase or f"lm_{cfg.family}", **row)
     return row
 
 
@@ -2190,12 +2359,15 @@ def _grad_check(dev) -> list:
     its forward check holds the kernel; the flash backward reads the
     kernel's output."""
     rows = []
-    for b, s, h, kv, d, dtype in FLASH_GRAD_SHAPES:
+    for b, s, h, kv, d, dtype, *pad in FLASH_GRAD_SHAPES:
         gen = torch.Generator(device=dev).manual_seed(s + d)
         q = torch.randn((b, s, h, d), generator=gen, device=dev).to(dtype)
         k, v = (torch.randn((b, s, kv, d), generator=gen, device=dev)
                 .to(dtype) for _ in range(2))
         do = torch.randn((b, s, h, d), generator=gen, device=dev).to(dtype)
+        if pad:
+            v[..., pad[0]:] = 0
+            do[..., pad[0]:] = 0
         ins = [t.requires_grad_(True) for t in (q, k, v)]
         kernel = "flash_attention_" + variant(dtype, d)
         ops.reset_launches()
@@ -2207,6 +2379,7 @@ def _grad_check(dev) -> list:
                                    ins, do)
         errs = {f"d{n}": _rel_err(a, w) for n, a, w in zip("qkv", got, want)}
         row = {"kernel": "flash_attention", "shape": [b, s, h, kv, d],
+               "v_width": pad[0] if pad else d,
                "dtype": str(dtype).removeprefix("torch."),
                "variant": kernel, "grad_fn": type(out.grad_fn).__name__,
                "rel_err": errs, "tol": GRAD_TOL[dtype],
@@ -2287,7 +2460,7 @@ def _train_cpu_check(dev, name: str) -> dict:
     state (``train_state_from_numpy`` of a seeded init) on the card
     (kernels, twice a layer under block remat) and on the CPU (plain
     versions)."""
-    cfg = dataclasses.replace(get_arch(name), num_layers=TRAIN_CHECK_DEPTH)
+    cfg = _cut(get_arch(name), TRAIN_CHECK_DEPTH)
     plan = PlanConfig(param_dtype="float32", compute_dtype="float32",
                       master_dtype="float32")
     opt = AdamW(learning_rate=TRAIN_LR)
@@ -2366,12 +2539,15 @@ def _leaf_paths(tree, prefix=""):
 
 
 def _train_full(dev, name: str, batch: int) -> dict:
-    """Train steps of the full model (PlanConfig defaults) on batches of
+    """Train steps of the model at full width and depth (TRAIN_DEPTH's
+    models at that depth; PlanConfig defaults) on batches of
     ``TokenStream(seed=0)`` through ``ShardedLoader``: one warm-up step and
     TRAIN_STEPS timed ones (host clock from the call to the loss read,
     which waits for the card), each step's launches counted on their own;
     then one more step traced under ``torch.profiler``."""
     cfg = get_arch(name)
+    if name in TRAIN_DEPTH:
+        cfg = _cut(cfg, TRAIN_DEPTH[name])
     plan = PlanConfig()
     opt = AdamW(learning_rate=TRAIN_LR)
     cuda = dev.type == "cuda"
@@ -2504,10 +2680,10 @@ def _train_restart(dev) -> dict:
 
 
 def phase_train(dev) -> dict:
-    """LM training of the dense and SSM families on the card: the kernels'
-    gradients (``grad_check``), a train step on the card against the CPU
-    (``cpu_check``), full-width full-depth steps, and restarts from
-    checkpoints."""
+    """LM training of the dense, SSM and MoE families on the card: the
+    kernels' gradients (``grad_check``), a train step on the card against
+    the CPU (``cpu_check``), full-width steps (full depth but deepseek's),
+    and restarts from checkpoints."""
     t0 = time.perf_counter()
     out = {"grad_check": _grad_check(dev),
            "cpu_check": {n: _train_cpu_check(dev, n) for n in TRAIN_BATCH},
@@ -2534,22 +2710,24 @@ def _kernel_entry(name, source, replaces, launches, row) -> dict:
 def kernels_line(haar_row: dict, knn_rows: dict, flash_rows: dict,
                  ssd_rows: dict, analytic: dict, serving: dict,
                  procpool: dict, lm_dense: dict, lm_ssm: dict,
-                 train: dict) -> dict:
+                 lm_moe: dict, lm_moe_grok: dict, train: dict) -> dict:
     """Launches of each kernel on its own path: Haar and kNN (all kernels,
     the matrix-vector one at B 1) on the analytic, the tensor-core kNN at
     B 64 on the serving phase's warm run (credited across CUDA graph
     replays; ``pool_launches``: in the procpool phase's workers over its
-    three warm runs, and Haar's in its scatter run's workers), the bfloat16 tensor-core flash attention on dense LM serving,
-    the 3xTF32 one on the dense LM's float32 prefill (``cpu_check``), the
-    warp-level one on the dense smoke config's ragged prefill
-    (``ragged_check``), the CUDA-core one on phase_flash's entry-point calls
+    three warm runs, and Haar's in its scatter run's workers), the
+    bfloat16 tensor-core flash attention on dense LM serving (and grok-1's
+    as ``moe_grok_launches``), the 3xTF32 one on the dense LM's float32
+    prefill (``cpu_check``), the warp-level one on deepseek-v2-lite's
+    serving (MLA at d 192; ``ragged_launches``: the dense smoke config's
+    ragged prefill), the CUDA-core one on phase_flash's entry-point calls
     (its only caller: widths that are not a multiple of 8), the tensor-core
     SSD on SSM serving, the CUDA-core one on the SSM smoke config's ragged
-    prefill (``ragged_check``).  ``train_launches``: the bfloat16
-    tensor-core flash and SSD kernels in the train phase's full-depth steps
-    (forward and remat recompute), the 3xTF32 flash kernel in its float32
-    ``cpu_check`` step.  The CUDA-core flash kernel's times are its forced
-    row at the warp-level kernel's path shape."""
+    prefill (``ragged_check``).  ``train_launches``: the bfloat16 flash
+    kernels (tensor-core at d 128, warp-level at MLA's d 192) and SSD in
+    the train phase's steps (forward and remat recompute), the 3xTF32 flash
+    kernel in its float32 ``cpu_check`` step.  The CUDA-core flash kernel's
+    times are its forced row at the dense smoke config's shape."""
     flash = "src/repro/kernels/flash_attention.py:73"
     ssd = "src/repro/kernels/ssd_scan.py:45"
     pool_knn = sum(w["launches"]["knn_scores_tiled"]
@@ -2568,15 +2746,20 @@ def kernels_line(haar_row: dict, knn_rows: dict, flash_rows: dict,
         dict(_kernel_entry("flash_attention_tc", "flash_attention.cu",
                            flash, lm_dense["launches"]["flash_attention_tc"],
                            flash_rows["tc"]),
+             moe_grok_launches=lm_moe_grok["launches"]["flash_attention_tc"],
              train_launches=train["steps"]["internlm2-1.8b"]["launches"]),
         dict(_kernel_entry("flash_attention_tf32", "flash_attention.cu",
                            flash, lm_dense["cpu_check"]["launches"]
                            ["flash_attention_tf32"], flash_rows["tf32"]),
              train_launches=train["cpu_check"]["internlm2-1.8b"]["launches"]
              ["flash_attention_tf32"]),
-        _kernel_entry("flash_attention_mma", "flash_attention.cu", flash,
-                      lm_dense["ragged_check"]["launches"]
-                      ["flash_attention_mma"], flash_rows["mma"]),
+        dict(_kernel_entry("flash_attention_mma", "flash_attention.cu", flash,
+                           lm_moe["launches"]["flash_attention_mma"],
+                           flash_rows["mma_d192"]),
+             ragged_launches=lm_dense["ragged_check"]["launches"]
+             ["flash_attention_mma"],
+             train_launches=train["steps"]["deepseek-v2-lite-16b"]
+             ["launches"]),
         _kernel_entry("flash_attention_simt", "flash_attention.cu", flash,
                       flash_rows["entry_launches"]["flash_attention_simt"],
                       flash_rows["simt_before"]),
@@ -2611,12 +2794,17 @@ def main() -> int:
     del data
     lm_dense = phase_lm(dev, "internlm2-1.8b")
     lm_ssm = phase_lm(dev, "mamba2-370m")
+    lm_moe = phase_lm(dev, "deepseek-v2-lite-16b")
+    grok = get_arch("grok-1-314b")
+    lm_moe_grok = phase_lm(dev, grok.name, cfg=_cut(grok, GROK_DEPTH),
+                           n_req=GROK_REQUESTS, phase="lm_moe_grok",
+                           cpu_check=False, decode_check_depth=1)
     train = phase_train(dev)
     emit("total", seconds=time.perf_counter() - t0,
          host_behind=HOST_BEHIND)
     print(json.dumps(kernels_line(haar_row, knn_rows, flash_rows, ssd_rows,
                                   analytic, serving, procpool, lm_dense,
-                                  lm_ssm, train)),
+                                  lm_ssm, lm_moe, lm_moe_grok, train)),
           flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

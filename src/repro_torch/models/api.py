@@ -9,11 +9,12 @@
   make_train_step(cfg, plan, optimizer) -> f(state, batch) -> (state, metrics)
   make_prefill(cfg, shape, plan)        -> f(params, batch) -> (logits, cache, pos)
   make_decode_step(cfg, shape, plan)    -> f(params, cache, tokens, pos) -> (tok, cache)
-  count_params(cfg)                     -> parameter count (shapes only)
+  count_params(cfg, active_only)        -> parameter count (shapes only)
 
-Families ``dense`` and ``ssm`` are ported; ``moe``, ``vlm``, ``hybrid`` and
-``encdec`` raise ``NotImplementedError`` naming their ROADMAP item, and so
-do the partition specs.  Prefill and decode run under
+Families ``dense``, ``moe`` (MoE blocks, MLA attention: the transformer's
+routes) and ``ssm`` are ported; ``vlm``, ``hybrid`` and ``encdec`` raise
+``NotImplementedError`` naming their ROADMAP item, and so do the partition
+specs.  Prefill and decode run under
 ``torch.inference_mode()`` (decode updates the cache in place); the train
 step runs with gradients and returns a new state, as the reference's does.
 """
@@ -32,16 +33,18 @@ from repro_torch.tree import tree_leaves, tree_map, tree_unflatten
 from repro_torch.optim.compression import int8_ef_compress, int8_ef_init
 
 F32_SENSITIVE = {"router", "A_log", "dt_bias", "Dskip"}
-PORTED_FAMILIES = ("dense", "ssm")
+PORTED_FAMILIES = ("dense", "moe", "ssm")
+EXPERT_LEAVES = {"we1", "we2", "we3"}      # routed experts' weights
 
 
 def _family(cfg: ArchConfig) -> str:
+    """The family's route: "transformer" (dense and MoE) or "ssm"."""
     if cfg.family not in PORTED_FAMILIES:
-        if cfg.family not in ("moe", "vlm", "hybrid", "encdec"):
+        if cfg.family not in ("vlm", "hybrid", "encdec"):
             raise ValueError(cfg.family)
         raise not_ported(f"the {cfg.family} family",
                          f"LM side, {cfg.family}")
-    return cfg.family
+    return "ssm" if cfg.family == "ssm" else "transformer"
 
 
 def init_params(cfg: ArchConfig, gen, plan: PlanConfig = PlanConfig(),
@@ -50,9 +53,9 @@ def init_params(cfg: ArchConfig, gen, plan: PlanConfig = PlanConfig(),
     ``torch.Generator`` ``gen`` (on ``device``).  ``device=None`` means the
     CUDA card; ``"meta"`` gives shapes only and reads no generator."""
     dev = resolve_device(device)
-    if _family(cfg) == "dense":
-        return T.init_lm(cfg, gen, plan, dev)
-    return ssm_lm.init_ssm_lm(cfg, gen, plan, dev)
+    if _family(cfg) == "transformer":
+        return T.init_lm(cfg, gen, plan, device=dev)
+    return ssm_lm.init_ssm_lm(cfg, gen, plan, device=dev)
 
 
 def cast_params(params, dtype):
@@ -68,14 +71,14 @@ def cast_params(params, dtype):
 
 
 def get_loss_fn(cfg: ArchConfig, plan: PlanConfig):
-    if _family(cfg) == "dense":
+    if _family(cfg) == "transformer":
         return lambda p, b: T.lm_loss(cfg, plan, p, b["tokens"])
     return lambda p, b: ssm_lm.ssm_lm_loss(cfg, plan, p, b["tokens"])
 
 
 def make_prefill(cfg: ArchConfig, shape: ShapeConfig, plan: PlanConfig):
     max_len = shape.seq_len
-    if _family(cfg) == "dense":
+    if _family(cfg) == "transformer":
         fn = lambda p, b: T.lm_prefill(cfg, plan, p, b["tokens"], max_len)
     else:
         fn = lambda p, b: ssm_lm.ssm_prefill(cfg, plan, p, b["tokens"])
@@ -83,7 +86,7 @@ def make_prefill(cfg: ArchConfig, shape: ShapeConfig, plan: PlanConfig):
 
 
 def make_decode_step(cfg: ArchConfig, shape: ShapeConfig, plan: PlanConfig):
-    if _family(cfg) == "dense":
+    if _family(cfg) == "transformer":
         fn = lambda p, c, t, pos: T.lm_decode_step(cfg, plan, p, c, t, pos)
     else:
         fn = lambda p, c, t, pos: ssm_lm.ssm_decode_step(cfg, plan, p, c, t,
@@ -92,11 +95,11 @@ def make_decode_step(cfg: ArchConfig, shape: ShapeConfig, plan: PlanConfig):
 
 
 def init_cache(cfg: ArchConfig, batch: int, max_len: int, dtype, device):
-    """The decode cache of a family: the dense KV cache or the SSM
+    """The decode cache of a family: the KV cache (GQA or MLA) or the SSM
     states."""
-    if _family(cfg) == "dense":
-        return T.init_cache(cfg, batch, max_len, dtype, device)
-    return ssm_lm.init_ssm_cache(cfg, batch, dtype, device)
+    if _family(cfg) == "transformer":
+        return T.init_cache(cfg, batch, max_len, dtype, device=device)
+    return ssm_lm.init_ssm_cache(cfg, batch, dtype, device=device)
 
 
 # --------------------------------------------------------------------------
@@ -170,8 +173,15 @@ def make_train_step(cfg: ArchConfig, plan: PlanConfig, optimizer):
 
 def count_params(cfg: ArchConfig, active_only: bool = False) -> int:
     """Analytic N from the parameter shapes (made on the ``meta`` device:
-    nothing is allocated)."""
-    if active_only and cfg.moe is not None:
-        raise not_ported("active-parameter counts of MoE", "LM side, MoE")
+    nothing is allocated).  ``active_only``: the routed experts' weights
+    count top_k / num_experts of their size, as the reference's."""
     shapes = init_params(cfg, None, PlanConfig(), "meta")
-    return sum(math.prod(t.shape) for t in tree_leaves(shapes))
+    total = sum(math.prod(t.shape) for t in tree_leaves(shapes))
+    if active_only and cfg.moe is not None:
+        def routed(tree):
+            return sum(math.prod(v.shape) if k in EXPERT_LEAVES
+                       else routed(v) if isinstance(v, dict) else 0
+                       for k, v in tree.items())
+        n = routed(shapes)
+        total = total - n + int(n * (cfg.moe.top_k / cfg.moe.num_experts))
+    return total

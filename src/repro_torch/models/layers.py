@@ -1,4 +1,4 @@
-"""Shared model layers: norms, RoPE, SwiGLU MLP, GQA/MHA attention.
+"""Shared model layers: norms, RoPE, SwiGLU MLP, GQA/MHA and MLA attention.
 
 Functional, as the reference's ``repro.models.layers``: parameters are plain
 dicts of tensors made by ``init_*``, with the reference's names and layouts
@@ -19,8 +19,15 @@ is plain PyTorch, as in the reference, and writes the new key and value
 into the cache IN PLACE (the reference returns an updated copy): at full
 width the internlm2 cache is gigabytes, and no caller needs the old one.
 
-Multi-head latent attention (MLA, refused by ``transformer``) and
-context-parallel decode are not ported yet; reaching them raises
+Multi-head latent attention (MLA, DeepSeek-V2) prefills and trains on the
+same flash kernel: q and k are ``qk_nope + qk_rope`` wide (192 at
+deepseek-v2-lite) and v ``v_head_dim`` (128), while the kernels take one
+width, so v is zero-padded to q's width and the output sliced back.  That
+is the reference's function: ``sdpa_chunked`` scales by 1/sqrt(q's width),
+as the kernels do, and the padded columns of P·V are zero.  MLA decode is
+the reference's absorbed form (attention in the latent space), in plain
+PyTorch, writing the latent ``c`` and rotated ``kr`` rows in place.
+Context-parallel decode is not ported yet; reaching it raises
 ``NotImplementedError``.
 """
 from __future__ import annotations
@@ -200,3 +207,78 @@ def _decode_attend(cfg, q, cache_k, cache_v, pos):
     s = s.masked_fill(~mask[:, None, :], float("-inf"))
     w = torch.softmax(s, dim=-1).to(q.dtype)
     return torch.einsum("bhs,bshk->bhk", w, ve)
+
+
+# --------------------------------------------------------------------------
+# MLA (multi-head latent attention, DeepSeek-V2)
+# --------------------------------------------------------------------------
+
+def init_mla(gen, cfg: ArchConfig, dtype, *, device, lead=()):
+    m = cfg.mla
+    D, H = cfg.d_model, cfg.num_heads
+    nope, rd, vd, R = (m.qk_nope_head_dim, m.qk_rope_head_dim, m.v_head_dim,
+                       m.kv_lora_rank)
+    return {
+        "wq": _dense_init(gen, lead + (D, H, nope + rd), D, dtype, device),
+        "wkv_a": _dense_init(gen, lead + (D, R + rd), D, dtype, device),
+        "kv_norm": _ones(lead + (R,), dtype, device),
+        "wkv_b": _dense_init(gen, lead + (R, H, nope + vd), R, dtype, device),
+        "wo": _dense_init(gen, lead + (H, vd, D), H * vd, dtype, device),
+    }
+
+
+def mla_apply(p, cfg: ArchConfig, x, positions):
+    """MLA over the full sequence (prefill, training), naive expansion, on
+    the flash kernel with v zero-padded to the q/k width.  Returns (out,
+    (c_kv (B, S, R), k_rope (B, S, rd)))."""
+    m = cfg.mla
+    nope, R = m.qk_nope_head_dim, m.kv_lora_rank
+    q = torch.einsum("bsd,dhk->bshk", x, p["wq"])
+    q = torch.cat([q[..., :nope],
+                   rope_apply(q[..., nope:], positions, cfg.rope_theta)], -1)
+    a = torch.einsum("bsd,dk->bsk", x, p["wkv_a"])
+    c_kv = rms_norm(a[..., :R], p["kv_norm"], cfg.norm_eps)
+    k_rope = rope_apply(a[..., R:][:, :, None, :], positions,
+                        cfg.rope_theta)[:, :, 0, :]
+    kv = torch.einsum("bsk,khj->bshj", c_kv, p["wkv_b"])
+    k_nope, v = kv[..., :nope], kv[..., nope:]
+    k = torch.cat([k_nope, k_rope[:, :, None, :].expand(
+        *k_nope.shape[:3], k_rope.shape[-1])], -1)
+    vd = v.shape[-1]
+    v = F.pad(v, (0, q.shape[-1] - vd))
+    o = ops.flash_attention(q, k, v, causal=True)[..., :vd]
+    out = torch.einsum("bshv,hvd->bsd", o, p["wo"])
+    return out, (c_kv, k_rope)
+
+
+def mla_decode(p, cfg: ArchConfig, x, cache_c, cache_kr, pos):
+    """Absorbed MLA decode: attend in the latent space (KV never expanded).
+    x: (B, D); cache_c: (B, Smax, R); cache_kr: (B, Smax, rd); pos: (B,).
+    Writes this token's ``c`` and ``kr`` rows in place at ``pos`` and
+    returns (out (B, D), cache_c, cache_kr)."""
+    m = cfg.mla
+    nope, rd, R = m.qk_nope_head_dim, m.qk_rope_head_dim, m.kv_lora_rank
+    q = torch.einsum("bd,dhk->bhk", x, p["wq"])
+    q_nope = q[..., :nope]
+    q_rope = rope_apply(q[..., nope:], pos, cfg.rope_theta)
+    a = torch.einsum("bd,dk->bk", x, p["wkv_a"])
+    c_new = rms_norm(a[..., :R], p["kv_norm"], cfg.norm_eps)
+    kr_new = rope_apply(a[:, None, R:], pos, cfg.rope_theta)[:, 0]
+    rows = torch.arange(x.shape[0], device=x.device)
+    at = pos.to(torch.long)
+    cache_c[rows, at] = c_new.to(cache_c.dtype)
+    cache_kr[rows, at] = kr_new.to(cache_kr.dtype)
+    wb_k = p["wkv_b"][..., :nope]                        # (R, H, nope)
+    wb_v = p["wkv_b"][..., nope:]                        # (R, H, vd)
+    q_lat = torch.einsum("bhk,rhk->bhr", q_nope, wb_k)   # (B, H, R)
+    s = (torch.einsum("bhr,bsr->bhs", q_lat, cache_c)
+         + torch.einsum("bhk,bsk->bhs", q_rope, cache_kr)).to(torch.float32)
+    s = s / math.sqrt(nope + rd)
+    mask = torch.arange(cache_c.shape[1], device=x.device)[None, :] \
+        <= pos[:, None]
+    s = s.masked_fill(~mask[:, None, :], float("-inf"))
+    w = torch.softmax(s, dim=-1).to(x.dtype)
+    o_lat = torch.einsum("bhs,bsr->bhr", w, cache_c)     # (B, H, R)
+    o = torch.einsum("bhr,rhv->bhv", o_lat, wb_v)        # (B, H, vd)
+    out = torch.einsum("bhv,hvd->bd", o, p["wo"])
+    return out, cache_c, cache_kr

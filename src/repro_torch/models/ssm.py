@@ -247,8 +247,8 @@ def mamba_step(p, cfg: ArchConfig, x, state):
     return out, (ssm_state, conv_state)
 
 
-def init_mamba_state(cfg: ArchConfig, batch: int, dtype=torch.float32,
-                     device=torch.device("cpu")):
+def init_mamba_state(cfg: ArchConfig, batch: int, dtype=torch.float32, *,
+                     device):
     m: SSMConfig = cfg.ssm
     di = m.expand * cfg.d_model
     H = di // m.head_dim

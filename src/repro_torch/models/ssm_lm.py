@@ -20,8 +20,8 @@ from repro_torch.models.util import remat, stack_scan
 from repro_torch.tree import tree_map
 
 
-def init_ssm_lm(cfg: ArchConfig, gen, plan: PlanConfig = PlanConfig(),
-                device=torch.device("cpu")):
+def init_ssm_lm(cfg: ArchConfig, gen, plan: PlanConfig = PlanConfig(), *,
+                device):
     dtype = getattr(torch, plan.param_dtype)
     Vp = padded_vocab(cfg)
     return {
@@ -53,10 +53,10 @@ def ssm_lm_loss(cfg, plan, params, tokens, aux_coef=0.0):
                                *next_token_targets(tokens))
 
 
-def init_ssm_cache(cfg: ArchConfig, batch: int, dtype,
-                   device=torch.device("cpu")):
+def init_ssm_cache(cfg: ArchConfig, batch: int, dtype, *, device):
     """Per-layer (ssm_state, conv_state) stacked over layers."""
-    s, c = ssm.init_mamba_state(cfg, batch, dtype, torch.device("meta"))
+    s, c = ssm.init_mamba_state(cfg, batch, dtype,
+                                device=torch.device("meta"))
     L_ = cfg.num_layers
     return {"ssm": torch.zeros((L_,) + tuple(s.shape), dtype=s.dtype,
                                device=device),

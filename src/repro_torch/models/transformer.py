@@ -1,18 +1,23 @@
-"""Decoder-only transformer LM, dense/GQA: init, loss, prefill and decode.
+"""Decoder-only transformer LM (dense GQA, MLA and MoE variants): init,
+loss, prefill and decode.
 
-The port of ``repro.models.transformer`` for the dense family.  Layers are
+The port of ``repro.models.transformer`` for the dense and MoE families.
+Attention is GQA (``layers.attention_apply``) or MLA (``layers.mla_apply``),
+the feed-forward a SwiGLU MLP or a mixture of experts (``moe.moe_apply``),
+and an MoE model's first ``moe.first_dense_layers`` blocks are a dense
+``prefix_blocks`` stack with ``moe.d_ff_dense``.  Layers are
 stacked as in the reference (every block leaf has a leading layer axis) and
 walked by a Python loop; with ``plan.remat == "block"`` each block's
 activations are recomputed in the backward pass, as the reference's
 ``jax.remat`` over its scan body.  Prefill and training attention run on
-the flash-attention kernel (``layers.attention_apply``; in training its
-``autograd.Function``); decode is plain PyTorch and updates the KV cache IN
-PLACE, layer by layer (the reference threads a new cache through its loop):
-at full width the internlm2 cache for 8 slots of 4096 tokens is 3.2 GB in
-bfloat16.  The loss takes the sequence in chunks of ``plan.loss_chunk``
-and recomputes each chunk's float32 logits in the backward pass.
-
-MoE and MLA blocks are not ported yet and raise ``NotImplementedError``.
+the flash-attention kernel (in training its ``autograd.Function``);
+decode is plain PyTorch and updates the KV cache (GQA: k and v; MLA: the
+latent c and the rotated kr) IN PLACE, layer by layer (the reference
+threads a new cache through its loop): at full width the internlm2 cache
+for 8 slots of 4096 tokens is 3.2 GB in bfloat16.  The loss takes the
+sequence in chunks of ``plan.loss_chunk`` and recomputes each chunk's
+float32 logits in the backward pass, and adds ``aux_coef`` x the MoE
+blocks' load-balance loss, summed over layers.
 """
 from __future__ import annotations
 
@@ -22,8 +27,9 @@ import torch
 
 from repro_torch.configs.base import ArchConfig, PlanConfig
 from repro_torch.models import layers as L
+from repro_torch.models import moe as M
 from repro_torch.models.util import remat, stack_scan
-from repro_torch.tree import tree_map
+from repro_torch.tree import tree_leaves, tree_map
 
 
 def padded_vocab(cfg: ArchConfig) -> int:
@@ -34,41 +40,50 @@ def _dtype(plan: PlanConfig) -> torch.dtype:
     return getattr(torch, plan.param_dtype)
 
 
-def _check_family(cfg: ArchConfig) -> None:
-    if cfg.moe is not None:
-        raise L.not_ported("mixture-of-experts blocks (MoE)", "LM side, MoE")
-    if cfg.mla is not None:
-        raise L.not_ported("multi-head latent attention (MLA)",
-                           "LM side, MLA")
+def prefix_layers(cfg: ArchConfig) -> int:
+    """Leading dense layers of an MoE model (``prefix_blocks``)."""
+    return cfg.moe.first_dense_layers if cfg.moe else 0
 
 
 # --------------------------------------------------------------------------
 # init
 # --------------------------------------------------------------------------
 
-def init_block(gen, cfg: ArchConfig, dtype, device, *, d_ff: int, lead=()):
-    """One block's parameters, or ``lead``-stacked blocks (``lead=(L,)``)."""
-    _check_family(cfg)
-    return {
+def init_block(gen, cfg: ArchConfig, dtype, device, *, use_moe: bool,
+               d_ff: int, lead=()):
+    """One block's parameters, or ``lead``-stacked blocks (``lead=(L,)``):
+    MLA or GQA attention, an MoE or an MLP."""
+    p = {
         "ln1": L._ones(lead + (cfg.d_model,), dtype, device),
         "ln2": L._ones(lead + (cfg.d_model,), dtype, device),
-        "attn": L.init_attention(gen, cfg, dtype, device, lead),
-        "mlp": L.init_mlp(gen, cfg.d_model, d_ff, dtype, device, lead),
+        "attn": (L.init_mla(gen, cfg, dtype, device=device, lead=lead)
+                 if cfg.mla is not None
+                 else L.init_attention(gen, cfg, dtype, device, lead)),
     }
+    if use_moe:
+        p["moe"] = M.init_moe(gen, cfg, dtype, device=device, lead=lead)
+    else:
+        p["mlp"] = L.init_mlp(gen, cfg.d_model, d_ff, dtype, device, lead)
+    return p
 
 
-def init_lm(cfg: ArchConfig, gen, plan: PlanConfig = PlanConfig(),
-            device=torch.device("cpu")):
-    _check_family(cfg)
+def init_lm(cfg: ArchConfig, gen, plan: PlanConfig = PlanConfig(), *,
+            device):
     dtype = _dtype(plan)
     Vp = padded_vocab(cfg)
+    n_prefix = prefix_layers(cfg)
     params = {
         "emb": L._dense_init(gen, (Vp, cfg.d_model), cfg.d_model, dtype,
                              device),
         "final_norm": L._ones((cfg.d_model,), dtype, device),
-        "blocks": init_block(gen, cfg, dtype, device, d_ff=cfg.d_ff,
-                             lead=(cfg.num_layers,)),
+        "blocks": init_block(gen, cfg, dtype, device,
+                             use_moe=cfg.moe is not None, d_ff=cfg.d_ff,
+                             lead=(cfg.num_layers - n_prefix,)),
     }
+    if n_prefix:
+        params["prefix_blocks"] = init_block(
+            gen, cfg, dtype, device, use_moe=False,
+            d_ff=cfg.moe.d_ff_dense, lead=(n_prefix,))
     if not cfg.tie_embeddings:
         params["head"] = L._dense_init(gen, (Vp, cfg.d_model), cfg.d_model,
                                        dtype, device)
@@ -79,28 +94,55 @@ def init_lm(cfg: ArchConfig, gen, plan: PlanConfig = PlanConfig(),
 # forward
 # --------------------------------------------------------------------------
 
-def block_apply(p, cfg: ArchConfig, x, positions):
+def block_apply(p, cfg: ArchConfig, x, positions, *, use_moe: bool,
+                moe_group: int = 0):
+    """Returns (x, attention cache, MoE aux loss or None)."""
     h = L.rms_norm(x, p["ln1"], cfg.norm_eps)
-    h, cache = L.attention_apply(p["attn"], cfg, h, positions)
+    if cfg.mla is not None:
+        h, cache = L.mla_apply(p["attn"], cfg, h, positions)
+    else:
+        h, cache = L.attention_apply(p["attn"], cfg, h, positions)
     x = x + h
     h = L.rms_norm(x, p["ln2"], cfg.norm_eps)
-    return x + L.mlp_apply(p["mlp"], h), cache
+    aux = None
+    if use_moe:
+        h, aux = M.moe_apply(p["moe"], cfg, h, group_size=moe_group)
+    else:
+        h = L.mlp_apply(p["mlp"], h)
+    return x + h, cache, aux
+
+
+def _run_stack(cfg, plan: PlanConfig, blocks, x, positions, *, use_moe,
+               collect_cache: bool):
+    """One stack of blocks: (x, caches stacked over layers or None, aux
+    summed over layers, 0.0 for a dense stack)."""
+    def body(x, lp):
+        x, cache, aux = block_apply(lp, cfg, x, positions, use_moe=use_moe,
+                                    moe_group=plan.moe_group_size)
+        return x, (cache if collect_cache else None, aux)
+
+    if plan.remat == "block":
+        body = remat(body)
+    x, ys = stack_scan(body, x, blocks)
+    caches, auxs = ys if ys is not None else (None, None)
+    return x, caches, (torch.sum(auxs) if use_moe else 0.0)
 
 
 def lm_hidden(cfg: ArchConfig, plan: PlanConfig, params, embeds, positions,
               collect_cache=False):
-    """embeds: (B, S, D) -> (final hidden (B, S, D), {"main": (k, v)
-    stacked over layers, or None})."""
-    _check_family(cfg)
-
-    def body(x, lp):
-        x, cache = block_apply(lp, cfg, x, positions)
-        return x, (cache if collect_cache else None)
-
-    if plan.remat == "block":
-        body = remat(body)
-    x, caches = stack_scan(body, embeds, params["blocks"])
-    return L.rms_norm(x, params["final_norm"], cfg.norm_eps), {"main": caches}
+    """embeds: (B, S, D) -> (final hidden (B, S, D), {"prefix", "main":
+    attention caches stacked over layers, or None}, aux loss)."""
+    x, caches, aux = embeds, {}, 0.0
+    if "prefix_blocks" in params:
+        x, caches["prefix"], a = _run_stack(
+            cfg, plan, params["prefix_blocks"], x, positions, use_moe=False,
+            collect_cache=collect_cache)
+        aux = aux + a
+    x, caches["main"], a = _run_stack(
+        cfg, plan, params["blocks"], x, positions,
+        use_moe=cfg.moe is not None, collect_cache=collect_cache)
+    aux = aux + a
+    return L.rms_norm(x, params["final_norm"], cfg.norm_eps), caches, aux
 
 
 def embed_tokens(cfg: ArchConfig, params, tokens):
@@ -146,18 +188,19 @@ def lm_loss_from_hidden(cfg: ArchConfig, plan: PlanConfig, params, hidden,
 
 def lm_loss(cfg: ArchConfig, plan: PlanConfig, params, tokens,
             extra_embeds: Optional[torch.Tensor] = None, aux_coef=0.01):
-    """Next-token loss.  tokens: (B, S).  The reference adds ``aux_coef`` x
-    the MoE balance loss, which a dense stack does not have; prepended
-    embeddings (``extra_embeds``) belong to the vision-language family."""
+    """Next-token loss plus ``aux_coef`` x the MoE balance loss (0 for a
+    dense stack).  tokens: (B, S).  Prepended embeddings (``extra_embeds``)
+    belong to the vision-language family."""
     if extra_embeds is not None:
         raise L.not_ported("the LM loss over prepended embeddings",
                            "LM side, vlm")
     e = embed_tokens(cfg, params, tokens)
     Bsz, S, _ = e.shape
     positions = torch.arange(S, device=e.device)
-    hidden, _ = lm_hidden(cfg, plan, params, e, positions)
-    return lm_loss_from_hidden(cfg, plan, params, hidden,
+    hidden, _, aux = lm_hidden(cfg, plan, params, e, positions)
+    loss = lm_loss_from_hidden(cfg, plan, params, hidden,
                                *next_token_targets(tokens))
+    return loss + aux_coef * aux
 
 
 def next_token_targets(tokens):
@@ -174,31 +217,52 @@ def next_token_targets(tokens):
 # serving: prefill + decode
 # --------------------------------------------------------------------------
 
-def init_cache(cfg: ArchConfig, batch: int, max_len: int, dtype,
-               device=torch.device("cpu")):
-    """Decode KV cache: {"main": {"k", "v"}}, each (L, B, max_len, KV,
-    hd)."""
-    _check_family(cfg)
-    shape = (cfg.num_layers, batch, max_len, cfg.num_kv_heads, cfg.head_dim)
-    return {"main": {"k": torch.zeros(shape, dtype=dtype, device=device),
-                     "v": torch.zeros(shape, dtype=dtype, device=device)}}
+def init_cache(cfg: ArchConfig, batch: int, max_len: int, dtype, *,
+               device):
+    """Decode cache: {"main"[, "prefix"]: per-layer leaves}, GQA {"k", "v"}
+    each (L, B, max_len, KV, hd), or MLA {"c": (L, B, max_len, R), "kr":
+    (L, B, max_len, rd)}."""
+    if cfg.mla is not None:
+        rows = {"c": (cfg.mla.kv_lora_rank,),
+                "kr": (cfg.mla.qk_rope_head_dim,)}
+    else:
+        rows = dict.fromkeys(("k", "v"), (cfg.num_kv_heads, cfg.head_dim))
+
+    def one(n):
+        return {name: torch.zeros((n, batch, max_len) + shape, dtype=dtype,
+                                  device=device)
+                for name, shape in rows.items()}
+    n_prefix = prefix_layers(cfg)
+    cache = {"main": one(cfg.num_layers - n_prefix)}
+    if n_prefix:
+        cache["prefix"] = one(n_prefix)
+    return cache
 
 
-def block_decode(p, cfg: ArchConfig, x, cache_slices, pos, *, use_cp=False):
+def block_decode(p, cfg: ArchConfig, x, cache_slices, pos, *, use_moe: bool,
+                 use_cp=False):
     """One block of one decode step; updates ``cache_slices`` in place."""
     h = L.rms_norm(x, p["ln1"], cfg.norm_eps)
-    h, _, _ = L.attention_decode(p["attn"], cfg, h, cache_slices["k"],
-                                 cache_slices["v"], pos, use_cp=use_cp)
+    if cfg.mla is not None:
+        h, _, _ = L.mla_decode(p["attn"], cfg, h, cache_slices["c"],
+                               cache_slices["kr"], pos)
+    else:
+        h, _, _ = L.attention_decode(p["attn"], cfg, h, cache_slices["k"],
+                                     cache_slices["v"], pos, use_cp=use_cp)
     x = x + h
     h = L.rms_norm(x, p["ln2"], cfg.norm_eps)
-    return x + L.mlp_apply(p["mlp"], h)
+    if use_moe:
+        h, _ = M.moe_apply(p["moe"], cfg, h)
+    else:
+        h = L.mlp_apply(p["mlp"], h)
+    return x + h
 
 
-def _decode_stack(cfg, plan, blocks, cache, x, pos):
-    for i in range(cache["k"].shape[0]):
+def _decode_stack(cfg, plan, blocks, cache, x, pos, *, use_moe: bool):
+    for i in range(tree_leaves(cache)[0].shape[0]):
         x = block_decode(tree_map(lambda a: a[i], blocks), cfg, x,
-                         {"k": cache["k"][i], "v": cache["v"][i]}, pos,
-                         use_cp=plan.decode_cp)
+                         {k: a[i] for k, a in cache.items()}, pos,
+                         use_moe=use_moe, use_cp=plan.decode_cp)
     return x
 
 
@@ -208,9 +272,12 @@ def lm_decode_step(cfg: ArchConfig, plan: PlanConfig, params, cache, tokens,
 
     Returns (next_tokens (B,) int32, cache); the cache is updated in
     place."""
-    _check_family(cfg)
     x = params["emb"][tokens.to(torch.long)]
-    x = _decode_stack(cfg, plan, params["blocks"], cache["main"], x, pos)
+    if "prefix_blocks" in params:
+        x = _decode_stack(cfg, plan, params["prefix_blocks"], cache["prefix"],
+                          x, pos, use_moe=False)
+    x = _decode_stack(cfg, plan, params["blocks"], cache["main"], x, pos,
+                      use_moe=cfg.moe is not None)
     x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
     logits = unembed(cfg, params, x)                     # (B, Vp)
     return torch.argmax(logits, dim=-1).to(torch.int32), cache
@@ -227,13 +294,13 @@ def lm_prefill(cfg: ArchConfig, plan: PlanConfig, params, tokens, max_len,
         e = torch.cat([extra_embeds.to(e.dtype), e], dim=1)
     Bsz, S, _ = e.shape
     positions = torch.arange(S, device=e.device)
-    hidden, caches = lm_hidden(cfg, plan, params, e, positions,
-                               collect_cache=True)
+    hidden, caches, _ = lm_hidden(cfg, plan, params, e, positions,
+                                  collect_cache=True)
     cdt = cache_dtype or e.dtype
-    cache = init_cache(cfg, Bsz, max_len, cdt, e.device)
-    k, v = caches["main"]
-    cache["main"]["k"][:, :, :S] = k
-    cache["main"]["v"][:, :, :S] = v
+    cache = init_cache(cfg, Bsz, max_len, cdt, device=e.device)
+    for grp, leaves in cache.items():
+        for name, src in zip(leaves, caches[grp]):
+            leaves[name][:, :, :S] = src
     logits = unembed(cfg, params, hidden[:, -1, :])
     return logits, cache, torch.full((Bsz,), S, dtype=torch.int32,
                                      device=e.device)

@@ -405,7 +405,24 @@ def test_lm_kernels_refuse_what_they_do_not_take(cuda):
     assert ops.launches() == before
 
 
-@pytest.mark.parametrize("name", ["internlm2-1.8b", "mamba2-370m"])
+LM_NAMES = ["internlm2-1.8b", "mamba2-370m", "deepseek-v2-lite-16b",
+            "grok-1-314b"]
+
+
+def _lm_kernel(cfg) -> str:
+    """The launch counter of the kernel that a float32 prefill of the
+    config runs in every layer: flash attention at the q/k width (MLA:
+    qk_nope + qk_rope) or SSD."""
+    if cfg.family == "ssm":
+        ssm = cfg.ssm
+        return "ssd_intra_" + ssd_variant(ssm.chunk, ssm.head_dim,
+                                          ssm.state_dim)
+    d = cfg.head_dim if cfg.mla is None else \
+        cfg.mla.qk_nope_head_dim + cfg.mla.qk_rope_head_dim
+    return "flash_attention_" + variant(torch.float32, d)
+
+
+@pytest.mark.parametrize("name", LM_NAMES)
 def test_smoke_batch_server_on_cuda_launches_the_kernels(cuda, name):
     from repro_torch.configs import PlanConfig, ShapeConfig, get_arch
     from repro_torch.models import api
@@ -429,13 +446,7 @@ def test_smoke_batch_server_on_cuda_launches_the_kernels(cuda, name):
     srv.run(reqs)
     launches = ops.launches()
     assert all(r.done and len(r.out_tokens) == 6 for r in reqs)
-    if cfg.family == "dense":
-        # the variant that the config's dtype and head width select
-        kernel = "flash_attention_" + variant(torch.float32, cfg.head_dim)
-    else:
-        ssm = cfg.ssm
-        kernel = "ssd_intra_" + ssd_variant(ssm.chunk, ssm.head_dim,
-                                            ssm.state_dim)
+    kernel = _lm_kernel(cfg)
     assert launches[kernel] == cfg.num_layers * 3
     assert all(n == 0 for name, n in launches.items() if name != kernel)
 
@@ -492,7 +503,7 @@ def test_ssd_gradient_through_the_kernel_matches_plain(cuda, b, q, h, p, g,
         assert _rel_err(a, w) <= 1e-4, (name, _rel_err(a, w))
 
 
-@pytest.mark.parametrize("name", ["internlm2-1.8b", "mamba2-370m"])
+@pytest.mark.parametrize("name", LM_NAMES)
 def test_smoke_train_step_on_cuda_matches_cpu(cuda, name):
     """One float32 train step of the smoke config from one state on the
     card (kernels, twice a layer under block remat) and on the CPU (plain
@@ -515,12 +526,7 @@ def test_smoke_train_step_on_cuda_matches_cpu(cuda, name):
                         tree_map(lambda t: t.to(cuda), batch))
     launches = ops.launches()
     host, m_host = step(state, batch)
-    if cfg.family == "dense":
-        kernel = "flash_attention_" + variant(torch.float32, cfg.head_dim)
-    else:
-        kernel = "ssd_intra_" + ssd_variant(cfg.ssm.chunk, cfg.ssm.head_dim,
-                                            cfg.ssm.state_dim)
-    assert launches[kernel] == 2 * cfg.num_layers
+    assert launches[_lm_kernel(cfg)] == 2 * cfg.num_layers
     np.testing.assert_allclose(float(m_card["loss"]), float(m_host["loss"]),
                                rtol=1e-4)
     np.testing.assert_allclose(float(m_card["grad_norm"]),
@@ -534,6 +540,54 @@ def test_smoke_train_step_on_cuda_matches_cpu(cuda, name):
     for i, (a, w) in enumerate(zip(tree_leaves(card["opt"]["m"]),
                                    tree_leaves(host["opt"]["m"]))):
         assert _rel_err(a.cpu(), w) <= 1e-4, (i, _rel_err(a.cpu(), w))
+
+
+# -- MoE and MLA at the smoke size --------------------------------------------
+
+def test_mla_attention_on_cuda_matches_cpu(cuda):
+    """deepseek's smoke MLA (q/k 48 wide, v 32 padded to 48) over 61
+    tokens in float32: the warp-level flash kernel on the card, the plain
+    version on the CPU, from the same parameters and inputs; the latent
+    cache rows too."""
+    from repro_torch.configs import get_arch
+    from repro_torch.models import layers as L
+    from repro_torch.tree import tree_map
+    cfg = get_arch("deepseek-v2-lite-16b").smoke()
+    p = L.init_mla(torch.Generator().manual_seed(0), cfg, torch.float32,
+                   device=torch.device("cpu"))
+    x = torch.randn((2, 61, cfg.d_model),
+                    generator=torch.Generator().manual_seed(1))
+    pos = torch.arange(61)
+    ops.reset_launches()
+    got, (c, kr) = L.mla_apply(tree_map(lambda a: a.to(cuda), p), cfg,
+                               x.to(cuda), pos.to(cuda))
+    launches = ops.launches()
+    want, (wc, wkr) = L.mla_apply(p, cfg, x, pos)
+    assert launches[_lm_kernel(cfg)] == 1
+    for a, b in ((got, want), (c, wc), (kr, wkr)):
+        torch.testing.assert_close(a.cpu(), b, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("name,lead", [("deepseek-v2-lite-16b", (2, 16)),
+                                       ("deepseek-v2-lite-16b", (8,)),
+                                       ("grok-1-314b", (2, 16)),
+                                       ("grok-1-314b", (3,))])
+def test_moe_apply_on_cuda_matches_cpu(cuda, name, lead):
+    """Prefill (B, S, D) and decode (B, D) routing of the smoke configs on
+    the card and on the CPU, float32: output and aux loss."""
+    from repro_torch.configs import get_arch
+    from repro_torch.models import moe as M
+    from repro_torch.tree import tree_map
+    cfg = get_arch(name).smoke()
+    p = M.init_moe(torch.Generator().manual_seed(2), cfg, torch.float32,
+                   device=torch.device("cpu"))
+    x = torch.randn(lead + (cfg.d_model,),
+                    generator=torch.Generator().manual_seed(3))
+    got, aux = M.moe_apply(tree_map(lambda a: a.to(cuda), p), cfg,
+                           x.to(cuda))
+    want, want_aux = M.moe_apply(p, cfg, x)
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(aux.cpu(), want_aux, rtol=1e-4, atol=1e-4)
 
 
 # -- plan-level fusion: CUDA graph capture and replay -------------------------

@@ -1,5 +1,7 @@
 """The port's LM serving path against the reference, on the smoke configs
-of internlm2-1.8b (dense GQA) and mamba2-370m (SSM) in float32.
+of internlm2-1.8b (dense GQA), mamba2-370m (SSM), deepseek-v2-lite-16b (MoE
+with MLA and a dense first layer) and grok-1-314b (MoE with GQA) in
+float32.
 
 The reference's parameters (``repro.models.api.init_params``) go through
 ``convert.params_from_numpy`` into the port, and the same numpy tokens go
@@ -33,7 +35,8 @@ TOL = dict(rtol=1e-4, atol=1e-4)
 PLAN = PlanConfig(param_dtype="float32", compute_dtype="float32",
                   attn_chunk=8, remat="none")
 TPLAN = TPlan(param_dtype="float32", compute_dtype="float32", remat="none")
-NAMES = ["internlm2-1.8b", "mamba2-370m"]
+NAMES = ["internlm2-1.8b", "mamba2-370m", "deepseek-v2-lite-16b",
+         "grok-1-314b"]
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -206,10 +209,10 @@ def _prefill_both(name, S, batch=1, max_len=32):
     cfg, tcfg = _cfgs(name)
     jp, tp = _params(cfg)
     toks = _tokens(cfg, (batch, S), S)
-    if cfg.family == "dense":
-        jout = JT.lm_prefill(cfg, PLAN, jp, jnp.asarray(toks), max_len)
-    else:
+    if cfg.family == "ssm":
         jout = JS.ssm_prefill(cfg, PLAN, jp, jnp.asarray(toks))
+    else:
+        jout = JT.lm_prefill(cfg, PLAN, jp, jnp.asarray(toks), max_len)
     shape = ShapeConfig("serve", "prefill", max_len, batch)
     tout = tapi.make_prefill(tcfg, shape, TPLAN)(
         tp, {"tokens": torch.from_numpy(toks)})
@@ -242,8 +245,7 @@ def test_decode_step_matches_reference(name):
 
 
 def test_unported_families_raise():
-    for name in ("deepseek-v2-lite-16b", "zamba2-7b", "seamless-m4t-medium",
-                 "internvl2-26b"):
+    for name in ("zamba2-7b", "seamless-m4t-medium", "internvl2-26b"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             tapi.init_params(tget(name).smoke(), torch.Generator(),
                              device="cpu")
@@ -253,12 +255,12 @@ def _serve_both(name, lengths, new_tokens=5, slots=3, max_len=40):
     cfg, tcfg = _cfgs(name)
     jp, tp = _params(cfg)
     shape = ShapeConfig("serve", "decode", max_len, slots)
-    if cfg.family == "dense":
-        jpre = jax.jit(lambda p, t: JT.lm_prefill(cfg, PLAN, p, t, max_len))
-        jinit = lambda b, ml: JT.init_cache(cfg, b, ml, jnp.float32)
-    else:
+    if cfg.family == "ssm":
         jpre = jax.jit(lambda p, t: JS.ssm_prefill(cfg, PLAN, p, t))
         jinit = lambda b, ml: JS.init_ssm_cache(cfg, b, jnp.float32)
+    else:
+        jpre = jax.jit(lambda p, t: JT.lm_prefill(cfg, PLAN, p, t, max_len))
+        jinit = lambda b, ml: JT.init_cache(cfg, b, ml, jnp.float32)
     jsrv = JBatchServer(slots=slots, max_len=max_len, prefill_fn=jpre,
                         decode_fn=jax.jit(japi.make_decode_step(cfg, shape,
                                                                 PLAN)),
@@ -283,6 +285,9 @@ def _serve_both(name, lengths, new_tokens=5, slots=3, max_len=40):
     # 2 tokens < conv_width - 1: the reference's short conv tail, padded at
     # the end by _write_rows, is copied as it is
     ("mamba2-370m", [13, 2, 13, 2]),
+    # MoE decode routes all three slots as one group, the idle one too
+    ("deepseek-v2-lite-16b", [13, 1, 13, 1]),
+    ("grok-1-314b", [13, 1, 13, 1]),
 ])
 def test_batch_server_gives_the_reference_tokens(name, lengths):
     """Four requests on three slots (one waits for a free slot), two prompt
@@ -294,6 +299,41 @@ def test_batch_server_gives_the_reference_tokens(name, lengths):
     assert tsrv.stats["prefills"] == jsrv.stats["prefills"] == 4
     assert tsrv.stats["decode_steps"] == jsrv.stats["decode_steps"]
     _same_cache(tsrv.cache, jsrv.cache)
+
+
+def _constructors():
+    """The model-module constructors, each with its arguments but the
+    device."""
+    from repro_torch.models import moe as TMoE
+    from repro_torch.models import ssm_lm as TS
+    from repro_torch.models import transformer as TT
+    dense, ssm = tget("internlm2-1.8b").smoke(), tget("mamba2-370m").smoke()
+    moe = tget("deepseek-v2-lite-16b").smoke()
+    gen = torch.Generator()
+    return {
+        "init_lm": lambda **kw: TT.init_lm(dense, gen, TPLAN, **kw),
+        "init_cache": lambda **kw: TT.init_cache(dense, 2, 8, torch.float32,
+                                                 **kw),
+        "init_ssm_lm": lambda **kw: TS.init_ssm_lm(ssm, gen, TPLAN, **kw),
+        "init_ssm_cache": lambda **kw: TS.init_ssm_cache(ssm, 2,
+                                                         torch.float32, **kw),
+        "init_mamba_state": lambda **kw: TM.init_mamba_state(ssm, 2, **kw),
+        "init_mla": lambda **kw: TL.init_mla(gen, moe, torch.float32, **kw),
+        "init_moe": lambda **kw: TMoE.init_moe(gen, moe, torch.float32, **kw),
+    }
+
+
+@pytest.mark.parametrize("name", ["init_lm", "init_cache", "init_ssm_lm",
+                                  "init_ssm_cache", "init_mamba_state",
+                                  "init_mla", "init_moe"])
+def test_constructors_take_no_default_device(name):
+    """A caller that skips ``api`` names the device: no constructor falls
+    back to the CPU."""
+    make = _constructors()[name]
+    with pytest.raises(TypeError, match="device"):
+        make()
+    leaves = tree_leaves(make(device=torch.device("meta")))
+    assert leaves and all(t.device.type == "meta" for t in leaves)
 
 
 def test_batch_server_serve_matches_run():

@@ -1,5 +1,7 @@
 """The port's LM training path against the reference, on the smoke configs
-of internlm2-1.8b (dense GQA) and mamba2-370m (SSM) in float32: losses,
+of internlm2-1.8b (dense GQA), mamba2-370m (SSM), deepseek-v2-lite-16b (MoE
+with MLA) and grok-1-314b (MoE with GQA) in float32: losses (with the MoE
+aux loss),
 every gradient leaf (``torch.autograd.grad`` against ``jax.grad``), block
 remat, 3-step train states (plain, accumulated, int8 error feedback,
 bfloat16 compute), and the backward passes of the flash-attention and SSD
@@ -35,7 +37,8 @@ from repro_torch.models import api as tapi
 from repro_torch.tree import tree_leaves, tree_unflatten
 from repro_torch.optim import AdamW
 
-NAMES = ["internlm2-1.8b", "mamba2-370m"]
+NAMES = ["internlm2-1.8b", "mamba2-370m", "deepseek-v2-lite-16b",
+         "grok-1-314b"]
 PLAN = PlanConfig(param_dtype="float32", compute_dtype="float32",
                   master_dtype="float32", attn_chunk=8, loss_chunk=8,
                   remat="none")
@@ -138,9 +141,25 @@ STEP_CASES = {
 }
 
 
-@pytest.mark.parametrize("case", sorted(STEP_CASES))
-@pytest.mark.parametrize("name", NAMES)
+# deepseek's smoke config with int8 error feedback takes one step
+# (test_one_int8_ef_step_of_mla_and_moe_equals_the_reference): over three,
+# its codes are chaotic, not the port's sums: the port against itself, its
+# masters perturbed by 1e-6 relative, differs in 0.6% of the MLA prefix
+# layer's 6,144 wkv_a residuals after three steps, past the 0.1% below
+STEP_PAIRS = [(name, case) for name in NAMES for case in sorted(STEP_CASES)
+              if (name, case) != ("deepseek-v2-lite-16b", "int8_ef")]
+
+
+@pytest.mark.parametrize("name,case", STEP_PAIRS)
 def test_three_train_steps_equal_the_reference(name, case):
+    _train_steps_equal_the_reference(name, case, 3)
+
+
+def test_one_int8_ef_step_of_mla_and_moe_equals_the_reference():
+    _train_steps_equal_the_reference("deepseek-v2-lite-16b", "int8_ef", 1)
+
+
+def _train_steps_equal_the_reference(name, case, steps):
     plan, lr = STEP_CASES[case]
     bf16 = plan.compute_dtype == "bfloat16"
     cfg, tcfg = get_arch(name).smoke(), tget(name).smoke()
@@ -149,7 +168,7 @@ def test_three_train_steps_equal_the_reference(name, case):
     ts = train_state_from_numpy(jax.tree.map(np.asarray, js), "cpu")
     jstep = jax.jit(japi.make_train_step(cfg, plan, jopt))
     tstep = tapi.make_train_step(tcfg, _tplan(plan), topt)
-    for i in range(3):
+    for i in range(steps):
         toks = _tokens(cfg, (4, 16), seed=10 + i)
         j0, t0 = _paths(js["master"]), _paths(ts["master"])
         js, jm = jstep(js, {"tokens": jnp.asarray(toks)})
@@ -174,8 +193,8 @@ def test_three_train_steps_equal_the_reference(name, case):
             _close_but_flips(_f32(tmaster[k]), _f32(jmaster[k]), rtol, atol,
                              flips="ef" in js, flip=2 * lr * (i + 1),
                              what=f"step {i}: {k}")
-    assert int(ts["step"]) == int(js["step"]) == 3
-    assert int(ts["opt"]["count"]) == 3
+    assert int(ts["step"]) == int(js["step"]) == steps
+    assert int(ts["opt"]["count"]) == steps
     if "ef" in js:
         for k, leaf in _paths(js["ef"]).items():
             # a residual is at most half a quantization step, and a flipped
@@ -366,7 +385,7 @@ def test_model_gradients_through_the_functions_equal_the_plain_path(
     l0, g0 = _port_value_and_grad(tcfg, plan, params, toks)
     counts = _stand_in_kernels(monkeypatch)
     l1, g1 = _port_value_and_grad(tcfg, plan, params, toks)
-    kernel = "flash" if tcfg.family == "dense" else "ssd"
+    kernel = "ssd" if tcfg.family == "ssm" else "flash"
     assert counts[kernel] == tcfg.num_layers * (2 if remat == "block" else 1)
     assert sum(counts.values()) == counts[kernel]
     np.testing.assert_allclose(float(l1), float(l0), rtol=1e-6)
