@@ -12,27 +12,31 @@ half over 4 row-range shards, an append through a pool and a worker
 killed mid-request; streaming views patched after appends in this
 process), then LM serving
 (``BatchServer`` prefill + continuous-batching decode) of internlm2-1.8b,
-mamba2-370m and deepseek-v2-lite-16b (MoE, MLA) at full width and depth
-and of grok-1-314b (MoE) at full width and depth 2, with bfloat16
-parameters from the port's seeded init, and last LM training of
-internlm2, mamba2 and deepseek (at depth 3) (``train``: the kernels'
-gradients against the plain versions, a float32 step on the card against
-the CPU, steps from ``TokenStream`` batches through ``ShardedLoader``, and
-a ``Trainer`` run with injected failures against an uninterrupted one).
+mamba2-370m, deepseek-v2-lite-16b (MoE, MLA) and zamba2-7b (hybrid: 81
+Mamba2 layers and a shared attention block 13 times, both LM kernels in one
+model) at full width and depth and of grok-1-314b (MoE) at full width and
+depth 2, with bfloat16 parameters from the port's seeded init, and last LM
+training of internlm2, mamba2, deepseek (at depth 3) and zamba2 (at depth
+13) (``train``: the kernels' gradients against the plain versions, a
+float32 step on the card against the CPU, steps from ``TokenStream``
+batches through ``ShardedLoader``, and a ``Trainer`` run with injected
+failures against an uninterrupted one).
 
 Run on a machine with one CUDA card:  python3 chip_smoke.py
 
-Each phase prints one JSON line (procpool and train one a section); any
+Each phase prints one JSON line (procpool and train one a section, the
+kernel phases one a shape) and a line with its wall ``seconds``; any
 failure exits non-zero.  The line before the last lists every ported
 kernel with its launches on its path
 (Haar and kNN on the analytic, the tensor-core kNN on the serving phase,
 and both in the procpool phase's workers as ``pool_launches``,
 the bfloat16 tensor-core flash attention on the dense LM's bfloat16
 serving, the float32 (3xTF32) one on its float32 prefill check, the
-warp-level tensor-core one on deepseek's MLA serving at head width 192,
+warp-level tensor-core one on deepseek's MLA serving at head width 192
+(and as its own entry on zamba2's at 112),
 the CUDA-core one on the flash phase's entry-point calls at widths
 that are not a multiple of 8, the tensor-core SSD on the SSM LM's
-serving, the CUDA-core one on the SSM smoke config's ragged prefill
+serving (and as its own entry on zamba2's at p 64, n 64), the CUDA-core one on the SSM smoke config's ragged prefill
 check; ``train_launches``: the tensor-core flash and SSD kernels in the
 train phase's steps, forward and remat recompute), its error against the
 plain version, its time, the plain version's time, the bound and the
@@ -86,6 +90,7 @@ from repro_torch.kernels.knn import (  # noqa: E402
 from repro_torch.kernels.ssd_scan import (  # noqa: E402
     ssd_intra_cuda, ssd_intra_ref, variant as ssd_variant)
 from repro_torch.models import api  # noqa: E402
+from repro_torch.models.hybrid import _geometry as hybrid_geometry  # noqa: E402
 from repro_torch.models import moe as M  # noqa: E402
 from repro_torch.models import transformer as T  # noqa: E402
 from repro_torch.tree import tree_leaves, tree_map  # noqa: E402
@@ -185,8 +190,9 @@ GROK_FLASH_SHAPE = (1, 2048, 48, 8, 128, True, torch.bfloat16)
 # heads over 8 KV heads of 128) of 2048 tokens in bfloat16 (serving) and
 # float32 (the traced float32 prefill), of 256 in float32 (cpu_check), and
 # its smoke config's 61-token float32 prefill (ragged_check: head width 32);
-# then zamba2-7b's attention (32 heads of 112, not on a path yet) at 2048
-# tokens in both dtypes, the MoE models' prefills, and ragged shapes
+# then zamba2-7b's shared block (32 heads of 112) at 2048 tokens in both
+# dtypes (bfloat16: its serving), the MoE models' prefills, and ragged
+# shapes
 FLASH_GQA_SHAPES = [(1, 2048, 16, 8, 128, True, torch.bfloat16),
                     (1, 2048, 16, 8, 128, True, torch.float32),
                     (1, 256, 16, 8, 128, True, torch.float32),
@@ -204,7 +210,7 @@ FLASH_GQA_SHAPES = [(1, 2048, 16, 8, 128, True, torch.bfloat16),
 # each kernel at its path's shape ("tc", "tf32", "mma"); the CUDA-core
 # kernel, forced, at the warp-level kernel's path shape ("simt_before":
 # its time before "mma" took that path) and at zamba2's width, beside the
-# warp-level kernel there; the MoE models' prefills (MLA at d 192 on "mma",
+# warp-level kernel on zamba2's path; the MoE models' prefills (MLA at d 192 on "mma",
 # grok's group of 6 on "tc"); and the folded forms at 2048 tokens, where the
 # CUDA-core kernel, forced, is the float32 kernel's time before the 3xTF32
 # one took the shape
@@ -223,19 +229,23 @@ FLASH_TIMED = {(FLASH_GQA_SHAPES[0], "tc"): "tc",
                (FLASH_SHAPES[1], "simt"): "simt_folded",
                (FLASH_SHAPES[2], "tf32"): "tf32_d64"}
 # (b, Q, h, p, g, n); the first is the SSM prefill path's shape (mamba2:
-# 16 chunks of 128 for a 2048-token prompt), then zamba2-7b's p and n at the
-# same length, a tensor-core shape with g = 2, the SSM smoke config's
-# 61-token prefill (ragged_check: 8 chunks of 8), and ragged shapes that
-# only the CUDA-core kernel takes.  Every shape runs on the CUDA-core
-# kernel, and on the tensor-core kernel where ssd_scan.variant names it.
+# 16 chunks of 128 for a 2048-token prompt), then zamba2-7b's p and n at 32
+# heads, zamba2's own prefill shape (112 heads), a tensor-core shape with
+# g = 2, the SSM smoke config's 61-token prefill (ragged_check: 8 chunks of
+# 8), and ragged shapes that only the CUDA-core kernel takes.  Every shape
+# runs on the CUDA-core kernel, and on the tensor-core kernel where
+# ssd_scan.variant names it.
+HYBRID_SSD_SHAPE = (16, 128, 112, 64, 1, 64)
 SSD_SHAPES = [(16, 128, 32, 64, 1, 128), (16, 128, 32, 64, 1, 64),
-              (2, 128, 8, 64, 2, 32), (8, 8, 16, 16, 1, 16),
+              HYBRID_SSD_SHAPE, (2, 128, 8, 64, 2, 32), (8, 8, 16, 16, 1, 16),
               (3, 40, 6, 17, 2, 9), (5, 77, 4, 33, 2, 31)]
 # the (shape, kernel) pairs that phase_ssd times: each kernel at its path's
-# shape, and the CUDA-core kernel, forced, at the tensor-core kernel's path
-# shape, its time before the tensor-core kernel took that path
-SSD_TIMED = {(SSD_SHAPES[0], "tc"): "tc", (SSD_SHAPES[3], "simt"): "simt",
-             (SSD_SHAPES[0], "simt"): "simt_before"}
+# shape (the tensor-core one at mamba2's and at zamba2's), and the CUDA-core
+# kernel, forced, at the tensor-core kernel's first path shape, its time
+# before the tensor-core kernel took that path
+SSD_TIMED = {(SSD_SHAPES[0], "tc"): "tc", (SSD_SHAPES[4], "simt"): "simt",
+             (SSD_SHAPES[0], "simt"): "simt_before",
+             (HYBRID_SSD_SHAPE, "tc"): "tc_p64_n64"}
 # the reference tests' tolerances: attention float32 1e-4, bfloat16 3e-2;
 # SSD y and states 2e-4, chunk decay 1e-5 relative / 1e-6 absolute
 FLASH_TOL = {torch.float32: 1e-4, torch.bfloat16: 3e-2}
@@ -262,6 +272,10 @@ DECODE_CHECK_SLOTS, DECODE_CHECK_PROMPT, DECODE_CHECK_STEPS = 8, (16, 49), 4
 # grok-1 serves at full width and this depth, fewer requests (its
 # published 64 layers are 633 GB in bfloat16)
 GROK_DEPTH, GROK_REQUESTS = 2, 4
+# zamba2-7b serves at full width and depth with fewer requests; its
+# cpu_check runs one group and the tail (depth 7: G 1, T 1), since at
+# depth 2 no group, so no shared block, would run
+HYBRID_REQUESTS, HYBRID_CHECK_DEPTH = 8, 7
 # decode_vs_prefill: in bfloat16 the kernel prefill and the plain decode
 # round at other places over the whole depth; a token that differs must be
 # a near-tie, its prefill logit within this margin of the prefill's argmax
@@ -273,8 +287,10 @@ DECODE_NEAR_TIE = 0.5
 # 1024); one warm-up step, then TRAIN_STEPS timed ones, with AdamW at
 # TRAIN_LR
 TRAIN_BATCH = {"internlm2-1.8b": 4, "mamba2-370m": 8,
-               "deepseek-v2-lite-16b": 4}
-TRAIN_DEPTH = {"deepseek-v2-lite-16b": 3}
+               "deepseek-v2-lite-16b": 4, "zamba2-7b": 4}
+# zamba2 at depth 13: two groups of 6 and one tail layer, 1.34 B
+# parameters (the whole model's float32 master and moments are 80 GB)
+TRAIN_DEPTH = {"deepseek-v2-lite-16b": 3, "zamba2-7b": 13}
 TRAIN_SEQ, TRAIN_STEPS, TRAIN_LR = 2048, 8, 1e-3
 # grad_check: gradients through the kernels' autograd Functions against
 # autograd through the plain versions, the largest error over the
@@ -284,9 +300,11 @@ GRAD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 # in bfloat16 also at the batch of its full-depth train steps, the dense
 # smoke config's heads at S 256, and deepseek's MLA at its train steps'
 # batch (v zero-padded from 128 to q's 192, the gradient of o's padded
-# columns zero, as on the path); SSD (b, Q, h, p, g, n): mamba2's chunks of one
-# 2048-token sequence (16) and of its full-depth train steps' batch (8 x
-# 16), and the SSM smoke config's chunk 8.  Each forward output is also held
+# columns zero, as on the path), and zamba2's shared block at its train
+# steps' batch in both dtypes; SSD (b, Q, h, p, g, n): mamba2's chunks of
+# one 2048-token sequence (16) and of its full-depth train steps' batch (8
+# x 16), the SSM smoke config's chunk 8, and zamba2's train steps' chunks
+# (4 x 16 at 112 heads, p 64, n 64).  Each forward output is also held
 # against the plain version at FLASH_TOL / SSD_TOL.
 FLASH_GRAD_SHAPES = [(1, 2048, 16, 8, 128, torch.bfloat16),
                      (TRAIN_BATCH["internlm2-1.8b"], 2048, 16, 8, 128,
@@ -297,10 +315,15 @@ FLASH_GRAD_SHAPES = [(1, 2048, 16, 8, 128, torch.bfloat16),
                      (TRAIN_BATCH["deepseek-v2-lite-16b"], 2048, 16, 16, 192,
                       torch.bfloat16, MLA_V_WIDTH),
                      (TRAIN_BATCH["deepseek-v2-lite-16b"], 2048, 16, 16, 192,
-                      torch.float32, MLA_V_WIDTH)]
+                      torch.float32, MLA_V_WIDTH),
+                     (TRAIN_BATCH["zamba2-7b"], 2048, 32, 32, 112,
+                      torch.bfloat16),
+                     (TRAIN_BATCH["zamba2-7b"], 2048, 32, 32, 112,
+                      torch.float32)]
 SSD_GRAD_SHAPES = [(16, 128, 32, 64, 1, 128),
                    (TRAIN_BATCH["mamba2-370m"] * 16, 128, 32, 64, 1, 128),
-                   (8, 8, 16, 16, 1, 16)]
+                   (8, 8, 16, 16, 1, 16),
+                   (TRAIN_BATCH["zamba2-7b"] * 16, 128, 112, 64, 1, 64)]
 # train cpu_check: one float32 train step at full width and this depth,
 # batch and length on the card and on the CPU from one state: loss 1e-4
 # relative, grad norm 1e-3, each master leaf atol 1e-3 / rtol 3e-3 (the
@@ -308,6 +331,8 @@ SSD_GRAD_SHAPES = [(16, 128, 32, 64, 1, 128),
 # gradient within TRAIN_GRAD_TOL of its largest magnitude (the CPU tests'
 # tolerance for a gradient leaf against the reference)
 TRAIN_CHECK_DEPTH, TRAIN_CHECK_BATCH, TRAIN_CHECK_SEQ = 2, 2, 256
+# the hybrid's: one group and the tail (as its serving cpu_check)
+TRAIN_CHECK_DEPTHS = {"zamba2-7b": HYBRID_CHECK_DEPTH}
 TRAIN_GRAD_TOL = 1e-4
 # restart: mamba2-370m at full width and this depth; a run with failures
 # injected at RESTART_FAIL_AT, a checkpoint every RESTART_CKPT_EVERY steps,
@@ -1938,16 +1963,42 @@ def _prefill_logits(cfg, plan, params, tokens: np.ndarray, dev):
     return logits[0].float().cpu()
 
 
-def _lm_kernel(cfg, dtype) -> str:
-    """The launch counter of the kernel that a prefill of ``cfg`` in
-    ``dtype`` runs in every layer: SSD, or flash attention at the q/k head
-    width (MLA: qk_nope + qk_rope)."""
-    if cfg.family == "ssm":
-        return "ssd_intra_" + ssd_variant(cfg.ssm.chunk, cfg.ssm.head_dim,
-                                          cfg.ssm.state_dim)
-    d = cfg.head_dim if cfg.mla is None \
-        else cfg.mla.qk_nope_head_dim + cfg.mla.qk_rope_head_dim
-    return "flash_attention_" + variant(dtype, d)
+def _prefill_launches(cfg, dtype) -> dict:
+    """{launch counter: launches} of one prefill of ``cfg`` in ``dtype``:
+    SSD in every Mamba layer, flash attention at the q/k head width (MLA:
+    qk_nope + qk_rope) in every attention layer (the hybrid: once a
+    group, its shared block)."""
+    out = {}
+    if cfg.family in ("ssm", "hybrid"):
+        ssd = "ssd_intra_" + ssd_variant(cfg.ssm.chunk, cfg.ssm.head_dim,
+                                         cfg.ssm.state_dim)
+        out[ssd] = cfg.num_layers
+    if cfg.family != "ssm":
+        d = cfg.head_dim if cfg.mla is None \
+            else cfg.mla.qk_nope_head_dim + cfg.mla.qk_rope_head_dim
+        out["flash_attention_" + variant(dtype, d)] = (
+            hybrid_geometry(cfg)[0] if cfg.family == "hybrid"
+            else cfg.num_layers)
+    return out
+
+
+def _step_launches(cfg, dtype) -> dict:
+    """{launch counter: launches} of one train step under block remat: each
+    kernel's forward and its recompute, twice a layer, but in the hybrid's
+    tail layers, which are not rematerialized (as in the reference)."""
+    out = {k: 2 * n for k, n in _prefill_launches(cfg, dtype).items()}
+    if cfg.family == "hybrid":
+        tail = hybrid_geometry(cfg)[2]
+        out = {k: n - tail if k.startswith("ssd_") else n
+               for k, n in out.items()}
+    return out
+
+
+def _check_launches(launches: dict, want: dict, what: str) -> None:
+    """Each counter of ``want`` at its count, every other counter 0."""
+    check(all(launches[k] == n for k, n in want.items())
+          and all(n == 0 for k, n in launches.items() if k not in want),
+          f"{what}: launches {launches}, want {want} and nothing else")
 
 
 # device kernel name (in the profiler's trace) of each launch counter
@@ -1961,7 +2012,8 @@ DEVICE_KERNEL = {"flash_attention_tc": "flash_fwd_wgmma",
 
 def _cut(cfg, depth: int):
     """``cfg`` at ``depth`` layers; an MoE model keeps its dense first
-    layers (``prefix_blocks``) first, as many as the depth holds."""
+    layers (``prefix_blocks``) first, as many as the depth holds; a hybrid
+    has depth // attn_period groups and the rest as its tail."""
     cut = dataclasses.replace(cfg, num_layers=depth)
     if cfg.moe is not None:
         cut = dataclasses.replace(cut, moe=dataclasses.replace(
@@ -1975,6 +2027,16 @@ def _f32_cut(cfg, params, depth=CPU_CHECK_DEPTH):
     the cut config and its float32 plan."""
     cut = _cut(cfg, depth)
     plan = PlanConfig(param_dtype="float32", compute_dtype="float32")
+    if cfg.family == "hybrid":
+        # the first groups (their Mamba layers and LoRA deltas), the
+        # shared block, the first tail layers
+        G, _, T_ = hybrid_geometry(cut)
+        small = {k: v for k, v in params.items() if k != "tail"}
+        small["groups"] = tree_map(lambda a: a[:G], params["groups"])
+        small["lora"] = tree_map(lambda a: a[:G], params["lora"])
+        if T_:
+            small["tail"] = tree_map(lambda a: a[:T_], params["tail"])
+        return cut, plan, tree_map(lambda a: a.float(), small)
     n_prefix = T.prefix_layers(cut)
     small = {k: v for k, v in params.items() if k != "prefix_blocks"}
     small["blocks"] = tree_map(lambda a: a[:depth - n_prefix],
@@ -1987,12 +2049,13 @@ def _f32_cut(cfg, params, depth=CPU_CHECK_DEPTH):
 
 def _lm_cpu_check(cfg, params, prompt, dev, depth=CPU_CHECK_DEPTH,
                   n_tokens=CPU_CHECK_TOKENS) -> dict:
-    """The first two layers of the served parameters in float32: a prefill
-    of the prompt's first tokens on the card (kernels) and on the CPU
-    (plain versions) must give the same last-token logits and greedy
-    token.  The card's prefill launches are counted on their own.  A
-    float32 prefill takes the 3xTF32 flash kernel at the model's width
-    ("tf32" at 128, "mma" at MLA's 192)."""
+    """The first ``depth`` layers of the served parameters in float32 (the
+    hybrid: one group and the tail): a prefill of the prompt's first tokens
+    on the card (kernels) and on the CPU (plain versions) must give the
+    same last-token logits and greedy token.  The card's prefill launches
+    are counted on their own.  A float32 prefill takes the 3xTF32 flash
+    kernel at the model's width ("tf32" at 128, "mma" at MLA's 192 and the
+    hybrid's 112)."""
     cut, plan, small = _f32_cut(cfg, params, depth)
     toks = prompt[:n_tokens]
     ops.reset_launches()
@@ -2011,10 +2074,8 @@ def _lm_cpu_check(cfg, params, prompt, dev, depth=CPU_CHECK_DEPTH,
            "token_card": t_card, "token_cpu": t_host,
            "near_tie": t_card != t_host, "gap": gap, "launches": launches}
     if dev.type == "cuda":
-        kernel = _lm_kernel(cfg, torch.float32)
-        check(launches[kernel] == depth
-              and all(n == 0 for k, n in launches.items() if k != kernel),
-              f"cpu_check launches {launches}, want {kernel} = {depth}")
+        _check_launches(launches, _prefill_launches(cut, torch.float32),
+                        "cpu_check")
     check(ok, f"cpu_check logits differ by {err} (|logit| up to {scale})")
     check(t_card == t_host or gap <= CPU_CHECK_TOL * max(1.0, scale),
           f"cpu_check greedy tokens {t_card} vs {t_host}, gap {gap}")
@@ -2024,7 +2085,8 @@ def _lm_cpu_check(cfg, params, prompt, dev, depth=CPU_CHECK_DEPTH,
 def _lm_ragged_check(cfg, dev, n_tokens: int = 61) -> dict:
     """The family's smoke config in float32 from a seeded init (dense: head
     width 32, a width of the warp-level tensor-core flash kernel; SSM: chunk
-    8, head width 16, state 16, a shape only the CUDA-core SSD kernel takes): a
+    8, head width 16, state 16, a shape only the CUDA-core SSD kernel takes;
+    the hybrid both, in 7 layers of which 6 in two groups): a
     prefill of a ragged prompt on the card (kernels) and on the CPU (plain
     versions) must give the same last-token logits.  The card's prefill
     launches are counted on their own."""
@@ -2046,11 +2108,8 @@ def _lm_ragged_check(cfg, dev, n_tokens: int = 61) -> dict:
            "max_abs_logit": float(host.abs().max()), "tol": CPU_CHECK_TOL,
            "launches": launches}
     if dev.type == "cuda":
-        kernel = _lm_kernel(small, torch.float32)
-        check(launches[kernel] == small.num_layers
-              and all(n == 0 for k, n in launches.items() if k != kernel),
-              f"ragged_check launches {launches}, want {kernel} = "
-              f"{small.num_layers}")
+        _check_launches(launches, _prefill_launches(small, torch.float32),
+                        "ragged_check")
     check(bool(torch.allclose(card, host, rtol=CPU_CHECK_TOL,
                               atol=CPU_CHECK_TOL)),
           f"ragged_check logits differ by {err}")
@@ -2127,11 +2186,10 @@ def _decode_vs_cpu(cfg, params, dev, depth: int) -> dict:
            "cache_max_abs_err": errs, "tol": CPU_CHECK_TOL,
            "cpu_s": host_s, "launches": launches}
     if dev.type == "cuda":
-        kernel = _lm_kernel(cut, torch.float32)
-        check(launches[kernel] == depth * DECODE_CHECK_SLOTS
-              and all(n == 0 for k, n in launches.items() if k != kernel),
-              f"decode_vs_cpu launches {launches}, want {kernel} = "
-              f"{depth} x {DECODE_CHECK_SLOTS}")
+        _check_launches(launches, {
+            k: n * DECODE_CHECK_SLOTS
+            for k, n in _prefill_launches(cut, torch.float32).items()},
+            "decode_vs_cpu")
     check(card.stats["decode_steps"] == cpu.stats["decode_steps"]
           == DECODE_CHECK_STEPS, f"decode_vs_cpu: {card.stats} / "
           f"{cpu.stats}")
@@ -2145,13 +2203,14 @@ def _decode_vs_cpu(cfg, params, dev, depth: int) -> dict:
     return row
 
 
-def _device_profile(fn, dev, kernel: str, top: int = 5) -> dict:
+def _device_profile(fn, dev, kernels, top: int = 5) -> dict:
     """One call of ``fn`` (warmed up first) under ``torch.profiler`` with
     CUDA activity only: host wall ms of the call (ending in a synchronize),
     the device's busy ms (union of its kernel and copy intervals), the busy
-    share, the device ms and launches of the hand kernel whose name
-    contains ``kernel``, the device ms by kind of work (``_kind``), and
-    the kernels that took the most device time."""
+    share, the device ms and launches of each hand kernel of ``kernels``
+    (device names; ``kernel_ms`` and ``kernel_launches`` their sums), the
+    device ms by kind of work (``_kind``), and the kernels that took the
+    most device time."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     sync(dev)
@@ -2170,13 +2229,17 @@ def _device_profile(fn, dev, kernel: str, top: int = 5) -> dict:
         by_name[name] = by_name.get(name, 0.0) + (b - a) / 1e3
         by_kind[_kind(name)] = by_kind.get(_kind(name), 0.0) + (b - a) / 1e3
     busy /= 1e3
-    # the whole name: flash_fwd_wgmma is not flash_fwd_wgmma_tf32
-    word = re.compile(rf"\b{re.escape(kernel)}\b")
-    mine = [b - a for a, b, name in spans if word.search(name)]
+    each = {}
+    for kernel in kernels:
+        # the whole name: flash_fwd_wgmma is not flash_fwd_wgmma_tf32
+        word = re.compile(rf"\b{re.escape(kernel)}\b")
+        mine = [b - a for a, b, name in spans if word.search(name)]
+        each[kernel] = {"ms": sum(mine) / 1e3, "launches": len(mine)}
     return {"wall_ms": wall, "device_busy_ms": busy if spans else None,
             "busy_share": busy / wall if spans else None,
-            "device_ops": len(spans), "kernel": kernel,
-            "kernel_ms": sum(mine) / 1e3, "kernel_launches": len(mine),
+            "device_ops": len(spans), "kernels": each,
+            "kernel_ms": sum(k["ms"] for k in each.values()),
+            "kernel_launches": sum(k["launches"] for k in each.values()),
             "by_kind_ms": by_kind,
             "top_ms": sorted(by_name.items(), key=lambda kv: -kv[1])[:top]}
 
@@ -2204,19 +2267,21 @@ def _kind(name: str) -> str:
 
 def phase_lm(dev, name: str, cfg=None, slots=LM_SLOTS, max_len=LM_MAX_LEN,
              n_req=LM_REQUESTS, new_tokens=LM_NEW_TOKENS, phase=None,
-             cpu_check=True, decode_check_depth=CPU_CHECK_DEPTH) -> dict:
+             cpu_check=True, cpu_check_depth=CPU_CHECK_DEPTH,
+             decode_check_depth=CPU_CHECK_DEPTH) -> dict:
     """Serve ``n_req`` requests (plus a 1-token prompt for the dense model)
     through ``BatchServer.run`` at full width (and full depth unless
     ``cfg`` cuts it), bfloat16 parameters (``PlanConfig`` defaults) from
     the port's seeded init; then the checks against the CPU in float32
-    (``cpu_check``: not for a model whose two float32 layers would not fit
-    the host) and of decode (``decode_vs_prefill``; the MoE family's
-    ``decode_vs_cpu`` at ``decode_check_depth``)."""
+    (``cpu_check`` at ``cpu_check_depth``: not for a model whose float32
+    layers would not fit the host) and of decode (``decode_vs_prefill``;
+    the MoE family's ``decode_vs_cpu`` at ``decode_check_depth``)."""
+    t_phase = time.perf_counter()
     cfg = cfg or get_arch(name)
     plan = PlanConfig()
     if dev.type == "cuda":
         torch.cuda.empty_cache()
-    kernel = _lm_kernel(cfg, torch.bfloat16)
+    want = _prefill_launches(cfg, torch.bfloat16)
     t0 = time.perf_counter()
     params = api.init_params(cfg, torch.Generator(device=dev).manual_seed(0),
                              plan, dev)
@@ -2272,11 +2337,9 @@ def phase_lm(dev, name: str, cfg=None, slots=LM_SLOTS, max_len=LM_MAX_LEN,
     prefills = srv.stats["prefills"]
     check(prefills == len(reqs), f"{name}: {prefills} prefills")
     if dev.type == "cuda":
-        # every prefill layer on the one kernel, and no other launch
-        check(launches[kernel] == cfg.num_layers * prefills
-              and all(n == 0 for k, n in launches.items() if k != kernel),
-              f"{name}: launches {launches}, want {kernel} = "
-              f"{cfg.num_layers} x {prefills} and nothing else")
+        # each prefill's kernels at their counts, and no other launch
+        _check_launches(launches, {k: n * prefills for k, n in want.items()},
+                        f"{name}: {prefills} prefills")
     full = [ms for ms, n in prefill_ms]
     row = {"model": cfg.name, "family": cfg.family, "params": n_params,
            "layers": cfg.num_layers, "d_model": cfg.d_model,
@@ -2293,7 +2356,8 @@ def phase_lm(dev, name: str, cfg=None, slots=LM_SLOTS, max_len=LM_MAX_LEN,
            "decode_step_ms_median": statistics.median(decode_ms),
            "decode_tokens_per_s": srv.stats["tokens_out"]
            / srv.stats["decode_seconds"],
-           "peak_mem_gb": peak, "launches": launches, "kernel": kernel}
+           "peak_mem_gb": peak, "launches": launches,
+           "prefill_launches": want}
     if dev.type == "cuda":
         # where the time goes, after the counts were read: the 2048-token
         # prefill, and one decode step over all slots of the used cache
@@ -2302,7 +2366,7 @@ def phase_lm(dev, name: str, cfg=None, slots=LM_SLOTS, max_len=LM_MAX_LEN,
         toks = torch.zeros((slots,), dtype=torch.int32, device=dev)
         pos = torch.full((slots,), max_len - 2, dtype=torch.int32,
                          device=dev)
-        device_name = DEVICE_KERNEL[kernel]
+        device_name = [DEVICE_KERNEL[k] for k in want]
         row["profile"] = {
             "prefill_2048": _device_profile(
                 lambda: prefill(params, {"tokens": tok}), dev, device_name),
@@ -2315,7 +2379,8 @@ def phase_lm(dev, name: str, cfg=None, slots=LM_SLOTS, max_len=LM_MAX_LEN,
             prefill32 = api.make_prefill(cut, shape, plan32)
             row["profile"]["prefill_2048_f32"] = _device_profile(
                 lambda: prefill32(small, {"tokens": tok}), dev,
-                DEVICE_KERNEL[_lm_kernel(cfg, torch.float32)])
+                [DEVICE_KERNEL[k] for k in _prefill_launches(cfg,
+                                                             torch.float32)])
             del small
         if cfg.moe is not None:
             # one MoE layer on a 2048-token hidden: the expert products,
@@ -2330,7 +2395,8 @@ def phase_lm(dev, name: str, cfg=None, slots=LM_SLOTS, max_len=LM_MAX_LEN,
                 device_name)
             del moe, h
     if cpu_check:
-        row["cpu_check"] = _lm_cpu_check(cfg, params, reqs[0].prompt, dev)
+        row["cpu_check"] = _lm_cpu_check(cfg, params, reqs[0].prompt, dev,
+                                         depth=cpu_check_depth)
     row["ragged_check"] = _lm_ragged_check(cfg, dev)
     if cfg.moe is not None:
         row["decode_vs_cpu"] = _decode_vs_cpu(cfg, params, dev,
@@ -2338,6 +2404,7 @@ def phase_lm(dev, name: str, cfg=None, slots=LM_SLOTS, max_len=LM_MAX_LEN,
     else:
         row["decode_vs_prefill"] = _decode_vs_prefill(cfg, plan, params,
                                                       reqs[0], dev)
+    row["seconds"] = time.perf_counter() - t_phase
     emit(phase or f"lm_{cfg.family}", **row)
     return row
 
@@ -2456,22 +2523,27 @@ def _grad_check(dev) -> list:
 
 
 def _train_cpu_check(dev, name: str) -> dict:
-    """One float32 train step at full width and TRAIN_CHECK_DEPTH, from one
-    state (``train_state_from_numpy`` of a seeded init) on the card
+    """One float32 train step at full width and TRAIN_CHECK_DEPTH (the
+    hybrid: TRAIN_CHECK_DEPTHS), from one state (a seeded init on the card,
+    ``train_state_from_numpy`` of its host copy on the CPU) on the card
     (kernels, twice a layer under block remat) and on the CPU (plain
     versions)."""
-    cfg = _cut(get_arch(name), TRAIN_CHECK_DEPTH)
+    cfg = _cut(get_arch(name), TRAIN_CHECK_DEPTHS.get(name,
+                                                      TRAIN_CHECK_DEPTH))
     plan = PlanConfig(param_dtype="float32", compute_dtype="float32",
                       master_dtype="float32")
     opt = AdamW(learning_rate=TRAIN_LR)
-    tree = tree_map(lambda t: t.cpu().numpy(), api.init_train_state(
-        cfg, plan, torch.Generator(device=dev).manual_seed(0), opt, dev))
+    # the card steps from the init itself (a step leaves its state as it
+    # was), the CPU from its host copy
+    state = api.init_train_state(
+        cfg, plan, torch.Generator(device=dev).manual_seed(0), opt, dev)
+    tree = tree_map(lambda t: t.cpu().numpy(), state)
     tokens = TokenStream(cfg.vocab_size, TRAIN_CHECK_BATCH, TRAIN_CHECK_SEQ,
                          seed=0).batch_at(0)
     step = api.make_train_step(cfg, plan, opt)
     ops.reset_launches()
-    card, m_card = step(train_state_from_numpy(tree, dev),
-                        {"tokens": tokens.to(dev)})
+    card, m_card = step(state, {"tokens": tokens.to(dev)})
+    del state
     sync(dev)
     launches = ops.launches()
     t0 = time.perf_counter()
@@ -2510,12 +2582,9 @@ def _train_cpu_check(dev, name: str) -> dict:
                                    - row["grad_norm_cpu"]) \
         / abs(row["grad_norm_cpu"])
     emit("train", section="cpu_check", **row)
-    kernel = _lm_kernel(cfg, torch.float32)
-    check(dev.type != "cuda" or (
-        launches[kernel] == 2 * cfg.num_layers
-        and all(n == 0 for k, n in launches.items() if k != kernel)),
-          f"train cpu_check {name}: launches {launches}, want {kernel} = "
-          f"2 x {cfg.num_layers}")
+    if dev.type == "cuda":
+        _check_launches(launches, _step_launches(cfg, torch.float32),
+                        f"train cpu_check {name}")
     check(row["loss_rel_err"] <= 1e-4,
           f"train cpu_check {name}: loss {row['loss_card']} vs "
           f"{row['loss_cpu']}")
@@ -2565,7 +2634,7 @@ def _train_full(dev, name: str, batch: int) -> dict:
     loader = ShardedLoader(lambda i: {"tokens": stream.batch_at(i)},
                            device=dev)
     step = api.make_train_step(cfg, plan, opt)
-    kernel = _lm_kernel(cfg, torch.bfloat16)
+    want = _step_launches(cfg, torch.bfloat16)
     losses, step_ms, per_step, wait_ms = [], [], [], []
     try:
         for i in range(1 + TRAIN_STEPS):
@@ -2582,7 +2651,7 @@ def _train_full(dev, name: str, batch: int) -> dict:
                 step_ms.append(dt)
         peak = torch.cuda.max_memory_allocated(dev) / 1e9 if cuda else None
         profile = _device_profile(lambda: step(state, b), dev,
-                                  DEVICE_KERNEL[kernel], top=12) \
+                                  [DEVICE_KERNEL[k] for k in want], top=12) \
             if cuda else None
     finally:
         loader.close()
@@ -2594,8 +2663,8 @@ def _train_full(dev, name: str, batch: int) -> dict:
            "step_ms_median": med,
            "tokens_per_s": batch * TRAIN_SEQ / (med / 1e3),
            "loader_wait_ms": wait_ms, "peak_mem_gb": peak,
-           "launches_per_step": per_step[-1], "kernel": kernel,
-           "launches": sum(c[kernel] for c in per_step),
+           "launches_per_step": per_step[-1], "step_launches": want,
+           "launches": {k: sum(c[k] for c in per_step) for k in want},
            "profile": profile}
     emit("train", section="steps", **row)
     check(all(math.isfinite(x) for x in losses),
@@ -2604,11 +2673,8 @@ def _train_full(dev, name: str, batch: int) -> dict:
           f"train {name}: losses did not fall: {losses}")
     # the forward and its recompute under block remat: twice a layer
     for counts in per_step:
-        check(not cuda or (
-            counts[kernel] == 2 * cfg.num_layers
-            and all(n == 0 for k, n in counts.items() if k != kernel)),
-              f"train {name}: launches {counts}, want {kernel} = "
-              f"2 x {cfg.num_layers} a step")
+        if cuda:
+            _check_launches(counts, want, f"train {name} step")
     del state, metrics, b
     if cuda:
         torch.cuda.empty_cache()
@@ -2680,10 +2746,10 @@ def _train_restart(dev) -> dict:
 
 
 def phase_train(dev) -> dict:
-    """LM training of the dense, SSM and MoE families on the card: the
-    kernels' gradients (``grad_check``), a train step on the card against
-    the CPU (``cpu_check``), full-width steps (full depth but deepseek's),
-    and restarts from checkpoints."""
+    """LM training of the dense, SSM, MoE and hybrid families on the card:
+    the kernels' gradients (``grad_check``), a train step on the card
+    against the CPU (``cpu_check``), full-width steps (full depth but
+    deepseek's and zamba2's), and restarts from checkpoints."""
     t0 = time.perf_counter()
     out = {"grad_check": _grad_check(dev),
            "cpu_check": {n: _train_cpu_check(dev, n) for n in TRAIN_BATCH},
@@ -2710,7 +2776,8 @@ def _kernel_entry(name, source, replaces, launches, row) -> dict:
 def kernels_line(haar_row: dict, knn_rows: dict, flash_rows: dict,
                  ssd_rows: dict, analytic: dict, serving: dict,
                  procpool: dict, lm_dense: dict, lm_ssm: dict,
-                 lm_moe: dict, lm_moe_grok: dict, train: dict) -> dict:
+                 lm_moe: dict, lm_moe_grok: dict, lm_hybrid: dict,
+                 train: dict) -> dict:
     """Launches of each kernel on its own path: Haar and kNN (all kernels,
     the matrix-vector one at B 1) on the analytic, the tensor-core kNN at
     B 64 on the serving phase's warm run (credited across CUDA graph
@@ -2723,15 +2790,19 @@ def kernels_line(haar_row: dict, knn_rows: dict, flash_rows: dict,
     ragged prefill), the CUDA-core one on phase_flash's entry-point calls
     (its only caller: widths that are not a multiple of 8), the tensor-core
     SSD on SSM serving, the CUDA-core one on the SSM smoke config's ragged
-    prefill (``ragged_check``).  ``train_launches``: the bfloat16 flash
-    kernels (tensor-core at d 128, warp-level at MLA's d 192) and SSD in
-    the train phase's steps (forward and remat recompute), the 3xTF32 flash
-    kernel in its float32 ``cpu_check`` step.  The CUDA-core flash kernel's
-    times are its forced row at the dense smoke config's shape."""
+    prefill (``ragged_check``); zamba2-7b's serving as two entries of their
+    own, the warp-level flash kernel at d 112 and the tensor-core SSD at p
+    64, n 64, each with its times at that path's shape.
+    ``train_launches``: the bfloat16 flash kernels (tensor-core at d 128,
+    warp-level at MLA's d 192 and zamba2's d 112) and SSD in the train
+    phase's steps (forward and remat recompute), the 3xTF32 flash kernel in
+    its float32 ``cpu_check`` step.  The CUDA-core flash kernel's times are
+    its forced row at the dense smoke config's shape."""
     flash = "src/repro/kernels/flash_attention.py:73"
     ssd = "src/repro/kernels/ssd_scan.py:45"
     pool_knn = sum(w["launches"]["knn_scores_tiled"]
                    for w in procpool["warm"].values())
+    steps = train["steps"]
     return {"kernels": [
         dict(_kernel_entry("haar", "haar.cu", "src/repro/kernels/haar.py:32",
                            analytic["launches"]["haar"], haar_row),
@@ -2747,7 +2818,8 @@ def kernels_line(haar_row: dict, knn_rows: dict, flash_rows: dict,
                            flash, lm_dense["launches"]["flash_attention_tc"],
                            flash_rows["tc"]),
              moe_grok_launches=lm_moe_grok["launches"]["flash_attention_tc"],
-             train_launches=train["steps"]["internlm2-1.8b"]["launches"]),
+             train_launches=steps["internlm2-1.8b"]["launches"]
+             ["flash_attention_tc"]),
         dict(_kernel_entry("flash_attention_tf32", "flash_attention.cu",
                            flash, lm_dense["cpu_check"]["launches"]
                            ["flash_attention_tf32"], flash_rows["tf32"]),
@@ -2758,19 +2830,43 @@ def kernels_line(haar_row: dict, knn_rows: dict, flash_rows: dict,
                            flash_rows["mma_d192"]),
              ragged_launches=lm_dense["ragged_check"]["launches"]
              ["flash_attention_mma"],
-             train_launches=train["steps"]["deepseek-v2-lite-16b"]
-             ["launches"]),
+             train_launches=steps["deepseek-v2-lite-16b"]["launches"]
+             ["flash_attention_mma"]),
+        dict(_kernel_entry("flash_attention_mma_d112", "flash_attention.cu",
+                           flash, lm_hybrid["launches"]["flash_attention_mma"],
+                           flash_rows["mma_d112_bf16"]),
+             cpu_check_launches=lm_hybrid["cpu_check"]["launches"]
+             ["flash_attention_mma"],
+             ragged_launches=lm_hybrid["ragged_check"]["launches"]
+             ["flash_attention_mma"],
+             train_launches=steps["zamba2-7b"]["launches"]
+             ["flash_attention_mma"]),
         _kernel_entry("flash_attention_simt", "flash_attention.cu", flash,
                       flash_rows["entry_launches"]["flash_attention_simt"],
                       flash_rows["simt_before"]),
         dict(_kernel_entry("ssd_intra_tc", "ssd_scan.cu", ssd,
                            lm_ssm["launches"]["ssd_intra_tc"],
                            ssd_rows["tc"]),
-             train_launches=train["steps"]["mamba2-370m"]["launches"]),
+             train_launches=steps["mamba2-370m"]["launches"]["ssd_intra_tc"]),
+        dict(_kernel_entry("ssd_intra_tc_p64_n64", "ssd_scan.cu", ssd,
+                           lm_hybrid["launches"]["ssd_intra_tc"],
+                           ssd_rows["tc_p64_n64"]),
+             cpu_check_launches=lm_hybrid["cpu_check"]["launches"]
+             ["ssd_intra_tc"],
+             train_launches=steps["zamba2-7b"]["launches"]["ssd_intra_tc"]),
         _kernel_entry("ssd_intra_simt", "ssd_scan.cu", ssd,
                       lm_ssm["ragged_check"]["launches"]["ssd_intra_simt"],
                       ssd_rows["simt"]),
     ]}
+
+
+def timed_phase(phase: str, fn, *args):
+    """``fn(*args)``, then the phase's line with its wall seconds (the
+    phases that print no such line of their own)."""
+    t0 = time.perf_counter()
+    out = fn(*args)
+    emit(phase, section="total", seconds=time.perf_counter() - t0)
+    return out
 
 
 def main() -> int:
@@ -2779,17 +2875,17 @@ def main() -> int:
         return 2
     dev = torch.device("cuda", 0)
     t0 = time.perf_counter()
-    phase_device(dev)
-    haar_row = phase_haar(dev)
-    knn_rows = phase_knn(dev)
-    flash_rows = phase_flash(dev)
-    ssd_rows = phase_ssd(dev)
+    timed_phase("device", phase_device, dev)
+    haar_row = timed_phase("haar", phase_haar, dev)
+    knn_rows = timed_phase("knn", phase_knn, dev)
+    flash_rows = timed_phase("flash_attention", phase_flash, dev)
+    ssd_rows = timed_phase("ssd_intra", phase_ssd, dev)
     with tempfile.TemporaryDirectory(prefix="chip-smoke-") as state_dir:
-        phase_quickstart(dev, state_dir)
+        timed_phase("quickstart", phase_quickstart, dev, state_dir)
     data = analytic_data(dev)
-    analytic = phase_analytic(dev, data)
+    analytic = timed_phase("analytic", phase_analytic, dev, data)
     with tempfile.TemporaryDirectory(prefix="chip-smoke-") as state_dir:
-        serving = phase_serving(dev, data, state_dir)
+        serving = timed_phase("serving", phase_serving, dev, data, state_dir)
         procpool = phase_procpool(dev, data, state_dir)
     del data
     lm_dense = phase_lm(dev, "internlm2-1.8b")
@@ -2799,12 +2895,15 @@ def main() -> int:
     lm_moe_grok = phase_lm(dev, grok.name, cfg=_cut(grok, GROK_DEPTH),
                            n_req=GROK_REQUESTS, phase="lm_moe_grok",
                            cpu_check=False, decode_check_depth=1)
+    lm_hybrid = phase_lm(dev, "zamba2-7b", n_req=HYBRID_REQUESTS,
+                         phase="lm_hybrid", cpu_check_depth=HYBRID_CHECK_DEPTH)
     train = phase_train(dev)
     emit("total", seconds=time.perf_counter() - t0,
          host_behind=HOST_BEHIND)
     print(json.dumps(kernels_line(haar_row, knn_rows, flash_rows, ssd_rows,
                                   analytic, serving, procpool, lm_dense,
-                                  lm_ssm, lm_moe, lm_moe_grok, train)),
+                                  lm_ssm, lm_moe, lm_moe_grok, lm_hybrid,
+                                  train)),
           flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

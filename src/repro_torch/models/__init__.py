@@ -1,2 +1,4 @@
-"""LM models of the port: the dense/GQA transformer and the Mamba2 SSM LM
-behind ``repro_torch.models.api`` (the serving part of ``repro.models``)."""
+"""LM models of the port: the dense/GQA and MoE transformer, the Mamba2
+SSM LM and the Mamba2 / shared-attention hybrid behind
+``repro_torch.models.api`` (the serving and training part of
+``repro.models``)."""

@@ -12,11 +12,12 @@
   count_params(cfg, active_only)        -> parameter count (shapes only)
 
 Families ``dense``, ``moe`` (MoE blocks, MLA attention: the transformer's
-routes) and ``ssm`` are ported; ``vlm``, ``hybrid`` and ``encdec`` raise
-``NotImplementedError`` naming their ROADMAP item, and so do the partition
-specs.  Prefill and decode run under
-``torch.inference_mode()`` (decode updates the cache in place); the train
-step runs with gradients and returns a new state, as the reference's does.
+routes), ``ssm`` and ``hybrid`` (Mamba2 layers and a shared attention
+block) are ported; ``vlm`` and ``encdec`` raise ``NotImplementedError``
+naming their ROADMAP item, and so do the partition specs.  Prefill and
+decode run under ``torch.inference_mode()`` (decode updates the cache in
+place); the train step runs with gradients and returns a new state, as
+the reference's does.
 """
 from __future__ import annotations
 
@@ -26,25 +27,26 @@ import torch
 
 from repro_torch.configs.base import ArchConfig, PlanConfig, ShapeConfig
 from repro_torch.core.tables import resolve_device
-from repro_torch.models import ssm_lm
+from repro_torch.models import hybrid, ssm_lm
 from repro_torch.models import transformer as T
 from repro_torch.models.layers import not_ported
 from repro_torch.tree import tree_leaves, tree_map, tree_unflatten
 from repro_torch.optim.compression import int8_ef_compress, int8_ef_init
 
 F32_SENSITIVE = {"router", "A_log", "dt_bias", "Dskip"}
-PORTED_FAMILIES = ("dense", "moe", "ssm")
+PORTED_FAMILIES = ("dense", "moe", "ssm", "hybrid")
 EXPERT_LEAVES = {"we1", "we2", "we3"}      # routed experts' weights
 
 
 def _family(cfg: ArchConfig) -> str:
-    """The family's route: "transformer" (dense and MoE) or "ssm"."""
+    """The family's route: "transformer" (dense and MoE), "ssm" or
+    "hybrid"."""
     if cfg.family not in PORTED_FAMILIES:
-        if cfg.family not in ("vlm", "hybrid", "encdec"):
+        if cfg.family not in ("vlm", "encdec"):
             raise ValueError(cfg.family)
         raise not_ported(f"the {cfg.family} family",
                          f"LM side, {cfg.family}")
-    return "ssm" if cfg.family == "ssm" else "transformer"
+    return cfg.family if cfg.family in ("ssm", "hybrid") else "transformer"
 
 
 def init_params(cfg: ArchConfig, gen, plan: PlanConfig = PlanConfig(),
@@ -53,8 +55,11 @@ def init_params(cfg: ArchConfig, gen, plan: PlanConfig = PlanConfig(),
     ``torch.Generator`` ``gen`` (on ``device``).  ``device=None`` means the
     CUDA card; ``"meta"`` gives shapes only and reads no generator."""
     dev = resolve_device(device)
-    if _family(cfg) == "transformer":
+    family = _family(cfg)
+    if family == "transformer":
         return T.init_lm(cfg, gen, plan, device=dev)
+    if family == "hybrid":
+        return hybrid.init_hybrid(cfg, gen, plan, device=dev)
     return ssm_lm.init_ssm_lm(cfg, gen, plan, device=dev)
 
 
@@ -71,23 +76,34 @@ def cast_params(params, dtype):
 
 
 def get_loss_fn(cfg: ArchConfig, plan: PlanConfig):
-    if _family(cfg) == "transformer":
+    family = _family(cfg)
+    if family == "transformer":
         return lambda p, b: T.lm_loss(cfg, plan, p, b["tokens"])
+    if family == "hybrid":
+        return lambda p, b: hybrid.hybrid_loss(cfg, plan, p, b["tokens"])
     return lambda p, b: ssm_lm.ssm_lm_loss(cfg, plan, p, b["tokens"])
 
 
 def make_prefill(cfg: ArchConfig, shape: ShapeConfig, plan: PlanConfig):
     max_len = shape.seq_len
-    if _family(cfg) == "transformer":
+    family = _family(cfg)
+    if family == "transformer":
         fn = lambda p, b: T.lm_prefill(cfg, plan, p, b["tokens"], max_len)
+    elif family == "hybrid":
+        fn = lambda p, b: hybrid.hybrid_prefill(cfg, plan, p, b["tokens"],
+                                                max_len)
     else:
         fn = lambda p, b: ssm_lm.ssm_prefill(cfg, plan, p, b["tokens"])
     return torch.inference_mode()(fn)
 
 
 def make_decode_step(cfg: ArchConfig, shape: ShapeConfig, plan: PlanConfig):
-    if _family(cfg) == "transformer":
+    family = _family(cfg)
+    if family == "transformer":
         fn = lambda p, c, t, pos: T.lm_decode_step(cfg, plan, p, c, t, pos)
+    elif family == "hybrid":
+        fn = lambda p, c, t, pos: hybrid.hybrid_decode_step(cfg, plan, p, c,
+                                                            t, pos)
     else:
         fn = lambda p, c, t, pos: ssm_lm.ssm_decode_step(cfg, plan, p, c, t,
                                                          pos)
@@ -95,10 +111,14 @@ def make_decode_step(cfg: ArchConfig, shape: ShapeConfig, plan: PlanConfig):
 
 
 def init_cache(cfg: ArchConfig, batch: int, max_len: int, dtype, device):
-    """The decode cache of a family: the KV cache (GQA or MLA) or the SSM
-    states."""
-    if _family(cfg) == "transformer":
+    """The decode cache of a family: the KV cache (GQA or MLA), the SSM
+    states, or both (hybrid)."""
+    family = _family(cfg)
+    if family == "transformer":
         return T.init_cache(cfg, batch, max_len, dtype, device=device)
+    if family == "hybrid":
+        return hybrid.init_hybrid_cache(cfg, batch, max_len, dtype,
+                                        device=device)
     return ssm_lm.init_ssm_cache(cfg, batch, dtype, device=device)
 
 

@@ -8,7 +8,8 @@ index order.  The port runs on one device, so the reference's sharding
 constraints (``pcon``) are dropped.
 
 Full-sequence attention in prefill and training (causal self-attention,
-the only kind the ported families run) goes through the flash-attention
+the only kind the ported families run: the dense and MoE transformers'
+and the hybrid's shared block) goes through the flash-attention
 kernel, ``kernels.ops.flash_attention``, in place of the reference's
 query-chunked jnp ``sdpa_chunked``, with the GQA KV heads read in place (no
 expanded or folded copies); with gradients it is the kernel's

@@ -326,6 +326,7 @@ def test_flash_variant_counters(cuda, dtype, d, kind):
 _SSD_SHAPES = [
     (16, 128, 32, 64, 1, 128),                 # the SSM prefill path (mamba2)
     (4, 128, 8, 64, 1, 64),                    # zamba2's p and n
+    (2, 128, 112, 64, 1, 64),                  # and its 112 heads
     (2, 128, 8, 64, 2, 32),
     (3, 40, 6, 17, 2, 9),
     (5, 77, 4, 33, 2, 31),
@@ -406,20 +407,45 @@ def test_lm_kernels_refuse_what_they_do_not_take(cuda):
 
 
 LM_NAMES = ["internlm2-1.8b", "mamba2-370m", "deepseek-v2-lite-16b",
-            "grok-1-314b"]
+            "grok-1-314b", "zamba2-7b"]
 
 
-def _lm_kernel(cfg) -> str:
-    """The launch counter of the kernel that a float32 prefill of the
-    config runs in every layer: flash attention at the q/k width (MLA:
-    qk_nope + qk_rope) or SSD."""
-    if cfg.family == "ssm":
-        ssm = cfg.ssm
-        return "ssd_intra_" + ssd_variant(ssm.chunk, ssm.head_dim,
-                                          ssm.state_dim)
+def _flash_counter(cfg) -> str:
+    """The launch counter of a float32 flash call at the config's q/k
+    width (MLA: qk_nope + qk_rope)."""
     d = cfg.head_dim if cfg.mla is None else \
         cfg.mla.qk_nope_head_dim + cfg.mla.qk_rope_head_dim
     return "flash_attention_" + variant(torch.float32, d)
+
+
+def _prefill_launches(cfg) -> dict:
+    """{launch counter: launches} of one float32 prefill of the config:
+    SSD in every Mamba layer, flash attention in every attention layer
+    (the hybrid: its shared block, once a group); chip_smoke's map."""
+    out = {}
+    if cfg.family in ("ssm", "hybrid"):
+        ssm = cfg.ssm
+        out["ssd_intra_" + ssd_variant(ssm.chunk, ssm.head_dim,
+                                       ssm.state_dim)] = cfg.num_layers
+    if cfg.family != "ssm":
+        out[_flash_counter(cfg)] = (
+            cfg.num_layers // cfg.attn_period if cfg.family == "hybrid"
+            else cfg.num_layers)
+    return out
+
+
+def _step_launches(cfg) -> dict:
+    """{launch counter: launches} of one train step under block remat:
+    twice a layer, but in the hybrid's tail, which is not
+    rematerialized."""
+    tail = cfg.num_layers % cfg.attn_period if cfg.family == "hybrid" else 0
+    return {k: 2 * n - (tail if k.startswith("ssd_") else 0)
+            for k, n in _prefill_launches(cfg).items()}
+
+
+def _only(launches: dict, want: dict) -> bool:
+    """Each counter of ``want`` at its count, every other counter 0."""
+    return launches == {k: want.get(k, 0) for k in launches}
 
 
 @pytest.mark.parametrize("name", LM_NAMES)
@@ -446,9 +472,8 @@ def test_smoke_batch_server_on_cuda_launches_the_kernels(cuda, name):
     srv.run(reqs)
     launches = ops.launches()
     assert all(r.done and len(r.out_tokens) == 6 for r in reqs)
-    kernel = _lm_kernel(cfg)
-    assert launches[kernel] == cfg.num_layers * 3
-    assert all(n == 0 for name, n in launches.items() if name != kernel)
+    want = {k: 3 * n for k, n in _prefill_launches(cfg).items()}
+    assert _only(launches, want), (launches, want)
 
 
 # -- training: the kernels' gradients and a train step ------------------------
@@ -526,7 +551,7 @@ def test_smoke_train_step_on_cuda_matches_cpu(cuda, name):
                         tree_map(lambda t: t.to(cuda), batch))
     launches = ops.launches()
     host, m_host = step(state, batch)
-    assert launches[_lm_kernel(cfg)] == 2 * cfg.num_layers
+    assert _only(launches, _step_launches(cfg)), launches
     np.testing.assert_allclose(float(m_card["loss"]), float(m_host["loss"]),
                                rtol=1e-4)
     np.testing.assert_allclose(float(m_card["grad_norm"]),
@@ -563,7 +588,7 @@ def test_mla_attention_on_cuda_matches_cpu(cuda):
                                x.to(cuda), pos.to(cuda))
     launches = ops.launches()
     want, (wc, wkr) = L.mla_apply(p, cfg, x, pos)
-    assert launches[_lm_kernel(cfg)] == 1
+    assert launches[_flash_counter(cfg)] == 1
     for a, b in ((got, want), (c, wc), (kr, wkr)):
         torch.testing.assert_close(a.cpu(), b, rtol=1e-4, atol=1e-4)
 

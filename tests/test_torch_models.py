@@ -1,7 +1,8 @@
 """The port's LM serving path against the reference, on the smoke configs
 of internlm2-1.8b (dense GQA), mamba2-370m (SSM), deepseek-v2-lite-16b (MoE
-with MLA and a dense first layer) and grok-1-314b (MoE with GQA) in
-float32.
+with MLA and a dense first layer), grok-1-314b (MoE with GQA) and
+zamba2-7b (hybrid: Mamba2 layers and a shared attention block with LoRA
+deltas, in its own test also non-zero ones) in float32.
 
 The reference's parameters (``repro.models.api.init_params``) go through
 ``convert.params_from_numpy`` into the port, and the same numpy tokens go
@@ -15,6 +16,7 @@ import torch
 
 from repro.configs import PlanConfig, ShapeConfig, get_arch
 from repro.models import api as japi
+from repro.models import hybrid as JH
 from repro.models import layers as JL
 from repro.models import ssm as JM
 from repro.models import ssm_lm as JS
@@ -36,7 +38,7 @@ PLAN = PlanConfig(param_dtype="float32", compute_dtype="float32",
                   attn_chunk=8, remat="none")
 TPLAN = TPlan(param_dtype="float32", compute_dtype="float32", remat="none")
 NAMES = ["internlm2-1.8b", "mamba2-370m", "deepseek-v2-lite-16b",
-         "grok-1-314b"]
+         "grok-1-314b", "zamba2-7b"]
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -54,9 +56,22 @@ def _cfgs(name):
     return get_arch(name).smoke(), tget(name).smoke()
 
 
-def _params(cfg, seed=0):
+def _params(cfg, seed=0, lora=False):
     jp = japi.init_params(cfg, jax.random.PRNGKey(seed), PLAN)
+    if lora:
+        jp = _with_lora_deltas(jp)
     return jp, params_from_numpy(jax.tree.map(np.asarray, jp), "cpu")
+
+
+def _with_lora_deltas(jp, seed=7):
+    """A hybrid's reference parameters with the LoRA ``b_*`` (zero in the
+    reference's init) set to seeded N(0, 0.1²) values, so that the deltas
+    W + a·b move every shared-block weight."""
+    rng = np.random.default_rng(seed)
+    lora = {k: (jnp.asarray(0.1 * rng.standard_normal(v.shape), v.dtype)
+                if k.startswith("b_") else v)
+            for k, v in jp["lora"].items()}
+    return dict(jp, lora=lora)
 
 
 def _close(port, ref, **tol):
@@ -205,15 +220,18 @@ def test_ssd_chunked_matches_reference(s, init):
     _close(tf, jf)
 
 
-def _prefill_both(name, S, batch=1, max_len=32):
+def _prefill_both(name, S, batch=1, max_len=32, lora=False):
     cfg, tcfg = _cfgs(name)
-    jp, tp = _params(cfg)
+    jp, tp = _params(cfg, lora=lora)
     toks = _tokens(cfg, (batch, S), S)
+    shape = ShapeConfig("serve", "prefill", max_len, batch)
     if cfg.family == "ssm":
         jout = JS.ssm_prefill(cfg, PLAN, jp, jnp.asarray(toks))
+    elif cfg.family == "hybrid":            # inline in the reference's api
+        jout = japi.make_prefill(cfg, shape, PLAN)(
+            jp, {"tokens": jnp.asarray(toks)})
     else:
         jout = JT.lm_prefill(cfg, PLAN, jp, jnp.asarray(toks), max_len)
-    shape = ShapeConfig("serve", "prefill", max_len, batch)
     tout = tapi.make_prefill(tcfg, shape, TPLAN)(
         tp, {"tokens": torch.from_numpy(toks)})
     return cfg, tcfg, jp, tp, jout, tout
@@ -231,8 +249,12 @@ def test_prefill_matches_reference(name):
 
 @pytest.mark.parametrize("name", NAMES)
 def test_decode_step_matches_reference(name):
+    _decode_step_matches_reference(name)
+
+
+def _decode_step_matches_reference(name, lora=False):
     cfg, tcfg, jp, tp, (jl, jc, jpos), (tl, tc, tpos) = _prefill_both(
-        name, 11, batch=2)
+        name, 11, batch=2, lora=lora)
     tok = jnp.argmax(jl, axis=-1).astype(jnp.int32)
     shape = ShapeConfig("serve", "decode", 32, 2)
     jn, jc2 = japi.make_decode_step(cfg, shape, PLAN)(jp, jc, tok, jpos)
@@ -245,19 +267,24 @@ def test_decode_step_matches_reference(name):
 
 
 def test_unported_families_raise():
-    for name in ("zamba2-7b", "seamless-m4t-medium", "internvl2-26b"):
+    for name in ("seamless-m4t-medium", "internvl2-26b"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             tapi.init_params(tget(name).smoke(), torch.Generator(),
                              device="cpu")
 
 
-def _serve_both(name, lengths, new_tokens=5, slots=3, max_len=40):
+def _serve_both(name, lengths, new_tokens=5, slots=3, max_len=40,
+                lora=False):
     cfg, tcfg = _cfgs(name)
-    jp, tp = _params(cfg)
+    jp, tp = _params(cfg, lora=lora)
     shape = ShapeConfig("serve", "decode", max_len, slots)
     if cfg.family == "ssm":
         jpre = jax.jit(lambda p, t: JS.ssm_prefill(cfg, PLAN, p, t))
         jinit = lambda b, ml: JS.init_ssm_cache(cfg, b, jnp.float32)
+    elif cfg.family == "hybrid":
+        jpre_b = japi.make_prefill(cfg, shape, PLAN)
+        jpre = jax.jit(lambda p, t: jpre_b(p, {"tokens": t}))
+        jinit = lambda b, ml: JH.init_hybrid_cache(cfg, b, ml, jnp.float32)
     else:
         jpre = jax.jit(lambda p, t: JT.lm_prefill(cfg, PLAN, p, t, max_len))
         jinit = lambda b, ml: JT.init_cache(cfg, b, ml, jnp.float32)
@@ -288,11 +315,18 @@ def _serve_both(name, lengths, new_tokens=5, slots=3, max_len=40):
     # MoE decode routes all three slots as one group, the idle one too
     ("deepseek-v2-lite-16b", [13, 1, 13, 1]),
     ("grok-1-314b", [13, 1, 13, 1]),
+    ("zamba2-7b", [13, 1, 13, 1]),
+    # the hybrid's Mamba layers carry the short conv tail too
+    ("zamba2-7b", [13, 2, 13, 2]),
 ])
 def test_batch_server_gives_the_reference_tokens(name, lengths):
     """Four requests on three slots (one waits for a free slot), two prompt
     lengths (two prefill compiles on the reference side)."""
-    jsrv, tsrv, jreqs, treqs = _serve_both(name, lengths)
+    _batch_server_gives_the_reference_tokens(name, lengths)
+
+
+def _batch_server_gives_the_reference_tokens(name, lengths, lora=False):
+    jsrv, tsrv, jreqs, treqs = _serve_both(name, lengths, lora=lora)
     assert all(r.done for r in treqs)
     assert [r.out_tokens for r in treqs] == [r.out_tokens for r in jreqs]
     assert all(len(r.out_tokens) == 5 for r in treqs)
@@ -301,16 +335,42 @@ def test_batch_server_gives_the_reference_tokens(name, lengths):
     _same_cache(tsrv.cache, jsrv.cache)
 
 
+@pytest.mark.parametrize("step", ["prefill", "decode", "batch_server"])
+def test_hybrid_with_lora_deltas_matches_reference(step):
+    """The hybrid with non-zero LoRA ``b_*`` in both packages, so that
+    ``_shared_effective``'s W + a·b moves every group's shared block:
+    prefill logits and every cache leaf, a decode step, and BatchServer
+    tokens with a 2-token prompt."""
+    if step == "prefill":
+        *_, (jl, jc, jpos), (tl, tc, tpos) = _prefill_both(
+            "zamba2-7b", 21, batch=2, lora=True)
+        _close(tl, jl)
+        _close(tpos, jpos, rtol=0, atol=0)
+        _same_cache(tc, jc)
+        *_, (jl0, _, _), _ = _prefill_both("zamba2-7b", 21, batch=2)
+        assert float(np.abs(np.asarray(jl) - np.asarray(jl0)).max()) > 1e-2
+    elif step == "decode":
+        _decode_step_matches_reference("zamba2-7b", lora=True)
+    else:
+        _batch_server_gives_the_reference_tokens("zamba2-7b", [13, 2, 13, 2],
+                                                 lora=True)
+
+
 def _constructors():
     """The model-module constructors, each with its arguments but the
     device."""
+    from repro_torch.models import hybrid as TH
     from repro_torch.models import moe as TMoE
     from repro_torch.models import ssm_lm as TS
     from repro_torch.models import transformer as TT
     dense, ssm = tget("internlm2-1.8b").smoke(), tget("mamba2-370m").smoke()
     moe = tget("deepseek-v2-lite-16b").smoke()
+    hyb = tget("zamba2-7b").smoke()
     gen = torch.Generator()
     return {
+        "init_hybrid": lambda **kw: TH.init_hybrid(hyb, gen, TPLAN, **kw),
+        "init_hybrid_cache": lambda **kw: TH.init_hybrid_cache(
+            hyb, 2, 8, torch.float32, **kw),
         "init_lm": lambda **kw: TT.init_lm(dense, gen, TPLAN, **kw),
         "init_cache": lambda **kw: TT.init_cache(dense, 2, 8, torch.float32,
                                                  **kw),
@@ -325,7 +385,8 @@ def _constructors():
 
 @pytest.mark.parametrize("name", ["init_lm", "init_cache", "init_ssm_lm",
                                   "init_ssm_cache", "init_mamba_state",
-                                  "init_mla", "init_moe"])
+                                  "init_mla", "init_moe", "init_hybrid",
+                                  "init_hybrid_cache"])
 def test_constructors_take_no_default_device(name):
     """A caller that skips ``api`` names the device: no constructor falls
     back to the CPU."""

@@ -178,8 +178,8 @@ def test_unported_hooks_raise_not_implemented(monkeypatch):
     health.after_plan([("dense_array", 0.1)])
     assert health._stragglers["dense_array"].n == 1
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tapi.init_params(get_arch("zamba2-7b").smoke(), torch.Generator(),
-                         device="cpu")
+        tapi.init_params(get_arch("seamless-m4t-medium").smoke(),
+                         torch.Generator(), device="cpu")
 
 
 def _imports(path: Path):

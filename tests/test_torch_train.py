@@ -456,8 +456,7 @@ def test_restart_reproduces_uninterrupted_run(tmp_path):
 
 # -- families not ported yet --------------------------------------------------
 
-@pytest.mark.parametrize("name,item", [("zamba2-7b", "hybrid"),
-                                       ("seamless-m4t-medium", "encdec"),
+@pytest.mark.parametrize("name,item", [("seamless-m4t-medium", "encdec"),
                                        ("internvl2-26b", "vlm")])
 def test_unported_families_raise_naming_their_item(name, item):
     cfg = tget(name).smoke()
