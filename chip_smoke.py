@@ -14,10 +14,15 @@ process), then LM serving
 (``BatchServer`` prefill + continuous-batching decode) of internlm2-1.8b,
 mamba2-370m, deepseek-v2-lite-16b (MoE, MLA) and zamba2-7b (hybrid: 81
 Mamba2 layers and a shared attention block 13 times, both LM kernels in one
-model) at full width and depth and of grok-1-314b (MoE) at full width and
-depth 2, with bfloat16 parameters from the port's seeded init, and last LM
-training of internlm2, mamba2, deepseek (at depth 3) and zamba2 (at depth
-13) (``train``: the kernels' gradients against the plain versions, a
+model), internvl2-26b (vision-language: 256 patch embeddings before the
+prompt, 48 heads over 8 KV heads) and seamless-m4t-medium
+(encoder-decoder: a non-causal encoder over 4096 frames, a decoder with
+cross-attention) at full width and depth and of grok-1-314b (MoE) at full
+width and depth 2, with bfloat16 parameters from the port's seeded init,
+and last LM training of internlm2, mamba2 (at depth 24), deepseek (at
+depth 3), zamba2 (at depth 13), internvl2 (at depth 2) and seamless
+(``train``: the
+kernels' gradients against the plain versions, a
 float32 step on the card against the CPU, steps from ``TokenStream``
 batches through ``ShardedLoader``, and a ``Trainer`` run with injected
 failures against an uninterrupted one).
@@ -31,7 +36,9 @@ kernel with its launches on its path
 (Haar and kNN on the analytic, the tensor-core kNN on the serving phase,
 and both in the procpool phase's workers as ``pool_launches``,
 the bfloat16 tensor-core flash attention on the dense LM's bfloat16
-serving, the float32 (3xTF32) one on its float32 prefill check, the
+serving (and as entries of their own on internvl2's at a GQA group of 6
+and seamless's at d 64), the float32 (3xTF32) one on its float32 prefill
+check, the
 warp-level tensor-core one on deepseek's MLA serving at head width 192
 (and as its own entry on zamba2's at 112),
 the CUDA-core one on the flash phase's entry-point calls at widths
@@ -77,7 +84,6 @@ from repro_torch.core.engines import ENGINES  # noqa: E402
 from repro_torch.core.middleware import _plan_from_key  # noqa: E402
 from repro_torch.core.qlang import bigdawg  # noqa: E402
 from repro_torch.ckpt import CheckpointManager  # noqa: E402
-from repro_torch.convert import train_state_from_numpy  # noqa: E402
 from repro_torch.data import (ShardedLoader, TokenStream,  # noqa: E402
                               ecg_waveforms)
 from repro_torch.kernels import _build, ops  # noqa: E402
@@ -90,6 +96,7 @@ from repro_torch.kernels.knn import (  # noqa: E402
 from repro_torch.kernels.ssd_scan import (  # noqa: E402
     ssd_intra_cuda, ssd_intra_ref, variant as ssd_variant)
 from repro_torch.models import api  # noqa: E402
+from repro_torch.models.encdec import DECODE_ENC_LEN  # noqa: E402
 from repro_torch.models.hybrid import _geometry as hybrid_geometry  # noqa: E402
 from repro_torch.models import moe as M  # noqa: E402
 from repro_torch.models import transformer as T  # noqa: E402
@@ -161,59 +168,88 @@ KNN_TOL = {torch.float32: (1e-4, 1e-3), torch.bfloat16: (2e-2, 0.3)}
 # L2 cache of the H100 (50 MB): inputs that the path reads cold are rotated
 # through copies that together exceed it twice
 L2_BYTES = 50e6
-# (BH, S, d, causal, dtype), the (BH, S, d) form; the first three are the
-# dense prefill's attention folded (internlm2: 16 heads of 128, a 2048-token
-# prompt) in bfloat16 and float32, and float32 at d 64, the rest ragged.
-# Every float32 shape that a wgmma kernel takes, and every shape that the
-# warp-level kernel ("mma") takes, is also checked on the CUDA-core kernel.
-FLASH_SHAPES = [(16, 2048, 128, True, torch.bfloat16),
-                (16, 2048, 128, True, torch.float32),
-                (16, 2048, 64, True, torch.float32),
-                (4, 1, 64, True, torch.float32),
-                (4, 77, 80, True, torch.float32),
-                (2, 1000, 64, True, torch.float32),
-                (2, 1000, 80, False, torch.float32),
-                (3, 200, 128, False, torch.float32),
-                (3, 129, 17, True, torch.bfloat16),
-                (3, 150, 40, True, torch.bfloat16),
-                (3, 150, 40, False, torch.float32),
-                (2, 97, 256, True, torch.float32),
-                (2, 97, 256, False, torch.bfloat16)]
+# (BH, Sq, Sk, d, causal, dtype), the (BH, S, d) form; the first three are
+# the dense prefill's attention folded (internlm2: 16 heads of 128, a
+# 2048-token prompt) in bfloat16 and float32, and float32 at d 64, the rest
+# ragged, the last two non-causal with Sq != Sk.  Every float32 shape that
+# a wgmma kernel takes, and every shape that the warp-level kernel ("mma")
+# takes, is also checked on the CUDA-core kernel.
+FLASH_SHAPES = [(16, 2048, 2048, 128, True, torch.bfloat16),
+                (16, 2048, 2048, 128, True, torch.float32),
+                (16, 2048, 2048, 64, True, torch.float32),
+                (4, 1, 1, 64, True, torch.float32),
+                (4, 77, 77, 80, True, torch.float32),
+                (2, 1000, 1000, 64, True, torch.float32),
+                (2, 1000, 1000, 80, False, torch.float32),
+                (3, 200, 200, 128, False, torch.float32),
+                (3, 129, 129, 17, True, torch.bfloat16),
+                (3, 150, 150, 40, True, torch.bfloat16),
+                (3, 150, 150, 40, False, torch.float32),
+                (2, 97, 97, 256, True, torch.float32),
+                (2, 97, 97, 256, False, torch.bfloat16),
+                (4, 33, 200, 64, False, torch.float32),
+                (3, 200, 50, 128, False, torch.bfloat16)]
 # deepseek-v2-lite's MLA prefill of 2048 tokens (16 heads, q and k 192
 # wide: qk_nope 128 + qk_rope 64; v 128, zero-padded to 192 on the path)
 # and grok-1's (48 query heads over 8 KV heads of 128), both bfloat16
-MLA_FLASH_SHAPE = (1, 2048, 16, 16, 192, True, torch.bfloat16)
+MLA_FLASH_SHAPE = (1, 2048, 2048, 16, 16, 192, True, torch.bfloat16)
 MLA_V_WIDTH = 128
-GROK_FLASH_SHAPE = (1, 2048, 48, 8, 128, True, torch.bfloat16)
-# (B, S, H, KV, d, causal, dtype), the (B, S, H, d) form with the KV heads
-# read in place; first the paths' own shapes: internlm2's prefill (16 query
-# heads over 8 KV heads of 128) of 2048 tokens in bfloat16 (serving) and
-# float32 (the traced float32 prefill), of 256 in float32 (cpu_check), and
-# its smoke config's 61-token float32 prefill (ragged_check: head width 32);
-# then zamba2-7b's shared block (32 heads of 112) at 2048 tokens in both
-# dtypes (bfloat16: its serving), the MoE models' prefills, and ragged
-# shapes
-FLASH_GQA_SHAPES = [(1, 2048, 16, 8, 128, True, torch.bfloat16),
-                    (1, 2048, 16, 8, 128, True, torch.float32),
-                    (1, 256, 16, 8, 128, True, torch.float32),
-                    (1, 61, 4, 2, 32, True, torch.float32),
-                    (1, 2048, 32, 32, 112, True, torch.bfloat16),
-                    (1, 2048, 32, 32, 112, True, torch.float32),
-                    MLA_FLASH_SHAPE, GROK_FLASH_SHAPE,
-                    (2, 1000, 4, 1, 64, False, torch.bfloat16),
-                    (1, 65, 8, 2, 80, True, torch.bfloat16),
-                    (2, 129, 6, 2, 128, True, torch.float32),
-                    (1, 333, 8, 2, 64, True, torch.float32),
-                    (1, 77, 8, 2, 40, True, torch.float32),
-                    (1, 130, 4, 2, 256, True, torch.bfloat16)]
+GROK_FLASH_SHAPE = (1, 2048, 2048, 48, 8, 128, True, torch.bfloat16)
+# internvl2-26b's prefill of 256 patches and a 2048-token prompt (grok's
+# group of 6: 48 heads over 8), seamless-m4t-medium's encoder over 4096
+# frames (16 heads of 64, non-causal) and its decoder's cross-attention
+# of a 77-token and a 1-token prompt against the 4096 encoder rows
+VLM_FLASH_SHAPE = (1, 2304, 2304, 48, 8, 128, True, torch.bfloat16)
+ENC_FLASH_SHAPE = (1, 4096, 4096, 16, 16, 64, False, torch.bfloat16)
+CROSS_FLASH_SHAPES = [(1, 77, 4096, 16, 16, 64, False, torch.bfloat16),
+                      (1, 1, 4096, 16, 16, 64, False, torch.bfloat16),
+                      (1, 77, 4096, 16, 16, 64, False, torch.float32),
+                      (1, 1, 4096, 16, 16, 64, False, torch.float32)]
+# (B, Sq, Sk, H, KV, d, causal, dtype), the (B, S, H, d) form with the KV
+# heads read in place; first the paths' own shapes: internlm2's prefill (16
+# query heads over 8 KV heads of 128) of 2048 tokens in bfloat16 (serving)
+# and float32 (the traced float32 prefill), of 256 in float32 (cpu_check),
+# and its smoke config's 61-token float32 prefill (ragged_check: head width
+# 32); then zamba2-7b's shared block (32 heads of 112) at 2048 tokens in
+# both dtypes (bfloat16: its serving), the MoE models', internvl2's and
+# seamless's prefills, ragged shapes, and non-causal Sq != Sk on every
+# kernel: Sq < Sk and Sq > Sk on "tc" and "tf32" at d 64 and 128, "mma" at
+# d 80 and 112 (and forced "simt" there), "simt" at d 17; Sq 1 against Sk
+# 4096 on "tc", "tf32" and "mma" (and forced "simt")
+FLASH_GQA_SHAPES = [(1, 2048, 2048, 16, 8, 128, True, torch.bfloat16),
+                    (1, 2048, 2048, 16, 8, 128, True, torch.float32),
+                    (1, 256, 256, 16, 8, 128, True, torch.float32),
+                    (1, 61, 61, 4, 2, 32, True, torch.float32),
+                    (1, 2048, 2048, 32, 32, 112, True, torch.bfloat16),
+                    (1, 2048, 2048, 32, 32, 112, True, torch.float32),
+                    MLA_FLASH_SHAPE, GROK_FLASH_SHAPE, VLM_FLASH_SHAPE,
+                    ENC_FLASH_SHAPE, *CROSS_FLASH_SHAPES,
+                    (2, 1000, 1000, 4, 1, 64, False, torch.bfloat16),
+                    (1, 65, 65, 8, 2, 80, True, torch.bfloat16),
+                    (2, 129, 129, 6, 2, 128, True, torch.float32),
+                    (1, 333, 333, 8, 2, 64, True, torch.float32),
+                    (1, 77, 77, 8, 2, 40, True, torch.float32),
+                    (1, 130, 130, 4, 2, 256, True, torch.bfloat16),
+                    (2, 300, 130, 4, 2, 128, False, torch.bfloat16),
+                    (1, 130, 300, 8, 2, 128, False, torch.float32),
+                    (2, 300, 130, 4, 2, 64, False, torch.float32),
+                    (1, 77, 333, 8, 2, 80, False, torch.bfloat16),
+                    (2, 300, 130, 4, 2, 64, False, torch.bfloat16),
+                    (1, 130, 300, 8, 2, 128, False, torch.bfloat16),
+                    (2, 300, 130, 4, 2, 128, False, torch.float32),
+                    (1, 300, 97, 4, 4, 112, False, torch.float32),
+                    (1, 1, 4096, 4, 4, 32, False, torch.float32),
+                    (2, 70, 150, 4, 2, 17, False, torch.bfloat16),
+                    (2, 150, 70, 4, 1, 17, False, torch.float32)]
 # the (shape, kernel) pairs that phase_flash times, with their row's name:
 # each kernel at its path's shape ("tc", "tf32", "mma"); the CUDA-core
 # kernel, forced, at the warp-level kernel's path shape ("simt_before":
 # its time before "mma" took that path) and at zamba2's width, beside the
 # warp-level kernel on zamba2's path; the MoE models' prefills (MLA at d 192 on "mma",
-# grok's group of 6 on "tc"); and the folded forms at 2048 tokens, where the
-# CUDA-core kernel, forced, is the float32 kernel's time before the 3xTF32
-# one took the shape
+# grok's group of 6 on "tc"), internvl2's group of 6 and seamless's
+# non-causal encoder at d 64 on "tc"; and the folded forms at 2048 tokens,
+# where the CUDA-core kernel, forced, is the float32 kernel's time before
+# the 3xTF32 one took the shape
 FLASH_TIMED = {(FLASH_GQA_SHAPES[0], "tc"): "tc",
                (FLASH_GQA_SHAPES[1], "tf32"): "tf32",
                (FLASH_GQA_SHAPES[3], "mma"): "mma",
@@ -224,6 +260,8 @@ FLASH_TIMED = {(FLASH_GQA_SHAPES[0], "tc"): "tc",
                (FLASH_GQA_SHAPES[5], "simt"): "simt_d112_f32",
                (MLA_FLASH_SHAPE, "mma"): "mma_d192",
                (GROK_FLASH_SHAPE, "tc"): "tc_gqa6",
+               (VLM_FLASH_SHAPE, "tc"): "tc_gqa6_vlm",
+               (ENC_FLASH_SHAPE, "tc"): "tc_d64_noncausal",
                (FLASH_SHAPES[0], "tc"): "tc_folded",
                (FLASH_SHAPES[1], "tf32"): "tf32_folded",
                (FLASH_SHAPES[1], "simt"): "simt_folded",
@@ -276,50 +314,77 @@ GROK_DEPTH, GROK_REQUESTS = 2, 4
 # cpu_check runs one group and the tail (depth 7: G 1, T 1), since at
 # depth 2 no group, so no shared block, would run
 HYBRID_REQUESTS, HYBRID_CHECK_DEPTH = 8, 7
+# internvl2-26b and seamless-m4t-medium serve at full width and depth with
+# fewer requests.  Their frontends are stubs: one seeded standard-normal
+# tensor a phase, shared by its requests (the server passes a prefill only
+# the tokens): internvl2's 256 patch embeddings, seamless's DECODE_ENC_LEN
+# (4096) frames, so that no request's encoder rows are zero-filled.
+# seamless's decoder prompts are 1-128 tokens (default_rng(0)), one a
+# single token (the reference's BOS-only prefill); its float32 cpu_check
+# encodes the first CPU_CHECK_FRAMES frames
+VLM_REQUESTS, ENCDEC_REQUESTS = 4, 8
+ENCDEC_PROMPT, CPU_CHECK_FRAMES = (1, 129), 512
 # decode_vs_prefill: in bfloat16 the kernel prefill and the plain decode
 # round at other places over the whole depth; a token that differs must be
 # a near-tie, its prefill logit within this margin of the prefill's argmax
 DECODE_NEAR_TIE = 0.5
 # LM training (phase "train"): batch at S 2048 per model, full width and
-# depth (deepseek-v2-lite at TRAIN_DEPTH: its dense first layer and two MoE
-# layers, 1.67 B parameters), PlanConfig defaults (bfloat16 compute,
+# depth but TRAIN_DEPTH's (deepseek-v2-lite: its dense first layer and two
+# MoE layers, 1.67 B parameters), PlanConfig defaults (bfloat16 compute,
 # float32 master and moments, block remat, attention and loss chunks of
-# 1024); one warm-up step, then TRAIN_STEPS timed ones, with AdamW at
-# TRAIN_LR
+# 1024); one warm-up step, then TRAIN_STEPS timed ones (4 since PR 22,
+# for the time budget: their medians came within 2% of 8's), with AdamW
+# at TRAIN_LR
 TRAIN_BATCH = {"internlm2-1.8b": 4, "mamba2-370m": 8,
-               "deepseek-v2-lite-16b": 4, "zamba2-7b": 4}
+               "deepseek-v2-lite-16b": 4, "zamba2-7b": 4,
+               "internvl2-26b": 4, "seamless-m4t-medium": 4}
 # zamba2 at depth 13: two groups of 6 and one tail layer, 1.34 B
-# parameters (the whole model's float32 master and moments are 80 GB)
-TRAIN_DEPTH = {"deepseek-v2-lite-16b": 3, "zamba2-7b": 13}
-TRAIN_SEQ, TRAIN_STEPS, TRAIN_LR = 2048, 8, 1e-3
+# parameters (the whole model's float32 master and moments are 80 GB);
+# internvl2 at depth 2, 1.92 B parameters (the whole model's float32
+# master and moments are 238 GB); mamba2 at depth 24 of its 48, to keep
+# the script within its time budget (its steps were the longest: 1.7 s)
+TRAIN_DEPTH = {"deepseek-v2-lite-16b": 3, "zamba2-7b": 13,
+               "internvl2-26b": 2, "mamba2-370m": 24}
+# S 2048 a row: internvl2's 256 patch embeddings and 1792 tokens;
+# seamless's 2048 frames and 2048 decoder tokens (the reference's train
+# batch, ``api.example_batch``)
+TRAIN_SEQ, TRAIN_STEPS, TRAIN_LR = 2048, 4, 1e-3
 # grad_check: gradients through the kernels' autograd Functions against
 # autograd through the plain versions, the largest error over the
 # gradient's largest magnitude: 1e-4 in float32, 2e-2 in bfloat16
 GRAD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
-# flash (B, S, H, KV, d, dtype[, v width]): internlm2's layer at B 1, and
-# in bfloat16 also at the batch of its full-depth train steps, the dense
-# smoke config's heads at S 256, and deepseek's MLA at its train steps'
-# batch (v zero-padded from 128 to q's 192, the gradient of o's padded
-# columns zero, as on the path), and zamba2's shared block at its train
-# steps' batch in both dtypes; SSD (b, Q, h, p, g, n): mamba2's chunks of
-# one 2048-token sequence (16) and of its full-depth train steps' batch (8
+# flash (B, Sq, Sk, H, KV, d, causal, dtype[, v width]): internlm2's layer
+# at B 1, and in bfloat16 also at the batch of its full-depth train steps,
+# the dense smoke config's heads at S 256, and deepseek's MLA at its train
+# steps' batch (v zero-padded from 128 to q's 192, the gradient of o's
+# padded columns zero, as on the path), zamba2's shared block at its train
+# steps' batch in both dtypes, and seamless's at its train steps' batch in
+# both dtypes: the encoder's non-causal self-attention and a
+# cross-attention of 500 decoder rows against 2048 encoder rows; SSD (b,
+# Q, h, p, g, n): mamba2's chunks of
+# one 2048-token sequence (16) and of its train steps' batch (8
 # x 16), the SSM smoke config's chunk 8, and zamba2's train steps' chunks
 # (4 x 16 at 112 heads, p 64, n 64).  Each forward output is also held
 # against the plain version at FLASH_TOL / SSD_TOL.
-FLASH_GRAD_SHAPES = [(1, 2048, 16, 8, 128, torch.bfloat16),
-                     (TRAIN_BATCH["internlm2-1.8b"], 2048, 16, 8, 128,
-                      torch.bfloat16),
-                     (1, 2048, 16, 8, 128, torch.float32),
-                     (2, 256, 4, 2, 32, torch.bfloat16),
-                     (2, 256, 4, 2, 32, torch.float32),
-                     (TRAIN_BATCH["deepseek-v2-lite-16b"], 2048, 16, 16, 192,
-                      torch.bfloat16, MLA_V_WIDTH),
-                     (TRAIN_BATCH["deepseek-v2-lite-16b"], 2048, 16, 16, 192,
-                      torch.float32, MLA_V_WIDTH),
-                     (TRAIN_BATCH["zamba2-7b"], 2048, 32, 32, 112,
-                      torch.bfloat16),
-                     (TRAIN_BATCH["zamba2-7b"], 2048, 32, 32, 112,
-                      torch.float32)]
+_ED_B = TRAIN_BATCH["seamless-m4t-medium"]
+FLASH_GRAD_SHAPES = [(1, 2048, 2048, 16, 8, 128, True, torch.bfloat16),
+                     (TRAIN_BATCH["internlm2-1.8b"], 2048, 2048, 16, 8, 128,
+                      True, torch.bfloat16),
+                     (1, 2048, 2048, 16, 8, 128, True, torch.float32),
+                     (2, 256, 256, 4, 2, 32, True, torch.bfloat16),
+                     (2, 256, 256, 4, 2, 32, True, torch.float32),
+                     (TRAIN_BATCH["deepseek-v2-lite-16b"], 2048, 2048, 16, 16,
+                      192, True, torch.bfloat16, MLA_V_WIDTH),
+                     (TRAIN_BATCH["deepseek-v2-lite-16b"], 2048, 2048, 16, 16,
+                      192, True, torch.float32, MLA_V_WIDTH),
+                     (TRAIN_BATCH["zamba2-7b"], 2048, 2048, 32, 32, 112,
+                      True, torch.bfloat16),
+                     (TRAIN_BATCH["zamba2-7b"], 2048, 2048, 32, 32, 112,
+                      True, torch.float32),
+                     (_ED_B, 2048, 2048, 16, 16, 64, False, torch.bfloat16),
+                     (_ED_B, 2048, 2048, 16, 16, 64, False, torch.float32),
+                     (_ED_B, 500, 2048, 16, 16, 64, False, torch.bfloat16),
+                     (_ED_B, 500, 2048, 16, 16, 64, False, torch.float32)]
 SSD_GRAD_SHAPES = [(16, 128, 32, 64, 1, 128),
                    (TRAIN_BATCH["mamba2-370m"] * 16, 128, 32, 64, 1, 128),
                    (8, 8, 16, 16, 1, 16),
@@ -331,8 +396,15 @@ SSD_GRAD_SHAPES = [(16, 128, 32, 64, 1, 128),
 # gradient within TRAIN_GRAD_TOL of its largest magnitude (the CPU tests'
 # tolerance for a gradient leaf against the reference)
 TRAIN_CHECK_DEPTH, TRAIN_CHECK_BATCH, TRAIN_CHECK_SEQ = 2, 2, 256
-# the hybrid's: one group and the tail (as its serving cpu_check)
-TRAIN_CHECK_DEPTHS = {"zamba2-7b": HYBRID_CHECK_DEPTH}
+# the hybrid's: one group and the tail (as its serving cpu_check); the
+# vision-language model's and the encoder-decoder's one layer (and one
+# encoder layer), at smaller (batch, tokens) so that the CPU's step at
+# their vocabularies (92,553 with an untied head; 256,206) stays near 15 s:
+# internvl2 with its 256 patches, seamless over TRAIN_CHECK_FRAMES frames
+TRAIN_CHECK_DEPTHS = {"zamba2-7b": HYBRID_CHECK_DEPTH, "internvl2-26b": 1,
+                      "seamless-m4t-medium": 1}
+TRAIN_CHECK_SIZES = {"internvl2-26b": (1, 64), "seamless-m4t-medium": (1, 256)}
+TRAIN_CHECK_FRAMES = 512
 TRAIN_GRAD_TOL = 1e-4
 # restart: mamba2-370m at full width and this depth; a run with failures
 # injected at RESTART_FAIL_AT, a checkpoint every RESTART_CKPT_EVERY steps,
@@ -382,11 +454,17 @@ def time_ms(fn, dev, n: int = 50, warmup: int = 5, label: str = "") -> float:
     warm-up's host time), so a call whose host work outlasts its kernel is
     still timed back to back on the device; if the start event has already
     passed when the last call is queued, ``label`` goes to HOST_BEHIND.
-    ``fn`` takes the call's index, so that a caller can rotate inputs."""
-    t0 = time.perf_counter()
+    The host's time a call is the median of the warm-up calls but the
+    first: the first call's one-time work (a library's plan build, a module
+    load) would otherwise lengthen the sleep by 2 ``n`` / ``warmup`` times
+    itself.  ``fn`` takes the call's index, so that a caller can rotate
+    inputs."""
+    host = []
     for i in range(warmup):
+        t0 = time.perf_counter()
         fn(i)
-    host_ms = (time.perf_counter() - t0) * 1e3 / warmup
+        host.append((time.perf_counter() - t0) * 1e3)
+    host_ms = statistics.median(host[1:] or host)
     sync(dev)
     if dev.type == "cuda":
         start = torch.cuda.Event(enable_timing=True)
@@ -586,14 +664,20 @@ def phase_knn(dev, shapes=KNN_SHAPES, k: int = K) -> dict:
     return main
 
 
-def _flash_work(b, s, h, kv, d, causal, esize, vd=None) -> tuple:
+def _flash_work(b, sq, sk, h, kv, d, causal, esize, vd=None) -> tuple:
     """(bytes, operations) of one attention call: q, k and v read once and
     o written once (k and v at their KV heads); the query-key pairs that
-    the mask keeps, a multiply-add a pair and width in each product.  v and
-    o are ``vd`` wide (d by default): MLA's v before its padding."""
+    the mask keeps (causal, top-left aligned: query i sees min(i + 1, Sk)
+    keys; else Sq x Sk), a multiply-add a pair and width in each product.
+    v and o are ``vd`` wide (d by default): MLA's v before its padding."""
     vd = d if vd is None else vd
-    pairs = s * (s + 1) / 2 if causal else s * s
-    nbytes = (b * s * (h + kv) * d + b * s * (kv + h) * vd) * esize
+    if not causal:
+        pairs = sq * sk
+    elif sq <= sk:
+        pairs = sq * (sq + 1) / 2
+    else:
+        pairs = sk * (sk + 1) / 2 + (sq - sk) * sk
+    nbytes = (b * sq * h * (d + vd) + b * sk * kv * (d + vd)) * esize
     return nbytes, 2.0 * b * h * (d + vd) * pairs
 
 
@@ -667,27 +751,28 @@ def phase_flash(dev, shapes=FLASH_SHAPES, gqa_shapes=FLASH_GQA_SHAPES,
     and SDPA, and under "entry_launches" the launches of the entry-point
     calls (the CUDA-core kernel's only caller on the card now)."""
     gen = torch.Generator(device=dev).manual_seed(2)
-    # both forms as (shape as given, form, B, S, H, KV, d, causal, dtype);
-    # (BH, S, d) is B 1 with H = KV = BH for the work it does
-    cases = ([(shape, "BH,S,d", 1, shape[1], shape[0], shape[0], *shape[2:])
-              for shape in shapes]
+    # both forms as (shape as given, form, B, Sq, Sk, H, KV, d, causal,
+    # dtype); (BH, S, d) is B 1 with H = KV = BH for the work it does
+    cases = ([(shape, "BH,S,d", 1, *shape[1:3], shape[0], shape[0],
+               *shape[3:]) for shape in shapes]
              + [(shape, "B,S,H,d", *shape) for shape in gqa_shapes])
     timed = {}
     entry = dict.fromkeys(ops.COUNTERS, 0)
-    for given, form, b, s, h, kv, d, causal, dtype in cases:
+    for given, form, b, sq, sk, h, kv, d, causal, dtype in cases:
         rnd = lambda *shape: torch.randn(shape, generator=gen,
                                          device=dev).to(dtype)
         if form == "B,S,H,d":
-            q, k, v = rnd(b, s, h, d), rnd(b, s, kv, d), rnd(b, s, kv, d)
-            shape = {"B": b, "S": s, "H": h, "KV": kv, "d": d}
+            q, k, v = rnd(b, sq, h, d), rnd(b, sk, kv, d), rnd(b, sk, kv, d)
+            shape = {"B": b, "Sq": sq, "Sk": sk, "H": h, "KV": kv, "d": d}
         else:
-            q, k, v = rnd(h, s, d), rnd(h, s, d), rnd(h, s, d)
-            shape = {"BH": h, "S": s, "d": d}
+            q, k, v = rnd(h, sq, d), rnd(h, sk, d), rnd(h, sk, d)
+            shape = {"BH": h, "Sq": sq, "Sk": sk, "d": d}
         fits = variant(dtype, d)
         kinds = [fits]
         if fits == "mma" or (dtype == torch.float32 and fits != "simt"):
             kinds.append("simt")
         for kind in kinds:
+            t_row = time.perf_counter()
             label = f"flash {kind} {shape} causal={causal} {dtype}"
             if kind == fits:
                 ops.reset_launches()
@@ -713,11 +798,16 @@ def phase_flash(dev, shapes=FLASH_SHAPES, gqa_shapes=FLASH_GQA_SHAPES,
                 library = lambda i=0: \
                     torch.nn.functional.scaled_dot_product_attention(
                         ql, kl, vl, is_causal=causal)
+                t1 = time.perf_counter()
+                library()
+                sync(dev)
+                # the library's first call at a shape (its plan's build)
+                row["library_first_call_s"] = time.perf_counter() - t1
                 row["library_ms"] = time_ms(library, dev,
                                             label=f"{tag} library")
                 row["library_kernels"] = _kernel_names(library, dev)
                 row["call_ms"] = call_ms(lambda: run(0), dev)
-                nbytes, ops_count = _flash_work(b, s, h, kv, d, causal,
+                nbytes, ops_count = _flash_work(b, sq, sk, h, kv, d, causal,
                                                 q.element_size())
                 units = _flash_units(kind, dtype)
                 row.update(bound_ms(nbytes, ops_count, units,
@@ -738,11 +828,12 @@ def phase_flash(dev, shapes=FLASH_SHAPES, gqa_shapes=FLASH_GQA_SHAPES,
                     row["v_width"] = MLA_V_WIDTH
                     row["pv_products_on_padding"] = (d - MLA_V_WIDTH) / d
                     row["bound_unpadded_ms"] = bound_ms(*_flash_work(
-                        b, s, h, kv, d, causal, q.element_size(),
+                        b, sq, sk, h, kv, d, causal, q.element_size(),
                         MLA_V_WIDTH), units)["bound_ms"]
                     del vu
                 del ql, kl, vl
                 timed[name] = dict(row)
+            row["seconds"] = time.perf_counter() - t_row
             emit("flash_attention", **row)
     emit("flash_attention_entry", launches=entry)
     if dev.type == "cuda":
@@ -1944,22 +2035,50 @@ def phase_procpool(dev, data, state_dir: str) -> dict:
 def _lm_prompts(cfg, n_req: int, one_token: bool) -> list:
     """Prompt lengths from default_rng(0) in [128, 2048], one of them
     exactly 2048 (request 1), plus a 1-token prompt for the dense model;
-    tokens from the same generator."""
+    the encoder-decoder's decoder prompts in ENCDEC_PROMPT, request 1 a
+    single token; tokens from the same generator."""
     rng = np.random.default_rng(0)
-    lengths = [int(x) for x in rng.integers(128, 2049, n_req)]
-    lengths[1] = 2048
+    if cfg.family == "encdec":
+        lengths = [int(x) for x in rng.integers(*ENCDEC_PROMPT, n_req)]
+        lengths[1] = 1
+    else:
+        lengths = [int(x) for x in rng.integers(128, 2049, n_req)]
+        lengths[1] = 2048
     if one_token:
         lengths.append(1)
     return [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
             for n in lengths]
 
 
-def _prefill_logits(cfg, plan, params, tokens: np.ndarray, dev):
-    """Last-token logits (float32, on the host) of one prompt."""
+def _stub(cfg, batch: int, seed: int, dev, dtype, frames=DECODE_ENC_LEN):
+    """The frontend stub's inputs of a family, standard normal from a
+    generator seeded with ``seed`` on ``dev``: (batch, P, D) patch
+    embeddings (vlm) or (batch, frames, D) frames (encdec); {} for the
+    families without a frontend."""
+    if cfg.family == "vlm":
+        key, shape = "patch_embeds", (batch, cfg.num_frontend_tokens,
+                                      cfg.d_model)
+    elif cfg.family == "encdec":
+        key, shape = "frames", (batch, frames, cfg.d_model)
+    else:
+        return {}
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    return {key: torch.randn(shape, generator=gen, device=dev).to(dtype)}
+
+
+def _prefill_logits(cfg, plan, params, tokens: np.ndarray, dev, stub=None):
+    """Last-token logits (float32, on the host) of one prompt, after the
+    frontend stub's inputs ``stub`` (moved to ``dev`` in the plan's
+    parameter dtype)."""
     tok = torch.as_tensor(tokens[None, :], device=dev)
-    shape = ShapeConfig("check", "prefill", len(tokens) + 1, 1)
-    logits, _, _ = api.make_prefill(cfg, shape, plan)(params,
-                                                      {"tokens": tok})
+    dtype = getattr(torch, plan.param_dtype)
+    extra = {k: t.to(dev, dtype) for k, t in (stub or {}).items()}
+    # cache rows: the patches' too
+    rows = len(tokens) + (extra["patch_embeds"].shape[1]
+                          if "patch_embeds" in extra else 0)
+    shape = ShapeConfig("check", "prefill", rows + 1, 1)
+    logits, _, _ = api.make_prefill(cfg, shape, plan)(
+        params, {"tokens": tok, **extra})
     return logits[0].float().cpu()
 
 
@@ -1967,7 +2086,8 @@ def _prefill_launches(cfg, dtype) -> dict:
     """{launch counter: launches} of one prefill of ``cfg`` in ``dtype``:
     SSD in every Mamba layer, flash attention at the q/k head width (MLA:
     qk_nope + qk_rope) in every attention layer (the hybrid: once a
-    group, its shared block)."""
+    group, its shared block; the encoder-decoder: each encoder layer and
+    twice a decoder layer, its self- and cross-attention)."""
     out = {}
     if cfg.family in ("ssm", "hybrid"):
         ssd = "ssd_intra_" + ssd_variant(cfg.ssm.chunk, cfg.ssm.head_dim,
@@ -1976,9 +2096,12 @@ def _prefill_launches(cfg, dtype) -> dict:
     if cfg.family != "ssm":
         d = cfg.head_dim if cfg.mla is None \
             else cfg.mla.qk_nope_head_dim + cfg.mla.qk_rope_head_dim
-        out["flash_attention_" + variant(dtype, d)] = (
-            hybrid_geometry(cfg)[0] if cfg.family == "hybrid"
-            else cfg.num_layers)
+        n = cfg.num_layers
+        if cfg.family == "hybrid":
+            n = hybrid_geometry(cfg)[0]
+        elif cfg.family == "encdec":
+            n = cfg.encoder_layers + 2 * cfg.num_layers
+        out["flash_attention_" + variant(dtype, d)] = n
     return out
 
 
@@ -2013,8 +2136,11 @@ DEVICE_KERNEL = {"flash_attention_tc": "flash_fwd_wgmma",
 def _cut(cfg, depth: int):
     """``cfg`` at ``depth`` layers; an MoE model keeps its dense first
     layers (``prefix_blocks``) first, as many as the depth holds; a hybrid
-    has depth // attn_period groups and the rest as its tail."""
+    has depth // attn_period groups and the rest as its tail; an
+    encoder-decoder has ``depth`` encoder and decoder layers."""
     cut = dataclasses.replace(cfg, num_layers=depth)
+    if cfg.encoder_layers:
+        cut = dataclasses.replace(cut, encoder_layers=depth)
     if cfg.moe is not None:
         cut = dataclasses.replace(cut, moe=dataclasses.replace(
             cfg.moe, first_dense_layers=min(cfg.moe.first_dense_layers,
@@ -2037,6 +2163,11 @@ def _f32_cut(cfg, params, depth=CPU_CHECK_DEPTH):
         if T_:
             small["tail"] = tree_map(lambda a: a[:T_], params["tail"])
         return cut, plan, tree_map(lambda a: a.float(), small)
+    if cfg.family == "encdec":
+        small = dict(params)
+        for stack in ("enc_blocks", "dec_blocks"):
+            small[stack] = tree_map(lambda a: a[:depth], params[stack])
+        return cut, plan, tree_map(lambda a: a.float(), small)
     n_prefix = T.prefix_layers(cut)
     small = {k: v for k, v in params.items() if k != "prefix_blocks"}
     small["blocks"] = tree_map(lambda a: a[:depth - n_prefix],
@@ -2048,21 +2179,26 @@ def _f32_cut(cfg, params, depth=CPU_CHECK_DEPTH):
 
 
 def _lm_cpu_check(cfg, params, prompt, dev, depth=CPU_CHECK_DEPTH,
-                  n_tokens=CPU_CHECK_TOKENS) -> dict:
+                  n_tokens=CPU_CHECK_TOKENS, stub=None) -> dict:
     """The first ``depth`` layers of the served parameters in float32 (the
-    hybrid: one group and the tail): a prefill of the prompt's first tokens
-    on the card (kernels) and on the CPU (plain versions) must give the
-    same last-token logits and greedy token.  The card's prefill launches
-    are counted on their own.  A float32 prefill takes the 3xTF32 flash
-    kernel at the model's width ("tf32" at 128, "mma" at MLA's 192 and the
+    hybrid: one group and the tail; the encoder-decoder: ``depth`` encoder
+    and decoder layers): a prefill of the prompt's first tokens, after the
+    frontend stub's inputs ``stub`` (the vision-language model's patches,
+    the encoder-decoder's first CPU_CHECK_FRAMES frames), on the card
+    (kernels) and on the CPU (plain versions) must give the same last-token
+    logits and greedy token.  The card's prefill launches are counted on
+    their own.  A float32 prefill takes the 3xTF32 flash kernel at the
+    model's width ("tf32" at 128 and 64, "mma" at MLA's 192 and the
     hybrid's 112)."""
     cut, plan, small = _f32_cut(cfg, params, depth)
     toks = prompt[:n_tokens]
+    stub = {k: t[:, :CPU_CHECK_FRAMES] if k == "frames" else t
+            for k, t in (stub or {}).items()}
     ops.reset_launches()
-    card = _prefill_logits(cut, plan, small, toks, dev)
+    card = _prefill_logits(cut, plan, small, toks, dev, stub)
     launches = ops.launches()
     host = _prefill_logits(cut, plan, tree_map(lambda a: a.cpu(), small),
-                           toks, torch.device("cpu"))
+                           toks, torch.device("cpu"), stub)
     err = float((card - host).abs().max())
     scale = float(host.abs().max())
     ok = bool(torch.allclose(card, host, rtol=CPU_CHECK_TOL,
@@ -2070,6 +2206,7 @@ def _lm_cpu_check(cfg, params, prompt, dev, depth=CPU_CHECK_DEPTH,
     t_card, t_host = int(card.argmax()), int(host.argmax())
     gap = float(host[t_host] - host[t_card])
     row = {"depth": depth, "tokens": len(toks), "dtype": "float32",
+           **{f"{k}_shape": list(t.shape) for k, t in stub.items()},
            "max_abs_err": err, "max_abs_logit": scale, "tol": CPU_CHECK_TOL,
            "token_card": t_card, "token_cpu": t_host,
            "near_tie": t_card != t_host, "gap": gap, "launches": launches}
@@ -2082,14 +2219,16 @@ def _lm_cpu_check(cfg, params, prompt, dev, depth=CPU_CHECK_DEPTH,
     return row
 
 
-def _lm_ragged_check(cfg, dev, n_tokens: int = 61) -> dict:
-    """The family's smoke config in float32 from a seeded init (dense: head
-    width 32, a width of the warp-level tensor-core flash kernel; SSM: chunk
-    8, head width 16, state 16, a shape only the CUDA-core SSD kernel takes;
-    the hybrid both, in 7 layers of which 6 in two groups): a
-    prefill of a ragged prompt on the card (kernels) and on the CPU (plain
-    versions) must give the same last-token logits.  The card's prefill
-    launches are counted on their own."""
+def _lm_ragged_check(cfg, dev, n_tokens: int = 61,
+                     n_frames: int = 97) -> dict:
+    """The family's smoke config in float32 from a seeded init (dense,
+    vision-language and encoder-decoder: head width 32, a width of the
+    warp-level tensor-core flash kernel; SSM: chunk 8, head width 16, state
+    16, a shape only the CUDA-core SSD kernel takes; the hybrid both, in 7
+    layers of which 6 in two groups): a prefill of a ragged prompt (after
+    8 patch embeddings, or over ``n_frames`` frames) on the card (kernels)
+    and on the CPU (plain versions) must give the same last-token logits.
+    The card's prefill launches are counted on their own."""
     small = cfg.smoke()
     plan = PlanConfig(param_dtype="float32", compute_dtype="float32")
     cpu = torch.device("cpu")
@@ -2097,14 +2236,16 @@ def _lm_ragged_check(cfg, dev, n_tokens: int = 61) -> dict:
                              cpu)
     toks = np.random.default_rng(1).integers(
         0, small.vocab_size, n_tokens).astype(np.int32)
+    stub = _stub(small, 1, 1, cpu, torch.float32, frames=n_frames)
     ops.reset_launches()
     card = _prefill_logits(small, plan, tree_map(lambda a: a.to(dev),
-                                                 params), toks, dev)
+                                                 params), toks, dev, stub)
     launches = ops.launches()
-    host = _prefill_logits(small, plan, params, toks, cpu)
+    host = _prefill_logits(small, plan, params, toks, cpu, stub)
     err = float((card - host).abs().max())
     row = {"model": small.name, "layers": small.num_layers,
            "tokens": n_tokens, "dtype": "float32", "max_abs_err": err,
+           **{f"{k}_shape": list(t.shape) for k, t in stub.items()},
            "max_abs_logit": float(host.abs().max()), "tol": CPU_CHECK_TOL,
            "launches": launches}
     if dev.type == "cuda":
@@ -2116,17 +2257,30 @@ def _lm_ragged_check(cfg, dev, n_tokens: int = 61) -> dict:
     return row
 
 
-def _decode_vs_prefill(cfg, plan, params, req, dev, k=8) -> dict:
-    """A prefill over the prompt and the first k-1 generated tokens must
-    predict the k-th generated token (or a near-tie)."""
-    toks = np.concatenate([req.prompt, np.asarray(req.out_tokens[:k - 1],
-                                                  np.int32)])
-    logits = _prefill_logits(cfg, plan, params, toks, dev)
+def _decode_vs_prefill(cfg, plan, params, req, dev, k=8, stub=None) -> dict:
+    """A prefill over the prompt (after the frontend stub's inputs
+    ``stub``) and the first k-1 generated tokens must predict the k-th
+    generated token (or a near-tie).  The vision-language model's decode
+    continues the first L rows of [patches; prompt], L the prompt's length:
+    ``BatchServer`` places a request at its prompt's length, whatever rows
+    the prefill wrote, so decode writes over the last P of them (a quirk
+    of the reference that the port copies); its prefill is over those
+    rows."""
+    prompt, stub = req.prompt, dict(stub or {})
+    if cfg.family == "vlm":
+        L, P = len(prompt), cfg.num_frontend_tokens
+        stub["patch_embeds"] = stub["patch_embeds"][:, :min(L, P)]
+        prompt = prompt[:max(L - P, 0)]
+    toks = np.concatenate([prompt, np.asarray(req.out_tokens[:k - 1],
+                                              np.int32)])
+    logits = _prefill_logits(cfg, plan, params, toks, dev, stub)
     want = req.out_tokens[k - 1]
     got = int(logits.argmax())
     gap = float(logits[got] - logits[want])
     row = {"k": k, "prefill_token": got, "decoded_token": want,
-           "equal": got == want, "gap": gap, "margin": DECODE_NEAR_TIE}
+           "equal": got == want, "gap": gap, "margin": DECODE_NEAR_TIE,
+           "prefill_tokens": len(toks),
+           **{f"{key}_rows": t.shape[1] for key, t in stub.items()}}
     check(got == want or gap <= DECODE_NEAR_TIE,
           f"decode_vs_prefill: prefill says {got}, decode said {want}, "
           f"gap {gap}")
@@ -2272,7 +2426,8 @@ def phase_lm(dev, name: str, cfg=None, slots=LM_SLOTS, max_len=LM_MAX_LEN,
     """Serve ``n_req`` requests (plus a 1-token prompt for the dense model)
     through ``BatchServer.run`` at full width (and full depth unless
     ``cfg`` cuts it), bfloat16 parameters (``PlanConfig`` defaults) from
-    the port's seeded init; then the checks against the CPU in float32
+    the port's seeded init (a frontend stub's seeded inputs shared by the
+    requests: ``_stub``); then the checks against the CPU in float32
     (``cpu_check`` at ``cpu_check_depth``: not for a model whose float32
     layers would not fit the host) and of decode (``decode_vs_prefill``;
     the MoE family's ``decode_vs_cpu`` at ``decode_check_depth``)."""
@@ -2291,11 +2446,14 @@ def phase_lm(dev, name: str, cfg=None, slots=LM_SLOTS, max_len=LM_MAX_LEN,
     shape = ShapeConfig("serve", "decode", max_len, slots)
     prefill = api.make_prefill(cfg, shape, plan)
     decode = api.make_decode_step(cfg, shape, plan)
+    stub = _stub(cfg, 1, 4, dev, torch.bfloat16)
+    # rows a prefill runs besides the prompt's: the patches
+    extra_rows = cfg.num_frontend_tokens if cfg.family == "vlm" else 0
     prefill_ms, decode_ms = [], []
 
     def timed_prefill(p, tok):
         t1 = time.perf_counter()
-        out = prefill(p, {"tokens": tok})
+        out = prefill(p, {"tokens": tok, **stub})
         sync(dev)
         prefill_ms.append(((time.perf_counter() - t1) * 1e3, tok.shape[1]))
         return out
@@ -2349,9 +2507,10 @@ def phase_lm(dev, name: str, cfg=None, slots=LM_SLOTS, max_len=LM_MAX_LEN,
            "new_tokens": new_tokens, "prefills": prefills,
            "decode_steps": srv.stats["decode_steps"],
            "tokens_out": srv.stats["tokens_out"], "run_s": run_s,
+           **{f"{k}_shape": list(t.shape) for k, t in stub.items()},
            "prefill_ms_median": statistics.median(full),
            "prefill_ms_per_token_median": statistics.median(
-               ms / n for ms, n in prefill_ms),
+               ms / (n + extra_rows) for ms, n in prefill_ms),
            "prefill_ms_2048": [ms for ms, n in prefill_ms if n == 2048],
            "decode_step_ms_median": statistics.median(decode_ms),
            "decode_tokens_per_s": srv.stats["tokens_out"]
@@ -2359,17 +2518,20 @@ def phase_lm(dev, name: str, cfg=None, slots=LM_SLOTS, max_len=LM_MAX_LEN,
            "peak_mem_gb": peak, "launches": launches,
            "prefill_launches": want}
     if dev.type == "cuda":
-        # where the time goes, after the counts were read: the 2048-token
-        # prefill, and one decode step over all slots of the used cache
-        long = next(p for p in prompts if len(p) == 2048)
+        # where the time goes, after the counts were read: the longest
+        # prompt's prefill (2048 tokens; seamless's 4096 frames and its
+        # longest decoder prompt), and one decode step over all slots of
+        # the used cache
+        long = max(prompts, key=len)
         tok = torch.as_tensor(long[None, :], device=dev)
         toks = torch.zeros((slots,), dtype=torch.int32, device=dev)
         pos = torch.full((slots,), max_len - 2, dtype=torch.int32,
                          device=dev)
         device_name = [DEVICE_KERNEL[k] for k in want]
         row["profile"] = {
-            "prefill_2048": _device_profile(
-                lambda: prefill(params, {"tokens": tok}), dev, device_name),
+            f"prefill_{len(long)}": _device_profile(
+                lambda: prefill(params, {"tokens": tok, **stub}), dev,
+                device_name),
             "decode_step": _device_profile(
                 lambda: decode(params, srv.cache, toks, pos), dev,
                 device_name)}
@@ -2396,14 +2558,15 @@ def phase_lm(dev, name: str, cfg=None, slots=LM_SLOTS, max_len=LM_MAX_LEN,
             del moe, h
     if cpu_check:
         row["cpu_check"] = _lm_cpu_check(cfg, params, reqs[0].prompt, dev,
-                                         depth=cpu_check_depth)
+                                         depth=cpu_check_depth, stub=stub)
     row["ragged_check"] = _lm_ragged_check(cfg, dev)
     if cfg.moe is not None:
         row["decode_vs_cpu"] = _decode_vs_cpu(cfg, params, dev,
                                               decode_check_depth)
     else:
         row["decode_vs_prefill"] = _decode_vs_prefill(cfg, plan, params,
-                                                      reqs[0], dev)
+                                                      reqs[0], dev,
+                                                      stub=stub)
     row["seconds"] = time.perf_counter() - t_phase
     emit(phase or f"lm_{cfg.family}", **row)
     return row
@@ -2426,39 +2589,41 @@ def _grad_check(dev) -> list:
     its forward check holds the kernel; the flash backward reads the
     kernel's output."""
     rows = []
-    for b, s, h, kv, d, dtype, *pad in FLASH_GRAD_SHAPES:
-        gen = torch.Generator(device=dev).manual_seed(s + d)
-        q = torch.randn((b, s, h, d), generator=gen, device=dev).to(dtype)
-        k, v = (torch.randn((b, s, kv, d), generator=gen, device=dev)
+    for b, sq, sk, h, kv, d, causal, dtype, *pad in FLASH_GRAD_SHAPES:
+        gen = torch.Generator(device=dev).manual_seed(sq + sk + d)
+        q = torch.randn((b, sq, h, d), generator=gen, device=dev).to(dtype)
+        k, v = (torch.randn((b, sk, kv, d), generator=gen, device=dev)
                 .to(dtype) for _ in range(2))
-        do = torch.randn((b, s, h, d), generator=gen, device=dev).to(dtype)
+        do = torch.randn((b, sq, h, d), generator=gen, device=dev).to(dtype)
         if pad:
             v[..., pad[0]:] = 0
             do[..., pad[0]:] = 0
         ins = [t.requires_grad_(True) for t in (q, k, v)]
         kernel = "flash_attention_" + variant(dtype, d)
         ops.reset_launches()
-        out = ops.flash_attention(*ins, causal=True)
+        out = ops.flash_attention(*ins, causal=causal)
         got = torch.autograd.grad(out, ins, do)
         sync(dev)
         launches = ops.launches()
-        want = torch.autograd.grad(flash_attention_ref(*ins, causal=True),
+        want = torch.autograd.grad(flash_attention_ref(*ins, causal=causal),
                                    ins, do)
         errs = {f"d{n}": _rel_err(a, w) for n, a, w in zip("qkv", got, want)}
-        row = {"kernel": "flash_attention", "shape": [b, s, h, kv, d],
-               "v_width": pad[0] if pad else d,
+        shape = [b, sq, sk, h, kv, d]
+        row = {"kernel": "flash_attention", "shape": shape,
+               "causal": causal, "v_width": pad[0] if pad else d,
                "dtype": str(dtype).removeprefix("torch."),
                "variant": kernel, "grad_fn": type(out.grad_fn).__name__,
                "rel_err": errs, "tol": GRAD_TOL[dtype],
                "forward": _flash_out_check(
-                   out.detach(), *(t.detach() for t in ins), True,
-                   f"grad_check flash forward {[b, s, h, kv, d]} {dtype}"),
+                   out.detach(), *(t.detach() for t in ins), causal,
+                   f"grad_check flash forward {shape} causal={causal} "
+                   f"{dtype}"),
                "launches": launches[kernel],
                "fwd_bwd_ms": time_ms(lambda i: torch.autograd.grad(
-                   ops.flash_attention(*ins, causal=True), ins, do), dev,
+                   ops.flash_attention(*ins, causal=causal), ins, do), dev,
                    n=10, warmup=2, label=f"flash fwd+bwd {dtype}"),
                "plain_fwd_bwd_ms": time_ms(lambda i: torch.autograd.grad(
-                   flash_attention_ref(*ins, causal=True), ins, do), dev,
+                   flash_attention_ref(*ins, causal=causal), ins, do), dev,
                    n=10, warmup=2, label=f"flash plain fwd+bwd {dtype}")}
         rows.append(row)
         emit("train", section="grad_check", **row)
@@ -2524,12 +2689,18 @@ def _grad_check(dev) -> list:
 
 def _train_cpu_check(dev, name: str) -> dict:
     """One float32 train step at full width and TRAIN_CHECK_DEPTH (the
-    hybrid: TRAIN_CHECK_DEPTHS), from one state (a seeded init on the card,
-    ``train_state_from_numpy`` of its host copy on the CPU) on the card
+    hybrid, vision-language and encoder-decoder models: TRAIN_CHECK_DEPTHS,
+    at TRAIN_CHECK_SIZES), from one state (a seeded init on the card; on
+    the CPU its master's host copy with the optimizer's initial state, the
+    zero moments that ``init_train_state`` gives the card) on the card
     (kernels, twice a layer under block remat) and on the CPU (plain
-    versions)."""
+    versions, without the remat's recompute: on the CPU block remat gives
+    the same loss and gradients bit for bit, as
+    ``test_block_remat_gives_the_same_loss_and_gradients`` holds)."""
     cfg = _cut(get_arch(name), TRAIN_CHECK_DEPTHS.get(name,
                                                       TRAIN_CHECK_DEPTH))
+    batch, seq = TRAIN_CHECK_SIZES.get(name, (TRAIN_CHECK_BATCH,
+                                              TRAIN_CHECK_SEQ))
     plan = PlanConfig(param_dtype="float32", compute_dtype="float32",
                       master_dtype="float32")
     opt = AdamW(learning_rate=TRAIN_LR)
@@ -2537,23 +2708,31 @@ def _train_cpu_check(dev, name: str) -> dict:
     # was), the CPU from its host copy
     state = api.init_train_state(
         cfg, plan, torch.Generator(device=dev).manual_seed(0), opt, dev)
-    tree = tree_map(lambda t: t.cpu().numpy(), state)
-    tokens = TokenStream(cfg.vocab_size, TRAIN_CHECK_BATCH, TRAIN_CHECK_SEQ,
-                         seed=0).batch_at(0)
+    t0 = time.perf_counter()
+    master = tree_map(lambda t: t.cpu(), state["master"])
+    host_state = {"master": master, "opt": opt.init(master),
+                  "step": state["step"].cpu()}
+    copy_s = time.perf_counter() - t0
+    data = {"tokens": TokenStream(cfg.vocab_size, batch, seq,
+                                  seed=0).batch_at(0),
+            **_stub(cfg, batch, 0, torch.device("cpu"), torch.float32,
+                    frames=TRAIN_CHECK_FRAMES)}
     step = api.make_train_step(cfg, plan, opt)
     ops.reset_launches()
-    card, m_card = step(state, {"tokens": tokens.to(dev)})
+    card, m_card = step(state, {k: t.to(dev) for k, t in data.items()})
     del state
     sync(dev)
     launches = ops.launches()
+    host_step = api.make_train_step(cfg, plan.with_(remat="none"), opt)
     t0 = time.perf_counter()
-    host, m_host = step(train_state_from_numpy(tree, "cpu"),
-                        {"tokens": tokens})
+    host, m_host = host_step(host_state, data)
     host_s = time.perf_counter() - t0
-    del tree
+    del host_state, master
+    # the comparisons run on the card, each CPU leaf copied there
+    t0 = time.perf_counter()
     # the largest |card - cpu| - 3e-3 |cpu| over the master's leaves
     worst, worst_leaf = max(
-        (float(((a.cpu() - w).abs() - 3e-3 * w.abs()).max()), k)
+        (float(((a - w.to(dev)).abs() - 3e-3 * w.to(dev).abs()).max()), k)
         for (k, a), w in zip(_leaf_paths(card["master"]),
                              tree_leaves(host["master"])))
     # each leaf's gradient: the first step's moment m, (1 - b1) times the
@@ -2561,11 +2740,14 @@ def _train_cpu_check(dev, name: str) -> dict:
     # leaf whose gradient is lost on the card reads 1; the master's first
     # Adam step moves no element by more than lr and cannot show it)
     grad_worst, grad_worst_leaf = max(
-        (_rel_err(a.cpu(), w), k)
+        (_rel_err(a, w.to(dev)), k)
         for (k, a), w in zip(_leaf_paths(card["opt"]["m"]),
                              tree_leaves(host["opt"]["m"])))
+    compare_s = time.perf_counter() - t0
     row = {"model": cfg.name, "layers": cfg.num_layers,
-           "batch": TRAIN_CHECK_BATCH, "seq": TRAIN_CHECK_SEQ,
+           "encoder_layers": cfg.encoder_layers, "batch": batch, "seq": seq,
+           **{f"{k}_shape": list(t.shape) for k, t in data.items()
+              if k != "tokens"},
            "dtype": "float32", "loss_card": float(m_card["loss"]),
            "loss_cpu": float(m_host["loss"]),
            "grad_norm_card": float(m_card["grad_norm"]),
@@ -2574,7 +2756,7 @@ def _train_cpu_check(dev, name: str) -> dict:
            "master_tol": {"atol": 1e-3, "rtol": 3e-3},
            "grad_worst_rel_err": grad_worst,
            "grad_worst_leaf": grad_worst_leaf, "grad_tol": TRAIN_GRAD_TOL,
-           "cpu_step_s": host_s,
+           "cpu_step_s": host_s, "copy_s": copy_s, "compare_s": compare_s,
            "launches": launches}
     row["loss_rel_err"] = abs(row["loss_card"] - row["loss_cpu"]) \
         / abs(row["loss_cpu"])
@@ -2610,10 +2792,12 @@ def _leaf_paths(tree, prefix=""):
 def _train_full(dev, name: str, batch: int) -> dict:
     """Train steps of the model at full width and depth (TRAIN_DEPTH's
     models at that depth; PlanConfig defaults) on batches of
-    ``TokenStream(seed=0)`` through ``ShardedLoader``: one warm-up step and
-    TRAIN_STEPS timed ones (host clock from the call to the loss read,
-    which waits for the card), each step's launches counted on their own;
-    then one more step traced under ``torch.profiler``."""
+    ``TokenStream(seed=0)`` (and the frontend stub's inputs, seeded by the
+    step, in bfloat16: internvl2's patches before TRAIN_SEQ - 256 tokens,
+    seamless's TRAIN_SEQ frames) through ``ShardedLoader``: one warm-up
+    step and TRAIN_STEPS timed ones (host clock from the call to the loss
+    read, which waits for the card), each step's launches counted on their
+    own; then one more step traced under ``torch.profiler``."""
     cfg = get_arch(name)
     if name in TRAIN_DEPTH:
         cfg = _cut(cfg, TRAIN_DEPTH[name])
@@ -2630,9 +2814,14 @@ def _train_full(dev, name: str, batch: int) -> dict:
     sync(dev)
     init_s = time.perf_counter() - t0
     n_params = sum(t.numel() for t in tree_leaves(state["master"]))
-    stream = TokenStream(cfg.vocab_size, batch, TRAIN_SEQ, seed=0)
-    loader = ShardedLoader(lambda i: {"tokens": stream.batch_at(i)},
-                           device=dev)
+    seq = TRAIN_SEQ - (cfg.num_frontend_tokens if cfg.family == "vlm"
+                       else 0)
+    stream = TokenStream(cfg.vocab_size, batch, seq, seed=0)
+    cpu = torch.device("cpu")
+    loader = ShardedLoader(lambda i: {
+        "tokens": stream.batch_at(i),
+        **_stub(cfg, batch, i, cpu, torch.bfloat16, frames=TRAIN_SEQ)},
+        device=dev)
     step = api.make_train_step(cfg, plan, opt)
     want = _step_launches(cfg, torch.bfloat16)
     losses, step_ms, per_step, wait_ms = [], [], [], []
@@ -2657,7 +2846,8 @@ def _train_full(dev, name: str, batch: int) -> dict:
         loader.close()
     med = statistics.median(step_ms)
     row = {"model": cfg.name, "family": cfg.family, "params": n_params,
-           "layers": cfg.num_layers, "batch": batch, "seq": TRAIN_SEQ,
+           "layers": cfg.num_layers, "encoder_layers": cfg.encoder_layers,
+           "batch": batch, "seq": TRAIN_SEQ, "tokens": seq,
            "compute_dtype": plan.compute_dtype, "remat": plan.remat,
            "init_s": init_s, "losses": losses, "step_ms": step_ms,
            "step_ms_median": med,
@@ -2746,10 +2936,11 @@ def _train_restart(dev) -> dict:
 
 
 def phase_train(dev) -> dict:
-    """LM training of the dense, SSM, MoE and hybrid families on the card:
-    the kernels' gradients (``grad_check``), a train step on the card
-    against the CPU (``cpu_check``), full-width steps (full depth but
-    deepseek's and zamba2's), and restarts from checkpoints."""
+    """LM training of every family on the card: the kernels' gradients
+    (``grad_check``), a train step on the card against the CPU
+    (``cpu_check``), full-width steps (full depth but mamba2's,
+    deepseek's, zamba2's and internvl2's), and restarts from
+    checkpoints."""
     t0 = time.perf_counter()
     out = {"grad_check": _grad_check(dev),
            "cpu_check": {n: _train_cpu_check(dev, n) for n in TRAIN_BATCH},
@@ -2777,7 +2968,7 @@ def kernels_line(haar_row: dict, knn_rows: dict, flash_rows: dict,
                  ssd_rows: dict, analytic: dict, serving: dict,
                  procpool: dict, lm_dense: dict, lm_ssm: dict,
                  lm_moe: dict, lm_moe_grok: dict, lm_hybrid: dict,
-                 train: dict) -> dict:
+                 lm_vlm: dict, lm_encdec: dict, train: dict) -> dict:
     """Launches of each kernel on its own path: Haar and kNN (all kernels,
     the matrix-vector one at B 1) on the analytic, the tensor-core kNN at
     B 64 on the serving phase's warm run (credited across CUDA graph
@@ -2792,11 +2983,16 @@ def kernels_line(haar_row: dict, knn_rows: dict, flash_rows: dict,
     SSD on SSM serving, the CUDA-core one on the SSM smoke config's ragged
     prefill (``ragged_check``); zamba2-7b's serving as two entries of their
     own, the warp-level flash kernel at d 112 and the tensor-core SSD at p
-    64, n 64, each with its times at that path's shape.
+    64, n 64, each with its times at that path's shape; internvl2-26b's
+    serving (the tensor-core flash kernel at a GQA group of 6, 2304 rows)
+    and seamless-m4t-medium's (the tensor-core flash kernel at d 64, timed
+    at its non-causal encoder's shape; its prefills also run the decoder's
+    causal self-attention and its cross-attention on the same kernel) as
+    entries of their own.
     ``train_launches``: the bfloat16 flash kernels (tensor-core at d 128,
     warp-level at MLA's d 192 and zamba2's d 112) and SSD in the train
     phase's steps (forward and remat recompute), the 3xTF32 flash kernel in
-    its float32 ``cpu_check`` step.  The CUDA-core flash kernel's times are
+    its float32 ``cpu_check`` steps.  The CUDA-core flash kernel's times are
     its forced row at the dense smoke config's shape."""
     flash = "src/repro/kernels/flash_attention.py:73"
     ssd = "src/repro/kernels/ssd_scan.py:45"
@@ -2820,16 +3016,35 @@ def kernels_line(haar_row: dict, knn_rows: dict, flash_rows: dict,
              moe_grok_launches=lm_moe_grok["launches"]["flash_attention_tc"],
              train_launches=steps["internlm2-1.8b"]["launches"]
              ["flash_attention_tc"]),
+        dict(_kernel_entry("flash_attention_tc_gqa6_vlm",
+                           "flash_attention.cu", flash,
+                           lm_vlm["launches"]["flash_attention_tc"],
+                           flash_rows["tc_gqa6_vlm"]),
+             train_launches=steps["internvl2-26b"]["launches"]
+             ["flash_attention_tc"]),
+        dict(_kernel_entry("flash_attention_tc_d64_encdec",
+                           "flash_attention.cu", flash,
+                           lm_encdec["launches"]["flash_attention_tc"],
+                           flash_rows["tc_d64_noncausal"]),
+             train_launches=steps["seamless-m4t-medium"]["launches"]
+             ["flash_attention_tc"]),
         dict(_kernel_entry("flash_attention_tf32", "flash_attention.cu",
                            flash, lm_dense["cpu_check"]["launches"]
                            ["flash_attention_tf32"], flash_rows["tf32"]),
-             train_launches=train["cpu_check"]["internlm2-1.8b"]["launches"]
-             ["flash_attention_tf32"]),
+             vlm_launches=lm_vlm["cpu_check"]["launches"]
+             ["flash_attention_tf32"],
+             encdec_launches=lm_encdec["cpu_check"]["launches"]
+             ["flash_attention_tf32"],
+             train_launches=sum(train["cpu_check"][n]["launches"]
+                                ["flash_attention_tf32"]
+                                for n in ("internlm2-1.8b", "internvl2-26b",
+                                          "seamless-m4t-medium"))),
         dict(_kernel_entry("flash_attention_mma", "flash_attention.cu", flash,
                            lm_moe["launches"]["flash_attention_mma"],
                            flash_rows["mma_d192"]),
-             ragged_launches=lm_dense["ragged_check"]["launches"]
-             ["flash_attention_mma"],
+             ragged_launches=sum(
+                 row["ragged_check"]["launches"]["flash_attention_mma"]
+                 for row in (lm_dense, lm_vlm, lm_encdec)),
              train_launches=steps["deepseek-v2-lite-16b"]["launches"]
              ["flash_attention_mma"]),
         dict(_kernel_entry("flash_attention_mma_d112", "flash_attention.cu",
@@ -2897,13 +3112,15 @@ def main() -> int:
                            cpu_check=False, decode_check_depth=1)
     lm_hybrid = phase_lm(dev, "zamba2-7b", n_req=HYBRID_REQUESTS,
                          phase="lm_hybrid", cpu_check_depth=HYBRID_CHECK_DEPTH)
+    lm_vlm = phase_lm(dev, "internvl2-26b", n_req=VLM_REQUESTS)
+    lm_encdec = phase_lm(dev, "seamless-m4t-medium", n_req=ENCDEC_REQUESTS)
     train = phase_train(dev)
     emit("total", seconds=time.perf_counter() - t0,
          host_behind=HOST_BEHIND)
     print(json.dumps(kernels_line(haar_row, knn_rows, flash_rows, ssd_rows,
                                   analytic, serving, procpool, lm_dense,
                                   lm_ssm, lm_moe, lm_moe_grok, lm_hybrid,
-                                  train)),
+                                  lm_vlm, lm_encdec, train)),
           flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

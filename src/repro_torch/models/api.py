@@ -11,10 +11,13 @@
   make_decode_step(cfg, shape, plan)    -> f(params, cache, tokens, pos) -> (tok, cache)
   count_params(cfg, active_only)        -> parameter count (shapes only)
 
-Families ``dense``, ``moe`` (MoE blocks, MLA attention: the transformer's
-routes), ``ssm`` and ``hybrid`` (Mamba2 layers and a shared attention
-block) are ported; ``vlm`` and ``encdec`` raise ``NotImplementedError``
-naming their ROADMAP item, and so do the partition specs.  Prefill and
+Every family is ported: ``dense`` and ``moe`` (MoE blocks, MLA attention:
+the transformer's routes), ``vlm`` (the transformer with patch embeddings
+prepended: ``batch["patch_embeds"]``), ``ssm``, ``hybrid`` (Mamba2 layers
+and a shared attention block) and ``encdec`` (an encoder over
+``batch["frames"]`` and a decoder with cross-attention; its decode cache
+holds ``encdec.DECODE_ENC_LEN`` encoder rows, as the reference's
+``example_cache``).  The partition specs are not ported yet.  Prefill and
 decode run under ``torch.inference_mode()`` (decode updates the cache in
 place); the train step runs with gradients and returns a new state, as
 the reference's does.
@@ -27,26 +30,22 @@ import torch
 
 from repro_torch.configs.base import ArchConfig, PlanConfig, ShapeConfig
 from repro_torch.core.tables import resolve_device
-from repro_torch.models import hybrid, ssm_lm
+from repro_torch.models import encdec, hybrid, ssm_lm, vlm
 from repro_torch.models import transformer as T
-from repro_torch.models.layers import not_ported
 from repro_torch.tree import tree_leaves, tree_map, tree_unflatten
 from repro_torch.optim.compression import int8_ef_compress, int8_ef_init
 
 F32_SENSITIVE = {"router", "A_log", "dt_bias", "Dskip"}
-PORTED_FAMILIES = ("dense", "moe", "ssm", "hybrid")
+PORTED_FAMILIES = ("dense", "moe", "vlm", "ssm", "hybrid", "encdec")
 EXPERT_LEAVES = {"we1", "we2", "we3"}      # routed experts' weights
 
 
 def _family(cfg: ArchConfig) -> str:
-    """The family's route: "transformer" (dense and MoE), "ssm" or
-    "hybrid"."""
+    """The family's route: "transformer" (dense and MoE), "vlm", "ssm",
+    "hybrid" or "encdec"."""
     if cfg.family not in PORTED_FAMILIES:
-        if cfg.family not in ("vlm", "encdec"):
-            raise ValueError(cfg.family)
-        raise not_ported(f"the {cfg.family} family",
-                         f"LM side, {cfg.family}")
-    return cfg.family if cfg.family in ("ssm", "hybrid") else "transformer"
+        raise ValueError(cfg.family)
+    return "transformer" if cfg.family in ("dense", "moe") else cfg.family
 
 
 def init_params(cfg: ArchConfig, gen, plan: PlanConfig = PlanConfig(),
@@ -54,13 +53,10 @@ def init_params(cfg: ArchConfig, gen, plan: PlanConfig = PlanConfig(),
     """Parameters at the reference init's distributions, drawn from the
     ``torch.Generator`` ``gen`` (on ``device``).  ``device=None`` means the
     CUDA card; ``"meta"`` gives shapes only and reads no generator."""
-    dev = resolve_device(device)
-    family = _family(cfg)
-    if family == "transformer":
-        return T.init_lm(cfg, gen, plan, device=dev)
-    if family == "hybrid":
-        return hybrid.init_hybrid(cfg, gen, plan, device=dev)
-    return ssm_lm.init_ssm_lm(cfg, gen, plan, device=dev)
+    init = {"transformer": T.init_lm, "vlm": vlm.init_vlm,
+            "ssm": ssm_lm.init_ssm_lm, "hybrid": hybrid.init_hybrid,
+            "encdec": encdec.init_encdec}[_family(cfg)]
+    return init(cfg, gen, plan, device=resolve_device(device))
 
 
 def cast_params(params, dtype):
@@ -79,8 +75,14 @@ def get_loss_fn(cfg: ArchConfig, plan: PlanConfig):
     family = _family(cfg)
     if family == "transformer":
         return lambda p, b: T.lm_loss(cfg, plan, p, b["tokens"])
+    if family == "vlm":
+        return lambda p, b: vlm.vlm_loss(cfg, plan, p, b["patch_embeds"],
+                                         b["tokens"])
     if family == "hybrid":
         return lambda p, b: hybrid.hybrid_loss(cfg, plan, p, b["tokens"])
+    if family == "encdec":
+        return lambda p, b: encdec.encdec_loss(cfg, plan, p, b["frames"],
+                                               b["tokens"])
     return lambda p, b: ssm_lm.ssm_lm_loss(cfg, plan, p, b["tokens"])
 
 
@@ -89,35 +91,42 @@ def make_prefill(cfg: ArchConfig, shape: ShapeConfig, plan: PlanConfig):
     family = _family(cfg)
     if family == "transformer":
         fn = lambda p, b: T.lm_prefill(cfg, plan, p, b["tokens"], max_len)
+    elif family == "vlm":
+        fn = lambda p, b: vlm.vlm_prefill(cfg, plan, p, b["patch_embeds"],
+                                          b["tokens"], max_len)
     elif family == "hybrid":
         fn = lambda p, b: hybrid.hybrid_prefill(cfg, plan, p, b["tokens"],
                                                 max_len)
+    elif family == "encdec":
+        fn = lambda p, b: encdec.encdec_prefill(cfg, plan, p, b["frames"],
+                                                b["tokens"], max_len)
     else:
         fn = lambda p, b: ssm_lm.ssm_prefill(cfg, plan, p, b["tokens"])
     return torch.inference_mode()(fn)
 
 
 def make_decode_step(cfg: ArchConfig, shape: ShapeConfig, plan: PlanConfig):
-    family = _family(cfg)
-    if family == "transformer":
-        fn = lambda p, c, t, pos: T.lm_decode_step(cfg, plan, p, c, t, pos)
-    elif family == "hybrid":
-        fn = lambda p, c, t, pos: hybrid.hybrid_decode_step(cfg, plan, p, c,
-                                                            t, pos)
-    else:
-        fn = lambda p, c, t, pos: ssm_lm.ssm_decode_step(cfg, plan, p, c, t,
-                                                         pos)
-    return torch.inference_mode()(fn)
+    step = {"transformer": T.lm_decode_step, "vlm": vlm.vlm_decode_step,
+            "ssm": ssm_lm.ssm_decode_step,
+            "hybrid": hybrid.hybrid_decode_step,
+            "encdec": encdec.encdec_decode_step}[_family(cfg)]
+    return torch.inference_mode()(
+        lambda p, c, t, pos: step(cfg, plan, p, c, t, pos))
 
 
 def init_cache(cfg: ArchConfig, batch: int, max_len: int, dtype, device):
     """The decode cache of a family: the KV cache (GQA or MLA), the SSM
-    states, or both (hybrid)."""
+    states, both (hybrid), or the self-attention KV cache and
+    ``encdec.DECODE_ENC_LEN`` rows of encoder keys and values (encdec)."""
     family = _family(cfg)
-    if family == "transformer":
+    if family in ("transformer", "vlm"):
         return T.init_cache(cfg, batch, max_len, dtype, device=device)
     if family == "hybrid":
         return hybrid.init_hybrid_cache(cfg, batch, max_len, dtype,
+                                        device=device)
+    if family == "encdec":
+        return encdec.init_encdec_cache(cfg, batch, max_len,
+                                        encdec.DECODE_ENC_LEN, dtype,
                                         device=device)
     return ssm_lm.init_ssm_cache(cfg, batch, dtype, device=device)
 

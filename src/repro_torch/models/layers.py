@@ -7,15 +7,15 @@ functions take (params, inputs) and use ``torch.einsum`` in the reference's
 index order.  The port runs on one device, so the reference's sharding
 constraints (``pcon``) are dropped.
 
-Full-sequence attention in prefill and training (causal self-attention,
-the only kind the ported families run: the dense and MoE transformers'
-and the hybrid's shared block) goes through the flash-attention
-kernel, ``kernels.ops.flash_attention``, in place of the reference's
-query-chunked jnp ``sdpa_chunked``, with the GQA KV heads read in place (no
-expanded or folded copies); with gradients it is the kernel's
+Full-sequence attention in prefill and training goes through the
+flash-attention kernel, ``kernels.ops.flash_attention``, in place of the
+reference's query-chunked jnp ``sdpa_chunked``, with the GQA KV heads read
+in place (no expanded or folded copies); with gradients it is the kernel's
 ``autograd.Function``, whose plain backward recomputes P in blocks of
-``sdpa_chunked``'s 1024 query rows.  Cross and non-causal attention come
-with the encoder-decoder and vision-language families.  Decode attention
+``sdpa_chunked``'s 1024 query rows.  It is causal self-attention in the
+decoder-only families, non-causal in the encoder-decoder's encoder, and
+cross-attention (keys and values projected from ``xkv``, Sq != Sk,
+non-causal, no RoPE) in its decoder.  Decode attention
 is plain PyTorch, as in the reference, and writes the new key and value
 into the cache IN PLACE (the reference returns an updated copy): at full
 width the internlm2 cache is gigabytes, and no caller needs the old one.
@@ -156,20 +156,27 @@ def _expand_kv(k, n_rep):
     return k if n_rep == 1 else torch.repeat_interleave(k, n_rep, dim=-2)
 
 
-def attention_apply(p, cfg: ArchConfig, x, positions):
-    """Causal self-attention over the full sequence (prefill, training), on
-    the flash kernel, which reads q (B, S, H, hd) and the KV heads of k and
-    v (B, S, KV, hd) in place.  Returns (out, (k, v))."""
+def attention_apply(p, cfg: ArchConfig, x, positions, *, causal=True,
+                    xkv=None):
+    """Attention over the full sequence (prefill, training), on the flash
+    kernel, which reads q (B, Sq, H, hd) and the KV heads of k and v
+    (B, Sk, KV, hd) in place.  k and v are projected from ``xkv`` (B, Sk,
+    D) when it is given (cross-attention), else from x.  RoPE only with
+    ``positions`` (k's at ``arange(Sk)`` under ``xkv``, as the reference).
+    Returns (out, (k, v))."""
+    src = x if xkv is None else xkv
     q = torch.einsum("bsd,dhk->bshk", x, p["wq"])
-    k = torch.einsum("bsd,dhk->bshk", x, p["wk"])
-    v = torch.einsum("bsd,dhk->bshk", x, p["wv"])
+    k = torch.einsum("bsd,dhk->bshk", src, p["wk"])
+    v = torch.einsum("bsd,dhk->bshk", src, p["wv"])
     if cfg.qkv_bias:
         q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
     if positions is not None:
         q = rope_apply(q, positions, cfg.rope_theta)
-        k = rope_apply(k, positions, cfg.rope_theta)
+        kpos = positions if xkv is None else torch.arange(src.shape[1],
+                                                          device=x.device)
+        k = rope_apply(k, kpos, cfg.rope_theta)
     kv_cache = (k, v)
-    o = ops.flash_attention(q, k, v, causal=True)
+    o = ops.flash_attention(q, k, v, causal=causal)
     out = torch.einsum("bshk,hkd->bsd", o, p["wo"])
     return out, kv_cache
 

@@ -1,7 +1,9 @@
 """Decoder-only transformer LM (dense GQA, MLA and MoE variants): init,
 loss, prefill and decode.
 
-The port of ``repro.models.transformer`` for the dense and MoE families.
+The port of ``repro.models.transformer`` for the dense and MoE families,
+and the backbone of the vision-language family (``models.vlm``: patch
+embeddings prepended to the prompt's).
 Attention is GQA (``layers.attention_apply``) or MLA (``layers.mla_apply``),
 the feed-forward a SwiGLU MLP or a mixture of experts (``moe.moe_apply``),
 and an MoE model's first ``moe.first_dense_layers`` blocks are a dense
@@ -189,16 +191,16 @@ def lm_loss_from_hidden(cfg: ArchConfig, plan: PlanConfig, params, hidden,
 def lm_loss(cfg: ArchConfig, plan: PlanConfig, params, tokens,
             extra_embeds: Optional[torch.Tensor] = None, aux_coef=0.01):
     """Next-token loss plus ``aux_coef`` x the MoE balance loss (0 for a
-    dense stack).  tokens: (B, S).  Prepended embeddings (``extra_embeds``)
-    belong to the vision-language family."""
-    if extra_embeds is not None:
-        raise L.not_ported("the LM loss over prepended embeddings",
-                           "LM side, vlm")
+    dense stack).  tokens: (B, S_text).  ``extra_embeds`` (B, P, D), the
+    vision-language family's patches, are prepended; the loss covers the
+    text positions only."""
     e = embed_tokens(cfg, params, tokens)
-    Bsz, S, _ = e.shape
-    positions = torch.arange(S, device=e.device)
+    if extra_embeds is not None:
+        e = torch.cat([extra_embeds.to(e.dtype), e], dim=1)
+    positions = torch.arange(e.shape[1], device=e.device)
     hidden, _, aux = lm_hidden(cfg, plan, params, e, positions)
-    loss = lm_loss_from_hidden(cfg, plan, params, hidden,
+    P = 0 if extra_embeds is None else extra_embeds.shape[1]
+    loss = lm_loss_from_hidden(cfg, plan, params, hidden[:, P:],
                                *next_token_targets(tokens))
     return loss + aux_coef * aux
 

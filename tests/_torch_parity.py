@@ -68,3 +68,19 @@ def bf16_pair(x: np.ndarray):
     """The same bfloat16 values in both frameworks (both round to nearest
     even from float32)."""
     return jnp.asarray(x, jnp.bfloat16), torch.from_numpy(x).to(torch.bfloat16)
+
+
+def cp_decode_step(tcfg):
+    """A decode step of the port's config ``tcfg`` under
+    ``decode_cp=True`` on the CPU, as a call of no arguments: the one LM
+    path the port does not have yet (it raises naming its ROADMAP item)."""
+    from repro_torch.configs import PlanConfig, ShapeConfig
+    from repro_torch.models import api
+    plan = PlanConfig(param_dtype="float32", decode_cp=True)
+    params = api.init_params(tcfg, torch.Generator().manual_seed(0), plan,
+                             "cpu")
+    cache = api.init_cache(tcfg, 1, 4, torch.float32, "cpu")
+    step = api.make_decode_step(tcfg, ShapeConfig("serve", "decode", 4, 1),
+                                plan)
+    zero = torch.zeros((1,), dtype=torch.int32)
+    return lambda: step(params, cache, zero, zero)

@@ -229,6 +229,47 @@ def test_flash_kernel_matches_plain(cuda, bh, s, d, causal, dtype):
             q, k, v, causal=causal).float(), rtol=tol, atol=tol)
 
 
+@pytest.mark.parametrize("b,sq,sk,h,kv,d,dtype", [
+    (1, 77, 4096, 16, 16, 64, torch.bfloat16),    # seamless's cross, "tc"
+    (1, 1, 4096, 16, 16, 64, torch.bfloat16),     # its 1-token prompt
+    (2, 300, 130, 4, 2, 64, torch.bfloat16),
+    (1, 130, 300, 8, 2, 128, torch.bfloat16),
+    (2, 300, 130, 4, 2, 128, torch.bfloat16),
+    (1, 77, 4096, 16, 16, 64, torch.float32),     # "tf32"
+    (1, 1, 4096, 16, 16, 64, torch.float32),
+    (2, 300, 130, 4, 2, 64, torch.float32),
+    (1, 130, 300, 8, 2, 128, torch.float32),
+    (1, 77, 333, 8, 2, 80, torch.bfloat16),       # "mma"
+    (1, 300, 97, 4, 4, 112, torch.float32),
+    (1, 1, 4096, 4, 4, 32, torch.float32),
+    (1, 61, 97, 4, 4, 32, torch.float32),         # the encdec ragged_check
+    (2, 70, 150, 4, 2, 17, torch.bfloat16),       # "simt"
+    (2, 150, 70, 4, 1, 17, torch.float32),
+])
+def test_flash_cross_kernel_matches_plain(cuda, b, sq, sk, h, kv, d, dtype):
+    """Non-causal attention of Sq query rows against Sk keys (the
+    encoder-decoder's cross-attention), Sq < Sk and Sq > Sk, on every
+    kernel: the one ``variant`` names, and the CUDA-core kernel forced."""
+    gen = torch.Generator(device=cuda).manual_seed(sq + sk + d)
+    q = torch.randn((b, sq, h, d), generator=gen, device=cuda).to(dtype)
+    k, v = (torch.randn((b, sk, kv, d), generator=gen, device=cuda)
+            .to(dtype) for _ in range(2))
+    tol = 3e-2 if dtype == torch.bfloat16 else 1e-4
+    want = flash_attention_ref(q, k, v, causal=False).float()
+    kinds = {variant(dtype, d), "simt"}
+    for kind in sorted(kinds):
+        ops.reset_launches()
+        got = flash_attention_cuda(q, k, v, causal=False, kind=kind)
+        assert ops.launches()[f"flash_attention_{kind}"] == 1
+        assert got.dtype == dtype and got.shape == q.shape
+        torch.testing.assert_close(got.float(), want, rtol=tol, atol=tol)
+    if dtype == torch.bfloat16:            # as chip_smoke.phase_flash
+        want32 = flash_attention_ref(q.float(), k.float(), v.float(),
+                                     causal=False)
+        got = flash_attention_cuda(q, k, v, causal=False)
+        assert float((got.float() - want32).abs().max()) <= 1.6e-2
+
+
 def _expand_fold(t, h):
     """(B, S, KV, d) -> (B·H, S, d): KV heads repeated to h query heads."""
     B, S, _, d = t.shape
@@ -407,7 +448,21 @@ def test_lm_kernels_refuse_what_they_do_not_take(cuda):
 
 
 LM_NAMES = ["internlm2-1.8b", "mamba2-370m", "deepseek-v2-lite-16b",
-            "grok-1-314b", "zamba2-7b"]
+            "grok-1-314b", "zamba2-7b", "internvl2-26b", "seamless-m4t-medium"]
+
+
+def _stub(cfg, batch, frames=40, seed=0):
+    """The frontend stub's inputs of a family on the CPU, in float32:
+    patch embeddings (vlm) or ``frames`` frames (encdec); {} for the
+    others."""
+    gen = torch.Generator().manual_seed(seed)
+    if cfg.family == "vlm":
+        return {"patch_embeds": torch.randn(
+            (batch, cfg.num_frontend_tokens, cfg.d_model), generator=gen)}
+    if cfg.family == "encdec":
+        return {"frames": torch.randn((batch, frames, cfg.d_model),
+                                      generator=gen)}
+    return {}
 
 
 def _flash_counter(cfg) -> str:
@@ -421,16 +476,19 @@ def _flash_counter(cfg) -> str:
 def _prefill_launches(cfg) -> dict:
     """{launch counter: launches} of one float32 prefill of the config:
     SSD in every Mamba layer, flash attention in every attention layer
-    (the hybrid: its shared block, once a group); chip_smoke's map."""
+    (the hybrid: its shared block, once a group; the encoder-decoder: each
+    encoder layer, and twice a decoder layer); chip_smoke's map."""
     out = {}
     if cfg.family in ("ssm", "hybrid"):
         ssm = cfg.ssm
         out["ssd_intra_" + ssd_variant(ssm.chunk, ssm.head_dim,
                                        ssm.state_dim)] = cfg.num_layers
-    if cfg.family != "ssm":
-        out[_flash_counter(cfg)] = (
-            cfg.num_layers // cfg.attn_period if cfg.family == "hybrid"
-            else cfg.num_layers)
+    if cfg.family == "hybrid":
+        out[_flash_counter(cfg)] = cfg.num_layers // cfg.attn_period
+    elif cfg.family == "encdec":
+        out[_flash_counter(cfg)] = cfg.encoder_layers + 2 * cfg.num_layers
+    elif cfg.family != "ssm":
+        out[_flash_counter(cfg)] = cfg.num_layers
     return out
 
 
@@ -459,8 +517,9 @@ def test_smoke_batch_server_on_cuda_launches_the_kernels(cuda, name):
                              plan, cuda)
     shape = ShapeConfig("serve", "decode", 64, 2)
     pre = api.make_prefill(cfg, shape, plan)
+    stub = {k: t.to(cuda) for k, t in _stub(cfg, 1).items()}
     srv = BatchServer(slots=2, max_len=64,
-                      prefill_fn=lambda p, t: pre(p, {"tokens": t}),
+                      prefill_fn=lambda p, t: pre(p, {"tokens": t, **stub}),
                       decode_fn=api.make_decode_step(cfg, shape, plan),
                       params=params,
                       init_cache_fn=lambda b, ml: api.init_cache(
@@ -474,6 +533,34 @@ def test_smoke_batch_server_on_cuda_launches_the_kernels(cuda, name):
     assert all(r.done and len(r.out_tokens) == 6 for r in reqs)
     want = {k: 3 * n for k, n in _prefill_launches(cfg).items()}
     assert _only(launches, want), (launches, want)
+
+
+@pytest.mark.parametrize("name", LM_NAMES)
+def test_smoke_prefill_on_cuda_matches_cpu(cuda, name):
+    """The smoke config's float32 prefill of a 29-token prompt (after the
+    frontend stub's inputs) from one set of parameters on the card
+    (kernels) and on the CPU (plain versions): logits and every cache leaf
+    within chip_smoke's cpu_check tolerance, 1e-3."""
+    from repro_torch.configs import PlanConfig, ShapeConfig, get_arch
+    from repro_torch.models import api
+    from repro_torch.tree import tree_leaves, tree_map
+    cfg = get_arch(name).smoke()
+    plan = PlanConfig(param_dtype="float32")
+    params = api.init_params(cfg, torch.Generator().manual_seed(2), plan,
+                             "cpu")
+    tokens = torch.from_numpy(np.random.default_rng(2).integers(
+        0, cfg.vocab_size, (1, 29)).astype(np.int32))
+    batch = {"tokens": tokens, **_stub(cfg, 1, frames=53, seed=2)}
+    pre = api.make_prefill(cfg, ShapeConfig("serve", "prefill", 64, 1),
+                           plan)
+    ops.reset_launches()
+    card = pre(tree_map(lambda t: t.to(cuda), params),
+               tree_map(lambda t: t.to(cuda), batch))
+    assert _only(ops.launches(), _prefill_launches(cfg)), ops.launches()
+    host = pre(params, batch)
+    for a, w in zip(tree_leaves(card), tree_leaves(host)):
+        assert a.dtype == w.dtype and a.shape == w.shape
+        torch.testing.assert_close(a.cpu(), w, rtol=1e-3, atol=1e-3)
 
 
 # -- training: the kernels' gradients and a train step ------------------------
@@ -503,6 +590,33 @@ def test_flash_gradient_through_the_kernel_matches_plain(cuda, b, s, h, kv,
                               do)
     assert ops.launches()["flash_attention_" + variant(dtype, d)] == 1
     want = torch.autograd.grad(flash_attention_ref(*ins, causal=True), ins,
+                               do)
+    tol = 2e-2 if dtype == torch.bfloat16 else 1e-4
+    for name, a, w in zip("qkv", got, want):
+        assert a.dtype == dtype and a.shape == w.shape
+        assert _rel_err(a, w) <= tol, (name, _rel_err(a, w))
+
+
+@pytest.mark.parametrize("b,sq,sk,h,kv,d", [(2, 61, 97, 4, 4, 32),
+                                             (2, 500, 2048, 16, 16, 64),
+                                             (2, 300, 130, 8, 2, 128)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_cross_gradient_through_the_kernel_matches_plain(
+        cuda, b, sq, sk, h, kv, d, dtype):
+    """Non-causal, Sq != Sk (the encoder-decoder's cross-attention): the
+    kernel forward and the plain backward against autograd through the
+    plain version, at chip_smoke's grad_check tolerances."""
+    gen = torch.Generator(device=cuda).manual_seed(sq + sk)
+    q = torch.randn((b, sq, h, d), generator=gen, device=cuda).to(dtype)
+    k, v = (torch.randn((b, sk, kv, d), generator=gen, device=cuda)
+            .to(dtype) for _ in range(2))
+    do = torch.randn((b, sq, h, d), generator=gen, device=cuda).to(dtype)
+    ins = [t.requires_grad_(True) for t in (q, k, v)]
+    ops.reset_launches()
+    got = torch.autograd.grad(ops.flash_attention(*ins, causal=False), ins,
+                              do)
+    assert ops.launches()["flash_attention_" + variant(dtype, d)] == 1
+    want = torch.autograd.grad(flash_attention_ref(*ins, causal=False), ins,
                                do)
     tol = 2e-2 if dtype == torch.bfloat16 else 1e-4
     for name, a, w in zip("qkv", got, want):
@@ -544,7 +658,8 @@ def test_smoke_train_step_on_cuda_matches_cpu(cuda, name):
     opt = AdamW(learning_rate=1e-3)
     state = api.init_train_state(cfg, plan, torch.Generator().manual_seed(0),
                                  opt, "cpu")
-    batch = {"tokens": TokenStream(cfg.vocab_size, 2, 256).batch_at(0)}
+    batch = {"tokens": TokenStream(cfg.vocab_size, 2, 256).batch_at(0),
+             **_stub(cfg, 2, frames=300)}
     step = api.make_train_step(cfg, plan, opt)
     ops.reset_launches()
     card, m_card = step(tree_map(lambda t: t.to(cuda), state),

@@ -1,13 +1,16 @@
 """The port's LM serving path against the reference, on the smoke configs
 of internlm2-1.8b (dense GQA), mamba2-370m (SSM), deepseek-v2-lite-16b (MoE
-with MLA and a dense first layer), grok-1-314b (MoE with GQA) and
-zamba2-7b (hybrid: Mamba2 layers and a shared attention block with LoRA
-deltas, in its own test also non-zero ones) in float32.
+with MLA and a dense first layer), grok-1-314b (MoE with GQA), zamba2-7b
+(hybrid: Mamba2 layers and a shared attention block with LoRA deltas, in
+its own test also non-zero ones), internvl2-26b (vision-language: patch
+embeddings prepended) and seamless-m4t-medium (encoder-decoder over
+frames, with cross-attention) in float32.
 
 The reference's parameters (``repro.models.api.init_params``) go through
-``convert.params_from_numpy`` into the port, and the same numpy tokens go
-through both packages.  Tolerance 1e-4 in float32 (the two frameworks sum
-in different orders); generated tokens must be equal, and int32."""
+``convert.params_from_numpy`` into the port, and the same numpy tokens,
+patch embeddings and frames go through both packages.  Tolerance 1e-4 in
+float32 (the two frameworks sum in different orders); generated tokens
+must be equal, and int32."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -16,6 +19,7 @@ import torch
 
 from repro.configs import PlanConfig, ShapeConfig, get_arch
 from repro.models import api as japi
+from repro.models import encdec as JE
 from repro.models import hybrid as JH
 from repro.models import layers as JL
 from repro.models import ssm as JM
@@ -23,6 +27,7 @@ from repro.models import ssm_lm as JS
 from repro.models import transformer as JT
 from repro.runtime.server import BatchServer as JBatchServer
 from repro.runtime.server import Request as JRequest
+from _torch_parity import cp_decode_step
 from repro_torch.configs import PlanConfig as TPlan
 from repro_torch.configs import get_arch as tget
 from repro_torch.convert import params_from_numpy
@@ -38,7 +43,10 @@ PLAN = PlanConfig(param_dtype="float32", compute_dtype="float32",
                   attn_chunk=8, remat="none")
 TPLAN = TPlan(param_dtype="float32", compute_dtype="float32", remat="none")
 NAMES = ["internlm2-1.8b", "mamba2-370m", "deepseek-v2-lite-16b",
-         "grok-1-314b", "zamba2-7b"]
+         "grok-1-314b", "zamba2-7b", "internvl2-26b", "seamless-m4t-medium"]
+# encoder frames of the encoder-decoder's prefills: not the decoder
+# prompt's length, so the cross-attention has Sq != Sk
+FRAMES = 12
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -106,6 +114,20 @@ def _same_cache(tcache, jcache):
 def _tokens(cfg, shape, seed):
     return np.random.default_rng(seed).integers(
         0, cfg.vocab_size, shape).astype(np.int32)
+
+
+def _stub(cfg, batch, seed, frames=FRAMES):
+    """The frontend stub's inputs of a family, as numpy: patch embeddings
+    (vlm) or frames (encdec), standard normal; none for the others."""
+    rng = np.random.default_rng(1000 + seed)
+    if cfg.family == "vlm":
+        shape = (batch, cfg.num_frontend_tokens, cfg.d_model)
+        return {"patch_embeds": rng.standard_normal(shape)
+                .astype(np.float32)}
+    if cfg.family == "encdec":
+        return {"frames": rng.standard_normal((batch, frames, cfg.d_model))
+                .astype(np.float32)}
+    return {}
 
 
 def test_configs_are_the_reference_configs():
@@ -180,21 +202,39 @@ def test_rope_apply_prefill_and_decode_broadcast(ndim):
     _close(got, want, rtol=1e-5, atol=1e-5)
 
 
-@pytest.mark.parametrize("S", [13, 16])
-def test_attention_apply_matches_reference(S):
+@pytest.mark.parametrize("S,causal,Sk,rope", [
+    pytest.param(13, True, None, True, id="13"),
+    pytest.param(16, True, None, True, id="16"),
+    # the encoder's self-attention
+    pytest.param(13, False, None, True, id="13-noncausal"),
+    # the decoder's cross-attention (no RoPE), Sq < Sk, Sq > Sk, and a
+    # 1-token prompt
+    pytest.param(13, False, 21, False, id="13-cross-21"),
+    pytest.param(21, False, 9, False, id="21-cross-9"),
+    pytest.param(1, False, 21, False, id="1-cross-21"),
+    # xkv with positions: k rotated at arange(Sk), as the reference
+    pytest.param(13, False, 21, True, id="13-xkv-21-rope"),
+])
+def test_attention_apply_matches_reference(S, causal, Sk, rope):
     """The port's prefill attention (the flash path; 13 positions: ragged)
-    against the reference's query-chunked jnp path (chunks of 8)."""
+    against the reference's query-chunked jnp path (chunks of 8): causal
+    and not, and with k and v projected from ``xkv`` of another length."""
     cfg, tcfg = _cfgs("internlm2-1.8b")
     assert cfg.num_heads != cfg.num_kv_heads          # GQA on the path
     jp, tp = _params(cfg)
     jl = jax.tree.map(lambda a: a[0], jp["blocks"]["attn"])
     tl = tree_map(lambda a: a[0], tp["blocks"]["attn"])
-    x = np.random.default_rng(1).normal(size=(2, S, cfg.d_model)) \
-        .astype(np.float32)
-    jo, (jk, jv) = JL.attention_apply(jl, cfg, jnp.asarray(x),
-                                      jnp.arange(S), causal=True, chunk=8)
-    to, (tk, tv) = TL.attention_apply(tl, tcfg, torch.from_numpy(x),
-                                      torch.arange(S))
+    rng = np.random.default_rng(1)
+    x = rng.normal(size=(2, S, cfg.d_model)).astype(np.float32)
+    xkv = None if Sk is None else \
+        rng.normal(size=(2, Sk, cfg.d_model)).astype(np.float32)
+    jo, (jk, jv) = JL.attention_apply(
+        jl, cfg, jnp.asarray(x), jnp.arange(S) if rope else None,
+        causal=causal, chunk=8,
+        xkv=None if xkv is None else jnp.asarray(xkv))
+    to, (tk, tv) = TL.attention_apply(
+        tl, tcfg, torch.from_numpy(x), torch.arange(S) if rope else None,
+        causal=causal, xkv=None if xkv is None else torch.from_numpy(xkv))
     _close(to, jo)
     _close(tk, jk)
     _close(tv, jv)
@@ -225,15 +265,18 @@ def _prefill_both(name, S, batch=1, max_len=32, lora=False):
     jp, tp = _params(cfg, lora=lora)
     toks = _tokens(cfg, (batch, S), S)
     shape = ShapeConfig("serve", "prefill", max_len, batch)
+    stub = _stub(cfg, batch, S)
     if cfg.family == "ssm":
         jout = JS.ssm_prefill(cfg, PLAN, jp, jnp.asarray(toks))
-    elif cfg.family == "hybrid":            # inline in the reference's api
-        jout = japi.make_prefill(cfg, shape, PLAN)(
-            jp, {"tokens": jnp.asarray(toks)})
-    else:
+    elif cfg.family in ("dense", "moe"):
         jout = JT.lm_prefill(cfg, PLAN, jp, jnp.asarray(toks), max_len)
+    else:       # the hybrid's is inline in the reference's api
+        jout = japi.make_prefill(cfg, shape, PLAN)(
+            jp, {"tokens": jnp.asarray(toks),
+                 **{k: jnp.asarray(a) for k, a in stub.items()}})
     tout = tapi.make_prefill(tcfg, shape, TPLAN)(
-        tp, {"tokens": torch.from_numpy(toks)})
+        tp, {"tokens": torch.from_numpy(toks),
+             **{k: torch.from_numpy(a) for k, a in stub.items()}})
     return cfg, tcfg, jp, tp, jout, tout
 
 
@@ -267,38 +310,62 @@ def _decode_step_matches_reference(name, lora=False):
 
 
 def test_unported_families_raise():
-    for name in ("seamless-m4t-medium", "internvl2-26b"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tapi.init_params(tget(name).smoke(), torch.Generator(),
-                             device="cpu")
+    """Every family is ported; the one LM path left, context-parallel
+    decode, raises naming its ROADMAP item."""
+    for name in ("internlm2-1.8b", "zamba2-7b"):
+        step = cp_decode_step(tget(name).smoke())
+        with pytest.raises(NotImplementedError, match="LM side, sharding"):
+            step()
 
 
 def _serve_both(name, lengths, new_tokens=5, slots=3, max_len=40,
-                lora=False):
+                lora=False, frames=FRAMES, enc_len=FRAMES):
+    """Both packages' BatchServers on the same prompts.  A vision-language
+    or encoder-decoder prefill is a closure over one stub tensor shared by
+    the requests (the servers pass a prefill only the tokens); the
+    encoder-decoder's cache holds ``enc_len`` encoder rows, which
+    ``_write_rows`` zero-fills past ``frames``."""
     cfg, tcfg = _cfgs(name)
     jp, tp = _params(cfg, lora=lora)
     shape = ShapeConfig("serve", "decode", max_len, slots)
+    stub = _stub(cfg, 1, 0, frames)
+    jstub = {k: jnp.asarray(a) for k, a in stub.items()}
+    tstub = {k: torch.from_numpy(a) for k, a in stub.items()}
     if cfg.family == "ssm":
         jpre = jax.jit(lambda p, t: JS.ssm_prefill(cfg, PLAN, p, t))
         jinit = lambda b, ml: JS.init_ssm_cache(cfg, b, jnp.float32)
-    elif cfg.family == "hybrid":
-        jpre_b = japi.make_prefill(cfg, shape, PLAN)
-        jpre = jax.jit(lambda p, t: jpre_b(p, {"tokens": t}))
-        jinit = lambda b, ml: JH.init_hybrid_cache(cfg, b, ml, jnp.float32)
-    else:
+    elif cfg.family in ("dense", "moe"):
         jpre = jax.jit(lambda p, t: JT.lm_prefill(cfg, PLAN, p, t, max_len))
         jinit = lambda b, ml: JT.init_cache(cfg, b, ml, jnp.float32)
+    else:
+        jpre_b = japi.make_prefill(cfg, shape, PLAN)
+        jpre = jax.jit(lambda p, t: jpre_b(p, {"tokens": t, **jstub}))
+        if cfg.family == "hybrid":
+            jinit = lambda b, ml: JH.init_hybrid_cache(cfg, b, ml,
+                                                       jnp.float32)
+        elif cfg.family == "encdec":
+            jinit = lambda b, ml: JE.init_encdec_cache(cfg, b, ml, enc_len,
+                                                       jnp.float32)
+        else:
+            jinit = lambda b, ml: JT.init_cache(cfg, b, ml, jnp.float32)
     jsrv = JBatchServer(slots=slots, max_len=max_len, prefill_fn=jpre,
                         decode_fn=jax.jit(japi.make_decode_step(cfg, shape,
                                                                 PLAN)),
                         params=jp, init_cache_fn=jinit)
     tpre = tapi.make_prefill(tcfg, shape, TPLAN)
+    if cfg.family == "encdec":
+        from repro_torch.models import encdec as TE
+        tinit = lambda b, ml: TE.init_encdec_cache(tcfg, b, ml, enc_len,
+                                                   torch.float32,
+                                                   device="cpu")
+    else:
+        tinit = lambda b, ml: tapi.init_cache(tcfg, b, ml, torch.float32,
+                                              "cpu")
     tsrv = TBatchServer(
         slots=slots, max_len=max_len,
-        prefill_fn=lambda p, t: tpre(p, {"tokens": t}),
+        prefill_fn=lambda p, t: tpre(p, {"tokens": t, **tstub}),
         decode_fn=tapi.make_decode_step(tcfg, shape, TPLAN), params=tp,
-        init_cache_fn=lambda b, ml: tapi.init_cache(tcfg, b, ml,
-                                                    torch.float32, "cpu"))
+        init_cache_fn=tinit)
     prompts = [_tokens(cfg, (n,), 100 + i) for i, n in enumerate(lengths)]
     jreqs = [JRequest(i, p, new_tokens) for i, p in enumerate(prompts)]
     treqs = [TRequest(i, p, new_tokens) for i, p in enumerate(prompts)]
@@ -318,6 +385,10 @@ def _serve_both(name, lengths, new_tokens=5, slots=3, max_len=40,
     ("zamba2-7b", [13, 1, 13, 1]),
     # the hybrid's Mamba layers carry the short conv tail too
     ("zamba2-7b", [13, 2, 13, 2]),
+    # the server places a request at its prompt's length, not the patches'
+    # and the prompt's (a quirk of the reference that the port copies)
+    ("internvl2-26b", [13, 1, 13, 1]),
+    ("seamless-m4t-medium", [13, 1, 13, 1]),
 ])
 def test_batch_server_gives_the_reference_tokens(name, lengths):
     """Four requests on three slots (one waits for a free slot), two prompt
@@ -325,14 +396,63 @@ def test_batch_server_gives_the_reference_tokens(name, lengths):
     _batch_server_gives_the_reference_tokens(name, lengths)
 
 
-def _batch_server_gives_the_reference_tokens(name, lengths, lora=False):
-    jsrv, tsrv, jreqs, treqs = _serve_both(name, lengths, lora=lora)
+def _batch_server_gives_the_reference_tokens(name, lengths, lora=False,
+                                             **kw):
+    jsrv, tsrv, jreqs, treqs = _serve_both(name, lengths, lora=lora, **kw)
     assert all(r.done for r in treqs)
     assert [r.out_tokens for r in treqs] == [r.out_tokens for r in jreqs]
     assert all(len(r.out_tokens) == 5 for r in treqs)
     assert tsrv.stats["prefills"] == jsrv.stats["prefills"] == 4
     assert tsrv.stats["decode_steps"] == jsrv.stats["decode_steps"]
     _same_cache(tsrv.cache, jsrv.cache)
+
+
+def test_encdec_frames_shorter_than_the_cache_serve_as_the_reference():
+    """Frames shorter than the cache's encoder rows: ``_write_rows``
+    zero-fills the rest of ``xk``/``xv``, and the unmasked decode
+    cross-attention gives those rows weight (score 0), so decode is not the
+    function that the prefill computed.  A quirk of the reference that the
+    port copies: both servers give the same tokens and caches."""
+    jsrv, tsrv, jreqs, treqs = _serve_both("seamless-m4t-medium",
+                                           [13, 1, 13, 1], frames=10,
+                                           enc_len=16)
+    assert [r.out_tokens for r in treqs] == [r.out_tokens for r in jreqs]
+    assert all(len(r.out_tokens) == 5 for r in treqs)
+    assert tsrv.cache["xk"].shape[2] == 16
+    assert not tsrv.cache["xk"][:, :, 10:].any()
+    assert tsrv.cache["xk"][:, :, 9].any()
+    _same_cache(tsrv.cache, jsrv.cache)
+
+
+def test_vlm_server_decodes_from_the_prompt_length():
+    """``BatchServer`` places a request at its prompt's length L, not at
+    the P + L rows its prefill wrote (a quirk of the reference that the
+    port copies: the servers' tokens agree above), so decode writes over
+    the last P rows: each decoded token is the one that a prefill over the
+    first L rows of [patches; prompt] and the tokens decoded before it
+    predicts (chip_smoke's ``decode_vs_prefill`` for the family)."""
+    _, tcfg = _cfgs("internvl2-26b")
+    _, tp = _params(_cfgs("internvl2-26b")[0])
+    stub = {k: torch.from_numpy(a) for k, a in _stub(tcfg, 1, 0).items()}
+    P = tcfg.num_frontend_tokens
+    prompt = _tokens(tcfg, (13,), 5)
+    shape = ShapeConfig("serve", "decode", 40, 1)
+    pre = tapi.make_prefill(tcfg, shape, TPLAN)
+    srv = TBatchServer(
+        slots=1, max_len=40,
+        prefill_fn=lambda p, t: pre(p, {"tokens": t, **stub}),
+        decode_fn=tapi.make_decode_step(tcfg, shape, TPLAN), params=tp,
+        init_cache_fn=lambda b, ml: tapi.init_cache(tcfg, b, ml,
+                                                    torch.float32, "cpu"))
+    req = TRequest(0, prompt, 6)
+    srv.run([req])
+    kept = prompt[:len(prompt) - P]
+    for k in range(1, 6):
+        toks = np.concatenate([kept, np.asarray(req.out_tokens[:k],
+                                                np.int32)])
+        logits, _, _ = pre(tp, {"tokens": torch.from_numpy(toks[None]),
+                                **stub})
+        assert int(logits[0].argmax()) == req.out_tokens[k], k
 
 
 @pytest.mark.parametrize("step", ["prefill", "decode", "batch_server"])
@@ -359,6 +479,7 @@ def test_hybrid_with_lora_deltas_matches_reference(step):
 def _constructors():
     """The model-module constructors, each with its arguments but the
     device."""
+    from repro_torch.models import encdec as TE
     from repro_torch.models import hybrid as TH
     from repro_torch.models import moe as TMoE
     from repro_torch.models import ssm_lm as TS
@@ -366,8 +487,12 @@ def _constructors():
     dense, ssm = tget("internlm2-1.8b").smoke(), tget("mamba2-370m").smoke()
     moe = tget("deepseek-v2-lite-16b").smoke()
     hyb = tget("zamba2-7b").smoke()
+    ed = tget("seamless-m4t-medium").smoke()
     gen = torch.Generator()
     return {
+        "init_encdec": lambda **kw: TE.init_encdec(ed, gen, TPLAN, **kw),
+        "init_encdec_cache": lambda **kw: TE.init_encdec_cache(
+            ed, 2, 8, 6, torch.float32, **kw),
         "init_hybrid": lambda **kw: TH.init_hybrid(hyb, gen, TPLAN, **kw),
         "init_hybrid_cache": lambda **kw: TH.init_hybrid_cache(
             hyb, 2, 8, torch.float32, **kw),
@@ -386,7 +511,8 @@ def _constructors():
 @pytest.mark.parametrize("name", ["init_lm", "init_cache", "init_ssm_lm",
                                   "init_ssm_cache", "init_mamba_state",
                                   "init_mla", "init_moe", "init_hybrid",
-                                  "init_hybrid_cache"])
+                                  "init_hybrid_cache", "init_encdec",
+                                  "init_encdec_cache"])
 def test_constructors_take_no_default_device(name):
     """A caller that skips ``api`` names the device: no constructor falls
     back to the CPU."""

@@ -149,12 +149,11 @@ def test_unported_hooks_raise_not_implemented(monkeypatch):
     """The process pool, the last polystore hook that raised here, is
     ported: ``processes=2`` now serves on the CPU through both entry
     points (the serving stack and plan-level fusion were ported before it).
-    The LM side's unported families still raise, naming their ROADMAP
-    item."""
+    The LM side's one unported path, context-parallel decode, still
+    raises, naming its ROADMAP item."""
     # one OpenMP thread in the spawned workers: the suite runs beside
     # timing-based tests of the reference
     monkeypatch.setenv("OMP_NUM_THREADS", "1")
-    from repro_torch.models import api as tapi
     from repro_torch.configs import get_arch
     from repro_torch.runtime import QueryServer
     ones = T.DenseTensor(torch.ones((3, 3)))
@@ -177,9 +176,11 @@ def test_unported_hooks_raise_not_implemented(monkeypatch):
     health = T.EngineHealth()
     health.after_plan([("dense_array", 0.1)])
     assert health._stragglers["dense_array"].n == 1
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tapi.init_params(get_arch("seamless-m4t-medium").smoke(),
-                         torch.Generator(), device="cpu")
+    from _torch_parity import cp_decode_step
+    step = cp_decode_step(get_arch("internlm2-1.8b").smoke())
+    with pytest.raises(NotImplementedError, match="ROADMAP.*LM side, "
+                                                  "sharding"):
+        step()
 
 
 def _imports(path: Path):

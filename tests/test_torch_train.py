@@ -26,6 +26,7 @@ from repro.optim import cosine_schedule as jcosine
 from repro.optim import constant_schedule as jconstant
 from repro.runtime import FailureInjector as JFailureInjector
 from repro.runtime import Trainer as JTrainer
+from _torch_parity import cp_decode_step
 from repro_torch.ckpt import CheckpointManager
 from repro_torch.configs import PlanConfig as TPlan
 from repro_torch.configs import get_arch as tget
@@ -454,18 +455,15 @@ def test_restart_reproduces_uninterrupted_run(tmp_path):
                                    rtol=1e-4, atol=1e-5)
 
 
-# -- families not ported yet --------------------------------------------------
+# -- the path not ported yet --------------------------------------------------
 
-@pytest.mark.parametrize("name,item", [("seamless-m4t-medium", "encdec"),
-                                       ("internvl2-26b", "vlm")])
-def test_unported_families_raise_naming_their_item(name, item):
-    cfg = tget(name).smoke()
-    with pytest.raises(NotImplementedError, match=f"LM side, {item}"):
-        tapi.get_loss_fn(cfg, TPLAN)
-    with pytest.raises(NotImplementedError, match=f"LM side, {item}"):
-        tapi.make_train_step(cfg, TPLAN, AdamW())
-    with pytest.raises(NotImplementedError, match=f"LM side, {item}"):
-        tapi.init_train_state(cfg, TPLAN, torch.Generator(), AdamW(), "cpu")
+@pytest.mark.parametrize("name", ["internlm2-1.8b", "zamba2-7b"])
+def test_unported_families_raise_naming_their_item(name):
+    """Every family is ported; the one LM path left, context-parallel
+    decode, raises naming its ROADMAP item (sharding)."""
+    step = cp_decode_step(tget(name).smoke())
+    with pytest.raises(NotImplementedError, match="LM side, sharding"):
+        step()
 
 
 def test_init_train_state_has_the_reference_tree():

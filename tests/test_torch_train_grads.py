@@ -1,7 +1,9 @@
 """The port's LM training path against the reference, on the smoke configs
 of internlm2-1.8b (dense GQA), mamba2-370m (SSM), deepseek-v2-lite-16b (MoE
-with MLA), grok-1-314b (MoE with GQA) and zamba2-7b (hybrid; in its own
-test with non-zero LoRA deltas) in float32: losses (with the MoE
+with MLA), grok-1-314b (MoE with GQA), zamba2-7b (hybrid; in its own
+test with non-zero LoRA deltas), internvl2-26b (patch embeddings
+prepended, the loss on text positions) and seamless-m4t-medium
+(encoder-decoder over frames) in float32: losses (with the MoE
 aux loss),
 every gradient leaf (``torch.autograd.grad`` against ``jax.grad``), block
 remat, 3-step train states (plain, accumulated, int8 error feedback,
@@ -9,7 +11,8 @@ bfloat16 compute), and the backward passes of the flash-attention and SSD
 ``autograd.Function``s.
 
 The reference's train state goes through ``convert.train_state_from_numpy``
-into the port, and the same numpy tokens through both packages.
+into the port, and the same numpy tokens (and patch embeddings or frames)
+through both packages.
 Tolerances: loss 1e-5 relative; each gradient leaf 1e-4 of its largest
 magnitude; train steps: loss 1e-4 relative and masters atol 1e-3 / rtol
 3e-3, the reference's own allowance for a reordered first Adam step
@@ -39,7 +42,7 @@ from repro_torch.tree import tree_leaves, tree_unflatten
 from repro_torch.optim import AdamW
 
 NAMES = ["internlm2-1.8b", "mamba2-370m", "deepseek-v2-lite-16b",
-         "grok-1-314b", "zamba2-7b"]
+         "grok-1-314b", "zamba2-7b", "internvl2-26b", "seamless-m4t-medium"]
 PLAN = PlanConfig(param_dtype="float32", compute_dtype="float32",
                   master_dtype="float32", attn_chunk=8, loss_chunk=8,
                   remat="none")
@@ -63,6 +66,36 @@ def _one_torch_thread():
 def _tokens(cfg, shape, seed=0):
     return np.random.default_rng(seed).integers(
         0, cfg.vocab_size, shape).astype(np.int32)
+
+
+def _batch(cfg, shape, seed=0):
+    """A train batch as numpy: tokens of ``shape`` (B, S), and the frontend
+    stub's standard-normal inputs of the vision-language family (patch
+    embeddings) and the encoder-decoder (frames, longer than the tokens)."""
+    B, S = shape
+    out = {"tokens": _tokens(cfg, shape, seed)}
+    rng = np.random.default_rng(1000 + seed)
+    if cfg.family == "vlm":
+        out["patch_embeds"] = rng.standard_normal(
+            (B, cfg.num_frontend_tokens, cfg.d_model)).astype(np.float32)
+    if cfg.family == "encdec":
+        out["frames"] = rng.standard_normal(
+            (B, S + 5, cfg.d_model)).astype(np.float32)
+    return out
+
+
+def _jax(batch, dtype="float32"):
+    """The batch in JAX, its float arrays in ``dtype`` (the compute dtype:
+    the reference's encoder carries the frames' dtype through its scan)."""
+    return {k: jnp.asarray(a, dtype if a.dtype.kind == "f" else a.dtype)
+            for k, a in batch.items()}
+
+
+def _torch(batch, dtype="float32"):
+    """The batch in PyTorch, rounded as ``_jax`` rounds it."""
+    return {k: torch.from_numpy(a).to(getattr(torch, dtype))
+            if a.dtype.kind == "f" else torch.from_numpy(a)
+            for k, a in batch.items()}
 
 
 def _paths(tree, prefix=""):
@@ -90,10 +123,10 @@ def _with_lora_deltas(jp, seed=7):
     return dict(jp, lora=lora)
 
 
-def _port_value_and_grad(tcfg, plan, params, tokens):
+def _port_value_and_grad(tcfg, plan, params, batch):
     leaves = [p.detach().requires_grad_(True) for p in tree_leaves(params)]
     loss = tapi.get_loss_fn(tcfg, plan)(tree_unflatten(params, leaves),
-                                        {"tokens": torch.from_numpy(tokens)})
+                                        _torch(batch))
     grads = torch.autograd.grad(loss, leaves)
     return loss.detach(), tree_unflatten(params, list(grads))
 
@@ -125,10 +158,10 @@ def _loss_and_every_gradient_equal_the_reference(name, seq, lora=False):
     if lora:
         jp = _with_lora_deltas(jp)
     tp = params_from_numpy(jax.tree.map(np.asarray, jp), "cpu")
-    toks = _tokens(cfg, (2, seq), seed=seq)
+    batch = _batch(cfg, (2, seq), seed=seq)
     jl, jg = jax.jit(jax.value_and_grad(japi.get_loss_fn(cfg, PLAN)))(
-        jp, {"tokens": jnp.asarray(toks)})
-    tl, tg = _port_value_and_grad(tcfg, _tplan(PLAN), tp, toks)
+        jp, _jax(batch))
+    tl, tg = _port_value_and_grad(tcfg, _tplan(PLAN), tp, batch)
     np.testing.assert_allclose(float(tl), float(jl), rtol=1e-5)
     _close_per_leaf(tg, jg, 1e-4)
 
@@ -138,10 +171,10 @@ def test_block_remat_gives_the_same_loss_and_gradients(name):
     tcfg = tget(name).smoke()
     params = tapi.init_params(tcfg, torch.Generator().manual_seed(3),
                               _tplan(PLAN), "cpu")
-    toks = _tokens(tcfg, (2, 16), seed=2)
-    l0, g0 = _port_value_and_grad(tcfg, _tplan(PLAN), params, toks)
+    batch = _batch(tcfg, (2, 16), seed=2)
+    l0, g0 = _port_value_and_grad(tcfg, _tplan(PLAN), params, batch)
     l1, g1 = _port_value_and_grad(tcfg, _tplan(PLAN.with_(remat="block")),
-                                  params, toks)
+                                  params, batch)
     assert torch.equal(l0, l1)
     for a, b in zip(tree_leaves(g0), tree_leaves(g1)):
         assert torch.equal(a, b)
@@ -209,10 +242,10 @@ def _train_steps_equal_the_reference(name, case, steps, lora=False):
     jstep = jax.jit(japi.make_train_step(cfg, plan, jopt))
     tstep = tapi.make_train_step(tcfg, _tplan(plan), topt)
     for i in range(steps):
-        toks = _tokens(cfg, (4, 16), seed=10 + i)
+        batch = _batch(cfg, (4, 16), seed=10 + i)
         j0, t0 = _paths(js["master"]), _paths(ts["master"])
-        js, jm = jstep(js, {"tokens": jnp.asarray(toks)})
-        ts, tm = tstep(ts, {"tokens": torch.from_numpy(toks)})
+        js, jm = jstep(js, _jax(batch, plan.compute_dtype))
+        ts, tm = tstep(ts, _torch(batch, plan.compute_dtype))
         _every_leaf_moves(t0, _paths(ts["master"]), j0, _paths(js["master"]),
                           what=f"step {i}")
         assert sorted(tm) == sorted(jm) == ["grad_norm", "loss", "lr"]
@@ -275,7 +308,7 @@ def test_accum_matches_single(name):
     state = tapi.init_train_state(tcfg, _tplan(PLAN),
                                   torch.Generator().manual_seed(3), opt,
                                   "cpu")
-    batch = {"tokens": torch.from_numpy(_tokens(tcfg, (2, 16), seed=3))}
+    batch = _torch(_batch(tcfg, (2, 16), seed=3))
     s1, m1 = tapi.make_train_step(tcfg, _tplan(PLAN), opt)(state, batch)
     s2, m2 = tapi.make_train_step(tcfg, _tplan(PLAN.with_(accum=2)),
                                   opt)(state, batch)
@@ -422,10 +455,10 @@ def test_model_gradients_through_the_functions_equal_the_plain_path(
     plan = _tplan(PLAN.with_(remat=remat))
     params = tapi.init_params(tcfg, torch.Generator().manual_seed(5), plan,
                               "cpu")
-    toks = _tokens(tcfg, (2, 16), seed=7)
-    l0, g0 = _port_value_and_grad(tcfg, plan, params, toks)
+    batch = _batch(tcfg, (2, 16), seed=7)
+    l0, g0 = _port_value_and_grad(tcfg, plan, params, batch)
     counts = _stand_in_kernels(monkeypatch)
-    l1, g1 = _port_value_and_grad(tcfg, plan, params, toks)
+    l1, g1 = _port_value_and_grad(tcfg, plan, params, batch)
     times = 2 if remat == "block" else 1
     if tcfg.family == "hybrid":
         G = tcfg.num_layers // tcfg.attn_period
@@ -434,6 +467,10 @@ def test_model_gradients_through_the_functions_equal_the_plain_path(
                 "ssd": G * tcfg.attn_period * times + T}
     elif tcfg.family == "ssm":
         want = {"flash": 0, "ssd": tcfg.num_layers * times}
+    elif tcfg.family == "encdec":
+        # the encoder's self-attention, the decoder's self- and cross-
+        want = {"flash": (tcfg.encoder_layers + 2 * tcfg.num_layers)
+                * times, "ssd": 0}
     else:
         want = {"flash": tcfg.num_layers * times, "ssd": 0}
     assert counts == want
