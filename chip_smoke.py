@@ -19,7 +19,10 @@ prompt, 48 heads over 8 KV heads) and seamless-m4t-medium
 (encoder-decoder: a non-causal encoder over 4096 frames, a decoder with
 cross-attention) at full width and depth and of grok-1-314b (MoE) at full
 width and depth 2, with bfloat16 parameters from the port's seeded init,
-and last LM training of internlm2, mamba2 (at depth 24), deepseek (at
+internlm2 once more on a 1-rank NCCL mesh (``lm_sharded``: 4 of
+``lm_dense``'s requests under context-parallel decode, held to
+``lm_dense``'s logits and tokens, and 2 train steps at depth 4 held to
+unsharded ones), and last LM training of internlm2, mamba2 (at depth 24), deepseek (at
 depth 3), zamba2 (at depth 13), internvl2 (at depth 2) and seamless
 (``train``: the
 kernels' gradients against the plain versions, a
@@ -73,6 +76,7 @@ from pathlib import Path
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
@@ -95,7 +99,12 @@ from repro_torch.kernels.knn import (  # noqa: E402
     knn_scores_cuda, knn_scores_ref, variant as knn_variant)
 from repro_torch.kernels.ssd_scan import (  # noqa: E402
     ssd_intra_cuda, ssd_intra_ref, variant as ssd_variant)
+from repro_torch.launch.mesh import make_mesh_compat  # noqa: E402
 from repro_torch.models import api  # noqa: E402
+from repro_torch.models import layers as L  # noqa: E402
+from repro_torch.models import partition  # noqa: E402
+from repro_torch.models.partition import plan_scope  # noqa: E402
+from repro_torch.models.specs import gather_fsdp  # noqa: E402
 from repro_torch.models.encdec import DECODE_ENC_LEN  # noqa: E402
 from repro_torch.models.hybrid import _geometry as hybrid_geometry  # noqa: E402
 from repro_torch.models import moe as M  # noqa: E402
@@ -411,6 +420,19 @@ TRAIN_GRAD_TOL = 1e-4
 # gives the uninterrupted run's losses within 1e-4 relative
 RESTART_DEPTH, RESTART_BATCH, RESTART_SEQ = 4, 4, 512
 RESTART_STEPS, RESTART_CKPT_EVERY, RESTART_FAIL_AT = 12, 5, (7, 11)
+
+
+# lm_sharded: internlm2-1.8b on a 1-rank NCCL mesh (1, 1) ("data",
+# "model") under decode_cp: the first SHARDED_REQUESTS of lm_dense's
+# requests served (each prefill's logits within SHARDED_LOGIT_TOL of
+# lm_dense's, its tokens equal or near-ties), then SHARDED_TRAIN_STEPS
+# train steps at full width and SHARDED_TRAIN_DEPTH, B
+# SHARDED_TRAIN_BATCH x TRAIN_SEQ, on the mesh against as many unsharded
+# steps from one state (the train cpu_check's tolerances); its decode step
+# timed SHARDED_DECODE_TIMED times each way
+SHARDED_REQUESTS, SHARDED_LOGIT_TOL = 4, 1e-3
+SHARDED_TRAIN_DEPTH, SHARDED_TRAIN_BATCH, SHARDED_TRAIN_STEPS = 4, 4, 2
+SHARDED_DECODE_TIMED = 5
 
 
 class SmokeFailure(RuntimeError):
@@ -2422,7 +2444,7 @@ def _kind(name: str) -> str:
 def phase_lm(dev, name: str, cfg=None, slots=LM_SLOTS, max_len=LM_MAX_LEN,
              n_req=LM_REQUESTS, new_tokens=LM_NEW_TOKENS, phase=None,
              cpu_check=True, cpu_check_depth=CPU_CHECK_DEPTH,
-             decode_check_depth=CPU_CHECK_DEPTH) -> dict:
+             decode_check_depth=CPU_CHECK_DEPTH, keep=0) -> dict:
     """Serve ``n_req`` requests (plus a 1-token prompt for the dense model)
     through ``BatchServer.run`` at full width (and full depth unless
     ``cfg`` cuts it), bfloat16 parameters (``PlanConfig`` defaults) from
@@ -2430,7 +2452,10 @@ def phase_lm(dev, name: str, cfg=None, slots=LM_SLOTS, max_len=LM_MAX_LEN,
     requests: ``_stub``); then the checks against the CPU in float32
     (``cpu_check`` at ``cpu_check_depth``: not for a model whose float32
     layers would not fit the host) and of decode (``decode_vs_prefill``;
-    the MoE family's ``decode_vs_cpu`` at ``decode_check_depth``)."""
+    the MoE family's ``decode_vs_cpu`` at ``decode_check_depth``).  The
+    row returned (not printed) also holds ``kept``: the first ``keep``
+    requests' prompts, prefill logits (on the host) and tokens, which
+    ``lm_sharded`` holds its own against."""
     t_phase = time.perf_counter()
     cfg = cfg or get_arch(name)
     plan = PlanConfig()
@@ -2449,13 +2474,15 @@ def phase_lm(dev, name: str, cfg=None, slots=LM_SLOTS, max_len=LM_MAX_LEN,
     stub = _stub(cfg, 1, 4, dev, torch.bfloat16)
     # rows a prefill runs besides the prompt's: the patches
     extra_rows = cfg.num_frontend_tokens if cfg.family == "vlm" else 0
-    prefill_ms, decode_ms = [], []
+    prefill_ms, decode_ms, kept_logits = [], [], []
 
     def timed_prefill(p, tok):
         t1 = time.perf_counter()
         out = prefill(p, {"tokens": tok, **stub})
         sync(dev)
         prefill_ms.append(((time.perf_counter() - t1) * 1e3, tok.shape[1]))
+        if len(kept_logits) < keep:       # run() prefills in request order
+            kept_logits.append(out[0][0].float().cpu())
         return out
 
     def timed_decode(p, c, t, pos):
@@ -2569,6 +2596,237 @@ def phase_lm(dev, name: str, cfg=None, slots=LM_SLOTS, max_len=LM_MAX_LEN,
                                                       stub=stub)
     row["seconds"] = time.perf_counter() - t_phase
     emit(phase or f"lm_{cfg.family}", **row)
+    row["kept"] = [{"prompt": r.prompt, "logits": lg,
+                    "tokens": list(r.out_tokens)}
+                   for r, lg in zip(reqs, kept_logits)]
+    return row
+
+
+# -- LM serving and training on a mesh ----------------------------------------
+
+def _sharded_serve(dev, cfg, plan, mesh, kept, slots, max_len,
+                   new_tokens) -> dict:
+    """``kept``'s requests served through ``BatchServer`` on the mesh: the
+    parameters seeded as ``phase_lm`` seeds them and placed by
+    ``param_specs``, each prefill's logits against ``phase_lm``'s, the
+    tokens equal or near-ties (``decode_vs_prefill``'s margin: where they
+    part, a prefill over the prompt and the shared tokens on the mesh
+    puts the two candidates within DECODE_NEAR_TIE), one flash launch a
+    layer a prefill and one CP combine a layer a decode step; then one
+    decode step over all slots timed with CP, without it (the naive
+    route: the spans gathered) and unsharded (the same weights whole),
+    and the host's part of it: one all-reduce of a combine's size, one
+    layer's weights gathered."""
+    params = api.init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                             plan, dev)
+    shape = ShapeConfig("serve", "decode", max_len, slots)
+    with plan_scope(mesh, plan):
+        placed = api.distribute(params, api.to_shardings(
+            mesh, api.param_specs(cfg, plan, params)))
+        prefill = api.make_prefill(cfg, shape, plan)
+        decode = api.make_decode_step(cfg, shape, plan)
+        logit_err, prefill_ms, decode_ms = [], [], []
+
+        def timed_prefill(p, tok):
+            t1 = time.perf_counter()
+            out = prefill(p, {"tokens": tok})
+            sync(dev)
+            prefill_ms.append((time.perf_counter() - t1) * 1e3)
+            want = kept[len(logit_err)]["logits"]
+            logit_err.append(float((out[0][0].float().cpu() - want)
+                                   .abs().max()))
+            return out
+
+        def timed_decode(p, c, t, pos):
+            t1 = time.perf_counter()
+            out = decode(p, c, t, pos)
+            sync(dev)
+            decode_ms.append((time.perf_counter() - t1) * 1e3)
+            return out
+
+        srv = BatchServer(slots=slots, max_len=max_len,
+                          prefill_fn=timed_prefill, decode_fn=timed_decode,
+                          params=placed, init_cache_fn=lambda b, ml:
+                          api.init_cache(cfg, b, ml, torch.bfloat16, dev))
+        reqs = [Request(i, k["prompt"], new_tokens)
+                for i, k in enumerate(kept)]
+        ops.reset_launches()
+        L.reset_cp_combines()
+        t0 = time.perf_counter()
+        srv.run(reqs)
+        sync(dev)
+        run_s = time.perf_counter() - t0
+        launches, combines = ops.launches(), L.cp_combines()
+        tokens = []
+        for r, k in zip(reqs, kept):
+            got, want = r.out_tokens, k["tokens"]
+            part = next((i for i, (a, b) in enumerate(zip(got, want))
+                         if a != b), None)
+            t = {"rid": r.rid, "equal": got == want, "parted_at": part}
+            if part is not None:
+                toks = np.concatenate([r.prompt,
+                                       np.asarray(got[:part], np.int32)])
+                logits = _prefill_logits(cfg, plan, placed, toks, dev)
+                t["gap"] = float((logits[got[part]]
+                                  - logits[want[part]]).abs())
+            tokens.append(t)
+        # one decode step over all slots at the end of the cache, each way
+        toks = torch.zeros((slots,), dtype=torch.int32, device=dev)
+        pos = torch.full((slots,), max_len - 2, dtype=torch.int32,
+                         device=dev)
+        cp_step = lambda: decode(placed, srv.cache, toks, pos)
+        timed = {"cp": call_ms(cp_step, dev, iters=SHARDED_DECODE_TIMED,
+                               warmup=1)}
+        profile = {"decode_step_cp": _device_profile(
+            cp_step, dev, [], top=8)} if dev.type == "cuda" else None
+        # the host's part: one all-reduce of a CP combine's size over
+        # "model", one layer's weights gathered whole
+        combine = torch.zeros((slots, cfg.num_heads, cfg.head_dim + 1),
+                              device=dev)
+        timed["all_reduce"] = call_ms(lambda: partition.all_reduce(
+            combine, dist.ReduceOp.SUM, "model"), dev, warmup=1)
+        layer = tree_map(lambda a: a[0], placed["blocks"])
+        with torch.no_grad():
+            timed["gather_layer"] = call_ms(lambda: gather_fsdp(layer), dev,
+                                            warmup=1)
+        naive = api.make_decode_step(cfg, shape, plan.with_(decode_cp=False))
+        with plan_scope(mesh, plan.with_(decode_cp=False)):
+            timed["naive"] = call_ms(lambda: naive(placed, srv.cache, toks,
+                                                   pos), dev,
+                                     iters=SHARDED_DECODE_TIMED, warmup=1)
+    whole = tree_map(lambda t: t.full_tensor(), srv.cache)
+    timed["unsharded"] = call_ms(lambda: decode(params, whole, toks, pos),
+                                 dev, iters=SHARDED_DECODE_TIMED, warmup=1)
+    if profile is not None:
+        profile["decode_step_unsharded"] = _device_profile(
+            lambda: decode(params, whole, toks, pos), dev, [], top=8)
+    del whole
+    want = {k: n * len(reqs) for k, n in
+            _prefill_launches(cfg, torch.bfloat16).items()}
+    row = {"requests": len(reqs), "slots": slots, "max_len": max_len,
+           "new_tokens": new_tokens, "prompt_lengths":
+           [len(r.prompt) for r in reqs], "run_s": run_s,
+           "prefill_logits_max_abs_err": logit_err,
+           "logit_tol": SHARDED_LOGIT_TOL, "tokens": tokens,
+           "near_tie": DECODE_NEAR_TIE, "launches": launches,
+           "prefill_launches": want, "cp_combines": combines,
+           "decode_steps": srv.stats["decode_steps"],
+           "prefill_ms": prefill_ms,
+           "decode_step_ms_median": statistics.median(decode_ms),
+           "decode_step_call_ms": timed, "profile": profile}
+    for r in reqs:
+        check(r.done and len(r.out_tokens) == new_tokens,
+              f"lm_sharded request {r.rid}: {len(r.out_tokens)} tokens")
+    check(len(logit_err) == len(reqs) and
+          max(logit_err) <= SHARDED_LOGIT_TOL,
+          f"lm_sharded: prefill logits off lm_dense's by {logit_err}")
+    check(all(t["equal"] or t["gap"] <= DECODE_NEAR_TIE for t in tokens),
+          f"lm_sharded: tokens part from lm_dense's: {tokens}")
+    if dev.type == "cuda":
+        _check_launches(launches, want, "lm_sharded serving")
+    check(combines == cfg.num_layers * srv.stats["decode_steps"],
+          f"lm_sharded: {combines} CP combines, want {cfg.num_layers} x "
+          f"{srv.stats['decode_steps']} decode steps")
+    return row
+
+
+def _sharded_train(dev, cfg, mesh, batch, seq, steps) -> dict:
+    """``steps`` train steps (PlanConfig defaults) of ``cfg`` on the mesh,
+    the state placed by ``train_state_specs``, against as many unsharded
+    steps from the same state and batches: each loss within 1e-4 relative,
+    the masters within atol 1e-3 / rtol 3e-3 (the train cpu_check's
+    tolerances), each step's flash launches (forward and remat
+    recompute); the steps' times on the host clock, to the loss read, the
+    unsharded steps run before and after the sharded ones (the first run
+    pays the card's warm-up)."""
+    plan = PlanConfig()
+    opt = AdamW(learning_rate=TRAIN_LR)
+    state = api.init_train_state(cfg, plan,
+                                 torch.Generator(device=dev).manual_seed(0),
+                                 opt, dev)
+    stream = TokenStream(cfg.vocab_size, batch, seq, seed=0)
+    batches = [{"tokens": stream.batch_at(i).to(dev)} for i in range(steps)]
+    step = api.make_train_step(cfg, plan, opt)
+    want = _step_launches(cfg, torch.bfloat16)
+
+    def run(s):
+        losses, ms, launches = [], [], []
+        for b in batches:
+            ops.reset_launches()
+            t1 = time.perf_counter()
+            s, m = step(s, b)
+            losses.append(float(m["loss"]))
+            ms.append((time.perf_counter() - t1) * 1e3)
+            launches.append(ops.launches())
+        return s, losses, ms, launches
+
+    plain, plain_losses, plain_ms, _ = run(state)
+    with plan_scope(mesh, plan):
+        placed = api.distribute(state, api.to_shardings(
+            mesh, api.train_state_specs(cfg, plan, state)))
+        sharded, losses, ms, launches = run(placed)
+    del placed
+    plain_ms_after = run(state)[2]
+    del state
+    worst, worst_leaf = max(
+        (float(((a.full_tensor() - w).abs() - 3e-3 * w.abs()).max()), k)
+        for (k, a), w in zip(_leaf_paths(sharded["master"]),
+                             tree_leaves(plain["master"])))
+    loss_err = [abs(a - b) / abs(b) for a, b in zip(losses, plain_losses)]
+    row = {"model": cfg.name, "layers": cfg.num_layers, "batch": batch,
+           "seq": seq, "steps": steps, "losses": losses,
+           "losses_unsharded": plain_losses, "loss_rel_err": loss_err,
+           "step_ms": ms, "step_ms_unsharded": plain_ms,
+           "step_ms_unsharded_after": plain_ms_after,
+           "master_worst_excess": worst, "master_worst_leaf": worst_leaf,
+           "master_tol": {"atol": 1e-3, "rtol": 3e-3},
+           "launches_per_step": launches, "step_launches": want}
+    check(max(loss_err) <= 1e-4, f"lm_sharded train: losses {losses} vs "
+          f"{plain_losses}")
+    check(worst <= 1e-3, f"lm_sharded train: master {worst_leaf} off by "
+          f"{worst} beyond rtol 3e-3")
+    if dev.type == "cuda":
+        for counts in launches:
+            _check_launches(counts, want, "lm_sharded train step")
+    return row
+
+
+def phase_lm_sharded(dev, dense: dict, cfg=None, slots=LM_SLOTS,
+                     max_len=LM_MAX_LEN, new_tokens=LM_NEW_TOKENS,
+                     train_cfg=None, train_batch=SHARDED_TRAIN_BATCH,
+                     train_seq=TRAIN_SEQ) -> dict:
+    """internlm2-1.8b on a (1, 1) ("data", "model") mesh over a 1-rank
+    process group (NCCL on the card, from a ``FileStore`` in a temporary
+    directory: no network), under ``decode_cp``: ``lm_dense``'s first
+    requests served (``_sharded_serve``) and train steps at full width and
+    SHARDED_TRAIN_DEPTH (``_sharded_train``).  The group is destroyed
+    whatever happens; a failure to open it fails the phase."""
+    t_phase = time.perf_counter()
+    cfg = cfg or get_arch("internlm2-1.8b")
+    train_cfg = train_cfg or _cut(cfg, SHARDED_TRAIN_DEPTH)
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+        torch.cuda.set_device(dev)
+    backend = "nccl" if dev.type == "cuda" else "gloo"
+    with tempfile.TemporaryDirectory(prefix="chip-smoke-group-") as d:
+        dist.init_process_group(backend, store=dist.FileStore(
+            os.path.join(d, "store"), 1), rank=0, world_size=1)
+        try:
+            mesh = make_mesh_compat((1, 1), ("data", "model"), dev.type)
+            row = {"backend": backend, "mesh": [1, 1],
+                   "serve": _sharded_serve(
+                       dev, cfg, PlanConfig(decode_cp=True), mesh,
+                       dense["kept"][:SHARDED_REQUESTS], slots, max_len,
+                       new_tokens),
+                   "train": _sharded_train(dev, train_cfg, mesh, train_batch,
+                                           train_seq, SHARDED_TRAIN_STEPS)}
+        finally:
+            dist.destroy_process_group()
+    row["launches"] = row["serve"]["launches"]
+    row["seconds"] = time.perf_counter() - t_phase
+    emit("lm_sharded", **row)
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
     return row
 
 
@@ -2966,7 +3224,8 @@ def _kernel_entry(name, source, replaces, launches, row) -> dict:
 
 def kernels_line(haar_row: dict, knn_rows: dict, flash_rows: dict,
                  ssd_rows: dict, analytic: dict, serving: dict,
-                 procpool: dict, lm_dense: dict, lm_ssm: dict,
+                 procpool: dict, lm_dense: dict, lm_sharded: dict,
+                 lm_ssm: dict,
                  lm_moe: dict, lm_moe_grok: dict, lm_hybrid: dict,
                  lm_vlm: dict, lm_encdec: dict, train: dict) -> dict:
     """Launches of each kernel on its own path: Haar and kNN (all kernels,
@@ -2975,7 +3234,9 @@ def kernels_line(haar_row: dict, knn_rows: dict, flash_rows: dict,
     replays; ``pool_launches``: in the procpool phase's workers over its
     three warm runs, and Haar's in its scatter run's workers), the
     bfloat16 tensor-core flash attention on dense LM serving (and grok-1's
-    as ``moe_grok_launches``), the 3xTF32 one on the dense LM's float32
+    as ``moe_grok_launches``, and the same model's served on a 1-rank mesh
+    as ``sharded_launches``, its train steps there as
+    ``sharded_train_launches``), the 3xTF32 one on the dense LM's float32
     prefill (``cpu_check``), the warp-level one on deepseek-v2-lite's
     serving (MLA at d 192; ``ragged_launches``: the dense smoke config's
     ragged prefill), the CUDA-core one on phase_flash's entry-point calls
@@ -3014,6 +3275,10 @@ def kernels_line(haar_row: dict, knn_rows: dict, flash_rows: dict,
                            flash, lm_dense["launches"]["flash_attention_tc"],
                            flash_rows["tc"]),
              moe_grok_launches=lm_moe_grok["launches"]["flash_attention_tc"],
+             sharded_launches=lm_sharded["launches"]["flash_attention_tc"],
+             sharded_train_launches=sum(
+                 c["flash_attention_tc"] for c in
+                 lm_sharded["train"]["launches_per_step"]),
              train_launches=steps["internlm2-1.8b"]["launches"]
              ["flash_attention_tc"]),
         dict(_kernel_entry("flash_attention_tc_gqa6_vlm",
@@ -3103,7 +3368,8 @@ def main() -> int:
         serving = timed_phase("serving", phase_serving, dev, data, state_dir)
         procpool = phase_procpool(dev, data, state_dir)
     del data
-    lm_dense = phase_lm(dev, "internlm2-1.8b")
+    lm_dense = phase_lm(dev, "internlm2-1.8b", keep=SHARDED_REQUESTS)
+    lm_sharded = phase_lm_sharded(dev, lm_dense)
     lm_ssm = phase_lm(dev, "mamba2-370m")
     lm_moe = phase_lm(dev, "deepseek-v2-lite-16b")
     grok = get_arch("grok-1-314b")
@@ -3119,8 +3385,8 @@ def main() -> int:
          host_behind=HOST_BEHIND)
     print(json.dumps(kernels_line(haar_row, knn_rows, flash_rows, ssd_rows,
                                   analytic, serving, procpool, lm_dense,
-                                  lm_ssm, lm_moe, lm_moe_grok, lm_hybrid,
-                                  lm_vlm, lm_encdec, train)),
+                                  lm_sharded, lm_ssm, lm_moe, lm_moe_grok,
+                                  lm_hybrid, lm_vlm, lm_encdec, train)),
           flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -7,9 +7,15 @@ by either package restores in the other.
  - async: the device->host copy happens on the caller thread, the files
    are written on a background thread; ``wait()`` joins it.  A step is
    published by an atomic rename; the oldest beyond ``keep_last`` go.
- - restore: leaves go to ``device`` (where the reference takes target
-   shardings); the manifest's dtypes are kept, and shapes are validated
-   against ``like`` before use.
+ - restore: whole arrays are read, then go to ``device``, or onto a mesh
+   by target ``shardings`` (``models.api.to_shardings``), as the
+   reference takes shardings: a checkpoint written at one mesh shape
+   restores at another or on one device.  The manifest's dtypes are kept,
+   and shapes are validated against ``like`` before use.
+ - a sharded state (``DTensor`` leaves) is saved whole: every rank
+   gathers each leaf on the caller thread, rank 0 writes, and the others
+   wait for it at a barrier in ``wait()``, so the files are the same as
+   from one device.
  - bfloat16: numpy has no bfloat16 without ``ml_dtypes``, so a bfloat16
    leaf is stored as its 16-bit patterns (uint16), with "bfloat16" in the
    manifest; restore reads any 2-byte array under that name as bfloat16
@@ -26,6 +32,8 @@ from typing import Any, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor
 
 from repro_torch.core.tables import resolve_device
 
@@ -64,6 +72,8 @@ def _dtype_name(t) -> str:
 
 
 def _to_host(t) -> np.ndarray:
+    if isinstance(t, DTensor):
+        t = t.full_tensor()
     t = t.detach().cpu() if torch.is_tensor(t) else torch.as_tensor(t)
     if t.dtype == torch.bfloat16:
         return t.view(torch.int16).numpy().view(np.uint16)
@@ -84,14 +94,21 @@ class CheckpointManager:
         os.makedirs(directory, exist_ok=True)
         self._thread: Optional[threading.Thread] = None
         self._error: Optional[Exception] = None
+        self._barrier = False      # a sharded save: ranks meet in wait()
 
     # ---- save --------------------------------------------------------------
     def save(self, step: int, state: Any, blocking: bool = False,
              extra: Optional[dict] = None):
         self.wait()
         flat = _flatten(state)
-        # device -> host while still on the caller thread
+        # device -> host while still on the caller thread (a DTensor leaf
+        # gathered whole: a collective, so every rank saves)
         host = {k: _to_host(v) for k, v in flat.items()}
+        self._barrier = any(isinstance(v, DTensor) for v in flat.values())
+        if self._barrier and dist.get_rank() != 0:
+            if blocking:
+                self.wait()
+            return
         manifest = {
             "step": step,
             "time": time.time(),
@@ -125,10 +142,14 @@ class CheckpointManager:
             self.wait()
 
     def wait(self):
-        """Join the writer; raise what it raised."""
+        """Join the writer (after a sharded save, every rank then waits for
+        rank 0's at a barrier); raise what it raised."""
         if self._thread is not None:
             self._thread.join()
             self._thread = None
+        if self._barrier:
+            self._barrier = False
+            dist.barrier()
         if self._error is not None:
             err, self._error = self._error, None
             raise err
@@ -152,11 +173,13 @@ class CheckpointManager:
         return s[-1] if s else None
 
     def restore(self, like: Any, step: Optional[int] = None,
-                device=None) -> tuple[Any, int]:
+                device=None, shardings=None) -> tuple[Any, int]:
         """Restore into the structure of ``like`` (a tree of tensors, or of
         anything with a ``shape``), its leaves on ``device`` (``None``: the
-        CUDA card)."""
-        dev = resolve_device(device)
+        CUDA card), or, with ``shardings`` (a tree of ``NamedSharding``s of
+        ``like``'s structure), placed on their mesh as ``DTensor``s."""
+        dev = torch.device("cpu") if shardings is not None \
+            else resolve_device(device)
         if step is None:
             step = self.latest_step()
         if step is None:
@@ -175,7 +198,11 @@ class CheckpointManager:
                 raise ValueError(f"{k}: ckpt shape {arr.shape} != "
                                  f"{want_shape}")
             restored[k] = _from_host(arr, meta["dtype"]).to(dev)
-        return _rebuild(like, restored), step
+        tree = _rebuild(like, restored)
+        if shardings is not None:
+            from repro_torch.models.api import distribute
+            tree = distribute(tree, shardings)
+        return tree, step
 
 
 def _rebuild(like, restored, prefix=()):

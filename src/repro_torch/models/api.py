@@ -10,6 +10,10 @@
   make_prefill(cfg, shape, plan)        -> f(params, batch) -> (logits, cache, pos)
   make_decode_step(cfg, shape, plan)    -> f(params, cache, tokens, pos) -> (tok, cache)
   count_params(cfg, active_only)        -> parameter count (shapes only)
+  param_specs / cache_specs / batch_specs / train_state_specs
+                                        -> PartitionSpec trees (plan-resolved)
+  to_shardings(mesh, spec_tree)         -> NamedSharding trees (placements)
+  distribute(tree, shardings)           -> the tree as DTensors on the mesh
 
 Every family is ported: ``dense`` and ``moe`` (MoE blocks, MLA attention:
 the transformer's routes), ``vlm`` (the transformer with patch embeddings
@@ -17,22 +21,40 @@ prepended: ``batch["patch_embeds"]``), ``ssm``, ``hybrid`` (Mamba2 layers
 and a shared attention block) and ``encdec`` (an encoder over
 ``batch["frames"]`` and a decoder with cross-attention; its decode cache
 holds ``encdec.DECODE_ENC_LEN`` encoder rows, as the reference's
-``example_cache``).  The partition specs are not ported yet.  Prefill and
-decode run under ``torch.inference_mode()`` (decode updates the cache in
-place); the train step runs with gradients and returns a new state, as
-the reference's does.
+``example_cache``).  Prefill and decode run under
+``torch.inference_mode()`` (decode updates the cache in place; under a
+scope ``torch.no_grad()``: a ``DTensor`` made outside inference mode cannot
+be viewed inside it); the train step runs with gradients and returns a new
+state, as the reference's does.
+
+Under a ``partition.plan_scope`` over a ``DeviceMesh`` the same functions
+run sharded (``models.specs`` has the design).  Parameters, train state and
+caches are ``DTensor``s placed by their spec trees (``distribute``,
+``init_cache``).  Each call splits its global batch by ``batch_specs`` and
+runs its own rows, every weight gathered per layer.  Prefill and decode
+hand back global logits, tokens and positions (all-gathered over the
+data-parallel axes) and keep each rank's span of the cache.  The train
+step's loss is the mean over the data-parallel ranks of their local means;
+its gradients are reduce-scattered onto the shards, and the optimizer runs
+on the ``DTensor``s, so its global norm and the int8 scale stay global.
+The functions read the scope when they are called, on the calling thread.
 """
 from __future__ import annotations
 
 import math
 
 import torch
+from torch.distributed.tensor import DTensor, distribute_tensor
+from torch.distributed.tensor import zeros as dtensor_zeros
 
 from repro_torch.configs.base import ArchConfig, PlanConfig, ShapeConfig
 from repro_torch.core.tables import resolve_device
-from repro_torch.models import encdec, hybrid, ssm_lm, vlm
+from repro_torch.models import encdec, hybrid, partition, ssm_lm, vlm
+from repro_torch.models import specs as _specs
 from repro_torch.models import transformer as T
-from repro_torch.tree import tree_leaves, tree_map, tree_unflatten
+from repro_torch.models.partition import NamedSharding, P
+from repro_torch.tree import (tree_leaves, tree_map, tree_map_with_path,
+                              tree_unflatten)
 from repro_torch.optim.compression import int8_ef_compress, int8_ef_init
 
 F32_SENSITIVE = {"router", "A_log", "dt_bias", "Dskip"}
@@ -87,6 +109,23 @@ def get_loss_fn(cfg: ArchConfig, plan: PlanConfig):
 
 
 def make_prefill(cfg: ArchConfig, shape: ShapeConfig, plan: PlanConfig):
+    fn = _family_prefill(cfg, shape, plan)
+
+    def prefill(p, b):
+        env = partition.ranks_env()
+        if env is None:
+            with torch.inference_mode():
+                return fn(p, b)
+        local, entry = _split_batch(b)
+        with torch.no_grad(), env.splitting(entry):
+            logits, cache, pos = fn(p, local)
+            return (partition.gather_rows(logits),
+                    _cache_layout(cache, b["tokens"].shape[0]),
+                    partition.gather_rows(pos))
+    return prefill
+
+
+def _family_prefill(cfg: ArchConfig, shape: ShapeConfig, plan: PlanConfig):
     max_len = shape.seq_len
     family = _family(cfg)
     if family == "transformer":
@@ -102,7 +141,7 @@ def make_prefill(cfg: ArchConfig, shape: ShapeConfig, plan: PlanConfig):
                                                 b["tokens"], max_len)
     else:
         fn = lambda p, b: ssm_lm.ssm_prefill(cfg, plan, p, b["tokens"])
-    return torch.inference_mode()(fn)
+    return fn
 
 
 def make_decode_step(cfg: ArchConfig, shape: ShapeConfig, plan: PlanConfig):
@@ -110,14 +149,44 @@ def make_decode_step(cfg: ArchConfig, shape: ShapeConfig, plan: PlanConfig):
             "ssm": ssm_lm.ssm_decode_step,
             "hybrid": hybrid.hybrid_decode_step,
             "encdec": encdec.encdec_decode_step}[_family(cfg)]
-    return torch.inference_mode()(
-        lambda p, c, t, pos: step(cfg, plan, p, c, t, pos))
+
+    def decode(p, c, t, pos):
+        env = partition.ranks_env()
+        if env is None:
+            with torch.inference_mode():
+                return step(cfg, plan, p, c, t, pos)
+        entry = partition.batch_entry(t.shape[0])
+        with torch.no_grad(), env.splitting(entry):
+            nxt, c = step(cfg, plan, p, c, partition.local_rows(t, entry),
+                          partition.local_rows(pos, entry))
+            return partition.gather_rows(nxt), c
+    return decode
 
 
 def init_cache(cfg: ArchConfig, batch: int, max_len: int, dtype, device):
     """The decode cache of a family: the KV cache (GQA or MLA), the SSM
     states, both (hybrid), or the self-attention KV cache and
-    ``encdec.DECODE_ENC_LEN`` rows of encoder keys and values (encdec)."""
+    ``encdec.DECODE_ENC_LEN`` rows of encoder keys and values (encdec).
+    Under a scope with ranks: ``DTensor`` zeros in the layout of
+    ``cache_specs``, each rank allocating only its span (``device`` must
+    be of the mesh's device type)."""
+    env = partition.ranks_env()
+    if env is None:
+        return _family_cache(cfg, batch, max_len, dtype, device)
+    dev = resolve_device(device)
+    if dev.type != env.mesh.device_type:
+        raise ValueError(f"a cache on {dev.type} for a "
+                         f"{env.mesh.device_type} mesh")
+    shapes = _family_cache(cfg, batch, max_len, dtype, "meta")
+    return tree_map_with_path(
+        lambda path, leaf: dtensor_zeros(
+            tuple(leaf.shape), dtype=leaf.dtype, device_mesh=env.mesh,
+            placements=_cache_sharding(env.mesh, path,
+                                       leaf.shape).placements),
+        shapes)
+
+
+def _family_cache(cfg: ArchConfig, batch: int, max_len: int, dtype, device):
     family = _family(cfg)
     if family in ("transformer", "vlm"):
         return T.init_cache(cfg, batch, max_len, dtype, device=device)
@@ -167,11 +236,25 @@ def make_train_step(cfg: ArchConfig, plan: PlanConfig, optimizer):
                       for p in tree_leaves(master)]
             loss = loss_fn(cast_params(tree_unflatten(master, leaves),
                                        compute_dt), mb)
-            grads = torch.autograd.grad(loss, leaves)
+            # split over n ranks: each takes 1/n of its rows' mean, and the
+            # gathers' backward sums the ranks' gradients
+            n = _split_ranks()
+            grads = torch.autograd.grad(loss if n == 1 else loss / n, leaves)
         return loss.detach(), tree_unflatten(
             master, [g.to(torch.float32) for g in grads])
 
     def train_step(state, batch):
+        env = partition.ranks_env()
+        if env is None:
+            return step(state, batch)
+        local, entry = _split_batch(batch)
+        with env.splitting(entry):
+            new_state, metrics = step(state, local)
+            metrics = {k: partition.mean_over_split(v) if k == "loss"
+                       else _local(v) for k, v in metrics.items()}
+        return new_state, metrics
+
+    def step(state, batch):
         master = state["master"]
         if plan.accum > 1:
             A = plan.accum
@@ -200,6 +283,17 @@ def make_train_step(cfg: ArchConfig, plan: PlanConfig, optimizer):
     return train_step
 
 
+def _split_ranks() -> int:
+    """The number of ranks that split the current step's batch."""
+    env = partition.ranks_env()
+    return 1 if env is None else env.axes_size(env.split)
+
+
+def _local(t):
+    """A replicated ``DTensor`` (a metric) as a plain tensor."""
+    return t.full_tensor() if isinstance(t, DTensor) else t
+
+
 def count_params(cfg: ArchConfig, active_only: bool = False) -> int:
     """Analytic N from the parameter shapes (made on the ``meta`` device:
     nothing is allocated).  ``active_only``: the routed experts' weights
@@ -214,3 +308,108 @@ def count_params(cfg: ArchConfig, active_only: bool = False) -> int:
         n = routed(shapes)
         total = total - n + int(n * (cfg.moe.top_k / cfg.moe.num_experts))
     return total
+
+
+# --------------------------------------------------------------------------
+# partition-spec rules (see models/specs.py for the rule tables)
+# --------------------------------------------------------------------------
+
+_leaf_name = _specs.leaf_name
+
+
+def param_specs(cfg: ArchConfig, plan: PlanConfig, params_shapes):
+    """PartitionSpec tree for a param tree (must run under plan_scope)."""
+    def one(path, leaf):
+        shape = tuple(leaf.shape)
+        rule = _specs.rule_for(_leaf_name(path), shape, plan.moe_ep)
+        if rule is None:
+            return P()                    # norms, scalars: replicate
+        return _specs.trailing_spec(shape, rule)
+    return tree_map_with_path(one, params_shapes)
+
+
+def _cache_spec(path, shape) -> P:
+    rule = _specs.CACHE_RULES.get(_leaf_name(path))
+    if rule is None:
+        return P()
+    return _specs.trailing_spec(tuple(shape), rule)
+
+
+def cache_specs(cfg: ArchConfig, plan: PlanConfig, cache_shapes):
+    return tree_map_with_path(lambda path, leaf: _cache_spec(path, leaf.shape),
+                              cache_shapes)
+
+
+def batch_specs(cfg: ArchConfig, plan: PlanConfig, batch_shapes):
+    def one(path, leaf):
+        fn = _specs.BATCH_RULES.get(_leaf_name(path))
+        if fn is None:
+            return P()
+        return partition.spec(tuple(leaf.shape), fn(len(leaf.shape)))
+    return tree_map_with_path(one, batch_shapes)
+
+
+def train_state_specs(cfg: ArchConfig, plan: PlanConfig, state_shapes):
+    ps = param_specs(cfg, plan, state_shapes["master"])
+    out = {"master": ps,
+           "opt": {"m": ps, "v": ps, "count": P()},
+           "step": P()}
+    if "ef" in state_shapes:
+        out["ef"] = ps
+    return out
+
+
+def to_shardings(mesh, spec_tree):
+    """A tree of ``NamedSharding``s (each with its ``DTensor`` placements)
+    of a spec tree on ``mesh``."""
+    return tree_map(lambda s: NamedSharding(mesh, s), spec_tree)
+
+
+def distribute(tree, shardings):
+    """``tree`` placed on the mesh by ``shardings`` (``to_shardings``): each
+    leaf a ``DTensor`` of which every rank keeps only its shard.  A leaf
+    must be whole and equal on every rank (a seeded init, a restored
+    checkpoint); a ``DTensor`` leaf is gathered whole first, so a tree
+    moves from one mesh to another."""
+    def one(t, sh):
+        if isinstance(t, DTensor):
+            t = t.full_tensor()
+        try:      # each rank takes its own chunk: no broadcast from rank 0
+            return distribute_tensor(t, sh.mesh, sh.placements,
+                                     src_data_rank=None)
+        except TypeError:
+            return distribute_tensor(t, sh.mesh, sh.placements)
+    return tree_map(one, tree, shardings)
+
+
+def _cache_sharding(mesh, path, shape) -> NamedSharding:
+    return NamedSharding(mesh, _cache_spec(path, tuple(shape)))
+
+
+def _split_batch(batch: dict) -> tuple:
+    """(this rank's rows of each leaf of a global batch, split by
+    ``batch_specs``, and the spec entry that split its tokens)."""
+    specs = batch_specs(None, None, batch)
+    local = {k: partition.local_rows(v, specs[k][0] if len(specs[k]) else None)
+             for k, v in batch.items()}
+    return local, specs["tokens"][0]
+
+
+def _cache_layout(cache, batch: int):
+    """A prefill's cache, this rank's rows whole along the other
+    dimensions, as ``DTensor``s in the layout of ``cache_specs`` for a
+    global batch of ``batch`` rows: each rank keeps its span."""
+    env = partition.ranks_env()
+
+    def one(path, t):
+        rule = _specs.CACHE_RULES.get(_leaf_name(path))
+        shape = list(t.shape)
+        if rule is not None:
+            shape[t.ndim - len(rule)] = batch
+        pl = _cache_sharding(env.mesh, path, shape).placements
+        rows = DTensor.from_local(
+            t.contiguous(), env.mesh,
+            partition.rows_placements(env.axis_names, pl), run_check=False)
+        span = rows.redistribute(env.mesh, pl).to_local().contiguous()
+        return DTensor.from_local(span, env.mesh, pl, run_check=False)
+    return tree_map_with_path(one, cache)

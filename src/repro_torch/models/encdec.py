@@ -12,7 +12,10 @@ PyTorch: the self-attention writes its key and value rows into the cache
 IN PLACE (``layers.attention_decode``), and the cross-attention reads the
 fixed encoder cache ``xk``/``xv`` with no mask, as the reference computes
 it in jnp: rows of ``xk`` that ``BatchServer`` zero-filled past a shorter
-request's frames score 0 and take weight.
+request's frames score 0 and take weight.  Under a plan scope each
+layer's weights are gathered whole at the top of its body, and a decode
+gathers the encoder cache's spans (cross-attention has no
+context-parallel route, as in the reference).
 """
 from __future__ import annotations
 
@@ -22,6 +25,8 @@ import torch
 
 from repro_torch.configs.base import ArchConfig, PlanConfig
 from repro_torch.models import layers as L
+from repro_torch.models import partition
+from repro_torch.models.specs import gather_fsdp
 from repro_torch.models.transformer import (lm_loss_from_hidden,
                                            next_token_targets, padded_vocab)
 from repro_torch.models.util import remat, stack_scan
@@ -65,6 +70,7 @@ def encode(cfg, plan: PlanConfig, params, frames):
     positions = torch.arange(frames.shape[1], device=frames.device)
 
     def body(x, lp):
+        lp = gather_fsdp(lp)
         h = L.rms_norm(x, lp["ln1"], cfg.norm_eps)
         h, _ = L.attention_apply(lp["attn"], cfg, h, positions, causal=False)
         x = x + h
@@ -74,17 +80,18 @@ def encode(cfg, plan: PlanConfig, params, frames):
     if plan.remat == "block":
         body = remat(body)
     x, _ = stack_scan(body, frames, params["enc_blocks"])
-    return L.rms_norm(x, params["enc_norm"], cfg.norm_eps)
+    return L.rms_norm(x, gather_fsdp(params["enc_norm"]), cfg.norm_eps)
 
 
 def decode_hidden(cfg, plan: PlanConfig, params, tokens, enc_out,
                   collect_cache=False):
     """tokens: (B, S) -> (final hidden (B, S, D), ((k, v), (xk, xv))
     stacked over layers, or None)."""
-    x = params["emb"][tokens.to(torch.long)]
+    x = _embed(params, tokens)
     positions = torch.arange(tokens.shape[1], device=x.device)
 
     def body(x, lp):
+        lp = gather_fsdp(lp)
         h = L.rms_norm(x, lp["ln1"], cfg.norm_eps)
         h, self_kv = L.attention_apply(lp["attn"], cfg, h, positions,
                                        causal=True)
@@ -100,7 +107,17 @@ def decode_hidden(cfg, plan: PlanConfig, params, tokens, enc_out,
     if plan.remat == "block":
         body = remat(body)
     x, caches = stack_scan(body, x, params["dec_blocks"])
-    return L.rms_norm(x, params["final_norm"], cfg.norm_eps), caches
+    return (L.rms_norm(x, gather_fsdp(params["final_norm"]), cfg.norm_eps),
+            caches)
+
+
+def _embed(params, tokens):
+    return gather_fsdp(params["emb"])[tokens.to(torch.long)]
+
+
+def _logits(params, h):
+    return torch.einsum("bd,vd->bv", h,
+                        gather_fsdp(params["emb"])).to(torch.float32)
 
 
 def encdec_loss(cfg, plan, params, frames, tokens, aux_coef=0.0):
@@ -139,8 +156,7 @@ def encdec_prefill(cfg, plan, params, frames, bos_tokens, max_len):
              "xk": xk.to(dt), "xv": xv.to(dt)}
     cache["k"][:, :, :Sp] = sk
     cache["v"][:, :, :Sp] = sv
-    logits = torch.einsum("bd,vd->bv", hidden[:, -1],
-                          params["emb"]).to(torch.float32)
+    logits = _logits(params, hidden[:, -1])
     return logits, cache, torch.full((Bsz,), Sp, dtype=torch.int32,
                                      device=enc_out.device)
 
@@ -151,10 +167,10 @@ def encdec_decode_step(cfg: ArchConfig, plan: PlanConfig, params, cache,
 
     Returns (next_tokens (B,) int32, cache); the self-attention cache is
     updated in place."""
-    x = params["emb"][tokens.to(torch.long)]
+    x = _embed(params, tokens)
     H, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     for i in range(cfg.num_layers):
-        lp = tree_map(lambda a: a[i], params["dec_blocks"])
+        lp = gather_fsdp(tree_map(lambda a: a[i], params["dec_blocks"]))
         h = L.rms_norm(x, lp["ln1"], cfg.norm_eps)
         h, _, _ = L.attention_decode(lp["attn"], cfg, h, cache["k"][i],
                                      cache["v"][i], pos)
@@ -165,8 +181,8 @@ def encdec_decode_step(cfg: ArchConfig, plan: PlanConfig, params, cache,
         q = torch.einsum("bd,dhk->bhk", h, xp["wq"])
         if cfg.qkv_bias:
             q = q + xp["bq"]
-        ke = L._expand_kv(cache["xk"][i], H // KV)
-        ve = L._expand_kv(cache["xv"][i], H // KV)
+        ke = L._expand_kv(partition.rows_of(cache["xk"][i]), H // KV)
+        ve = L._expand_kv(partition.rows_of(cache["xv"][i]), H // KV)
         s = torch.einsum("bhk,bshk->bhs", q, ke).to(torch.float32) \
             / math.sqrt(hd)
         w = torch.softmax(s, dim=-1).to(x.dtype)
@@ -174,6 +190,6 @@ def encdec_decode_step(cfg: ArchConfig, plan: PlanConfig, params, cache,
         x = x + torch.einsum("bhk,hkd->bd", o, xp["wo"])
         h = L.rms_norm(x, lp["ln2"], cfg.norm_eps)
         x = x + L.mlp_apply(lp["mlp"], h)
-    x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
-    logits = torch.einsum("bd,vd->bv", x, params["emb"]).to(torch.float32)
+    x = L.rms_norm(x, gather_fsdp(params["final_norm"]), cfg.norm_eps)
+    logits = _logits(params, x)
     return torch.argmax(logits, dim=-1).to(torch.int32), cache

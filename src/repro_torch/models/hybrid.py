@@ -15,7 +15,9 @@ zamba2-7b prefill launches 81 SSD and 13 flash kernels.  With
 backward pass; the tail's are kept, as in the reference.  Decode is plain
 PyTorch and writes every SSM and conv state and the shared block's key and
 value rows into the cache IN PLACE (the reference threads a new cache
-through its loop).
+through its loop).  Under a plan scope each Mamba layer's weights, and the
+shared block and the group's LoRA factors before ``_shared_effective``,
+are gathered whole where the reference gathers them.
 """
 from __future__ import annotations
 
@@ -23,7 +25,8 @@ import torch
 
 from repro_torch.configs.base import ArchConfig, PlanConfig
 from repro_torch.models import layers as L
-from repro_torch.models import ssm
+from repro_torch.models import partition, ssm
+from repro_torch.models.specs import gather_fsdp
 from repro_torch.models.transformer import (lm_loss_from_hidden,
                                            next_token_targets, padded_vocab)
 from repro_torch.models.util import remat, stack_scan
@@ -106,13 +109,14 @@ def hybrid_hidden(cfg, plan: PlanConfig, params, embeds, positions,
     shared = params["shared"]
 
     def mamba_body(x, lp):
+        lp = gather_fsdp(lp)
         h, state = ssm.mamba_apply(lp, cfg,
                                    L.rms_norm(x, lp["ln"], cfg.norm_eps))
         return x + h, (state if collect_cache else None)
 
     def group_body(x, inp):
         x, states = stack_scan(mamba_body, x, inp["groups"])
-        sp = _shared_effective(shared, inp["lora"])
+        sp = _shared_effective(gather_fsdp(shared), gather_fsdp(inp["lora"]))
         x, kv = _shared_block_apply(sp, cfg, x, positions)
         return x, (states, kv if collect_cache else None)
 
@@ -124,12 +128,21 @@ def hybrid_hidden(cfg, plan: PlanConfig, params, embeds, positions,
     t_states = None
     if "tail" in params:
         x, t_states = stack_scan(mamba_body, x, params["tail"])
-    x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
+    x = L.rms_norm(x, gather_fsdp(params["final_norm"]), cfg.norm_eps)
     return x, {"groups": g_states, "tail": t_states, "kv": kvs}
 
 
+def _embed(params, tokens):
+    return gather_fsdp(params["emb"])[tokens.to(torch.long)]
+
+
+def _logits(params, h):
+    return torch.einsum("bd,vd->bv", h,
+                        gather_fsdp(params["emb"])).to(torch.float32)
+
+
 def hybrid_loss(cfg, plan, params, tokens, aux_coef=0.0):
-    e = params["emb"][tokens.to(torch.long)]
+    e = _embed(params, tokens)
     positions = torch.arange(tokens.shape[1], device=e.device)
     hidden, _ = hybrid_hidden(cfg, plan, params, e, positions)
     return lm_loss_from_hidden(cfg, plan, params, hidden,
@@ -162,13 +175,12 @@ def hybrid_prefill(cfg, plan, params, tokens, max_len):
 
     Returns (last_logits (B, Vp) float32, cache, next_pos (B,) int32): the
     states after the prompt, and k / v at rows [0, S)."""
-    e = params["emb"][tokens.to(torch.long)]
+    e = _embed(params, tokens)
     Bsz, S = tokens.shape
     positions = torch.arange(S, device=e.device)
     h, caches = hybrid_hidden(cfg, plan, params, e, positions,
                               collect_cache=True)
-    logits = torch.einsum("bd,vd->bv", h[:, -1],
-                          params["emb"]).to(torch.float32)
+    logits = _logits(params, h[:, -1])
     cache = init_hybrid_cache(cfg, Bsz, max_len, e.dtype, device=e.device)
     # as the reference: the conv tails replace the zeros (shorter than
     # conv_width - 1 rows for a shorter prompt)
@@ -190,23 +202,25 @@ def hybrid_decode_step(cfg: ArchConfig, plan: PlanConfig, params, cache,
 
     Returns (next_tokens (B,) int32, cache); the cache is updated in
     place."""
-    x = params["emb"][tokens.to(torch.long)]
+    x = _embed(params, tokens)
     G, P, T = _geometry(cfg)
 
     def mamba_step(x, lp, ssm_state, conv_state):
-        h, (s2, c2) = ssm.mamba_step(lp, cfg,
-                                     L.rms_norm(x, lp["ln"], cfg.norm_eps),
-                                     (ssm_state, conv_state))
-        ssm_state.copy_(s2)
-        conv_state.copy_(c2)
+        lp = gather_fsdp(lp)
+        h, (s2, c2) = ssm.mamba_step(
+            lp, cfg, L.rms_norm(x, lp["ln"], cfg.norm_eps),
+            (partition.rows_of(ssm_state), partition.rows_of(conv_state)))
+        partition.store_rows(ssm_state, s2)
+        partition.store_rows(conv_state, c2)
         return x + h
 
     for i in range(G):
         for j in range(P):
             x = mamba_step(x, tree_map(lambda a: a[i, j], params["groups"]),
                            cache["ssm_g"][i, j], cache["conv_g"][i, j])
-        sp = _shared_effective(params["shared"],
-                               tree_map(lambda a: a[i], params["lora"]))
+        sp = _shared_effective(gather_fsdp(params["shared"]),
+                               gather_fsdp(tree_map(lambda a: a[i],
+                                                    params["lora"])))
         h = L.rms_norm(x, sp["ln1"], cfg.norm_eps)
         h, _, _ = L.attention_decode(sp["attn"], cfg, h, cache["k"][i],
                                      cache["v"][i], pos,
@@ -217,6 +231,6 @@ def hybrid_decode_step(cfg: ArchConfig, plan: PlanConfig, params, cache,
     for j in range(T):
         x = mamba_step(x, tree_map(lambda a: a[j], params["tail"]),
                        cache["ssm_t"][j], cache["conv_t"][j])
-    x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
-    logits = torch.einsum("bd,vd->bv", x, params["emb"]).to(torch.float32)
+    x = L.rms_norm(x, gather_fsdp(params["final_norm"]), cfg.norm_eps)
+    logits = _logits(params, x)
     return torch.argmax(logits, dim=-1).to(torch.int32), cache

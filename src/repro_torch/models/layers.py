@@ -4,8 +4,8 @@ Functional, as the reference's ``repro.models.layers``: parameters are plain
 dicts of tensors made by ``init_*``, with the reference's names and layouts
 (``wq`` (D, H, hd), ``wo`` (H, hd, D), ``w1`` (D, F), ...), and forward
 functions take (params, inputs) and use ``torch.einsum`` in the reference's
-index order.  The port runs on one device, so the reference's sharding
-constraints (``pcon``) are dropped.
+index order.  The reference's sharding constraints (``pcon``) are dropped:
+activations are each rank's local tensors (``models.partition``).
 
 Full-sequence attention in prefill and training goes through the
 flash-attention kernel, ``kernels.ops.flash_attention``, in place of the
@@ -28,25 +28,31 @@ is the reference's function: ``sdpa_chunked`` scales by 1/sqrt(q's width),
 as the kernels do, and the padded columns of P·V are zero.  MLA decode is
 the reference's absorbed form (attention in the latent space), in plain
 PyTorch, writing the latent ``c`` and rotated ``kr`` rows in place.
-Context-parallel decode is not ported yet; reaching it raises
-``NotImplementedError``.
+
+Under a plan scope with ranks (``models.partition``) the weights reach
+these functions gathered whole, the activations are the rank's rows of
+the batch, and a decode cache leaf is a ``DTensor`` whose seq dimension
+may be split over "model" (``CACHE_RULES``).  Context-parallel decode
+(``use_cp``, ``_decode_attend_cp``) attends to the rank's own span and
+combines the spans' partial softmaxes with all-reduces over "model" (the
+log-sum-exp trick); ``cp_combines()`` counts its combines.  Without a
+scope, or when the cache's seq dimension is not split, it falls back to
+``_decode_attend``, as the reference does.  The naive route under a mesh
+(and MLA's and the cross-attention's, which have no CP variant) gathers
+the spans, attends, and writes back the rank's own span.
 """
 from __future__ import annotations
 
 import math
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Shard
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.kernels import ops
-
-
-def not_ported(what: str, item: str):
-    """The error of a path the port does not have yet, naming the ROADMAP
-    item that brings it."""
-    return NotImplementedError(f"{what} is not ported yet (ROADMAP.md queue "
-                               f"1: {item})")
+from repro_torch.kernels import counters, ops
+from repro_torch.models import partition
 
 
 # --------------------------------------------------------------------------
@@ -186,10 +192,13 @@ def attention_decode(p, cfg: ArchConfig, x, cache_k, cache_v, pos,
     """Single-token decode.  x: (B, D); cache_k/v: (B, Smax, KV, hd);
     pos: (B,).  Writes this token's key and value into ``cache_k`` and
     ``cache_v`` in place at ``pos`` and returns (out (B, D), cache_k,
-    cache_v)."""
-    if use_cp:
-        raise not_ported("context-parallel decode attention (decode_cp)",
-                         "LM side, sharding")
+    cache_v).
+
+    use_cp: context-parallel attention over the seq-sharded cache (a
+    ``DTensor`` leaf under a plan scope): each rank attends to its local
+    span, and the spans combine with the log-sum-exp trick (all-reduces of
+    (B, H[, hd]) partials over "model").  The naive route all-gathers the
+    spans instead."""
     q = torch.einsum("bd,dhk->bhk", x, p["wq"])
     k = torch.einsum("bd,dhk->bhk", x, p["wk"])
     v = torch.einsum("bd,dhk->bhk", x, p["wv"])
@@ -197,11 +206,18 @@ def attention_decode(p, cfg: ArchConfig, x, cache_k, cache_v, pos,
         q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
     q = rope_apply(q, pos, cfg.rope_theta)
     k = rope_apply(k, pos, cfg.rope_theta)
-    rows = torch.arange(x.shape[0], device=x.device)
-    at = pos.to(torch.long)
-    cache_k[rows, at] = k.to(cache_k.dtype)
-    cache_v[rows, at] = v.to(cache_v.dtype)
-    o = _decode_attend(cfg, q, cache_k, cache_v, pos)
+    axis = _cp_axis(cache_k) if use_cp else None
+    if axis is not None:
+        o = _decode_attend_cp(cfg, q, k, v, cache_k, cache_v, pos, axis)
+    else:
+        ck, cv = partition.rows_of(cache_k), partition.rows_of(cache_v)
+        rows = torch.arange(x.shape[0], device=x.device)
+        at = pos.to(torch.long)
+        ck[rows, at] = k.to(ck.dtype)
+        cv[rows, at] = v.to(cv.dtype)
+        o = _decode_attend(cfg, q, ck, cv, pos)
+        partition.store_rows(cache_k, ck)
+        partition.store_rows(cache_v, cv)
     out = torch.einsum("bhk,hkd->bd", o, p["wo"])
     return out, cache_k, cache_v
 
@@ -215,6 +231,69 @@ def _decode_attend(cfg, q, cache_k, cache_v, pos):
     s = s.masked_fill(~mask[:, None, :], float("-inf"))
     w = torch.softmax(s, dim=-1).to(q.dtype)
     return torch.einsum("bhs,bshk->bhk", w, ve)
+
+
+def _cp_axis(cache_k):
+    """The mesh axis that splits a decode cache leaf's seq dimension (dim
+    1), as the plan resolves "cache", or None: no scope, the plan does not
+    shard the cache, or the divisibility guard replicated it."""
+    env = partition.ranks_env()
+    if env is None or not isinstance(cache_k, DTensor):
+        return None
+    axis = env.resolve("cache")
+    if axis is None:
+        return None
+    k = cache_k.device_mesh.mesh_dim_names.index(axis)
+    return axis if cache_k.placements[k] == Shard(1) else None
+
+
+def _decode_attend_cp(cfg, q, k_new, v_new, cache_k, cache_v, pos, axis):
+    """Context-parallel decode attention: each rank holds the span
+    (B_local, S/n, KV, hd) of the cache along mesh ``axis``; only the rank whose
+    span holds ``pos`` writes the new key and value (in place), scores are
+    masked by the global key positions, and the spans' row maxima, softmax
+    denominators and outputs combine by all-reduce (MAX, then one SUM in
+    float32 of the outputs with the denominators as one more column), as
+    the reference's shard_map body (pmax, then psum of each)."""
+    H, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    ck, cv = cache_k.to_local(), cache_v.to_local()
+    s_loc = ck.shape[1]
+    start = partition.span_start(cache_k, 1, axis)
+    kpos = start + torch.arange(s_loc, device=q.device)
+    # the new entry, at its row's position if that lies in this span (a
+    # read-modify-write with the clamped position elsewhere: no host sync)
+    rows = torch.arange(q.shape[0], device=q.device)
+    mine = ((pos >= start) & (pos < start + s_loc))[:, None, None]
+    at = (pos.to(torch.long) - start).clamp(0, s_loc - 1)
+    ck[rows, at] = torch.where(mine, k_new.to(ck.dtype), ck[rows, at])
+    cv[rows, at] = torch.where(mine, v_new.to(cv.dtype), cv[rows, at])
+    ke = _expand_kv(ck, H // KV)
+    ve = _expand_kv(cv, H // KV)
+    s = torch.einsum("bhk,bshk->bhs", q, ke).to(torch.float32) / math.sqrt(hd)
+    mask = kpos[None, :] <= pos[:, None]
+    s = s.masked_fill(~mask[:, None, :], float("-inf"))
+    m = partition.all_reduce(torch.amax(s, dim=-1), dist.ReduceOp.MAX, axis)
+    w = torch.exp(s - m[..., None])
+    o = torch.einsum("bhs,bshk->bhk", w.to(q.dtype), ve).to(torch.float32)
+    # the denominators ride as one more column of o: one SUM for both
+    ol = partition.all_reduce(torch.cat([o, torch.sum(w, dim=-1)[..., None]],
+                                        dim=-1), dist.ReduceOp.SUM, axis)
+    o, l = ol[..., :-1], ol[..., -1]
+    counters.count(_decode_attend_cp, "combines")
+    return (o / torch.clamp(l, min=1e-30)[..., None]).to(q.dtype)
+
+
+_decode_attend_cp.combines = 0
+
+
+def cp_combines() -> int:
+    """Context-parallel combines since the last ``reset_cp_combines``:
+    one a layer of a decode step that took the CP route."""
+    return _decode_attend_cp.combines
+
+
+def reset_cp_combines() -> None:
+    counters.reset([(_decode_attend_cp, "combines")])
 
 
 # --------------------------------------------------------------------------
@@ -263,7 +342,10 @@ def mla_decode(p, cfg: ArchConfig, x, cache_c, cache_kr, pos):
     """Absorbed MLA decode: attend in the latent space (KV never expanded).
     x: (B, D); cache_c: (B, Smax, R); cache_kr: (B, Smax, rd); pos: (B,).
     Writes this token's ``c`` and ``kr`` rows in place at ``pos`` and
-    returns (out (B, D), cache_c, cache_kr)."""
+    returns (out (B, D), cache_c, cache_kr).  MLA has no context-parallel
+    route (neither has the reference's): under a mesh the spans are
+    gathered and the rank's own written back."""
+    c_all, kr_all = partition.rows_of(cache_c), partition.rows_of(cache_kr)
     m = cfg.mla
     nope, rd, R = m.qk_nope_head_dim, m.qk_rope_head_dim, m.kv_lora_rank
     q = torch.einsum("bd,dhk->bhk", x, p["wq"])
@@ -274,19 +356,21 @@ def mla_decode(p, cfg: ArchConfig, x, cache_c, cache_kr, pos):
     kr_new = rope_apply(a[:, None, R:], pos, cfg.rope_theta)[:, 0]
     rows = torch.arange(x.shape[0], device=x.device)
     at = pos.to(torch.long)
-    cache_c[rows, at] = c_new.to(cache_c.dtype)
-    cache_kr[rows, at] = kr_new.to(cache_kr.dtype)
+    c_all[rows, at] = c_new.to(c_all.dtype)
+    kr_all[rows, at] = kr_new.to(kr_all.dtype)
     wb_k = p["wkv_b"][..., :nope]                        # (R, H, nope)
     wb_v = p["wkv_b"][..., nope:]                        # (R, H, vd)
     q_lat = torch.einsum("bhk,rhk->bhr", q_nope, wb_k)   # (B, H, R)
-    s = (torch.einsum("bhr,bsr->bhs", q_lat, cache_c)
-         + torch.einsum("bhk,bsk->bhs", q_rope, cache_kr)).to(torch.float32)
+    s = (torch.einsum("bhr,bsr->bhs", q_lat, c_all)
+         + torch.einsum("bhk,bsk->bhs", q_rope, kr_all)).to(torch.float32)
     s = s / math.sqrt(nope + rd)
-    mask = torch.arange(cache_c.shape[1], device=x.device)[None, :] \
+    mask = torch.arange(c_all.shape[1], device=x.device)[None, :] \
         <= pos[:, None]
     s = s.masked_fill(~mask[:, None, :], float("-inf"))
     w = torch.softmax(s, dim=-1).to(x.dtype)
-    o_lat = torch.einsum("bhs,bsr->bhr", w, cache_c)     # (B, H, R)
+    o_lat = torch.einsum("bhs,bsr->bhr", w, c_all)       # (B, H, R)
     o = torch.einsum("bhr,rhv->bhv", o_lat, wb_v)        # (B, H, vd)
     out = torch.einsum("bhv,hvd->bd", o, p["wo"])
+    partition.store_rows(cache_c, c_all)
+    partition.store_rows(cache_kr, kr_all)
     return out, cache_c, cache_kr

@@ -16,7 +16,9 @@ reference, with zero-weight slots pointed at token T so that they sort
 last.  The expert products are ``torch.einsum`` over the expert axis (the
 reference leaves them to XLA, outside any Pallas kernel); the SiLU gate and
 the weighted sum over k are in float32.  The reference's sharding
-constraints (``pcon``) are dropped: the port runs on one device.
+constraints (``pcon``) are dropped: activations are each rank's local
+tensors (``models.partition``), and the experts' weights reach this
+module gathered whole.
 """
 from __future__ import annotations
 

@@ -5,7 +5,10 @@ forward runs the SSD kernel once per layer (``ssm.ssd_chunked``; in
 training its ``autograd.Function``), with each block's activations
 recomputed in the backward pass when ``plan.remat == "block"``.  Decode is
 plain PyTorch and writes each layer's new SSM and conv state into the cache
-IN PLACE (the reference returns a new cache).
+IN PLACE (the reference returns a new cache).  Under a plan scope each
+layer's weights are gathered whole at the top of its body, and a decode
+gathers each state's heads (split over "model" by ``CACHE_RULES``) and
+writes back the rank's own.
 """
 from __future__ import annotations
 
@@ -13,7 +16,8 @@ import torch
 
 from repro_torch.configs.base import ArchConfig, PlanConfig
 from repro_torch.models import layers as L
-from repro_torch.models import ssm
+from repro_torch.models import partition, ssm
+from repro_torch.models.specs import gather_fsdp
 from repro_torch.models.transformer import (lm_loss_from_hidden,
                                            next_token_targets, padded_vocab)
 from repro_torch.models.util import remat, stack_scan
@@ -36,6 +40,7 @@ def init_ssm_lm(cfg: ArchConfig, gen, plan: PlanConfig = PlanConfig(), *,
 def ssm_hidden(cfg: ArchConfig, plan: PlanConfig, params, embeds,
                collect_state=False):
     def body(x, lp):
+        lp = gather_fsdp(lp)
         h, state = ssm.mamba_apply(lp, cfg,
                                    L.rms_norm(x, lp["ln"], cfg.norm_eps))
         return x + h, (state if collect_state else None)
@@ -43,11 +48,21 @@ def ssm_hidden(cfg: ArchConfig, plan: PlanConfig, params, embeds,
     if plan.remat == "block":
         body = remat(body)
     x, states = stack_scan(body, embeds, params["blocks"])
-    return L.rms_norm(x, params["final_norm"], cfg.norm_eps), states
+    return (L.rms_norm(x, gather_fsdp(params["final_norm"]), cfg.norm_eps),
+            states)
+
+
+def _embed(params, tokens):
+    return gather_fsdp(params["emb"])[tokens.to(torch.long)]
+
+
+def _logits(params, h):
+    return torch.einsum("bd,vd->bv", h,
+                        gather_fsdp(params["emb"])).to(torch.float32)
 
 
 def ssm_lm_loss(cfg, plan, params, tokens, aux_coef=0.0):
-    e = params["emb"][tokens.to(torch.long)]
+    e = _embed(params, tokens)
     hidden, _ = ssm_hidden(cfg, plan, params, e)
     return lm_loss_from_hidden(cfg, plan, params, hidden,
                                *next_token_targets(tokens))
@@ -65,10 +80,9 @@ def init_ssm_cache(cfg: ArchConfig, batch: int, dtype, *, device):
 
 
 def ssm_prefill(cfg, plan, params, tokens):
-    e = params["emb"][tokens.to(torch.long)]
+    e = _embed(params, tokens)
     hidden, states = ssm_hidden(cfg, plan, params, e, collect_state=True)
-    logits = torch.einsum("bd,vd->bv", hidden[:, -1],
-                          params["emb"]).to(torch.float32)
+    logits = _logits(params, hidden[:, -1])
     cache = {"ssm": states[0], "conv": states[1].to(e.dtype)}
     pos = torch.full((tokens.shape[0],), tokens.shape[1], dtype=torch.int32,
                      device=e.device)
@@ -80,15 +94,16 @@ def ssm_decode_step(cfg: ArchConfig, plan: PlanConfig, params, cache, tokens,
     """One decode step; pos is unused (state-space models carry no
     positional cache).  Returns (next_tokens (B,) int32, cache); the cache
     is updated in place."""
-    x = params["emb"][tokens.to(torch.long)]
+    x = _embed(params, tokens)
     for i in range(cache["ssm"].shape[0]):
-        lp = tree_map(lambda a: a[i], params["blocks"])
-        h, (s2, c2) = ssm.mamba_step(lp, cfg,
-                                     L.rms_norm(x, lp["ln"], cfg.norm_eps),
-                                     (cache["ssm"][i], cache["conv"][i]))
-        cache["ssm"][i].copy_(s2)
-        cache["conv"][i].copy_(c2)
+        lp = gather_fsdp(tree_map(lambda a: a[i], params["blocks"]))
+        s_i, c_i = cache["ssm"][i], cache["conv"][i]
+        h, (s2, c2) = ssm.mamba_step(
+            lp, cfg, L.rms_norm(x, lp["ln"], cfg.norm_eps),
+            (partition.rows_of(s_i), partition.rows_of(c_i)))
+        partition.store_rows(s_i, s2)
+        partition.store_rows(c_i, c2)
         x = x + h
-    x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
-    logits = torch.einsum("bd,vd->bv", x, params["emb"]).to(torch.float32)
+    x = L.rms_norm(x, gather_fsdp(params["final_norm"]), cfg.norm_eps)
+    logits = _logits(params, x)
     return torch.argmax(logits, dim=-1).to(torch.int32), cache

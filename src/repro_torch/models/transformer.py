@@ -19,7 +19,11 @@ threads a new cache through its loop): at full width the internlm2 cache
 for 8 slots of 4096 tokens is 3.2 GB in bfloat16.  The loss takes the
 sequence in chunks of ``plan.loss_chunk`` and recomputes each chunk's
 float32 logits in the backward pass, and adds ``aux_coef`` x the MoE
-blocks' load-balance loss, summed over layers.
+blocks' load-balance loss, summed over layers.  Under a plan scope
+(``models.specs``) each layer's weights are gathered whole at the top of
+its body (``gather_fsdp``), the embedding, head and final norm at their
+use, and an MoE decode routes the slots of every data-parallel rank as
+one group, as on one device.
 """
 from __future__ import annotations
 
@@ -30,6 +34,8 @@ import torch
 from repro_torch.configs.base import ArchConfig, PlanConfig
 from repro_torch.models import layers as L
 from repro_torch.models import moe as M
+from repro_torch.models import partition
+from repro_torch.models.specs import gather_fsdp
 from repro_torch.models.util import remat, stack_scan
 from repro_torch.tree import tree_leaves, tree_map
 
@@ -119,6 +125,7 @@ def _run_stack(cfg, plan: PlanConfig, blocks, x, positions, *, use_moe,
     """One stack of blocks: (x, caches stacked over layers or None, aux
     summed over layers, 0.0 for a dense stack)."""
     def body(x, lp):
+        lp = gather_fsdp(lp, plan.moe_ep)   # FSDP: gather weights, per layer
         x, cache, aux = block_apply(lp, cfg, x, positions, use_moe=use_moe,
                                     moe_group=plan.moe_group_size)
         return x, (cache if collect_cache else None, aux)
@@ -144,15 +151,21 @@ def lm_hidden(cfg: ArchConfig, plan: PlanConfig, params, embeds, positions,
         cfg, plan, params["blocks"], x, positions,
         use_moe=cfg.moe is not None, collect_cache=collect_cache)
     aux = aux + a
-    return L.rms_norm(x, params["final_norm"], cfg.norm_eps), caches, aux
+    return (L.rms_norm(x, gather_fsdp(params["final_norm"]), cfg.norm_eps),
+            caches, aux)
 
 
 def embed_tokens(cfg: ArchConfig, params, tokens):
-    return params["emb"][tokens.to(torch.long)]
+    return gather_fsdp(params["emb"])[tokens.to(torch.long)]
+
+
+def _head(params):
+    return gather_fsdp(params["emb"] if "head" not in params
+                       else params["head"])
 
 
 def unembed(cfg: ArchConfig, params, x):
-    head = params["emb"] if "head" not in params else params["head"]
+    head = _head(params)
     return torch.einsum("...d,vd->...v", x, head).to(torch.float32)
 
 
@@ -169,7 +182,7 @@ def lm_loss_from_hidden(cfg: ArchConfig, plan: PlanConfig, params, hidden,
     the backward pass; the target logit is taken by ``gather``, the same
     sum as the reference's one-hot product."""
     S = hidden.shape[1]
-    head = params["emb"] if "head" not in params else params["head"]
+    head = _head(params)
     chunk = min(plan.loss_chunk, S)
     if S % chunk:
         chunk = S
@@ -254,7 +267,10 @@ def block_decode(p, cfg: ArchConfig, x, cache_slices, pos, *, use_moe: bool,
     x = x + h
     h = L.rms_norm(x, p["ln2"], cfg.norm_eps)
     if use_moe:
-        h, _ = M.moe_apply(p["moe"], cfg, h)
+        # the slots of every data-parallel rank route as one group
+        h = partition.local_rows(M.moe_apply(p["moe"], cfg,
+                                             partition.gather_rows(h))[0],
+                                 partition.current_split())
     else:
         h = L.mlp_apply(p["mlp"], h)
     return x + h
@@ -262,7 +278,8 @@ def block_decode(p, cfg: ArchConfig, x, cache_slices, pos, *, use_moe: bool,
 
 def _decode_stack(cfg, plan, blocks, cache, x, pos, *, use_moe: bool):
     for i in range(tree_leaves(cache)[0].shape[0]):
-        x = block_decode(tree_map(lambda a: a[i], blocks), cfg, x,
+        x = block_decode(gather_fsdp(tree_map(lambda a: a[i], blocks),
+                                     plan.moe_ep), cfg, x,
                          {k: a[i] for k, a in cache.items()}, pos,
                          use_moe=use_moe, use_cp=plan.decode_cp)
     return x
@@ -274,13 +291,13 @@ def lm_decode_step(cfg: ArchConfig, plan: PlanConfig, params, cache, tokens,
 
     Returns (next_tokens (B,) int32, cache); the cache is updated in
     place."""
-    x = params["emb"][tokens.to(torch.long)]
+    x = embed_tokens(cfg, params, tokens)
     if "prefix_blocks" in params:
         x = _decode_stack(cfg, plan, params["prefix_blocks"], cache["prefix"],
                           x, pos, use_moe=False)
     x = _decode_stack(cfg, plan, params["blocks"], cache["main"], x, pos,
                       use_moe=cfg.moe is not None)
-    x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
+    x = L.rms_norm(x, gather_fsdp(params["final_norm"]), cfg.norm_eps)
     logits = unembed(cfg, params, x)                     # (B, Vp)
     return torch.argmax(logits, dim=-1).to(torch.int32), cache
 

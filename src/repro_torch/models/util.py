@@ -9,6 +9,7 @@ from __future__ import annotations
 import torch
 import torch.utils.checkpoint
 
+from repro_torch.models import partition
 from repro_torch.tree import tree_leaves, tree_map, tree_unzip
 
 
@@ -33,11 +34,18 @@ def stack_scan(body, x, stacked):
 def remat(fn):
     """``fn`` whose activations are recomputed in the backward pass
     (``jax.remat``), by non-reentrant ``torch.utils.checkpoint``.  Without
-    gradients (serving) ``fn`` runs as it is."""
+    gradients (serving) ``fn`` runs as it is.  The recompute runs under
+    the plan scope of the forward (on the card the backward pass runs on
+    another thread, which has no scope of its own)."""
     def wrapped(*args):
         if not torch.is_grad_enabled():
             return fn(*args)
-        return torch.utils.checkpoint.checkpoint(fn, *args,
+        env = partition.current_env()
+
+        def run(*a):
+            with partition.use_env(env):
+                return fn(*a)
+        return torch.utils.checkpoint.checkpoint(run, *args,
                                                  use_reentrant=False,
                                                  preserve_rng_state=False)
     return wrapped

@@ -4,7 +4,10 @@ moment dtype (bf16 moments for memory-bound giants like grok-1).
 The port of ``repro.optim.adamw``, over the port's parameter trees (nested
 dicts of tensors).  The state tree is the reference's, ``{"m", "v",
 "count"}``, so a checkpoint carries across packages.  ``update`` returns
-new tensors and changes none of its arguments."""
+new tensors and changes none of its arguments.  It runs on ``DTensor``
+trees as it is (a state placed on a mesh by ``models.api.distribute``):
+``global_norm``'s sums come back as partial sums and are reduced, so the
+clip is that of the whole gradient."""
 from __future__ import annotations
 
 from dataclasses import dataclass
@@ -33,7 +36,7 @@ class AdamW:
 
     def init(self, params):
         mdt = getattr(torch, self.moment_dtype)
-        zeros = lambda p: torch.zeros(p.shape, dtype=mdt, device=p.device)
+        zeros = lambda p: torch.zeros_like(p, dtype=mdt)
         return {
             "m": tree_map(zeros, params),
             "v": tree_map(zeros, params),

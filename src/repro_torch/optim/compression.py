@@ -2,10 +2,12 @@
 
 The port of ``repro.optim.compression``.  The reference applies it at the
 microbatch-accumulation boundary, where a hand-rolled collective would
-compress before its reduce-scatter; the port runs on one device and keeps
-the same arithmetic: each gradient leaf is quantized to int8 with one
-scale, the quantization error is carried in the train state and added back
-the next step.  ``torch.round`` rounds half to even, as ``jnp.round``
+compress before its reduce-scatter; the port keeps the same arithmetic
+on one device or on a mesh: each gradient leaf is quantized to int8 with
+one scale, the quantization error is carried in the train state and added
+back the next step.  On ``DTensor`` leaves the max behind the scale comes
+back as a partial max and is reduced: one scale for the whole leaf, not
+one a shard.  ``torch.round`` rounds half to even, as ``jnp.round``
 does, so the int8 codes equal the reference's."""
 from __future__ import annotations
 
@@ -15,8 +17,8 @@ from repro_torch.tree import tree_map, tree_unzip
 
 
 def int8_ef_init(params):
-    return tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
-                                          device=p.device), params)
+    return tree_map(lambda p: torch.zeros_like(p, dtype=torch.float32),
+                    params)
 
 
 def _quant(g):

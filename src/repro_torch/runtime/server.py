@@ -10,6 +10,10 @@ released.
 The cache is a dict of tensors on the serving device.  ``_write_rows``
 copies a prefilled request's rows into its slot IN PLACE, and the decode
 function updates the cache in place too (the reference rebuilds both).
+Under a plan scope over a mesh (``models.partition``) the cache leaves
+are ``DTensor``s, and rows are copied span by span on each rank; the
+slots must then not be split over ranks (a mesh whose data-parallel axes
+hold one rank, as the prefills of one request each replicate the batch).
 
 ``QueryServer`` serves polystore queries through the middleware's
 signature-keyed plan cache: a cold signature trains once (the middleware
@@ -35,6 +39,7 @@ from typing import Any, Dict, Iterable, List, Optional
 
 import numpy as np
 import torch
+from torch.distributed.tensor import DTensor, Shard
 
 from repro_torch.core.errors import Overloaded
 from repro_torch.core.reqpool import RequestPool
@@ -52,6 +57,23 @@ class Request:
     max_new_tokens: int = 16
     out_tokens: List[int] = field(default_factory=list)
     done: bool = False
+
+
+def _check_spans(dst: DTensor, src, b_axis: int) -> None:
+    """Rows copy span by span only where the slots are whole on each rank
+    and the prefill's leaf is split as the server's."""
+    split = {pl.dim for pl, n in zip(dst.placements, dst.device_mesh.shape)
+             if isinstance(pl, Shard) and n > 1}
+    if b_axis in split:
+        raise NotImplementedError("BatchServer on a mesh that splits its "
+                                  "slots over ranks")
+    if not isinstance(src, DTensor) or src.placements != dst.placements:
+        raise ValueError("a prefilled cache leaf not in the server "
+                         "cache's layout")
+    seq = b_axis + 1
+    if seq in split and src.shape[seq] != dst.shape[seq]:
+        raise NotImplementedError("a split seq dimension shorter in the "
+                                  "prefill than in the server cache")
 
 
 class BatchServer:
@@ -98,6 +120,10 @@ class BatchServer:
                     b_axis = ax
                     break
             if b_axis is None:           # state-style leaf without seq dim
+                return dst
+            if isinstance(dst, DTensor):
+                _check_spans(dst, src, b_axis)
+                place(dst.to_local(), src.to_local())
                 return dst
             idx = [slice(None)] * dst.ndim
             idx[b_axis] = slice(slot, slot + 1)

@@ -53,9 +53,11 @@ class Trainer:
         return self._run(state, start_step, num_steps)
 
     def run_with_restarts(self, init_state, num_steps: int,
-                          max_restarts: int = 10):
+                          max_restarts: int = 10, shardings=None):
         """Cluster-controller loop: on failure, restore the latest
-        checkpoint onto the device of ``init_state`` and continue."""
+        checkpoint onto the device of ``init_state`` (or onto a mesh by
+        ``shardings``, a tree of ``NamedSharding``s of the state, as the
+        reference takes them) and continue."""
         state = init_state
         device = tree_leaves(init_state)[0].device
         start = 0
@@ -73,7 +75,8 @@ class Trainer:
                     state, start = init_state, 0
                 else:
                     state, start = self.ckpt.restore(state, step=latest,
-                                                     device=device)
+                                                     device=device,
+                                                     shardings=shardings)
                 # drop history after the restore point (it will be replayed)
                 self.history = [h for h in self.history if h["step"] < start]
 

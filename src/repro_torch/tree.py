@@ -50,3 +50,17 @@ def tree_unzip(tree, n: int) -> tuple:
     if len(tree) != n:
         raise ValueError(f"a leaf of {len(tree)} values, want {n}")
     return tuple(tree)
+
+
+def tree_map_with_path(fn, tree, path=()):
+    """``fn(path, leaf)`` over the tensors of ``tree``; ``path`` is the
+    tuple of dict keys and sequence indices from the root to the leaf."""
+    if isinstance(tree, dict):
+        return {k: tree_map_with_path(fn, v, path + (k,))
+                for k, v in tree.items()}
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(tree_map_with_path(fn, v, path + (i,))
+                          for i, v in enumerate(tree))
+    if tree is None:
+        return None
+    return fn(path, tree)

@@ -1,0 +1,443 @@
+"""Multi-rank properties of the port's sharding, run on gloo ranks on the
+CPU (``tests/test_torch_sharding.py`` starts this script in a subprocess).
+
+    python tests/_torch_ranks.py <scenario> <work dir>
+
+spawns the scenario's ranks (``torch.multiprocessing``), each of which
+opens a gloo process group from a ``FileStore`` in the work dir, builds
+its meshes with ``launch.mesh.make_mesh_compat(..., "cpu")`` and checks
+its properties; a failed check fails its rank and the script.  The
+reference's results that a scenario compares with are computed by the
+test beforehand and read from ``<work dir>/inputs.npz``.
+"""
+import os
+import sys
+
+import numpy as np
+import torch
+import torch.distributed as dist
+
+CP_TOL = dict(rtol=1e-5, atol=5e-6)          # the reference's CP test
+LOSS_RTOL = 1e-4
+MASTER_TOL = dict(rtol=2e-3, atol=2e-4)      # the reference's sharded step
+LR = 1e-3
+
+
+def nest(flat: dict) -> dict:
+    """A tree of nested dicts from {"a/b/c": leaf}."""
+    out = {}
+    for path, leaf in flat.items():
+        node = out
+        *head, last = path.split("/")
+        for k in head:
+            node = node.setdefault(k, {})
+        node[last] = leaf
+    return out
+
+
+def full(t):
+    from torch.distributed.tensor import DTensor
+    return t.full_tensor() if isinstance(t, DTensor) else t
+
+
+def flat_full(tree) -> dict:
+    from repro_torch.ckpt.checkpoint import _flatten
+    return {k: full(v) for k, v in _flatten(tree).items()}
+
+
+def assert_trees_close(got, want, what, flip=None, **tol):
+    """Every leaf within ``tol``; with ``flip``, all but 0.1% of each leaf's
+    elements, and those within ``flip`` + atol (the port's rule for int8
+    error feedback against the JAX package, ``test_torch_train_grads``:
+    where the two packages' float32 sums put a value on either side of a
+    rounding boundary, one int8 code differs by one, and Adam's first step
+    there may take the other sign, at most 2 lr apart)."""
+    g, w = flat_full(got), flat_full(want)
+    assert sorted(g) == sorted(w), (what, sorted(g), sorted(w))
+    for k in w:
+        a, b = g[k].float().numpy(), w[k].float().numpy()
+        if flip is None:
+            np.testing.assert_allclose(a, b, err_msg=f"{what}: {k}", **tol)
+            continue
+        diff = np.abs(a - b)
+        off = diff > tol["atol"] + tol["rtol"] * np.abs(b)
+        assert off.mean() <= 1e-3, (what, k, off.mean())
+        assert diff.max() <= flip + tol["atol"], (what, k, diff.max())
+
+
+def fill_pattern(shape):
+    """The reference CP test's cache fill: (arange % 7 - 3) / 10."""
+    n = int(np.prod(shape))
+    return torch.from_numpy(
+        (np.arange(n, dtype=np.float32).reshape(tuple(shape)) % 7 - 3) / 10)
+
+
+# -- scenarios --------------------------------------------------------------
+
+def placement_order(mesh):
+    """A distributed arange over ("data", "model") gives rank (d, m) the
+    block d * 4 + m; the batch split and its gather are inverses."""
+    from repro_torch.configs import PlanConfig
+    from repro_torch.models import api, partition
+    from repro_torch.models.partition import P
+    k = 3
+    x = torch.arange(8 * k, dtype=torch.float32)
+    d, m = mesh.get_local_rank("data"), mesh.get_local_rank("model")
+    sh = api.to_shardings(mesh, P(("data", "model")))
+    local = api.distribute(x, sh).to_local()
+    blk = d * 4 + m
+    assert torch.equal(local, x[blk * k:(blk + 1) * k]), (d, m, local)
+    try:
+        partition.spec_placements(mesh.mesh_dim_names, P(("model", "data")))
+    except ValueError:
+        pass
+    else:
+        raise AssertionError("an entry against the mesh order was accepted")
+    rows = torch.arange(8 * 5).reshape(8, 5)
+    with partition.plan_scope(mesh, PlanConfig(tp=False)) as env:
+        entry = partition.batch_entry(8)
+        assert entry == ("data", "model"), entry
+        mine = partition.local_rows(rows, entry)
+        assert torch.equal(mine, rows[blk:blk + 1]), mine
+        with env.splitting(entry):
+            assert torch.equal(partition.gather_rows(mine), rows)
+
+
+def cp_decode(mesh, name):
+    """CP decode equals naive decode on the sharded cache (the reference's
+    inputs and tolerances), and both equal the single-device step; the CP
+    run combines once a layer, the naive run never."""
+    from repro_torch.configs import PlanConfig, ShapeConfig, get_arch
+    from repro_torch.models import api, layers
+    from repro_torch.models.partition import plan_scope
+    from repro_torch.tree import tree_map
+    cfg = get_arch(name).smoke()
+    plan = PlanConfig(param_dtype="float32", compute_dtype="float32",
+                      remat="none")
+    shape = ShapeConfig("d", "decode", 32, 4)
+    params = api.init_params(cfg, torch.Generator().manual_seed(0), plan,
+                             "cpu")
+    tok = torch.tensor([3, 5, 7, 9], dtype=torch.int32)
+    pos = torch.tensor([9, 17, 4, 30], dtype=torch.int32)
+    filled = tree_map(lambda t: fill_pattern(t.shape),
+                      api.init_cache(cfg, 4, 32, torch.float32, "meta"))
+    t_one, c_one = api.make_decode_step(cfg, shape, plan)(
+        params, tree_map(torch.clone, filled), tok, pos)
+    out = {}
+    for cp in (False, True):
+        p2 = plan.with_(decode_cp=cp)
+        with plan_scope(mesh, p2):
+            sp = api.distribute(params, api.to_shardings(
+                mesh, api.param_specs(cfg, p2, params)))
+            cache = api.distribute(filled, api.to_shardings(
+                mesh, api.cache_specs(cfg, p2, filled)))
+            layers.reset_cp_combines()
+            nt, nc = api.make_decode_step(cfg, shape, p2)(sp, cache, tok,
+                                                          pos)
+            out[cp] = (nt, nc, layers.cp_combines())
+    (t0, c0, n0), (t1, c1, n1) = out[False], out[True]
+    assert n0 == 0, n0
+    attn_layers = cfg.num_layers if cfg.family == "dense" \
+        else cfg.num_layers // cfg.attn_period
+    assert n1 == attn_layers, (n1, attn_layers)
+    assert torch.equal(t0, t1), (t0, t1)
+    assert torch.equal(t0, t_one), (t0, t_one)
+    assert_trees_close(c1, c0, f"{name} cp vs naive", **CP_TOL)
+    assert_trees_close(c0, c_one, f"{name} naive vs one device", **CP_TOL)
+
+
+def _train_step_check(mesh, name, plan, inp, prefix, batch):
+    """One sharded train step from the state ``<prefix>state/...`` of
+    ``inp`` against the port's single-device step and, where ``inp`` has
+    them, the JAX package's loss and masters.  Returns the sharded
+    state."""
+    from repro_torch.configs import get_arch
+    from repro_torch.convert import train_state_from_numpy
+    from repro_torch.models import api
+    from repro_torch.models.partition import plan_scope
+    from repro_torch.optim import AdamW
+    cfg = get_arch(name).smoke()
+    opt = AdamW(learning_rate=LR)
+    state = train_state_from_numpy(nest(
+        {k[len(prefix + "state/"):]: v for k, v in inp.items()
+         if k.startswith(prefix + "state/")}), "cpu")
+    s1, m1 = api.make_train_step(cfg, plan, opt)(state, batch)
+    with plan_scope(mesh, plan):
+        sh = api.to_shardings(mesh, api.train_state_specs(cfg, plan, state))
+        s2, m2 = api.make_train_step(cfg, plan, opt)(
+            api.distribute(state, sh), batch)
+    l1, l2 = float(m1["loss"]), float(m2["loss"])
+    np.testing.assert_allclose(l2, l1, rtol=LOSS_RTOL, err_msg=prefix)
+    assert_trees_close(s2["master"], s1["master"], f"{prefix} vs one device",
+                       **MASTER_TOL)
+    for k in ("grad_norm", "lr"):
+        np.testing.assert_allclose(float(m2[k]), float(m1[k]), rtol=1e-5,
+                                   err_msg=prefix + k)
+    if prefix + "jax_loss" in inp:
+        np.testing.assert_allclose(l2, float(inp[prefix + "jax_loss"]),
+                                   rtol=LOSS_RTOL, err_msg=prefix + "jax")
+        want = {k[len(prefix + "jax_master/"):]: torch.from_numpy(v)
+                for k, v in inp.items()
+                if k.startswith(prefix + "jax_master/")}
+        flip = 2 * LR if plan.grad_compression == "int8_ef" else None
+        assert_trees_close(s2["master"], nest(want), f"{prefix} vs jax",
+                           flip=flip, **MASTER_TOL)
+    return s2, sh
+
+
+def elastic_checkpoint(state, work):
+    """A state saved from the (2, 4) mesh restores at (4, 2) with every
+    leaf equal; rank 0 also writes the whole leaves for the test, which
+    restores the checkpoint on one process."""
+    from repro_torch.ckpt import CheckpointManager
+    from repro_torch.configs import PlanConfig, get_arch
+    from repro_torch.launch.mesh import make_mesh_compat
+    from repro_torch.models import api
+    from repro_torch.models.partition import plan_scope
+    ck = CheckpointManager(os.path.join(work, "ckpt"))
+    ck.save(1, state, blocking=True)
+    mesh2 = make_mesh_compat((4, 2), ("data", "model"), "cpu")
+    cfg = get_arch("internlm2-1.8b").smoke()
+    plan = PlanConfig(param_dtype="float32")
+    with plan_scope(mesh2, plan):
+        sh = api.to_shardings(mesh2, api.train_state_specs(cfg, plan, state))
+        back, step = ck.restore(state, shardings=sh)
+    assert step == 1
+    a, b = flat_full(back), flat_full(state)
+    assert sorted(a) == sorted(b)
+    for k in a:
+        assert a[k].dtype == b[k].dtype and torch.equal(a[k], b[k]), k
+        leaf = back
+        for part in k.split("/"):
+            leaf = leaf[part]
+        assert tuple(leaf.device_mesh.shape) == (4, 2), k
+    if dist.get_rank() == 0:
+        np.savez(os.path.join(work, "saved.npz"),
+                 **{k: v.numpy() for k, v in b.items()})
+
+
+def scenario_dense(work):
+    """8 ranks, (2, 4): placement order, CP decode (internlm2, zamba2),
+    internlm2's sharded train step (as is; int8_ef under block remat)
+    against one device and the JAX package, an elastic checkpoint."""
+    from repro_torch.configs import PlanConfig
+    from repro_torch.launch.mesh import make_mesh_compat
+    mesh = make_mesh_compat((2, 4), ("data", "model"), "cpu")
+    placement_order(mesh)
+    for name in ("internlm2-1.8b", "zamba2-7b"):
+        cp_decode(mesh, name)
+    inp = dict(np.load(os.path.join(work, "inputs.npz")))
+    batch = {"tokens": torch.from_numpy(inp["tokens"])}
+    plan = PlanConfig(param_dtype="float32", compute_dtype="float32",
+                      master_dtype="float32", loss_chunk=8, remat="none")
+    state, _ = _train_step_check(mesh, "internlm2-1.8b", plan, inp, "",
+                                 batch)
+    _train_step_check(mesh, "internlm2-1.8b",
+                      plan.with_(grad_compression="int8_ef", remat="block"),
+                      inp, "ef_", batch)
+    elastic_checkpoint(state, work)
+
+
+def scenario_moe(work):
+    """4 ranks, (2, 2): deepseek-v2-lite (MoE, MLA) smoke, one sharded
+    train step and one decode step at 4 slots against one device."""
+    from repro_torch.configs import PlanConfig, ShapeConfig, get_arch
+    from repro_torch.launch.mesh import make_mesh_compat
+    from repro_torch.models import api
+    from repro_torch.models.partition import plan_scope
+    from repro_torch.optim import AdamW
+    from repro_torch.tree import tree_map
+    name = "deepseek-v2-lite-16b"
+    mesh = make_mesh_compat((2, 2), ("data", "model"), "cpu")
+    cfg = get_arch(name).smoke()
+    plan = PlanConfig(param_dtype="float32", compute_dtype="float32",
+                      master_dtype="float32", loss_chunk=8, remat="none")
+    gen = torch.Generator().manual_seed(0)
+    state = api.init_train_state(cfg, plan, gen, AdamW(LR), "cpu")
+    tokens = torch.randint(0, cfg.vocab_size, (4, 16), dtype=torch.int32,
+                           generator=torch.Generator().manual_seed(1))
+    flat = {"state/" + k: v.numpy() for k, v in flat_full(state).items()}
+    _train_step_check(mesh, name, plan, flat, "", {"tokens": tokens})
+    # decode: the slots of both data ranks route as one group
+    _decode_check(mesh, cfg, plan, state["master"], name)
+
+
+def _decode_check(mesh, cfg, plan, params, what):
+    """One decode step at 4 slots on the mesh (the reference CP test's
+    tokens, positions and cache fill) against the single-device step:
+    tokens equal, every cache leaf within the CP tolerances."""
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.models import api
+    from repro_torch.models.partition import plan_scope
+    from repro_torch.tree import tree_map
+    shape = ShapeConfig("d", "decode", 32, 4)
+    tok = torch.tensor([3, 5, 7, 9], dtype=torch.int32)
+    pos = torch.tensor([9, 17, 4, 30], dtype=torch.int32)
+    filled = tree_map(lambda t: fill_pattern(t.shape),
+                      api.init_cache(cfg, 4, 32, torch.float32, "meta"))
+    t_one, c_one = api.make_decode_step(cfg, shape, plan)(
+        params, tree_map(torch.clone, filled), tok, pos)
+    with plan_scope(mesh, plan):
+        sp = api.distribute(params, api.to_shardings(
+            mesh, api.param_specs(cfg, plan, params)))
+        cache = api.distribute(filled, api.to_shardings(
+            mesh, api.cache_specs(cfg, plan, filled)))
+        nt, nc = api.make_decode_step(cfg, shape, plan)(sp, cache, tok, pos)
+    assert torch.equal(nt, t_one), (what, nt, t_one)
+    assert_trees_close(nc, c_one, f"{what} decode", **CP_TOL)
+
+
+def _stub_inputs(cfg, batch, seed):
+    """The frontend stub's seeded inputs of a smoke config: patch
+    embeddings (vlm) or 12 frames (encdec); none for the others."""
+    gen = torch.Generator().manual_seed(seed)
+    if cfg.family == "vlm":
+        shape = (batch, cfg.num_frontend_tokens, cfg.d_model)
+        return {"patch_embeds": torch.randn(shape, generator=gen)}
+    if cfg.family == "encdec":
+        return {"frames": torch.randn((batch, 12, cfg.d_model),
+                                      generator=gen)}
+    return {}
+
+
+def restarts_on_the_mesh(mesh, work):
+    """``Trainer.run_with_restarts`` with a failure injected, restoring
+    onto the mesh by ``shardings``, gives the uninterrupted run's losses
+    and final state (mamba2 smoke, a checkpoint every 2 steps)."""
+    from repro_torch.ckpt import CheckpointManager
+    from repro_torch.configs import PlanConfig, get_arch
+    from repro_torch.models import api
+    from repro_torch.models.partition import plan_scope
+    from repro_torch.optim import AdamW
+    from repro_torch.runtime import FailureInjector, Trainer
+    cfg = get_arch("mamba2-370m").smoke()
+    plan = PlanConfig(param_dtype="float32", compute_dtype="float32",
+                      master_dtype="float32", loss_chunk=8)
+    opt = AdamW(LR)
+    state = api.init_train_state(cfg, plan, torch.Generator().manual_seed(2),
+                                 opt, "cpu")
+    tokens = torch.randint(0, cfg.vocab_size, (6, 4, 16), dtype=torch.int32,
+                           generator=torch.Generator().manual_seed(3))
+    batch_fn = lambda i: {"tokens": tokens[i]}
+    with plan_scope(mesh, plan):
+        sh = api.to_shardings(mesh, api.train_state_specs(cfg, plan, state))
+        placed = api.distribute(state, sh)
+        step = api.make_train_step(cfg, plan, opt)
+        clean = Trainer(step, batch_fn, CheckpointManager(
+            os.path.join(work, "clean")), ckpt_every=2)
+        final_clean = clean.run(placed, 6)
+        faulty = Trainer(step, batch_fn, CheckpointManager(
+            os.path.join(work, "faulty")), ckpt_every=2,
+            injector=FailureInjector({3}))
+        final, restarts = faulty.run_with_restarts(placed, 6, shardings=sh)
+    assert restarts == 1, restarts
+    a, b = clean.losses(), faulty.losses()
+    assert len(a) == len(b) == 6
+    np.testing.assert_allclose(b, a, rtol=1e-6)
+    assert_trees_close(final, final_clean, "restarted", rtol=0, atol=0)
+
+
+def batch_server_on_a_mesh(mesh_split):
+    """``BatchServer`` on a (1, 4) mesh (the cache's seq dimension split
+    over "model", CP decode across the 4 ranks) gives the unsharded
+    server's tokens; on a mesh that splits its slots over ranks it
+    raises."""
+    from repro_torch.configs import PlanConfig, ShapeConfig, get_arch
+    from repro_torch.launch.mesh import make_mesh_compat
+    from repro_torch.models import api, layers
+    from repro_torch.models.partition import plan_scope
+    from repro_torch.runtime import BatchServer, Request
+    cfg = get_arch("internlm2-1.8b").smoke()
+    plan = PlanConfig(param_dtype="float32", compute_dtype="float32",
+                      remat="none", decode_cp=True)
+    shape = ShapeConfig("serve", "decode", 32, 2)
+    params = api.init_params(cfg, torch.Generator().manual_seed(5), plan,
+                             "cpu")
+    rng = np.random.default_rng(5)
+    prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
+               for n in (9, 3, 14)]
+
+    def serve(p):
+        prefill = api.make_prefill(cfg, shape, plan)
+        srv = BatchServer(slots=2, max_len=32, params=p,
+                          prefill_fn=lambda q, t: prefill(q, {"tokens": t}),
+                          decode_fn=api.make_decode_step(cfg, shape, plan),
+                          init_cache_fn=lambda b, n: api.init_cache(
+                              cfg, b, n, torch.float32, "cpu"))
+        reqs = [Request(i, q, 5) for i, q in enumerate(prompts)]
+        srv.run(reqs)
+        return [r.out_tokens for r in reqs]
+
+    want = serve(params)
+    mesh = make_mesh_compat((1, 4), ("data", "model"), "cpu")
+    with plan_scope(mesh, plan):
+        placed = api.distribute(params, api.to_shardings(
+            mesh, api.param_specs(cfg, plan, params)))
+        layers.reset_cp_combines()
+        got = serve(placed)
+        assert layers.cp_combines() > 0
+    assert got == want, (got, want)
+    with plan_scope(mesh_split, plan):
+        placed = api.distribute(params, api.to_shardings(
+            mesh_split, api.param_specs(cfg, plan, params)))
+        try:
+            serve(placed)
+        except NotImplementedError as e:
+            assert "splits its slots" in str(e), e
+        else:
+            raise AssertionError("a server whose slots are split served")
+
+
+def scenario_families(work):
+    """4 ranks, (2, 2): mamba2 (SSM), seamless (encdec) and internvl2 (vlm)
+    smoke, one sharded train step and one decode step each against one
+    device; restarts onto the mesh."""
+    from repro_torch.configs import PlanConfig, get_arch
+    from repro_torch.launch.mesh import make_mesh_compat
+    from repro_torch.models import api
+    from repro_torch.optim import AdamW
+    mesh = make_mesh_compat((2, 2), ("data", "model"), "cpu")
+    plan = PlanConfig(param_dtype="float32", compute_dtype="float32",
+                      master_dtype="float32", loss_chunk=8, remat="none")
+    for seed, name in enumerate(("mamba2-370m", "seamless-m4t-medium",
+                                 "internvl2-26b")):
+        cfg = get_arch(name).smoke()
+        state = api.init_train_state(cfg, plan,
+                                     torch.Generator().manual_seed(seed),
+                                     AdamW(LR), "cpu")
+        batch = {"tokens": torch.randint(
+            0, cfg.vocab_size, (4, 16), dtype=torch.int32,
+            generator=torch.Generator().manual_seed(10 + seed)),
+            **_stub_inputs(cfg, 4, 20 + seed)}
+        pre = name + " "
+        flat = {pre + "state/" + k: v.numpy()
+                for k, v in flat_full(state).items()}
+        _train_step_check(mesh, name, plan, flat, pre, batch)
+        _decode_check(mesh, cfg, plan, state["master"], name)
+    restarts_on_the_mesh(mesh, work)
+    batch_server_on_a_mesh(mesh)
+
+
+SCENARIOS = {"dense": (scenario_dense, 8), "moe": (scenario_moe, 4),
+             "families": (scenario_families, 4)}
+
+
+def rank_main(rank, scenario, work, world):
+    torch.set_num_threads(1)
+    dist.init_process_group(
+        "gloo", init_method="file://" + os.path.join(work, "store"),
+        rank=rank, world_size=world)
+    try:
+        SCENARIOS[scenario][0](work)
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+    if rank == 0:
+        print(f"RANKS_OK {scenario}", flush=True)
+
+
+if __name__ == "__main__":
+    scenario, work = sys.argv[1], sys.argv[2]
+    import torch.multiprocessing as mp
+    world = SCENARIOS[scenario][1]
+    mp.spawn(rank_main, args=(scenario, work, world), nprocs=world)

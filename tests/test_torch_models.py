@@ -27,7 +27,7 @@ from repro.models import ssm_lm as JS
 from repro.models import transformer as JT
 from repro.runtime.server import BatchServer as JBatchServer
 from repro.runtime.server import Request as JRequest
-from _torch_parity import cp_decode_step
+from _torch_parity import assert_cp_decode_parity
 from repro_torch.configs import PlanConfig as TPlan
 from repro_torch.configs import get_arch as tget
 from repro_torch.convert import params_from_numpy
@@ -310,12 +310,12 @@ def _decode_step_matches_reference(name, lora=False):
 
 
 def test_unported_families_raise():
-    """Every family is ported; the one LM path left, context-parallel
-    decode, raises naming its ROADMAP item."""
+    """Every family and now context-parallel decode are ported: with no
+    plan scope, a ``decode_cp=True`` step of the dense and the hybrid
+    smoke configs gives the reference's tokens and cache (both fall back
+    to naive decode)."""
     for name in ("internlm2-1.8b", "zamba2-7b"):
-        step = cp_decode_step(tget(name).smoke())
-        with pytest.raises(NotImplementedError, match="LM side, sharding"):
-            step()
+        assert_cp_decode_parity(name)
 
 
 def _serve_both(name, lengths, new_tokens=5, slots=3, max_len=40,

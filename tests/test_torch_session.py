@@ -15,7 +15,6 @@ from pathlib import Path
 
 import numpy as np
 import jax.numpy as jnp
-import pytest
 import torch
 
 import repro.core as R
@@ -149,12 +148,11 @@ def test_unported_hooks_raise_not_implemented(monkeypatch):
     """The process pool, the last polystore hook that raised here, is
     ported: ``processes=2`` now serves on the CPU through both entry
     points (the serving stack and plan-level fusion were ported before it).
-    The LM side's one unported path, context-parallel decode, still
-    raises, naming its ROADMAP item."""
+    The LM side's last such path, context-parallel decode, is ported too:
+    without a mesh it gives the reference's decode step."""
     # one OpenMP thread in the spawned workers: the suite runs beside
     # timing-based tests of the reference
     monkeypatch.setenv("OMP_NUM_THREADS", "1")
-    from repro_torch.configs import get_arch
     from repro_torch.runtime import QueryServer
     ones = T.DenseTensor(torch.ones((3, 3)))
     with T.connect(device="cpu", processes=2, train_plans=1) as ps:
@@ -176,11 +174,8 @@ def test_unported_hooks_raise_not_implemented(monkeypatch):
     health = T.EngineHealth()
     health.after_plan([("dense_array", 0.1)])
     assert health._stragglers["dense_array"].n == 1
-    from _torch_parity import cp_decode_step
-    step = cp_decode_step(get_arch("internlm2-1.8b").smoke())
-    with pytest.raises(NotImplementedError, match="ROADMAP.*LM side, "
-                                                  "sharding"):
-        step()
+    from _torch_parity import assert_cp_decode_parity
+    assert_cp_decode_parity("internlm2-1.8b")
 
 
 def _imports(path: Path):

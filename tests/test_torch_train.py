@@ -1,6 +1,7 @@
 """The port's training support against the reference: schedules, AdamW,
 int8 error feedback, the token stream and loader, checkpoints in both
-directions, the trainer with restarts, and the families not ported yet.
+directions, the trainer with restarts, and context-parallel decode
+without a mesh.
 
 Inputs come from numpy with a seed and go through both packages.
 Tolerances: schedules 1e-7 and 2 float32 ulps; AdamW 1e-6;
@@ -26,7 +27,7 @@ from repro.optim import cosine_schedule as jcosine
 from repro.optim import constant_schedule as jconstant
 from repro.runtime import FailureInjector as JFailureInjector
 from repro.runtime import Trainer as JTrainer
-from _torch_parity import cp_decode_step
+from _torch_parity import assert_cp_decode_parity
 from repro_torch.ckpt import CheckpointManager
 from repro_torch.configs import PlanConfig as TPlan
 from repro_torch.configs import get_arch as tget
@@ -455,15 +456,15 @@ def test_restart_reproduces_uninterrupted_run(tmp_path):
                                    rtol=1e-4, atol=1e-5)
 
 
-# -- the path not ported yet --------------------------------------------------
+# -- context-parallel decode without a mesh ----------------------------------
 
 @pytest.mark.parametrize("name", ["internlm2-1.8b", "zamba2-7b"])
 def test_unported_families_raise_naming_their_item(name):
-    """Every family is ported; the one LM path left, context-parallel
-    decode, raises naming its ROADMAP item (sharding)."""
-    step = cp_decode_step(tget(name).smoke())
-    with pytest.raises(NotImplementedError, match="LM side, sharding"):
-        step()
+    """Context-parallel decode, the LM path that used to raise here, is
+    ported: with no plan scope, ``decode_cp=True`` falls back to naive
+    decode in both packages and gives the reference's tokens and cache
+    (the multi-rank CP route: ``test_torch_sharding``)."""
+    assert_cp_decode_parity(name)
 
 
 def test_init_train_state_has_the_reference_tree():
