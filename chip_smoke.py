@@ -22,7 +22,12 @@ width and depth 2, with bfloat16 parameters from the port's seeded init,
 internlm2 once more on a 1-rank NCCL mesh (``lm_sharded``: 4 of
 ``lm_dense``'s requests under context-parallel decode, held to
 ``lm_dense``'s logits and tokens, and 2 train steps at depth 4 held to
-unsharded ones), and last LM training of internlm2, mamba2 (at depth 24), deepseek (at
+unsharded ones, through the tensor-parallel code, whose collectives and
+weight gathers a 1-rank mesh reduces to none), one rank's share of
+internlm2 split four ways over "model" (``tp_rank``: rank 0 of a (1, 4)
+mesh over torch's fake process group, whose collectives move nothing: a
+2048-token prefill on its 4 query heads and 2 KV heads, and 4 decode
+steps, timed, no value checked), and last LM training of internlm2, mamba2 (at depth 24), deepseek (at
 depth 3), zamba2 (at depth 13), internvl2 (at depth 2) and seamless
 (``train``: the
 kernels' gradients against the plain versions, a
@@ -214,6 +219,15 @@ CROSS_FLASH_SHAPES = [(1, 77, 4096, 16, 16, 64, False, torch.bfloat16),
                       (1, 1, 4096, 16, 16, 64, False, torch.bfloat16),
                       (1, 77, 4096, 16, 16, 64, False, torch.float32),
                       (1, 1, 4096, 16, 16, 64, False, torch.float32)]
+# one rank's share of internlm2-1.8b's prefill split 4 ways over "model"
+# (phase tp_rank: 4 of 16 query heads over 2 of 8 KV heads), and of
+# internvl2-26b's or grok-1's split 16 ways, where KV % tp != 0 keeps wk
+# and wv whole: 3 of 48 query heads read one KV head of 8 in place, k and
+# v narrowed views of the whole projection (``layers.rank_kv``), given as
+# (shape, whole KV heads, first KV head read: ranks 10 and 11's)
+TP_RANK_FLASH_SHAPE = (1, 2048, 2048, 4, 2, 128, True, torch.bfloat16)
+FLASH_NARROW_KV = [((1, 2048, 2048, 3, 1, 128, True, torch.bfloat16), 8, 5),
+                   ((1, 2048, 2048, 3, 1, 128, True, torch.float32), 8, 5)]
 # (B, Sq, Sk, H, KV, d, causal, dtype), the (B, S, H, d) form with the KV
 # heads read in place; first the paths' own shapes: internlm2's prefill (16
 # query heads over 8 KV heads of 128) of 2048 tokens in bfloat16 (serving)
@@ -232,7 +246,7 @@ FLASH_GQA_SHAPES = [(1, 2048, 2048, 16, 8, 128, True, torch.bfloat16),
                     (1, 2048, 2048, 32, 32, 112, True, torch.bfloat16),
                     (1, 2048, 2048, 32, 32, 112, True, torch.float32),
                     MLA_FLASH_SHAPE, GROK_FLASH_SHAPE, VLM_FLASH_SHAPE,
-                    ENC_FLASH_SHAPE, *CROSS_FLASH_SHAPES,
+                    TP_RANK_FLASH_SHAPE, ENC_FLASH_SHAPE, *CROSS_FLASH_SHAPES,
                     (2, 1000, 1000, 4, 1, 64, False, torch.bfloat16),
                     (1, 65, 65, 8, 2, 80, True, torch.bfloat16),
                     (2, 129, 129, 6, 2, 128, True, torch.float32),
@@ -313,9 +327,13 @@ LM_SLOTS, LM_MAX_LEN, LM_REQUESTS, LM_NEW_TOKENS = 8, 4096, 16, 32
 # must be equal or a near-tie within that tolerance
 CPU_CHECK_TOKENS, CPU_CHECK_DEPTH, CPU_CHECK_TOL = 256, 2, 1e-3
 # decode_vs_cpu (the MoE family): the served parameters' first layers in
-# float32 (deepseek 2, grok 1: 26 GB of float32 on the host), this many
-# slots prefilled with prompts of lengths in [16, 48], then decode steps
+# float32 (deepseek 2), this many slots prefilled with prompts of lengths
+# in [16, 48], then decode steps; grok at GROK_DECODE_CHECK (depth,
+# slots, steps): its depth 1 puts 26 GB of float32 on the host, and at 8
+# slots and 4 steps the check took 27-31 s of the script, so it runs
+# reduced to fit the time budget
 DECODE_CHECK_SLOTS, DECODE_CHECK_PROMPT, DECODE_CHECK_STEPS = 8, (16, 49), 4
+GROK_DECODE_CHECK = (1, 2, 2)
 # grok-1 serves at full width and this depth, fewer requests (its
 # published 64 layers are 633 GB in bfloat16)
 GROK_DEPTH, GROK_REQUESTS = 2, 4
@@ -367,7 +385,10 @@ GRAD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 # the dense smoke config's heads at S 256, and deepseek's MLA at its train
 # steps' batch (v zero-padded from 128 to q's 192, the gradient of o's
 # padded columns zero, as on the path), zamba2's shared block at its train
-# steps' batch in both dtypes, and seamless's at its train steps' batch in
+# steps' batch in both dtypes, internvl2's (grok's group of 6: 48 heads
+# over 8) at its train steps' batch in both dtypes (the float32 row the
+# dtype its train cpu_check ran before that check's cut), and seamless's
+# at its train steps' batch in
 # both dtypes: the encoder's non-causal self-attention and a
 # cross-attention of 500 decoder rows against 2048 encoder rows; SSD (b,
 # Q, h, p, g, n): mamba2's chunks of
@@ -390,6 +411,10 @@ FLASH_GRAD_SHAPES = [(1, 2048, 2048, 16, 8, 128, True, torch.bfloat16),
                       True, torch.bfloat16),
                      (TRAIN_BATCH["zamba2-7b"], 2048, 2048, 32, 32, 112,
                       True, torch.float32),
+                     (TRAIN_BATCH["internvl2-26b"], 2048, 2048, 48, 8, 128,
+                      True, torch.bfloat16),
+                     (TRAIN_BATCH["internvl2-26b"], 2048, 2048, 48, 8, 128,
+                      True, torch.float32),
                      (_ED_B, 2048, 2048, 16, 16, 64, False, torch.bfloat16),
                      (_ED_B, 2048, 2048, 16, 16, 64, False, torch.float32),
                      (_ED_B, 500, 2048, 16, 16, 64, False, torch.bfloat16),
@@ -406,13 +431,18 @@ SSD_GRAD_SHAPES = [(16, 128, 32, 64, 1, 128),
 # tolerance for a gradient leaf against the reference)
 TRAIN_CHECK_DEPTH, TRAIN_CHECK_BATCH, TRAIN_CHECK_SEQ = 2, 2, 256
 # the hybrid's: one group and the tail (as its serving cpu_check); the
-# vision-language model's and the encoder-decoder's one layer (and one
-# encoder layer), at smaller (batch, tokens) so that the CPU's step at
-# their vocabularies (92,553 with an untied head; 256,206) stays near 15 s:
-# internvl2 with its 256 patches, seamless over TRAIN_CHECK_FRAMES frames
-TRAIN_CHECK_DEPTHS = {"zamba2-7b": HYBRID_CHECK_DEPTH, "internvl2-26b": 1,
+# encoder-decoder's one layer and one encoder layer, at a smaller (batch,
+# tokens) so that the CPU's step at its vocabulary (256,206) stays near
+# 15 s, over TRAIN_CHECK_FRAMES frames.  Not internvl2 (cut for the time
+# budget: its CPU step at depth 1 took 30-40 s of the script).  Without it
+# the card checks neither the vlm loss nor the gradient through the
+# patches: the transformer's train step is held by internlm2's train
+# cpu_check, the patches' forward by internvl2's serving cpu_check, and
+# the flash Function's backward at internvl2's train shape by grad_check
+TRAIN_CHECK_DEPTHS = {"zamba2-7b": HYBRID_CHECK_DEPTH,
                       "seamless-m4t-medium": 1}
-TRAIN_CHECK_SIZES = {"internvl2-26b": (1, 64), "seamless-m4t-medium": (1, 256)}
+TRAIN_CHECK_SIZES = {"seamless-m4t-medium": (1, 256)}
+TRAIN_CHECK_SKIP = ("internvl2-26b",)
 TRAIN_CHECK_FRAMES = 512
 TRAIN_GRAD_TOL = 1e-4
 # restart: mamba2-370m at full width and this depth; a run with failures
@@ -433,6 +463,17 @@ RESTART_STEPS, RESTART_CKPT_EVERY, RESTART_FAIL_AT = 12, 5, (7, 11)
 SHARDED_REQUESTS, SHARDED_LOGIT_TOL = 4, 1e-3
 SHARDED_TRAIN_DEPTH, SHARDED_TRAIN_BATCH, SHARDED_TRAIN_STEPS = 4, 4, 2
 SHARDED_DECODE_TIMED = 5
+
+# tp_rank: internlm2-1.8b at full width and depth as rank 0 of a
+# (1, TP_RANK_WAYS) ("data", "model") mesh over torch's fake process group
+# (every collective returns at once and moves nothing, so no value is
+# checked): one TP_RANK_PROMPT-token prefill (its flash kernel at
+# TP_RANK_FLASH: the rank's 4 query heads and 2 KV heads) and
+# TP_RANK_STEPS decode steps at LM_SLOTS slots of LM_MAX_LEN under
+# decode_cp, timed; the rank's weights, peak memory and the prefill's
+# device time by kind
+TP_RANK_WAYS, TP_RANK_PROMPT, TP_RANK_STEPS = 4, 2048, 4
+TP_RANK_FLASH = ((1, 2048, 4, 128), (1, 2048, 2, 128))
 
 
 class SmokeFailure(RuntimeError):
@@ -764,26 +805,37 @@ def _flash_out_check(got, q, k, v, causal, label) -> dict:
 
 
 def phase_flash(dev, shapes=FLASH_SHAPES, gqa_shapes=FLASH_GQA_SHAPES,
-                timed_at=FLASH_TIMED) -> dict:
+                timed_at=FLASH_TIMED, narrow_kv=FLASH_NARROW_KV) -> dict:
     """Every kernel against the plain version in both layouts: each shape on
     the kernel that ``variant`` names, through the entry point
     (``ops.flash_attention``), and forced on the CUDA-core kernel where the
-    warp-level kernel takes the shape, or a wgmma kernel in float32.
+    warp-level kernel takes the shape, or a wgmma kernel in float32;
+    ``narrow_kv``'s shapes with k and v narrowed views of wider tensors.
     Returns the rows that ``timed_at`` names, timed beside the plain version
     and SDPA, and under "entry_launches" the launches of the entry-point
     calls (the CUDA-core kernel's only caller on the card now)."""
     gen = torch.Generator(device=dev).manual_seed(2)
-    # both forms as (shape as given, form, B, Sq, Sk, H, KV, d, causal,
-    # dtype); (BH, S, d) is B 1 with H = KV = BH for the work it does
-    cases = ([(shape, "BH,S,d", 1, *shape[1:3], shape[0], shape[0],
+    # both forms as (shape as given, form, narrowed KV (whole heads,
+    # first head) or None, B, Sq, Sk, H, KV, d, causal, dtype); (BH, S, d)
+    # is B 1 with H = KV = BH for the work it does
+    cases = ([(shape, "BH,S,d", None, 1, *shape[1:3], shape[0], shape[0],
                *shape[3:]) for shape in shapes]
-             + [(shape, "B,S,H,d", *shape) for shape in gqa_shapes])
+             + [(shape, "B,S,H,d", None, *shape) for shape in gqa_shapes]
+             + [(shape, "B,S,H,d", (whole, kv0), *shape)
+                for shape, whole, kv0 in narrow_kv])
     timed = {}
     entry = dict.fromkeys(ops.COUNTERS, 0)
-    for given, form, b, sq, sk, h, kv, d, causal, dtype in cases:
+    for given, form, narrow, b, sq, sk, h, kv, d, causal, dtype in cases:
         rnd = lambda *shape: torch.randn(shape, generator=gen,
                                          device=dev).to(dtype)
-        if form == "B,S,H,d":
+        if narrow:
+            whole, kv0 = narrow
+            q = rnd(b, sq, h, d)
+            k, v = (rnd(b, sk, whole, d).narrow(2, kv0, kv)
+                    for _ in range(2))
+            shape = {"B": b, "Sq": sq, "Sk": sk, "H": h, "KV": kv, "d": d,
+                     "KV_of": whole, "KV_from": kv0}
+        elif form == "B,S,H,d":
             q, k, v = rnd(b, sq, h, d), rnd(b, sk, kv, d), rnd(b, sk, kv, d)
             shape = {"B": b, "Sq": sq, "Sk": sk, "H": h, "KV": kv, "d": d}
         else:
@@ -2309,43 +2361,49 @@ def _decode_vs_prefill(cfg, plan, params, req, dev, k=8, stub=None) -> dict:
     return row
 
 
-def _decode_vs_cpu(cfg, params, dev, depth: int) -> dict:
+def _decode_vs_cpu(cfg, params, dev, depth: int, slots=DECODE_CHECK_SLOTS,
+                   steps=DECODE_CHECK_STEPS) -> dict:
     """The MoE family's decode check.  An MoE decode step routes all slots
     as one group (deepseek at 8 slots: capacity 1 an expert), a prefill one
     sequence, so a decode is not the function that a longer prefill
     computes, even in the reference.  Instead the first ``depth`` layers
-    of the served parameters in float32 serve DECODE_CHECK_SLOTS requests
-    through ``BatchServer`` on the card (kernels) and on the CPU (plain
-    versions): every slot prefilled, then DECODE_CHECK_STEPS decode steps
-    over all of them.  The tokens must be equal, and every cache leaf
-    within CPU_CHECK_TOL."""
+    of the served parameters in float32 serve ``slots`` requests through
+    ``BatchServer`` on the card (kernels) and on the CPU (plain versions):
+    every slot prefilled, then ``steps`` decode steps over all of them.
+    The tokens must be equal, and every cache leaf within CPU_CHECK_TOL.
+    The row's ``card_s``, ``copy_s`` and ``cpu_s`` are its parts' wall
+    times."""
     cut, plan, small = _f32_cut(cfg, params, depth)
     rng = np.random.default_rng(2)
     prompts = [rng.integers(0, cut.vocab_size, int(n)).astype(np.int32)
                for n in rng.integers(*DECODE_CHECK_PROMPT,
-                                     DECODE_CHECK_SLOTS)]
-    max_len = DECODE_CHECK_PROMPT[1] + DECODE_CHECK_STEPS + 1
-    shape = ShapeConfig("check", "decode", max_len, DECODE_CHECK_SLOTS)
+                                     slots)]
+    max_len = DECODE_CHECK_PROMPT[1] + steps + 1
+    shape = ShapeConfig("check", "decode", max_len, slots)
     prefill = api.make_prefill(cut, shape, plan)
 
     def serve(p, d):
         srv = BatchServer(
-            slots=DECODE_CHECK_SLOTS, max_len=max_len,
+            slots=slots, max_len=max_len,
             prefill_fn=lambda p_, t: prefill(p_, {"tokens": t}),
             decode_fn=api.make_decode_step(cut, shape, plan), params=p,
             init_cache_fn=lambda b, ml: api.init_cache(cut, b, ml,
                                                        torch.float32, d))
-        reqs = [Request(i, pr, DECODE_CHECK_STEPS + 1)
+        reqs = [Request(i, pr, steps + 1)
                 for i, pr in enumerate(prompts)]
         srv.run(reqs)
         return [r.out_tokens for r in reqs], srv
 
     ops.reset_launches()
+    t0 = time.perf_counter()
     card_tokens, card = serve(small, dev)
     sync(dev)
+    card_s = time.perf_counter() - t0
     launches = ops.launches()
+    t0 = time.perf_counter()
     host = tree_map(lambda a: a.cpu(), small)
     del small
+    copy_s = time.perf_counter() - t0
     t0 = time.perf_counter()
     host_tokens, cpu = serve(host, torch.device("cpu"))
     host_s = time.perf_counter() - t0
@@ -2354,20 +2412,21 @@ def _decode_vs_cpu(cfg, params, dev, depth: int) -> dict:
             for path, card_leaf, host_leaf in (
                 ((g, k), card.cache[g][k], cpu.cache[g][k])
                 for g in cpu.cache for k in cpu.cache[g])}
-    row = {"depth": depth, "slots": DECODE_CHECK_SLOTS,
+    row = {"depth": depth, "slots": slots,
            "prompt_lengths": [len(p) for p in prompts],
            "decode_steps": card.stats["decode_steps"],
            "tokens_equal": card_tokens == host_tokens,
            "tokens_card": card_tokens, "tokens_cpu": host_tokens,
            "cache_max_abs_err": errs, "tol": CPU_CHECK_TOL,
-           "cpu_s": host_s, "launches": launches}
+           "card_s": card_s, "copy_s": copy_s, "cpu_s": host_s,
+           "launches": launches}
     if dev.type == "cuda":
         _check_launches(launches, {
-            k: n * DECODE_CHECK_SLOTS
+            k: n * slots
             for k, n in _prefill_launches(cut, torch.float32).items()},
             "decode_vs_cpu")
     check(card.stats["decode_steps"] == cpu.stats["decode_steps"]
-          == DECODE_CHECK_STEPS, f"decode_vs_cpu: {card.stats} / "
+          == steps, f"decode_vs_cpu: {card.stats} / "
           f"{cpu.stats}")
     check(card_tokens == host_tokens,
           f"decode_vs_cpu tokens: card {card_tokens}, cpu {host_tokens}")
@@ -2379,8 +2438,9 @@ def _decode_vs_cpu(cfg, params, dev, depth: int) -> dict:
     return row
 
 
-def _device_profile(fn, dev, kernels, top: int = 5) -> dict:
-    """One call of ``fn`` (warmed up first) under ``torch.profiler`` with
+def _device_profile(fn, dev, kernels, top: int = 5, warm: bool = True) -> dict:
+    """One call of ``fn`` (warmed up first, unless the caller has just run
+    it: ``warm=False``) under ``torch.profiler`` with
     CUDA activity only: host wall ms of the call (ending in a synchronize),
     the device's busy ms (union of its kernel and copy intervals), the busy
     share, the device ms and launches of each hand kernel of ``kernels``
@@ -2388,7 +2448,8 @@ def _device_profile(fn, dev, kernels, top: int = 5) -> dict:
     device ms by kind of work (``_kind``), and the kernels that took the
     most device time."""
     from torch.profiler import ProfilerActivity, profile
-    fn()
+    if warm:
+        fn()
     sync(dev)
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -2444,7 +2505,8 @@ def _kind(name: str) -> str:
 def phase_lm(dev, name: str, cfg=None, slots=LM_SLOTS, max_len=LM_MAX_LEN,
              n_req=LM_REQUESTS, new_tokens=LM_NEW_TOKENS, phase=None,
              cpu_check=True, cpu_check_depth=CPU_CHECK_DEPTH,
-             decode_check_depth=CPU_CHECK_DEPTH, keep=0) -> dict:
+             decode_check=(CPU_CHECK_DEPTH, DECODE_CHECK_SLOTS,
+                           DECODE_CHECK_STEPS), keep=0) -> dict:
     """Serve ``n_req`` requests (plus a 1-token prompt for the dense model)
     through ``BatchServer.run`` at full width (and full depth unless
     ``cfg`` cuts it), bfloat16 parameters (``PlanConfig`` defaults) from
@@ -2452,7 +2514,8 @@ def phase_lm(dev, name: str, cfg=None, slots=LM_SLOTS, max_len=LM_MAX_LEN,
     requests: ``_stub``); then the checks against the CPU in float32
     (``cpu_check`` at ``cpu_check_depth``: not for a model whose float32
     layers would not fit the host) and of decode (``decode_vs_prefill``;
-    the MoE family's ``decode_vs_cpu`` at ``decode_check_depth``).  The
+    the MoE family's ``decode_vs_cpu`` at ``decode_check``'s depth,
+    slots and decode steps).  The
     row returned (not printed) also holds ``kept``: the first ``keep``
     requests' prompts, prefill logits (on the host) and tokens, which
     ``lm_sharded`` holds its own against."""
@@ -2589,7 +2652,7 @@ def phase_lm(dev, name: str, cfg=None, slots=LM_SLOTS, max_len=LM_MAX_LEN,
     row["ragged_check"] = _lm_ragged_check(cfg, dev)
     if cfg.moe is not None:
         row["decode_vs_cpu"] = _decode_vs_cpu(cfg, params, dev,
-                                              decode_check_depth)
+                                              *decode_check)
     else:
         row["decode_vs_prefill"] = _decode_vs_prefill(cfg, plan, params,
                                                       reqs[0], dev,
@@ -2616,7 +2679,9 @@ def _sharded_serve(dev, cfg, plan, mesh, kept, slots, max_len,
     decode step over all slots timed with CP, without it (the naive
     route: the spans gathered) and unsharded (the same weights whole),
     and the host's part of it: one all-reduce of a combine's size, one
-    layer's weights gathered."""
+    layer's weights gathered; the weight gathers and tensor-parallel
+    collectives of the run and of one decode step, none on a 1-rank
+    mesh."""
     params = api.init_params(cfg, torch.Generator(device=dev).manual_seed(0),
                              plan, dev)
     shape = ShapeConfig("serve", "decode", max_len, slots)
@@ -2652,11 +2717,15 @@ def _sharded_serve(dev, cfg, plan, mesh, kept, slots, max_len,
                 for i, k in enumerate(kept)]
         ops.reset_launches()
         L.reset_cp_combines()
+        partition.reset_weight_gathers()
+        partition.reset_tp_collectives()
         t0 = time.perf_counter()
         srv.run(reqs)
         sync(dev)
         run_s = time.perf_counter() - t0
         launches, combines = ops.launches(), L.cp_combines()
+        run_gathers = partition.weight_gathers()
+        run_tp = partition.tp_collectives()
         tokens = []
         for r, k in zip(reqs, kept):
             got, want = r.out_tokens, k["tokens"]
@@ -2675,12 +2744,17 @@ def _sharded_serve(dev, cfg, plan, mesh, kept, slots, max_len,
         pos = torch.full((slots,), max_len - 2, dtype=torch.int32,
                          device=dev)
         cp_step = lambda: decode(placed, srv.cache, toks, pos)
+        partition.reset_weight_gathers()
+        partition.reset_tp_collectives()
+        cp_step()
+        step_gathers = partition.weight_gathers()
+        step_tp = partition.tp_collectives()
         timed = {"cp": call_ms(cp_step, dev, iters=SHARDED_DECODE_TIMED,
                                warmup=1)}
         profile = {"decode_step_cp": _device_profile(
             cp_step, dev, [], top=8)} if dev.type == "cuda" else None
         # the host's part: one all-reduce of a CP combine's size over
-        # "model", one layer's weights gathered whole
+        # "model", one layer's weights gathered over the fsdp axes
         combine = torch.zeros((slots, cfg.num_heads, cfg.head_dim + 1),
                               device=dev)
         timed["all_reduce"] = call_ms(lambda: partition.all_reduce(
@@ -2710,6 +2784,9 @@ def _sharded_serve(dev, cfg, plan, mesh, kept, slots, max_len,
            "logit_tol": SHARDED_LOGIT_TOL, "tokens": tokens,
            "near_tie": DECODE_NEAR_TIE, "launches": launches,
            "prefill_launches": want, "cp_combines": combines,
+           "weight_gathers": run_gathers, "tp_collectives": run_tp,
+           "decode_step_weight_gathers": step_gathers,
+           "decode_step_tp_collectives": step_tp,
            "decode_steps": srv.stats["decode_steps"],
            "prefill_ms": prefill_ms,
            "decode_step_ms_median": statistics.median(decode_ms),
@@ -2727,6 +2804,13 @@ def _sharded_serve(dev, cfg, plan, mesh, kept, slots, max_len,
     check(combines == cfg.num_layers * srv.stats["decode_steps"],
           f"lm_sharded: {combines} CP combines, want {cfg.num_layers} x "
           f"{srv.stats['decode_steps']} decode steps")
+    # a (1, 1) mesh: nothing to gather and no collective of the split
+    check(run_gathers == 0 and step_gathers == 0,
+          f"lm_sharded: {run_gathers} weight gathers serving, "
+          f"{step_gathers} a decode step, on a 1-rank mesh")
+    check(not any(run_tp.values()) and not any(step_tp.values()),
+          f"lm_sharded: tensor-parallel collectives on a 1-rank mesh: "
+          f"{run_tp}, a decode step {step_tp}")
     return row
 
 
@@ -2764,7 +2848,10 @@ def _sharded_train(dev, cfg, mesh, batch, seq, steps) -> dict:
     with plan_scope(mesh, plan):
         placed = api.distribute(state, api.to_shardings(
             mesh, api.train_state_specs(cfg, plan, state)))
+        partition.reset_weight_gathers()
+        partition.reset_tp_collectives()
         sharded, losses, ms, launches = run(placed)
+        gathers, tp = partition.weight_gathers(), partition.tp_collectives()
     del placed
     plain_ms_after = run(state)[2]
     del state
@@ -2780,7 +2867,11 @@ def _sharded_train(dev, cfg, mesh, batch, seq, steps) -> dict:
            "step_ms_unsharded_after": plain_ms_after,
            "master_worst_excess": worst, "master_worst_leaf": worst_leaf,
            "master_tol": {"atol": 1e-3, "rtol": 3e-3},
-           "launches_per_step": launches, "step_launches": want}
+           "launches_per_step": launches, "step_launches": want,
+           "weight_gathers": gathers, "tp_collectives": tp}
+    check(gathers == 0 and not any(tp.values()),
+          f"lm_sharded train: {gathers} weight gathers, collectives {tp} "
+          f"on a 1-rank mesh")
     check(max(loss_err) <= 1e-4, f"lm_sharded train: losses {losses} vs "
           f"{plain_losses}")
     check(worst <= 1e-3, f"lm_sharded train: master {worst_leaf} off by "
@@ -2825,6 +2916,112 @@ def phase_lm_sharded(dev, dense: dict, cfg=None, slots=LM_SLOTS,
     row["launches"] = row["serve"]["launches"]
     row["seconds"] = time.perf_counter() - t_phase
     emit("lm_sharded", **row)
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    return row
+
+
+def phase_tp_rank(dev, cfg=None, ways=TP_RANK_WAYS, prompt=TP_RANK_PROMPT,
+                  slots=LM_SLOTS, max_len=LM_MAX_LEN, steps=TP_RANK_STEPS,
+                  flash_shapes=TP_RANK_FLASH) -> dict:
+    """Rank 0's share of internlm2-1.8b split ``ways`` ways over "model"
+    (``TP_RANK_*``): its local weights, a prefill of ``prompt`` tokens
+    (warmed up once, then timed twice and traced once), ``steps`` decode
+    steps at ``slots`` slots of ``max_len``, the flash kernel's launches
+    and shapes in one prefill, and the phase's peak memory.  The fake
+    group's collectives leave their outputs as allocated, so the values
+    are not the model's and none is checked; the shapes and counts are."""
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+    t_phase = time.perf_counter()
+    cfg = cfg or get_arch("internlm2-1.8b")
+    plan = PlanConfig(decode_cp=True)
+    shape = ShapeConfig("serve", "decode", max_len, slots)
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+    seen = []
+    flash = ops.flash_attention
+
+    def spy(q, k, v, **kw):
+        seen.append((tuple(q.shape), tuple(k.shape)))
+        return flash(q, k, v, **kw)
+
+    dist.init_process_group("fake", store=FakeStore(), rank=0,
+                            world_size=ways)
+    ops.flash_attention = spy
+    try:
+        mesh = make_mesh_compat((1, ways), ("data", "model"), dev.type)
+        params = api.init_params(
+            cfg, torch.Generator(device=dev).manual_seed(0), plan, dev)
+        with plan_scope(mesh, plan):
+            placed = api.distribute(params, api.to_shardings(
+                mesh, api.param_specs(cfg, plan, params)))
+        del params
+        local_gb = sum(t.to_local().numel() * t.to_local().element_size()
+                       for t in tree_leaves(placed)) / 1e9
+        tok = torch.from_numpy(np.random.default_rng(0).integers(
+            0, cfg.vocab_size, (1, prompt)).astype(np.int32)).to(dev)
+        prefill = api.make_prefill(cfg, shape, plan)
+        decode = api.make_decode_step(cfg, shape, plan)
+        with plan_scope(mesh, plan):
+            run_prefill = lambda: prefill(placed, {"tokens": tok})
+            run_prefill()
+            sync(dev)
+            ops.reset_launches()
+            seen.clear()
+            partition.reset_tp_collectives()
+            prefill_ms = []
+            for _ in range(2):
+                t0 = time.perf_counter()
+                run_prefill()
+                sync(dev)
+                prefill_ms.append((time.perf_counter() - t0) * 1e3)
+            launches = ops.launches()
+            tp = partition.tp_collectives()
+            shapes = sorted(set(seen))
+            profile = _device_profile(run_prefill, dev, ["flash_fwd_wgmma"],
+                                      top=8) if dev.type == "cuda" else None
+            cache = api.init_cache(cfg, slots, max_len, torch.bfloat16, dev)
+            toks = torch.zeros((slots,), dtype=torch.int32, device=dev)
+            decode_ms = []
+            for i in range(steps + 1):
+                pos = torch.full((slots,), prompt + i, dtype=torch.int32,
+                                 device=dev)
+                t0 = time.perf_counter()
+                decode(placed, cache, toks, pos)
+                sync(dev)
+                decode_ms.append((time.perf_counter() - t0) * 1e3)
+            cache_gb = sum(t.to_local().numel() * t.to_local().element_size()
+                           for t in tree_leaves(cache)) / 1e9
+            del cache
+    finally:
+        ops.flash_attention = flash
+        dist.destroy_process_group()
+    peak = torch.cuda.max_memory_allocated(dev) / 1e9 \
+        if dev.type == "cuda" else None
+    per_prefill = {k: n // 2 for k, n in launches.items() if n}
+    row = {"mesh": [1, ways], "rank": 0, "backend": "fake",
+           "values_checked": False,
+           "note": "the fake group's collectives move nothing: shapes, "
+                   "launches and times only, no value checked",
+           "prompt": prompt, "slots": slots, "max_len": max_len,
+           "local_weights_gb": local_gb, "local_cache_gb": cache_gb,
+           "peak_mem_gb": peak, "prefill_ms": prefill_ms,
+           "decode_step_ms": decode_ms[1:], "decode_first_ms": decode_ms[0],
+           "launches": per_prefill, "flash_shapes": shapes,
+           "tp_collectives_per_prefill": {k: n // 2 for k, n in tp.items()},
+           "profile_prefill": profile}
+    if dev.type == "cuda":
+        kind = "flash_attention_" + variant(torch.bfloat16, cfg.head_dim)
+        check(per_prefill == {kind: cfg.num_layers},
+              f"tp_rank: {per_prefill} launches a prefill, want "
+              f"{cfg.num_layers} {kind}")
+    check(shapes == [tuple(flash_shapes)],
+          f"tp_rank: flash ran at {shapes}, want {flash_shapes}")
+    check(tp["g"] > 0 and tp["seq_exit"] > 0,
+          f"tp_rank: the split issued no collectives: {tp}")
+    row["seconds"] = time.perf_counter() - t_phase
+    emit("tp_rank", **row)
     if dev.type == "cuda":
         torch.cuda.empty_cache()
     return row
@@ -2947,7 +3144,7 @@ def _grad_check(dev) -> list:
 
 def _train_cpu_check(dev, name: str) -> dict:
     """One float32 train step at full width and TRAIN_CHECK_DEPTH (the
-    hybrid, vision-language and encoder-decoder models: TRAIN_CHECK_DEPTHS,
+    hybrid and the encoder-decoder model: TRAIN_CHECK_DEPTHS,
     at TRAIN_CHECK_SIZES), from one state (a seeded init on the card; on
     the CPU its master's host copy with the optimizer's initial state, the
     zero moments that ``init_train_state`` gives the card) on the card
@@ -3098,8 +3295,8 @@ def _train_full(dev, name: str, batch: int) -> dict:
                 step_ms.append(dt)
         peak = torch.cuda.max_memory_allocated(dev) / 1e9 if cuda else None
         profile = _device_profile(lambda: step(state, b), dev,
-                                  [DEVICE_KERNEL[k] for k in want], top=12) \
-            if cuda else None
+                                  [DEVICE_KERNEL[k] for k in want], top=12,
+                                  warm=False) if cuda else None
     finally:
         loader.close()
     med = statistics.median(step_ms)
@@ -3196,12 +3393,14 @@ def _train_restart(dev) -> dict:
 def phase_train(dev) -> dict:
     """LM training of every family on the card: the kernels' gradients
     (``grad_check``), a train step on the card against the CPU
-    (``cpu_check``), full-width steps (full depth but mamba2's,
+    (``cpu_check``, all but TRAIN_CHECK_SKIP), full-width steps (full
+    depth but mamba2's,
     deepseek's, zamba2's and internvl2's), and restarts from
     checkpoints."""
     t0 = time.perf_counter()
     out = {"grad_check": _grad_check(dev),
-           "cpu_check": {n: _train_cpu_check(dev, n) for n in TRAIN_BATCH},
+           "cpu_check": {n: _train_cpu_check(dev, n) for n in TRAIN_BATCH
+                         if n not in TRAIN_CHECK_SKIP},
            "steps": {n: _train_full(dev, n, b)
                      for n, b in TRAIN_BATCH.items()},
            "restart": _train_restart(dev)}
@@ -3225,7 +3424,7 @@ def _kernel_entry(name, source, replaces, launches, row) -> dict:
 def kernels_line(haar_row: dict, knn_rows: dict, flash_rows: dict,
                  ssd_rows: dict, analytic: dict, serving: dict,
                  procpool: dict, lm_dense: dict, lm_sharded: dict,
-                 lm_ssm: dict,
+                 tp_rank: dict, lm_ssm: dict,
                  lm_moe: dict, lm_moe_grok: dict, lm_hybrid: dict,
                  lm_vlm: dict, lm_encdec: dict, train: dict) -> dict:
     """Launches of each kernel on its own path: Haar and kNN (all kernels,
@@ -3236,7 +3435,8 @@ def kernels_line(haar_row: dict, knn_rows: dict, flash_rows: dict,
     bfloat16 tensor-core flash attention on dense LM serving (and grok-1's
     as ``moe_grok_launches``, and the same model's served on a 1-rank mesh
     as ``sharded_launches``, its train steps there as
-    ``sharded_train_launches``), the 3xTF32 one on the dense LM's float32
+    ``sharded_train_launches``, one prefill of rank 0 of its four-way
+    split as ``tp_rank_launches``), the 3xTF32 one on the dense LM's float32
     prefill (``cpu_check``), the warp-level one on deepseek-v2-lite's
     serving (MLA at d 192; ``ragged_launches``: the dense smoke config's
     ragged prefill), the CUDA-core one on phase_flash's entry-point calls
@@ -3279,6 +3479,8 @@ def kernels_line(haar_row: dict, knn_rows: dict, flash_rows: dict,
              sharded_train_launches=sum(
                  c["flash_attention_tc"] for c in
                  lm_sharded["train"]["launches_per_step"]),
+             tp_rank_launches=tp_rank["launches"].get("flash_attention_tc",
+                                                      0),
              train_launches=steps["internlm2-1.8b"]["launches"]
              ["flash_attention_tc"]),
         dict(_kernel_entry("flash_attention_tc_gqa6_vlm",
@@ -3302,7 +3504,7 @@ def kernels_line(haar_row: dict, knn_rows: dict, flash_rows: dict,
              ["flash_attention_tf32"],
              train_launches=sum(train["cpu_check"][n]["launches"]
                                 ["flash_attention_tf32"]
-                                for n in ("internlm2-1.8b", "internvl2-26b",
+                                for n in ("internlm2-1.8b",
                                           "seamless-m4t-medium"))),
         dict(_kernel_entry("flash_attention_mma", "flash_attention.cu", flash,
                            lm_moe["launches"]["flash_attention_mma"],
@@ -3370,12 +3572,13 @@ def main() -> int:
     del data
     lm_dense = phase_lm(dev, "internlm2-1.8b", keep=SHARDED_REQUESTS)
     lm_sharded = phase_lm_sharded(dev, lm_dense)
+    tp_rank = phase_tp_rank(dev)
     lm_ssm = phase_lm(dev, "mamba2-370m")
     lm_moe = phase_lm(dev, "deepseek-v2-lite-16b")
     grok = get_arch("grok-1-314b")
     lm_moe_grok = phase_lm(dev, grok.name, cfg=_cut(grok, GROK_DEPTH),
                            n_req=GROK_REQUESTS, phase="lm_moe_grok",
-                           cpu_check=False, decode_check_depth=1)
+                           cpu_check=False, decode_check=GROK_DECODE_CHECK)
     lm_hybrid = phase_lm(dev, "zamba2-7b", n_req=HYBRID_REQUESTS,
                          phase="lm_hybrid", cpu_check_depth=HYBRID_CHECK_DEPTH)
     lm_vlm = phase_lm(dev, "internvl2-26b", n_req=VLM_REQUESTS)
@@ -3385,8 +3588,9 @@ def main() -> int:
          host_behind=HOST_BEHIND)
     print(json.dumps(kernels_line(haar_row, knn_rows, flash_rows, ssd_rows,
                                   analytic, serving, procpool, lm_dense,
-                                  lm_sharded, lm_ssm, lm_moe, lm_moe_grok,
-                                  lm_hybrid, lm_vlm, lm_encdec, train)),
+                                  lm_sharded, tp_rank, lm_ssm, lm_moe,
+                                  lm_moe_grok, lm_hybrid, lm_vlm, lm_encdec,
+                                  train)),
           flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -31,12 +31,14 @@ Under a ``partition.plan_scope`` over a ``DeviceMesh`` the same functions
 run sharded (``models.specs`` has the design).  Parameters, train state and
 caches are ``DTensor``s placed by their spec trees (``distribute``,
 ``init_cache``).  Each call splits its global batch by ``batch_specs`` and
-runs its own rows, every weight gathered per layer.  Prefill and decode
+runs its own rows, each layer's weights gathered over the ``fsdp`` axes and
+the compute split over "model" where the plan says so.  Prefill and decode
 hand back global logits, tokens and positions (all-gathered over the
 data-parallel axes) and keep each rank's span of the cache.  The train
 step's loss is the mean over the data-parallel ranks of their local means;
-its gradients are reduce-scattered onto the shards, and the optimizer runs
-on the ``DTensor``s, so its global norm and the int8 scale stay global.
+its gradients are reduced onto the shards (a weight's gather does it in
+its backward, or ``_placed_like`` after it), and the optimizer runs on the
+``DTensor``s, so its global norm and the int8 scale stay global.
 The functions read the scope when they are called, on the calling thread.
 """
 from __future__ import annotations
@@ -241,7 +243,8 @@ def make_train_step(cfg: ArchConfig, plan: PlanConfig, optimizer):
             n = _split_ranks()
             grads = torch.autograd.grad(loss if n == 1 else loss / n, leaves)
         return loss.detach(), tree_unflatten(
-            master, [g.to(torch.float32) for g in grads])
+            master, [_placed_like(g, p).to(torch.float32)
+                     for g, p in zip(grads, leaves)])
 
     def train_step(state, batch):
         env = partition.ranks_env()
@@ -281,6 +284,16 @@ def make_train_step(cfg: ArchConfig, plan: PlanConfig, optimizer):
         return new_state, {"loss": loss, **stats}
 
     return train_step
+
+
+def _placed_like(g, p):
+    """A gradient in its parameter's placements: a weight gathered with no
+    ``redistribute`` (``partition.gather_leaf``) hands its gradient back
+    in its gather's gradient placements (partial sums over the axes that
+    split the batch), which are reduced here onto the parameter's."""
+    if isinstance(g, DTensor) and tuple(g.placements) != tuple(p.placements):
+        return g.redistribute(p.device_mesh, p.placements)
+    return g
 
 
 def _split_ranks() -> int:

@@ -13,9 +13,13 @@ IN PLACE (``layers.attention_decode``), and the cross-attention reads the
 fixed encoder cache ``xk``/``xv`` with no mask, as the reference computes
 it in jnp: rows of ``xk`` that ``BatchServer`` zero-filled past a shorter
 request's frames score 0 and take weight.  Under a plan scope each
-layer's weights are gathered whole at the top of its body, and a decode
-gathers the encoder cache's spans (cross-attention has no
-context-parallel route, as in the reference).
+layer's weights are gathered over the ``fsdp`` axes at the top of its
+body, and the three attentions and the MLP run on the rank's heads and
+``d_ff`` columns where the plan splits the compute over "model"
+(``layers``); the vocabulary is split as the transformer's.  The encoder
+cache ``xk``/``xv`` keeps every KV head (``CACHE_RULES``), and a decode
+gathers its spans (cross-attention has no context-parallel route, as in
+the reference).
 """
 from __future__ import annotations
 
@@ -26,11 +30,10 @@ import torch
 from repro_torch.configs.base import ArchConfig, PlanConfig
 from repro_torch.models import layers as L
 from repro_torch.models import partition
-from repro_torch.models.specs import gather_fsdp
+from repro_torch.models.specs import gather_fsdp, tp_partial_leaves
 from repro_torch.models.transformer import (lm_loss_from_hidden,
                                            next_token_targets, padded_vocab)
-from repro_torch.models.util import remat, stack_scan
-from repro_torch.tree import tree_map
+from repro_torch.models.util import remat, stack_scan, unstack
 
 # fixed encoder-context length of the decode cache (the reference's
 # decode-shape cells)
@@ -68,14 +71,15 @@ def init_encdec(cfg: ArchConfig, gen, plan: PlanConfig = PlanConfig(), *,
 def encode(cfg, plan: PlanConfig, params, frames):
     """frames: (B, S_enc, D) stub embeddings -> encoder hidden."""
     positions = torch.arange(frames.shape[1], device=frames.device)
+    partial = tp_partial_leaves(cfg)
 
     def body(x, lp):
-        lp = gather_fsdp(lp)
+        lp = gather_fsdp(lp, partial=partial)
         h = L.rms_norm(x, lp["ln1"], cfg.norm_eps)
         h, _ = L.attention_apply(lp["attn"], cfg, h, positions, causal=False)
         x = x + h
         h = L.rms_norm(x, lp["ln2"], cfg.norm_eps)
-        return x + L.mlp_apply(lp["mlp"], h), None
+        return x + L.mlp_apply(lp["mlp"], h, cfg.d_ff), None
 
     if plan.remat == "block":
         body = remat(body)
@@ -89,9 +93,10 @@ def decode_hidden(cfg, plan: PlanConfig, params, tokens, enc_out,
     stacked over layers, or None)."""
     x = _embed(params, tokens)
     positions = torch.arange(tokens.shape[1], device=x.device)
+    partial = tp_partial_leaves(cfg)
 
     def body(x, lp):
-        lp = gather_fsdp(lp)
+        lp = gather_fsdp(lp, partial=partial)
         h = L.rms_norm(x, lp["ln1"], cfg.norm_eps)
         h, self_kv = L.attention_apply(lp["attn"], cfg, h, positions,
                                        causal=True)
@@ -101,7 +106,7 @@ def decode_hidden(cfg, plan: PlanConfig, params, tokens, enc_out,
                                         causal=False, xkv=enc_out)
         x = x + h
         h = L.rms_norm(x, lp["ln2"], cfg.norm_eps)
-        x = x + L.mlp_apply(lp["mlp"], h)
+        x = x + L.mlp_apply(lp["mlp"], h, cfg.d_ff)
         return x, ((self_kv, cross_kv) if collect_cache else None)
 
     if plan.remat == "block":
@@ -112,12 +117,13 @@ def decode_hidden(cfg, plan: PlanConfig, params, tokens, enc_out,
 
 
 def _embed(params, tokens):
-    return gather_fsdp(params["emb"])[tokens.to(torch.long)]
+    return L.embed(gather_fsdp(params["emb"]), tokens,
+                   params["emb"].shape[0])
 
 
 def _logits(params, h):
-    return torch.einsum("bd,vd->bv", h,
-                        gather_fsdp(params["emb"])).to(torch.float32)
+    return L.vocab_logits(h, gather_fsdp(params["emb"]),
+                          params["emb"].shape[0])
 
 
 def encdec_loss(cfg, plan, params, frames, tokens, aux_coef=0.0):
@@ -146,8 +152,10 @@ def encdec_prefill(cfg, plan, params, frames, bos_tokens, max_len):
 
     Returns (last_logits (B, Vp) float32, cache, next_pos (B,) int32)."""
     enc_out = encode(cfg, plan, params, frames)
-    hidden, ((sk, sv), (xk, xv)) = decode_hidden(
-        cfg, plan, params, bos_tokens, enc_out, collect_cache=True)
+    hidden, caches = decode_hidden(cfg, plan, params, bos_tokens, enc_out,
+                                   collect_cache=True)
+    (sk, sv), (xk, xv) = ((L.whole_kv_heads(t, cfg.num_kv_heads)
+                           for t in pair) for pair in caches)
     dt = enc_out.dtype
     Bsz, Sp = bos_tokens.shape
     rows = (cfg.num_layers, Bsz, max_len, cfg.num_kv_heads, cfg.head_dim)
@@ -169,27 +177,31 @@ def encdec_decode_step(cfg: ArchConfig, plan: PlanConfig, params, cache,
     updated in place."""
     x = _embed(params, tokens)
     H, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-    for i in range(cfg.num_layers):
-        lp = gather_fsdp(tree_map(lambda a: a[i], params["dec_blocks"]))
+    for lp, c in zip(unstack(params["dec_blocks"]), unstack(cache)):
+        lp = gather_fsdp(lp)
         h = L.rms_norm(x, lp["ln1"], cfg.norm_eps)
-        h, _, _ = L.attention_decode(lp["attn"], cfg, h, cache["k"][i],
-                                     cache["v"][i], pos)
+        h, _, _ = L.attention_decode(lp["attn"], cfg, h, c["k"], c["v"], pos)
         x = x + h
-        # cross-attention over the fixed encoder cache, unmasked
+        # cross-attention over the fixed encoder cache, unmasked, on this
+        # rank's query heads and the KV heads they read
         h = L.rms_norm(x, lp["lnx"], cfg.norm_eps)
         xp = lp["xattn"]
         q = torch.einsum("bd,dhk->bhk", h, xp["wq"])
         if cfg.qkv_bias:
             q = q + xp["bq"]
-        ke = L._expand_kv(partition.rows_of(cache["xk"][i]), H // KV)
-        ve = L._expand_kv(partition.rows_of(cache["xv"][i]), H // KV)
+        Hl = q.shape[1]
+        xk, xv = (L.rank_kv(partition.rows_of(c[n]), H, KV, Hl)
+                  for n in ("xk", "xv"))
+        ke = L._expand_kv(xk, Hl // xk.shape[2])
+        ve = L._expand_kv(xv, Hl // xv.shape[2])
         s = torch.einsum("bhk,bshk->bhs", q, ke).to(torch.float32) \
             / math.sqrt(hd)
         w = torch.softmax(s, dim=-1).to(x.dtype)
         o = torch.einsum("bhs,bshk->bhk", w, ve)
-        x = x + torch.einsum("bhk,hkd->bd", o, xp["wo"])
+        out = torch.einsum("bhk,hkd->bd", o, xp["wo"])
+        x = x + (partition.tp_exit(out) if Hl < H else out)
         h = L.rms_norm(x, lp["ln2"], cfg.norm_eps)
-        x = x + L.mlp_apply(lp["mlp"], h)
+        x = x + L.mlp_apply(lp["mlp"], h, cfg.d_ff)
     x = L.rms_norm(x, gather_fsdp(params["final_norm"]), cfg.norm_eps)
-    logits = _logits(params, x)
-    return torch.argmax(logits, dim=-1).to(torch.int32), cache
+    return L.greedy(x, gather_fsdp(params["emb"]),
+                    params["emb"].shape[0]), cache

@@ -15,9 +15,15 @@ zamba2-7b prefill launches 81 SSD and 13 flash kernels.  With
 backward pass; the tail's are kept, as in the reference.  Decode is plain
 PyTorch and writes every SSM and conv state and the shared block's key and
 value rows into the cache IN PLACE (the reference threads a new cache
-through its loop).  Under a plan scope each Mamba layer's weights, and the
-shared block and the group's LoRA factors before ``_shared_effective``,
-are gathered whole where the reference gathers them.
+through its loop).  Under a plan scope each Mamba layer's weights are
+gathered whole (the Mamba mixer is not split over "model": every model
+rank computes the whole layer), and the shared block and the group's LoRA
+factors are gathered over the ``fsdp`` axes before ``_shared_effective``,
+where the reference gathers them: the LoRA ``b_*`` are split over
+"model" as their weights are and the ``a_*`` replicated, so W + a·b is
+this rank's shard of the effective weight, and the shared block runs on
+the rank's heads and ``d_ff`` columns (``layers``).  The vocabulary is
+split as the transformer's.
 """
 from __future__ import annotations
 
@@ -26,11 +32,10 @@ import torch
 from repro_torch.configs.base import ArchConfig, PlanConfig
 from repro_torch.models import layers as L
 from repro_torch.models import partition, ssm
-from repro_torch.models.specs import gather_fsdp
+from repro_torch.models.specs import gather_fsdp, tp_partial_leaves
 from repro_torch.models.transformer import (lm_loss_from_hidden,
                                            next_token_targets, padded_vocab)
-from repro_torch.models.util import remat, stack_scan
-from repro_torch.tree import tree_map
+from repro_torch.models.util import remat, stack_scan, unstack
 
 
 def _geometry(cfg: ArchConfig):
@@ -98,7 +103,7 @@ def _shared_block_apply(sp, cfg, x, positions):
     h, cache = L.attention_apply(sp["attn"], cfg, h, positions)
     x = x + h
     h = L.rms_norm(x, sp["ln2"], cfg.norm_eps)
-    return x + L.mlp_apply(sp["mlp"], h), cache
+    return x + L.mlp_apply(sp["mlp"], h, cfg.d_ff), cache
 
 
 def hybrid_hidden(cfg, plan: PlanConfig, params, embeds, positions,
@@ -107,16 +112,18 @@ def hybrid_hidden(cfg, plan: PlanConfig, params, embeds, positions,
     (G, P, ...), "tail": (T, ...), "kv": each group's (k, v) (G, ...)}, or
     Nones without ``collect_cache``)."""
     shared = params["shared"]
+    partial = tp_partial_leaves(cfg)
 
     def mamba_body(x, lp):
-        lp = gather_fsdp(lp)
+        lp = gather_fsdp(lp, whole=True)
         h, state = ssm.mamba_apply(lp, cfg,
                                    L.rms_norm(x, lp["ln"], cfg.norm_eps))
         return x + h, (state if collect_cache else None)
 
     def group_body(x, inp):
         x, states = stack_scan(mamba_body, x, inp["groups"])
-        sp = _shared_effective(gather_fsdp(shared), gather_fsdp(inp["lora"]))
+        sp = _shared_effective(gather_fsdp(shared, partial=partial),
+                               gather_fsdp(inp["lora"], partial=partial))
         x, kv = _shared_block_apply(sp, cfg, x, positions)
         return x, (states, kv if collect_cache else None)
 
@@ -133,12 +140,13 @@ def hybrid_hidden(cfg, plan: PlanConfig, params, embeds, positions,
 
 
 def _embed(params, tokens):
-    return gather_fsdp(params["emb"])[tokens.to(torch.long)]
+    return L.embed(gather_fsdp(params["emb"]), tokens,
+                   params["emb"].shape[0])
 
 
 def _logits(params, h):
-    return torch.einsum("bd,vd->bv", h,
-                        gather_fsdp(params["emb"])).to(torch.float32)
+    return L.vocab_logits(h, gather_fsdp(params["emb"]),
+                          params["emb"].shape[0])
 
 
 def hybrid_loss(cfg, plan, params, tokens, aux_coef=0.0):
@@ -189,7 +197,7 @@ def hybrid_prefill(cfg, plan, params, tokens, max_len):
     if caches["tail"] is not None:
         cache["ssm_t"] = caches["tail"][0]
         cache["conv_t"] = caches["tail"][1].to(e.dtype)
-    k, v = caches["kv"]
+    k, v = (L.whole_kv_heads(t, cfg.num_kv_heads) for t in caches["kv"])
     cache["k"][:, :, :S] = k
     cache["v"][:, :, :S] = v
     pos = torch.full((Bsz,), S, dtype=torch.int32, device=e.device)
@@ -203,10 +211,10 @@ def hybrid_decode_step(cfg: ArchConfig, plan: PlanConfig, params, cache,
     Returns (next_tokens (B,) int32, cache); the cache is updated in
     place."""
     x = _embed(params, tokens)
-    G, P, T = _geometry(cfg)
+    T = _geometry(cfg)[2]
 
     def mamba_step(x, lp, ssm_state, conv_state):
-        lp = gather_fsdp(lp)
+        lp = gather_fsdp(lp, whole=True)
         h, (s2, c2) = ssm.mamba_step(
             lp, cfg, L.rms_norm(x, lp["ln"], cfg.norm_eps),
             (partition.rows_of(ssm_state), partition.rows_of(conv_state)))
@@ -214,23 +222,24 @@ def hybrid_decode_step(cfg: ArchConfig, plan: PlanConfig, params, cache,
         partition.store_rows(conv_state, c2)
         return x + h
 
-    for i in range(G):
-        for j in range(P):
-            x = mamba_step(x, tree_map(lambda a: a[i, j], params["groups"]),
-                           cache["ssm_g"][i, j], cache["conv_g"][i, j])
-        sp = _shared_effective(gather_fsdp(params["shared"]),
-                               gather_fsdp(tree_map(lambda a: a[i],
-                                                    params["lora"])))
+    shared = gather_fsdp(params["shared"])
+    for lps, lora_i, states, kv in zip(
+            unstack(params["groups"]), unstack(params["lora"]),
+            unstack({"s": cache["ssm_g"], "c": cache["conv_g"]}),
+            unstack({"k": cache["k"], "v": cache["v"]})):
+        for lp, st in zip(unstack(lps), unstack(states)):
+            x = mamba_step(x, lp, st["s"], st["c"])
+        sp = _shared_effective(shared, gather_fsdp(lora_i))
         h = L.rms_norm(x, sp["ln1"], cfg.norm_eps)
-        h, _, _ = L.attention_decode(sp["attn"], cfg, h, cache["k"][i],
-                                     cache["v"][i], pos,
-                                     use_cp=plan.decode_cp)
+        h, _, _ = L.attention_decode(sp["attn"], cfg, h, kv["k"], kv["v"],
+                                     pos, use_cp=plan.decode_cp)
         x = x + h
         h = L.rms_norm(x, sp["ln2"], cfg.norm_eps)
-        x = x + L.mlp_apply(sp["mlp"], h)
-    for j in range(T):
-        x = mamba_step(x, tree_map(lambda a: a[j], params["tail"]),
-                       cache["ssm_t"][j], cache["conv_t"][j])
+        x = x + L.mlp_apply(sp["mlp"], h, cfg.d_ff)
+    if T:
+        for lp, st in zip(unstack(params["tail"]),
+                          unstack({"s": cache["ssm_t"], "c": cache["conv_t"]})):
+            x = mamba_step(x, lp, st["s"], st["c"])
     x = L.rms_norm(x, gather_fsdp(params["final_norm"]), cfg.norm_eps)
-    logits = _logits(params, x)
-    return torch.argmax(logits, dim=-1).to(torch.int32), cache
+    return L.greedy(x, gather_fsdp(params["emb"]),
+                    params["emb"].shape[0]), cache

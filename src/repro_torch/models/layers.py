@@ -29,17 +29,32 @@ as the kernels do, and the padded columns of P·V are zero.  MLA decode is
 the reference's absorbed form (attention in the latent space), in plain
 PyTorch, writing the latent ``c`` and rotated ``kr`` rows in place.
 
-Under a plan scope with ranks (``models.partition``) the weights reach
-these functions gathered whole, the activations are the rank's rows of
-the batch, and a decode cache leaf is a ``DTensor`` whose seq dimension
-may be split over "model" (``CACHE_RULES``).  Context-parallel decode
-(``use_cp``, ``_decode_attend_cp``) attends to the rank's own span and
+Under a plan scope with ranks (``models.partition``) the activations are
+the rank's rows of the batch, the weights reach these functions gathered
+over the ``fsdp`` axes only, and the compute is split over "model" as the
+reference's GSPMD splits it (Megatron-LM's scheme): attention on the
+rank's query heads (``wq``, ``wo``, MLA's ``wkv_b``) and the KV heads
+they read, the MLP on its ``d_ff`` columns.  A split region starts with
+``partition.tp_enter`` (f) and ends with ``tp_exit`` (g) on the
+row-parallel product (``wo``, ``w2``), or, with ``seq_in`` / ``seq_out``,
+takes and gives the rank's rows of the sequence (an all-gather on entry,
+a reduce-scatter on exit).  Whether a weight is split is read from its
+local shape against the config's: the divisibility guard may replicate it
+(``wk``/``wv`` when KV % tp != 0: the rank reads the KV heads its query
+heads need, a view; ``wq``/``wo`` when H % tp != 0: the whole attention
+on every rank, no g).  A decode cache leaf is a ``DTensor`` whose seq
+dimension may be split over "model" (``CACHE_RULES``), with every KV head.
+Context-parallel decode (``use_cp``, ``_decode_attend_cp``) attends to
+the rank's own span with every query head (the local heads all-gathered,
+as the reference's ``shard_map`` takes q replicated over "model") and
 combines the spans' partial softmaxes with all-reduces over "model" (the
 log-sum-exp trick); ``cp_combines()`` counts its combines.  Without a
 scope, or when the cache's seq dimension is not split, it falls back to
 ``_decode_attend``, as the reference does.  The naive route under a mesh
 (and MLA's and the cross-attention's, which have no CP variant) gathers
-the spans, attends, and writes back the rank's own span.
+the spans, attends on the rank's heads, and writes back the rank's own
+span.  The vocabulary helpers (``embed``, ``vocab_logits``, ``greedy``)
+take the embedding or head split over "model" on its rows.
 """
 from __future__ import annotations
 
@@ -130,11 +145,34 @@ def init_mlp(gen, d_model, d_ff, dtype, device, lead=()):
     }
 
 
-def mlp_apply(p, x):
+def mlp_apply(p, x, d_ff: int, *, seq_in=False, seq_out=False):
+    """SwiGLU.  ``d_ff`` is the MLP's whole width: where the local ``w1``
+    is narrower, the MLP runs on this rank's columns (f, w1 and w3, w2,
+    then g).  ``seq_in`` / ``seq_out``: x is, and the output is to be, the
+    rank's rows of the sequence (dimension 1)."""
+    split = p["w1"].shape[-1] < d_ff
+    x = _enter(x, split, seq_in)
     h = torch.einsum("...d,df->...f", x, p["w1"])
     g = torch.einsum("...d,df->...f", x, p["w3"])
     h = F.silu(g.to(torch.float32)).to(x.dtype) * h
-    return torch.einsum("...f,fd->...d", h, p["w2"])
+    return _exit(torch.einsum("...f,fd->...d", h, p["w2"]), split, seq_out)
+
+
+def _enter(x, split: bool, seq_in: bool):
+    """The input of a region split over "model" (f, or the all-gather of
+    the rank's seq rows), or of one that every rank computes whole."""
+    if split:
+        return partition.seq_enter(x) if seq_in else partition.tp_enter(x)
+    return partition.tp_gather(x, 1) if seq_in else x
+
+
+def _exit(out, split: bool, seq_out: bool):
+    """A region's output: the ranks' partial sums summed (g) or
+    reduce-scattered to the rank's seq rows; a whole output as it is or
+    its rank's rows."""
+    if split:
+        return partition.seq_exit(out) if seq_out else partition.tp_exit(out)
+    return partition.tp_split(out, 1) if seq_out else out
 
 
 # --------------------------------------------------------------------------
@@ -162,29 +200,80 @@ def _expand_kv(k, n_rep):
     return k if n_rep == 1 else torch.repeat_interleave(k, n_rep, dim=-2)
 
 
+def rank_kv(k, H: int, KV: int, Hl: int):
+    """The KV heads (dimension -2 of ``k``, which holds all KV) that this
+    rank's ``Hl`` query heads read, query head h reading KV head
+    h // (H // KV), as a view: the rank's heads must come in equal groups
+    of the KV heads they read, as they do where Hl is a multiple of the
+    group H // KV or divides it (every config at tp 4 and 16); else a
+    ValueError.  ``k`` itself when the rank holds every query head."""
+    if Hl == H:
+        return k
+    G = H // KV
+    h0 = partition.tp_rank() * Hl
+    kv0 = h0 // G
+    n = (h0 + Hl - 1) // G + 1 - kv0
+    if Hl % n or any((h0 + j) // G - kv0 != j // (Hl // n)
+                     for j in range(Hl)):
+        raise ValueError(f"query heads {h0}..{h0 + Hl - 1} of {H} read "
+                         f"groups of {G} KV heads unevenly")
+    return k.narrow(-2, kv0, n)
+
+
+def _heads_kv(k, cfg: ArchConfig, Hl: int):
+    """The KV heads of a projection ``k`` that this rank's query heads
+    read: ``k`` itself where its heads are split with them."""
+    if k.shape[-2] < cfg.num_kv_heads:
+        return k
+    return rank_kv(k, cfg.num_heads, cfg.num_kv_heads, Hl)
+
+
+def _kv_bias(b, k):
+    """A KV bias (replicated by its rule) for the KV heads of ``k``: this
+    rank's where the heads are split."""
+    n = k.shape[-2]
+    return b if b.shape[-2] == n else b.narrow(-2, partition.tp_rank() * n, n)
+
+
+def whole_kv_heads(t, KV: int):
+    """A key or value tensor (heads at dimension -2) with every KV head:
+    gathered over "model" where the rank holds its own (the cache's
+    layout, ``CACHE_RULES``)."""
+    return t if t.shape[-2] == KV else partition.tp_gather(t, t.ndim - 2)
+
+
 def attention_apply(p, cfg: ArchConfig, x, positions, *, causal=True,
-                    xkv=None):
+                    xkv=None, seq_in=False, seq_out=False):
     """Attention over the full sequence (prefill, training), on the flash
     kernel, which reads q (B, Sq, H, hd) and the KV heads of k and v
     (B, Sk, KV, hd) in place.  k and v are projected from ``xkv`` (B, Sk,
     D) when it is given (cross-attention), else from x.  RoPE only with
     ``positions`` (k's at ``arange(Sk)`` under ``xkv``, as the reference).
-    Returns (out, (k, v))."""
-    src = x if xkv is None else xkv
+    With the heads split over "model" the kernel runs on this rank's
+    query heads and the KV heads they read, and ``wo``'s rows end in g
+    (``seq_in`` / ``seq_out`` as ``mlp_apply``'s).  Returns (out, (k, v)):
+    k and v with the KV heads this rank projected (``whole_kv_heads``
+    gives the cache's)."""
+    Hl = p["wq"].shape[-2]
+    split = Hl < cfg.num_heads
+    x = _enter(x, split, seq_in)
+    src = x if xkv is None else (partition.tp_enter(xkv) if split else xkv)
     q = torch.einsum("bsd,dhk->bshk", x, p["wq"])
     k = torch.einsum("bsd,dhk->bshk", src, p["wk"])
     v = torch.einsum("bsd,dhk->bshk", src, p["wv"])
     if cfg.qkv_bias:
-        q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
+        q = q + p["bq"]
+        k, v = k + _kv_bias(p["bk"], k), v + _kv_bias(p["bv"], v)
     if positions is not None:
         q = rope_apply(q, positions, cfg.rope_theta)
         kpos = positions if xkv is None else torch.arange(src.shape[1],
                                                           device=x.device)
         k = rope_apply(k, kpos, cfg.rope_theta)
     kv_cache = (k, v)
-    o = ops.flash_attention(q, k, v, causal=causal)
+    o = ops.flash_attention(q, _heads_kv(k, cfg, Hl), _heads_kv(v, cfg, Hl),
+                            causal=causal)
     out = torch.einsum("bshk,hkd->bsd", o, p["wo"])
-    return out, kv_cache
+    return _exit(out, split, seq_out), kv_cache
 
 
 def attention_decode(p, cfg: ArchConfig, x, cache_k, cache_v, pos,
@@ -198,34 +287,48 @@ def attention_decode(p, cfg: ArchConfig, x, cache_k, cache_v, pos,
     ``DTensor`` leaf under a plan scope): each rank attends to its local
     span, and the spans combine with the log-sum-exp trick (all-reduces of
     (B, H[, hd]) partials over "model").  The naive route all-gathers the
-    spans instead."""
+    spans instead.  With the heads split over "model" the new key and
+    value are gathered to every KV head for the cache, the rank's query
+    heads attend (CP: all of them, then the rank's output heads are
+    kept), and ``wo``'s rows end in g."""
+    H, KV = cfg.num_heads, cfg.num_kv_heads
+    Hl = p["wq"].shape[-2]
     q = torch.einsum("bd,dhk->bhk", x, p["wq"])
     k = torch.einsum("bd,dhk->bhk", x, p["wk"])
     v = torch.einsum("bd,dhk->bhk", x, p["wv"])
     if cfg.qkv_bias:
-        q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
+        q = q + p["bq"]
+        k, v = k + _kv_bias(p["bk"], k), v + _kv_bias(p["bv"], v)
     q = rope_apply(q, pos, cfg.rope_theta)
     k = rope_apply(k, pos, cfg.rope_theta)
+    k, v = whole_kv_heads(k, KV), whole_kv_heads(v, KV)
     axis = _cp_axis(cache_k) if use_cp else None
     if axis is not None:
-        o = _decode_attend_cp(cfg, q, k, v, cache_k, cache_v, pos, axis)
+        qa = q if Hl == H else partition.tp_gather(q, 1)
+        o = _decode_attend_cp(cfg, qa, k, v, cache_k, cache_v, pos, axis)
+        if Hl < H:
+            o = o.narrow(1, partition.tp_rank() * Hl, Hl)
     else:
         ck, cv = partition.rows_of(cache_k), partition.rows_of(cache_v)
         rows = torch.arange(x.shape[0], device=x.device)
         at = pos.to(torch.long)
         ck[rows, at] = k.to(ck.dtype)
         cv[rows, at] = v.to(cv.dtype)
-        o = _decode_attend(cfg, q, ck, cv, pos)
+        o = _decode_attend(cfg, q, rank_kv(ck, H, KV, Hl),
+                           rank_kv(cv, H, KV, Hl), pos)
         partition.store_rows(cache_k, ck)
         partition.store_rows(cache_v, cv)
     out = torch.einsum("bhk,hkd->bd", o, p["wo"])
-    return out, cache_k, cache_v
+    return _exit(out, Hl < H, False), cache_k, cache_v
 
 
 def _decode_attend(cfg, q, cache_k, cache_v, pos):
-    H, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-    ke = _expand_kv(cache_k, H // KV)
-    ve = _expand_kv(cache_v, H // KV)
+    """q (B, h, hd) against the KV heads of the cache that its heads read,
+    (B, S, kv, hd) with h % kv == 0."""
+    hd = cfg.head_dim
+    n_rep = q.shape[1] // cache_k.shape[2]
+    ke = _expand_kv(cache_k, n_rep)
+    ve = _expand_kv(cache_v, n_rep)
     s = torch.einsum("bhk,bshk->bhs", q, ke).to(torch.float32) / math.sqrt(hd)
     mask = torch.arange(ke.shape[1], device=q.device)[None, :] <= pos[:, None]
     s = s.masked_fill(~mask[:, None, :], float("-inf"))
@@ -314,12 +417,18 @@ def init_mla(gen, cfg: ArchConfig, dtype, *, device, lead=()):
     }
 
 
-def mla_apply(p, cfg: ArchConfig, x, positions):
+def mla_apply(p, cfg: ArchConfig, x, positions, *, seq_in=False,
+              seq_out=False):
     """MLA over the full sequence (prefill, training), naive expansion, on
-    the flash kernel with v zero-padded to the q/k width.  Returns (out,
-    (c_kv (B, S, R), k_rope (B, S, rd)))."""
+    the flash kernel with v zero-padded to the q/k width.  With the heads
+    split over "model" (``wq``, ``wkv_b``, ``wo``) the kernel runs on this
+    rank's heads and ``wo``'s rows end in g; the latent path (``wkv_a``,
+    ``kv_norm``) is computed whole on every rank.  Returns (out, (c_kv
+    (B, S, R), k_rope (B, S, rd)))."""
     m = cfg.mla
     nope, R = m.qk_nope_head_dim, m.kv_lora_rank
+    split = p["wq"].shape[-2] < cfg.num_heads
+    x = _enter(x, split, seq_in)
     q = torch.einsum("bsd,dhk->bshk", x, p["wq"])
     q = torch.cat([q[..., :nope],
                    rope_apply(q[..., nope:], positions, cfg.rope_theta)], -1)
@@ -335,7 +444,7 @@ def mla_apply(p, cfg: ArchConfig, x, positions):
     v = F.pad(v, (0, q.shape[-1] - vd))
     o = ops.flash_attention(q, k, v, causal=True)[..., :vd]
     out = torch.einsum("bshv,hvd->bsd", o, p["wo"])
-    return out, (c_kv, k_rope)
+    return _exit(out, split, seq_out), (c_kv, k_rope)
 
 
 def mla_decode(p, cfg: ArchConfig, x, cache_c, cache_kr, pos):
@@ -344,7 +453,9 @@ def mla_decode(p, cfg: ArchConfig, x, cache_c, cache_kr, pos):
     Writes this token's ``c`` and ``kr`` rows in place at ``pos`` and
     returns (out (B, D), cache_c, cache_kr).  MLA has no context-parallel
     route (neither has the reference's): under a mesh the spans are
-    gathered and the rank's own written back."""
+    gathered and the rank's own written back.  With the heads split over
+    "model" the rank attends on its heads (the latent rows, computed whole
+    on every rank, are the same everywhere) and ``wo``'s rows end in g."""
     c_all, kr_all = partition.rows_of(cache_c), partition.rows_of(cache_kr)
     m = cfg.mla
     nope, rd, R = m.qk_nope_head_dim, m.qk_rope_head_dim, m.kv_lora_rank
@@ -373,4 +484,51 @@ def mla_decode(p, cfg: ArchConfig, x, cache_c, cache_kr, pos):
     out = torch.einsum("bhv,hvd->bd", o, p["wo"])
     partition.store_rows(cache_c, c_all)
     partition.store_rows(cache_kr, kr_all)
-    return out, cache_c, cache_kr
+    return _exit(out, p["wq"].shape[-2] < cfg.num_heads, False), cache_c, \
+        cache_kr
+
+
+# --------------------------------------------------------------------------
+# the vocabulary (split over "model" on the embedding's and head's rows)
+# --------------------------------------------------------------------------
+
+def embed(emb, tokens, vocab: int):
+    """The embedding rows of ``tokens``.  With the rows split over "model"
+    (``emb`` narrower than ``vocab``): a lookup in this rank's range, zero
+    elsewhere, summed over the ranks (g); exactly one rank gives a row
+    other than zero, so the sum is the whole lookup, bit for bit."""
+    tok = tokens.to(torch.long)
+    Vl = emb.shape[0]
+    if Vl == vocab:
+        return emb[tok]
+    local = tok - partition.tp_rank() * Vl
+    mine = ((local >= 0) & (local < Vl))[..., None]
+    rows = emb[local.clamp(0, Vl - 1)]
+    return partition.tp_exit(torch.where(mine, rows, torch.zeros_like(rows)))
+
+
+def vocab_logits(x, head, vocab: int):
+    """Float32 logits of x (..., D) over the whole vocabulary: this rank's
+    columns gathered over "model" where ``head`` is split."""
+    logits = torch.einsum("...d,vd->...v", x, head).to(torch.float32)
+    return logits if head.shape[0] == vocab else \
+        partition.tp_gather(logits, logits.ndim - 1)
+
+
+def greedy(x, head, vocab: int):
+    """The argmax token (int32) of x (B, D)'s logits.  With ``head`` split
+    over "model", each rank offers its columns' (max, global index) and
+    the largest wins, ties to the lower index (``torch.argmax``'s rule),
+    with no logits gathered."""
+    logits = torch.einsum("bd,vd->bv", x, head).to(torch.float32)
+    i = torch.argmax(logits, dim=-1)
+    if head.shape[0] == vocab:
+        return i.to(torch.int32)
+    m = torch.gather(logits, -1, i[:, None])
+    offer = torch.cat([m.to(torch.float64),
+                       (i[:, None] + partition.tp_rank() * head.shape[0])
+                       .to(torch.float64)], dim=-1)[:, None, :]
+    offers = partition.tp_gather(offer, 1)               # (B, ranks, 2)
+    best = torch.argmax(offers[..., 0], dim=-1)
+    return torch.gather(offers[..., 1], -1, best[:, None])[:, 0] \
+        .to(torch.int32)

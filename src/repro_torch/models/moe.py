@@ -17,8 +17,14 @@ last.  The expert products are ``torch.einsum`` over the expert axis (the
 reference leaves them to XLA, outside any Pallas kernel); the SiLU gate and
 the weighted sum over k are in float32.  The reference's sharding
 constraints (``pcon``) are dropped: activations are each rank's local
-tensors (``models.partition``), and the experts' weights reach this
-module gathered whole.
+tensors (``models.partition``).  Under a scope that splits the compute
+over "model" the router and both top-k selections run whole on every
+rank (the same routing everywhere), and the experts follow
+``specs._expert_rule``: under ``ep`` the rank computes its E/tp experts'
+outputs, which are all-gathered over "model" before the combine (so the
+combine sums in the single device's order); otherwise the rank holds a
+``d_ff`` slice of every expert, and the combine of its partial outputs
+ends in g.  The shared experts are the split MLP.
 """
 from __future__ import annotations
 
@@ -28,6 +34,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig, MoEConfig
+from repro_torch.models import partition
 from repro_torch.models.layers import _dense_init, init_mlp, mlp_apply
 
 
@@ -98,16 +105,27 @@ def moe_apply(p, cfg: ArchConfig, x, *, group_size: int = 0):
     groups = torch.arange(G, device=dev)[:, None, None]
     xe = xg[groups, ex_idx]                              # (G, E, C, D)
 
+    # the experts split over "model": whole ones (ep) or d_ff slices
+    ep = p["we1"].shape[-3] < E
+    ff = p["we1"].shape[-1] < m.d_ff_expert
+    if ep:
+        xe = partition.tp_split(xe, 1)                   # this rank's experts
+    elif ff:
+        xe = partition.tp_enter(xe)
     h = torch.einsum("gecd,edf->gecf", xe, p["we1"])
     gt = torch.einsum("gecd,edf->gecf", xe, p["we3"])
     h = F.silu(gt.to(torch.float32)).to(xe.dtype) * h
     ye = torch.einsum("gecf,efd->gecd", h, p["we2"])     # (G, E, C, D)
+    if ep:
+        ye = partition.tp_gather(ye, 1)
 
     # scatter-free combine: the slots sorted by token, zero-weight slots
     # pointed at token T (past every real one)
     flat_tok = torch.where(ex_w > 0, ex_idx,
                            torch.full_like(ex_idx, T)).reshape(G, E * C)
     flat_w = ex_w.reshape(G, E * C).to(torch.float32)
+    if ff:            # the combine of partial outputs: a split region
+        flat_w = partition.tp_enter(flat_w)
     order = torch.argsort(flat_tok, dim=1, stable=True)  # (G, EC)
     sorted_tok = torch.gather(flat_tok, 1, order)
     tokens = torch.arange(T, device=dev)
@@ -120,7 +138,10 @@ def moe_apply(p, cfg: ArchConfig, x, *, group_size: int = 0):
     w = torch.gather(flat_w, 1, slot).reshape(G, T, K) * valid
     yk = torch.gather(ye.reshape(G, E * C, D), 1,
                       slot[..., None].expand(G, T * K, D)).reshape(G, T, K, D)
-    out = torch.sum(yk.to(torch.float32) * w[..., None], dim=2).to(x.dtype)
+    out = torch.sum(yk.to(torch.float32) * w[..., None], dim=2)
+    if ff:
+        out = partition.tp_exit(out)
+    out = out.to(x.dtype)
 
     # Switch-style load-balance aux loss
     frac_tokens = torch.mean(torch.sum(onehot, dim=2), dim=1)   # (G, E)
@@ -128,7 +149,7 @@ def moe_apply(p, cfg: ArchConfig, x, *, group_size: int = 0):
     aux = E * torch.mean(torch.sum(frac_tokens * frac_probs, dim=-1))
 
     if m.num_shared_experts:
-        out = out + mlp_apply(p["shared"], xg).to(out.dtype)
+        out = out + mlp_apply(p["shared"], xg, m.d_ff_shared).to(out.dtype)
     if decode:
         out = out[0]
     return out, aux

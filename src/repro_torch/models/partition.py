@@ -25,12 +25,39 @@ group.  A resolved spec is a ``PartitionSpec``; ``placements`` turns it
 into one ``Shard``/``Replicate`` per mesh dimension for ``DTensor``.
 
 The reference's ``pcon`` (a sharding constraint on an activation) is not
-ported.  In the port, activations are each rank's local tensors: the
-layouts the reference constrains follow from the batch split
-(``local_rows``) and the per-layer weight gathers (``gather_whole``), so a
-``pcon`` would be an identity at every call site.  The helpers below are
-what the port's model code runs under a scope instead: gathers of weights
-and cache spans, the batch split and its inverse.
+ported.  In the port, activations are each rank's local tensors, and the
+layouts the reference constrains are made by explicit collectives: the
+batch split (``local_rows``) and its inverse, the per-layer weight gathers
+over the ``fsdp`` axes (``gather_leaf``), and the collectives of the
+tensor-parallel split over "model" that GSPMD derives from the
+reference's constraints (below).
+
+Tensor parallelism (Megatron-LM's scheme).  A tensor on the ranks along
+"model" is either *replicated* (the same on every rank, and so is its
+gradient) or *rank-partial*: inside a region between an entry and an exit
+each rank computes with its own shard of the weights (its heads, its
+``d_ff`` columns, its experts, its vocabulary), so its outputs are
+partial sums and its inputs' gradients too.  The collectives come in
+conjugate pairs:
+
+  ``tp_enter`` (f)    identity forward, all-reduce of the gradient
+  ``tp_exit``  (g)    all-reduce forward, identity backward
+  ``seq_enter``       all-gather on seq forward, reduce-scatter backward
+  ``seq_exit``        reduce-scatter on seq forward, all-gather backward
+  ``tp_split``        this rank's chunk forward, all-gather backward
+  ``tp_gather``       all-gather forward, this rank's chunk backward
+
+(``seq_enter`` is ``tp_gather`` then f, ``seq_exit`` g then ``tp_split``:
+the sequence-parallel forms of f and g.)  g is not
+``torch.distributed.nn.functional.all_reduce``, whose backward all-reduces
+again and multiplies the gradients by the axis size.  Every helper is the
+identity, and launches and counts nothing, when the plan resolves "tp" to
+no axis or the axis has one rank (``tp_active``); otherwise each call is
+counted by kind (``tp_collectives``), and each ``redistribute`` that a
+weight gather issues by ``weight_gathers``.  A replicated weight used
+inside a region, or on a rank's rows of the sequence, gets a gradient that
+is a partial sum over "model": its gather says so (``gather_leaf``'s
+``partial``).
 """
 from __future__ import annotations
 
@@ -39,10 +66,12 @@ import threading
 from contextlib import contextmanager
 from typing import Optional, Sequence, Union
 
+import torch
 import torch.distributed as dist
 from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
 from repro_torch.configs.base import PlanConfig
+from repro_torch.kernels import counters
 
 _ENV = threading.local()
 
@@ -257,16 +286,76 @@ def _env_with_ranks() -> PlanEnv:
     return env
 
 
-def gather_whole(t):
-    """A ``DTensor`` weight gathered whole, as a local tensor whose gradient
-    goes back as a partial sum over the axes that split the batch (a
-    reduce-scatter onto ``t``'s shards, or an all-reduce where ``t`` is
-    replicated).  A plain tensor passes through."""
+class _Count:
+    """Counters as attributes, for ``kernels.counters``."""
+
+    def __init__(self, *names):
+        for n in names:
+            setattr(self, n, 0)
+
+
+TP_KINDS = ("f", "g", "seq_enter", "seq_exit", "split", "gather", "max")
+_TP_COUNT = _Count(*TP_KINDS)
+_GATHER_COUNT = _Count("redistributes")
+
+
+def tp_collectives() -> dict:
+    """Calls of the tensor-parallel helpers since the last
+    ``reset_tp_collectives``, by kind: "f" (``tp_enter``), "g"
+    (``tp_exit``), "seq_enter", "seq_exit", "split" (``tp_split``),
+    "gather" (``tp_gather``) and "max" (``tp_max``)."""
+    return counters.read({k: (_TP_COUNT, k) for k in TP_KINDS})
+
+
+def reset_tp_collectives() -> None:
+    counters.reset([(_TP_COUNT, k) for k in TP_KINDS])
+
+
+def weight_gathers() -> int:
+    """``DTensor.redistribute`` calls issued by weight gathers
+    (``gather_leaf``) since the last ``reset_weight_gathers``."""
+    return _GATHER_COUNT.redistributes
+
+
+def reset_weight_gathers() -> None:
+    counters.reset([(_GATHER_COUNT, "redistributes")])
+
+
+def gather_leaf(t, *, keep_tp: bool = True, partial: bool = False):
+    """A ``DTensor`` weight as this rank's local tensor for compute: gathered
+    over every mesh axis but "model" (the ``fsdp`` axes: the reference's
+    ``gather_fsdp``), or over all of them with ``keep_tp=False``; a split
+    over "model" stays this rank's shard.  Axes of one rank are not
+    gathered, so a mesh of size-1 axes issues no ``redistribute``.  The
+    local tensor's gradient goes back as a partial sum over the axes that
+    split the batch (a reduce-scatter onto ``t``'s shards, or an all-reduce
+    where ``t`` is replicated), as this rank's shard over "model", and,
+    with ``partial``, as a partial sum over "model" where ``t`` is
+    replicated there (a replicated weight used inside a tensor-parallel
+    region or on a rank's rows of the sequence).  A plain tensor passes
+    through."""
     if not isinstance(t, DTensor):
         return t
     env = _env_with_ranks()
-    full = t.redistribute(t.device_mesh, [Replicate()] * t.device_mesh.ndim)
-    return full.to_local(grad_placements=env.grad_placements())
+    mesh = t.device_mesh
+    tp = env.resolve("tp") if keep_tp else None
+    split = entry_axes(env.split)
+    target, grads = [], []
+    for name, pl, n in zip(mesh.mesh_dim_names, t.placements, mesh.shape):
+        if n == 1:
+            target.append(pl)
+            grads.append(pl)
+        elif name == tp:
+            target.append(pl)
+            grads.append(pl if isinstance(pl, Shard)
+                         else Partial() if partial else Replicate())
+        else:
+            target.append(Replicate())
+            grads.append(Partial() if name in split else Replicate())
+    if tuple(target) != tuple(t.placements):
+        counters.count(_GATHER_COUNT, "redistributes")
+        t = t.redistribute(mesh, target)
+    return t.to_local(grad_placements=grads)
 
 
 def _split(entry) -> tuple:
@@ -381,3 +470,222 @@ def all_reduce(x, op, axis: str):
     env = _env_with_ranks()
     dist.all_reduce(x, op=op, group=env.mesh.get_group(axis))
     return x
+
+
+# --------------------------------------------------------------------------
+# tensor parallelism over "model"
+# --------------------------------------------------------------------------
+
+def _tp_axis():
+    """(group, ranks, this rank's index) along the axis that "tp" resolves
+    to, when it has more than one rank; else None."""
+    env = ranks_env()
+    if env is None:
+        return None
+    axis = env.resolve("tp")
+    if axis is None or env.axis_size[axis] == 1:
+        return None
+    return (env.mesh.get_group(axis), env.axis_size[axis],
+            env.mesh.get_local_rank(axis))
+
+
+def tp_active() -> bool:
+    """Whether the compute is split over "model" (a ranks' scope whose plan
+    resolves "tp" to an axis of more than one rank)."""
+    return _tp_axis() is not None
+
+
+def tp_rank() -> int:
+    """This rank's index along "model" (0 when the compute is not split)."""
+    t = _tp_axis()
+    return 0 if t is None else t[2]
+
+
+def tp_splits(n: int) -> bool:
+    """Whether a dimension of ``n`` that a rule marks "tp" is split over
+    "model" here: the compute is split and the divisibility guard keeps
+    the axis (``spec``)."""
+    return tp_active() and spec((n,), ("tp",))[0] is not None
+
+
+def seq_splits(n: int) -> bool:
+    """Whether a sequence of ``n`` rows is split over "model" between blocks
+    (``sp_boundary``, the "sp" rule, with its divisibility guard)."""
+    return tp_active() and spec((n,), ("sp",))[0] is not None
+
+
+_all_gather_single = getattr(dist, "all_gather_single", None) \
+    or dist.all_gather_into_tensor
+_reduce_scatter_single = getattr(dist, "reduce_scatter_single", None) \
+    or dist.reduce_scatter_tensor
+
+
+def _all_reduce_sum(x, group):
+    out = x.clone(memory_format=torch.contiguous_format)
+    dist.all_reduce(out, group=group)
+    return out
+
+
+def _all_gather(x, dim, group, n):
+    """The ranks' ``x`` concatenated along ``dim`` in rank order."""
+    x0 = x.movedim(dim, 0).contiguous()
+    out = x0.new_empty((n * x0.shape[0],) + tuple(x0.shape[1:]))
+    _all_gather_single(out, x0, group=group)
+    return out.movedim(0, dim)
+
+
+def _reduce_scatter(x, dim, group, n):
+    """This rank's chunk along ``dim`` of the sum of the ranks' ``x``."""
+    x0 = x.movedim(dim, 0).contiguous()
+    out = x0.new_empty((x0.shape[0] // n,) + tuple(x0.shape[1:]))
+    _reduce_scatter_single(out, x0, group=group)
+    return out.movedim(0, dim)
+
+
+def _chunk(x, dim, n, rank):
+    size = x.shape[dim] // n
+    return x.narrow(dim, rank * size, size)
+
+
+class _Enter(torch.autograd.Function):
+    """f: identity forward, the gradient all-reduced."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, dy):
+        return _all_reduce_sum(dy, ctx.group), None
+
+
+class _Exit(torch.autograd.Function):
+    """g: all-reduce forward, identity backward."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        return _all_reduce_sum(x, group)
+
+    @staticmethod
+    def backward(ctx, dy):
+        return dy, None
+
+
+class _SeqEnter(torch.autograd.Function):
+    """All-gather forward, reduce-scatter backward."""
+
+    @staticmethod
+    def forward(ctx, x, dim, group, n):
+        ctx.args = (dim, group, n)
+        return _all_gather(x, dim, group, n)
+
+    @staticmethod
+    def backward(ctx, dy):
+        return _reduce_scatter(dy, *ctx.args), None, None, None
+
+
+class _SeqExit(torch.autograd.Function):
+    """Reduce-scatter forward, all-gather backward."""
+
+    @staticmethod
+    def forward(ctx, x, dim, group, n):
+        ctx.args = (dim, group, n)
+        return _reduce_scatter(x, dim, group, n)
+
+    @staticmethod
+    def backward(ctx, dy):
+        return _all_gather(dy, *ctx.args), None, None, None
+
+
+class _Split(torch.autograd.Function):
+    """This rank's chunk forward, all-gather backward."""
+
+    @staticmethod
+    def forward(ctx, x, dim, group, n, rank):
+        ctx.args = (dim, group, n)
+        return _chunk(x, dim, n, rank)
+
+    @staticmethod
+    def backward(ctx, dy):
+        return _all_gather(dy, *ctx.args), None, None, None, None
+
+
+class _Gather(torch.autograd.Function):
+    """All-gather forward, this rank's chunk backward."""
+
+    @staticmethod
+    def forward(ctx, x, dim, group, n, rank):
+        ctx.args = (dim, n, rank)
+        return _all_gather(x, dim, group, n)
+
+    @staticmethod
+    def backward(ctx, dy):
+        return _chunk(dy, *ctx.args), None, None, None, None
+
+
+def tp_enter(x):
+    """f: ``x`` (replicated over "model") into a tensor-parallel region."""
+    t = _tp_axis()
+    if t is None:
+        return x
+    counters.count(_TP_COUNT, "f")
+    return _Enter.apply(x, t[0])
+
+
+def tp_exit(x):
+    """g: the ranks' partial sums ``x`` summed (all-reduce), replicated."""
+    t = _tp_axis()
+    if t is None:
+        return x
+    counters.count(_TP_COUNT, "g")
+    return _Exit.apply(x, t[0])
+
+
+def seq_enter(x, dim: int = 1):
+    """This rank's rows of the sequence (``dim``) all-gathered into a
+    tensor-parallel region (its gradient reduce-scattered)."""
+    t = _tp_axis()
+    if t is None:
+        return x
+    counters.count(_TP_COUNT, "seq_enter")
+    return _SeqEnter.apply(x, dim, t[0], t[1])
+
+
+def seq_exit(x, dim: int = 1):
+    """The ranks' partial sums ``x`` reduce-scattered on the sequence
+    (``dim``): this rank's rows of their sum."""
+    t = _tp_axis()
+    if t is None:
+        return x
+    counters.count(_TP_COUNT, "seq_exit")
+    return _SeqExit.apply(x, dim, t[0], t[1])
+
+
+def tp_split(x, dim: int):
+    """This rank's chunk along ``dim`` of a replicated ``x`` (a view)."""
+    t = _tp_axis()
+    if t is None:
+        return x
+    counters.count(_TP_COUNT, "split")
+    return _Split.apply(x, dim, t[0], t[1], t[2])
+
+
+def tp_gather(x, dim: int):
+    """The ranks' chunks ``x`` concatenated along ``dim``, replicated."""
+    t = _tp_axis()
+    if t is None:
+        return x
+    counters.count(_TP_COUNT, "gather")
+    return _Gather.apply(x, dim, t[0], t[1], t[2])
+
+
+def tp_max(x):
+    """The element-wise maximum of the ranks' ``x`` (no gradient)."""
+    t = _tp_axis()
+    if t is None:
+        return x
+    counters.count(_TP_COUNT, "max")
+    out = x.detach().clone(memory_format=torch.contiguous_format)
+    dist.all_reduce(out, op=dist.ReduceOp.MAX, group=t[0])
+    return out

@@ -4,18 +4,19 @@ weight gather.
 The port of ``repro.models.specs``; the rule tables are the reference's,
 letter for letter.  Storage follows them exactly: parameters, optimizer
 moments and caches live as ``DTensor``s sharded by these specs (over the
-``fsdp`` and the ``tp`` axes alike).  Compute is data-parallel: each rank
-runs its rows of the batch with every weight gathered WHOLE, one layer at a
-time, by ``gather_fsdp`` at the top of each layer body (the reference's
-call sites).  The reference gathers only the ``fsdp`` axes and lets the
-SPMD partitioner split the compute over ``tp``; the port gathers every
-sharded axis, so ranks along "model" compute the same thing (splitting the
-compute over "model" is a later item of the port).
+``fsdp`` and the ``tp`` axes alike).  ``gather_fsdp``, at the top of each
+layer body (the reference's call sites), gathers only the ``fsdp`` axes,
+as the reference's does: a leaf split over "model" stays this rank's
+shard, and the model code computes on it (its heads, its ``d_ff``
+columns, its experts as ``_expert_rule`` places them, its vocabulary),
+with the collectives of ``models.partition`` where the reference's SPMD
+partitioner puts them.  The Mamba mixer is not split: its layers are
+gathered whole (``whole=True``) and computed on every model rank.
 """
 from __future__ import annotations
 
 from repro_torch.models import partition
-from repro_torch.tree import tree_map
+from repro_torch.tree import tree_map_with_path
 
 PARAM_RULES = {
     "emb": ("tp", "fsdp"), "head": ("tp", "fsdp"),
@@ -54,6 +55,26 @@ BATCH_RULES = {
 
 EXPERT_NAMES = {"we1", "we2", "we3"}
 
+# Leaves replicated over "model" (by their rule, or by the divisibility
+# guard on a "tp" entry) that the model reads inside a region split there:
+# their gradients are partial sums over "model" when the region is split.
+# Keyed by what splits the region: the attention's heads (KV projections
+# and biases that the guard replicates, MLA's latent path, the hybrid
+# shared block's LoRA factors ``a_*`` of split weights), the MLP's d_ff
+# (its LoRA factors), and "seq_rows": the norms that act on the rank's
+# rows of the sequence under ``sp_residual``.
+TP_PARTIAL = {
+    "heads": frozenset({"wk", "wv", "bk", "bv", "wkv_a", "kv_norm", "a_q",
+                        "a_k", "a_v", "b_k", "b_v"}),
+    "d_ff": frozenset({"a_1", "a_3"}),
+    "seq_rows": frozenset({"ln1", "ln2"}),
+}
+# the other leaves replicated over "model": read outside every split region
+# (the router before the experts' dispatch, the final norms, the Mamba
+# mixer computed whole), so every rank has their whole gradient
+TP_WHOLE = frozenset({"router", "final_norm", "enc_norm", "lnx", "ln",
+                      "w_B", "w_C", "w_dt", "A_log", "dt_bias", "Dskip"})
+
 
 def leaf_name(path) -> str:
     """The last dict key on a tree path (``tree.tree_map_with_path``)."""
@@ -79,19 +100,38 @@ def rule_for(name: str, shape, moe_ep: bool = True):
     return PARAM_RULES.get(name)
 
 
+def tp_partial_leaves(cfg, *, seq_rows: bool = False) -> frozenset:
+    """The names of ``TP_PARTIAL`` whose regions are split here (the
+    attention's when its heads are, the MLP's when its d_ff is) and, with
+    ``seq_rows``, the norms on the rank's rows: ``gather_fsdp``'s
+    ``partial``."""
+    names = set(TP_PARTIAL["seq_rows"]) if seq_rows else set()
+    if partition.tp_splits(cfg.num_heads):
+        names |= TP_PARTIAL["heads"]
+    if partition.tp_splits(cfg.d_ff):
+        names |= TP_PARTIAL["d_ff"]
+    return frozenset(names)
+
+
 def trailing_spec(shape, rule) -> partition.PartitionSpec:
     names = (None,) * (len(shape) - len(rule)) + tuple(rule)
     return partition.spec(shape, names)
 
 
-def gather_fsdp(tree, moe_ep: bool = True):
-    """Every ``DTensor`` leaf of ``tree`` gathered whole, as a local tensor
-    whose gradient goes back as a partial sum over the axes that split the
-    batch, so that the backward pass reduce-scatters it onto the shards
-    (``partition.gather_whole``).  The identity outside a plan scope.
-    Call it on ONE layer's slice of a stacked tree, so that only that
-    layer is whole at a time.  ``moe_ep`` is the reference's signature:
-    the port gathers the experts too, whatever their rule."""
+def gather_fsdp(tree, moe_ep: bool = True, *, whole: bool = False,
+                partial=frozenset()):
+    """Every ``DTensor`` leaf of ``tree`` as this rank's local tensor for
+    compute: gathered over the ``fsdp`` axes (every axis but "model"), a
+    split over "model" kept as this rank's shard; with ``whole``, gathered
+    over every axis (``partition.gather_leaf``).  Its gradient goes back
+    as a partial sum over the axes that split the batch and, for the leaf
+    names in ``partial`` that are replicated over "model", over "model"
+    too.  The identity outside a plan scope.  Call it on ONE layer's slice
+    of a stacked tree, so that only that layer is whole at a time.
+    ``moe_ep`` is the reference's signature: the experts' placements
+    already follow ``_expert_rule``."""
     if partition.current_env() is None:
         return tree
-    return tree_map(partition.gather_whole, tree)
+    return tree_map_with_path(
+        lambda path, t: partition.gather_leaf(
+            t, keep_tp=not whole, partial=leaf_name(path) in partial), tree)

@@ -6,9 +6,12 @@ training its ``autograd.Function``), with each block's activations
 recomputed in the backward pass when ``plan.remat == "block"``.  Decode is
 plain PyTorch and writes each layer's new SSM and conv state into the cache
 IN PLACE (the reference returns a new cache).  Under a plan scope each
-layer's weights are gathered whole at the top of its body, and a decode
-gathers each state's heads (split over "model" by ``CACHE_RULES``) and
-writes back the rank's own.
+layer's weights are gathered whole at the top of its body (the Mamba
+mixer is not split over "model": every model rank computes the whole
+layer), and a decode gathers each state's heads (split over "model" by
+``CACHE_RULES``) and writes back the rank's own.  The vocabulary is split
+over "model" as the transformer's: a masked embedding lookup, the
+vocabulary-parallel loss, a global decode argmax.
 """
 from __future__ import annotations
 
@@ -20,8 +23,7 @@ from repro_torch.models import partition, ssm
 from repro_torch.models.specs import gather_fsdp
 from repro_torch.models.transformer import (lm_loss_from_hidden,
                                            next_token_targets, padded_vocab)
-from repro_torch.models.util import remat, stack_scan
-from repro_torch.tree import tree_map
+from repro_torch.models.util import remat, stack_scan, unstack
 
 
 def init_ssm_lm(cfg: ArchConfig, gen, plan: PlanConfig = PlanConfig(), *,
@@ -40,7 +42,7 @@ def init_ssm_lm(cfg: ArchConfig, gen, plan: PlanConfig = PlanConfig(), *,
 def ssm_hidden(cfg: ArchConfig, plan: PlanConfig, params, embeds,
                collect_state=False):
     def body(x, lp):
-        lp = gather_fsdp(lp)
+        lp = gather_fsdp(lp, whole=True)
         h, state = ssm.mamba_apply(lp, cfg,
                                    L.rms_norm(x, lp["ln"], cfg.norm_eps))
         return x + h, (state if collect_state else None)
@@ -53,12 +55,13 @@ def ssm_hidden(cfg: ArchConfig, plan: PlanConfig, params, embeds,
 
 
 def _embed(params, tokens):
-    return gather_fsdp(params["emb"])[tokens.to(torch.long)]
+    return L.embed(gather_fsdp(params["emb"]), tokens,
+                   params["emb"].shape[0])
 
 
 def _logits(params, h):
-    return torch.einsum("bd,vd->bv", h,
-                        gather_fsdp(params["emb"])).to(torch.float32)
+    return L.vocab_logits(h, gather_fsdp(params["emb"]),
+                          params["emb"].shape[0])
 
 
 def ssm_lm_loss(cfg, plan, params, tokens, aux_coef=0.0):
@@ -95,9 +98,9 @@ def ssm_decode_step(cfg: ArchConfig, plan: PlanConfig, params, cache, tokens,
     positional cache).  Returns (next_tokens (B,) int32, cache); the cache
     is updated in place."""
     x = _embed(params, tokens)
-    for i in range(cache["ssm"].shape[0]):
-        lp = gather_fsdp(tree_map(lambda a: a[i], params["blocks"]))
-        s_i, c_i = cache["ssm"][i], cache["conv"][i]
+    for lp, c in zip(unstack(params["blocks"]), unstack(cache)):
+        lp = gather_fsdp(lp, whole=True)
+        s_i, c_i = c["ssm"], c["conv"]
         h, (s2, c2) = ssm.mamba_step(
             lp, cfg, L.rms_norm(x, lp["ln"], cfg.norm_eps),
             (partition.rows_of(s_i), partition.rows_of(c_i)))
@@ -105,5 +108,5 @@ def ssm_decode_step(cfg: ArchConfig, plan: PlanConfig, params, cache, tokens,
         partition.store_rows(c_i, c2)
         x = x + h
     x = L.rms_norm(x, gather_fsdp(params["final_norm"]), cfg.norm_eps)
-    logits = _logits(params, x)
-    return torch.argmax(logits, dim=-1).to(torch.int32), cache
+    return L.greedy(x, gather_fsdp(params["emb"]),
+                    params["emb"].shape[0]), cache

@@ -20,10 +20,22 @@ for 8 slots of 4096 tokens is 3.2 GB in bfloat16.  The loss takes the
 sequence in chunks of ``plan.loss_chunk`` and recomputes each chunk's
 float32 logits in the backward pass, and adds ``aux_coef`` x the MoE
 blocks' load-balance loss, summed over layers.  Under a plan scope
-(``models.specs``) each layer's weights are gathered whole at the top of
-its body (``gather_fsdp``), the embedding, head and final norm at their
-use, and an MoE decode routes the slots of every data-parallel rank as
-one group, as on one device.
+(``models.specs``) each layer's weights are gathered over the ``fsdp``
+axes at the top of its body (``gather_fsdp``), the embedding, head and
+final norm at their use, and an MoE decode routes the slots of every
+data-parallel rank as one group, as on one device.  Where the plan splits
+the compute over "model", the blocks run on the rank's heads, ``d_ff``
+columns and experts (``layers``, ``moe``); the embedding is a masked
+lookup in the rank's vocabulary range, the loss is vocabulary-parallel
+(each chunk's max, sum of exponentials and target logit all-reduced), the
+decode argmax a global one over the ranks' (max, index), and a prefill's
+last logits are gathered whole.  Under ``sp_boundary`` the residual
+stream between blocks is the rank's S/tp rows of the sequence (block
+remat saves 1/tp of it): a block all-gathers it at entry and its MLP's
+output is reduce-scattered; under ``sp_residual`` both residual sums in
+the block stay on the rank's rows (the attention's and the MLP's outputs
+reduce-scattered, their inputs all-gathered).  An MoE block takes the
+rows whole around the experts.
 """
 from __future__ import annotations
 
@@ -35,9 +47,8 @@ from repro_torch.configs.base import ArchConfig, PlanConfig
 from repro_torch.models import layers as L
 from repro_torch.models import moe as M
 from repro_torch.models import partition
-from repro_torch.models.specs import gather_fsdp
-from repro_torch.models.util import remat, stack_scan
-from repro_torch.tree import tree_leaves, tree_map
+from repro_torch.models.specs import gather_fsdp, tp_partial_leaves
+from repro_torch.models.util import remat, stack_scan, unstack
 
 
 def padded_vocab(cfg: ArchConfig) -> int:
@@ -103,31 +114,57 @@ def init_lm(cfg: ArchConfig, gen, plan: PlanConfig = PlanConfig(), *,
 # --------------------------------------------------------------------------
 
 def block_apply(p, cfg: ArchConfig, x, positions, *, use_moe: bool,
-                moe_group: int = 0):
-    """Returns (x, attention cache, MoE aux loss or None)."""
+                d_ff: int, moe_group: int = 0, seq: str = "whole"):
+    """Returns (x, attention cache, MoE aux loss or None).  ``seq`` is the
+    layout of x over "model": "whole", or the rank's rows of the sequence
+    ("boundary": gathered at entry, the MLP's output reduce-scattered;
+    "residual": both residual sums on the rank's rows)."""
+    rows = seq == "residual"
+    attend = L.mla_apply if cfg.mla is not None else L.attention_apply
+    if seq == "boundary":
+        x = partition.tp_gather(x, 1)
     h = L.rms_norm(x, p["ln1"], cfg.norm_eps)
-    if cfg.mla is not None:
-        h, cache = L.mla_apply(p["attn"], cfg, h, positions)
-    else:
-        h, cache = L.attention_apply(p["attn"], cfg, h, positions)
+    h, cache = attend(p["attn"], cfg, h, positions, seq_in=rows,
+                      seq_out=rows)
     x = x + h
     h = L.rms_norm(x, p["ln2"], cfg.norm_eps)
     aux = None
-    if use_moe:
-        h, aux = M.moe_apply(p["moe"], cfg, h, group_size=moe_group)
-    else:
-        h = L.mlp_apply(p["mlp"], h)
-    return x + h, cache, aux
+    if use_moe:     # the experts take the rows whole
+        h, aux = M.moe_apply(p["moe"], cfg,
+                             partition.tp_gather(h, 1) if rows else h,
+                             group_size=moe_group)
+        h = partition.tp_split(h, 1) if rows else h
+        x = x + h
+        return (partition.tp_split(x, 1) if seq == "boundary" else x,
+                cache, aux)
+    if seq == "boundary":
+        return (partition.tp_split(x, 1)
+                + L.mlp_apply(p["mlp"], h, d_ff, seq_out=True), cache, aux)
+    return (x + L.mlp_apply(p["mlp"], h, d_ff, seq_in=rows, seq_out=rows),
+            cache, aux)
+
+
+def _seq_layout(plan: PlanConfig, S: int) -> str:
+    """The residual stream's layout over "model" between blocks: the
+    rank's rows under ``sp_boundary`` ("boundary", or "residual" with
+    ``sp_residual``) where the guard splits S, else "whole"."""
+    if not partition.seq_splits(S):
+        return "whole"
+    return "residual" if plan.sp_residual else "boundary"
 
 
 def _run_stack(cfg, plan: PlanConfig, blocks, x, positions, *, use_moe,
-               collect_cache: bool):
+               collect_cache: bool, d_ff: int, seq: str):
     """One stack of blocks: (x, caches stacked over layers or None, aux
     summed over layers, 0.0 for a dense stack)."""
+    partial = tp_partial_leaves(cfg, seq_rows=seq == "residual")
+
     def body(x, lp):
-        lp = gather_fsdp(lp, plan.moe_ep)   # FSDP: gather weights, per layer
+        # FSDP: gather weights, per layer
+        lp = gather_fsdp(lp, plan.moe_ep, partial=partial)
         x, cache, aux = block_apply(lp, cfg, x, positions, use_moe=use_moe,
-                                    moe_group=plan.moe_group_size)
+                                    moe_group=plan.moe_group_size, d_ff=d_ff,
+                                    seq=seq)
         return x, (cache if collect_cache else None, aux)
 
     if plan.remat == "block":
@@ -142,21 +179,27 @@ def lm_hidden(cfg: ArchConfig, plan: PlanConfig, params, embeds, positions,
     """embeds: (B, S, D) -> (final hidden (B, S, D), {"prefix", "main":
     attention caches stacked over layers, or None}, aux loss)."""
     x, caches, aux = embeds, {}, 0.0
+    seq = _seq_layout(plan, x.shape[1])
+    if seq != "whole":
+        x = partition.tp_split(x, 1)
     if "prefix_blocks" in params:
         x, caches["prefix"], a = _run_stack(
             cfg, plan, params["prefix_blocks"], x, positions, use_moe=False,
-            collect_cache=collect_cache)
+            collect_cache=collect_cache, d_ff=cfg.moe.d_ff_dense, seq=seq)
         aux = aux + a
     x, caches["main"], a = _run_stack(
         cfg, plan, params["blocks"], x, positions,
-        use_moe=cfg.moe is not None, collect_cache=collect_cache)
+        use_moe=cfg.moe is not None, collect_cache=collect_cache,
+        d_ff=cfg.d_ff, seq=seq)
     aux = aux + a
+    if seq != "whole":
+        x = partition.tp_gather(x, 1)
     return (L.rms_norm(x, gather_fsdp(params["final_norm"]), cfg.norm_eps),
             caches, aux)
 
 
 def embed_tokens(cfg: ArchConfig, params, tokens):
-    return gather_fsdp(params["emb"])[tokens.to(torch.long)]
+    return L.embed(gather_fsdp(params["emb"]), tokens, padded_vocab(cfg))
 
 
 def _head(params):
@@ -165,8 +208,8 @@ def _head(params):
 
 
 def unembed(cfg: ArchConfig, params, x):
-    head = _head(params)
-    return torch.einsum("...d,vd->...v", x, head).to(torch.float32)
+    """Float32 logits over the whole (padded) vocabulary."""
+    return L.vocab_logits(x, _head(params), padded_vocab(cfg))
 
 
 # --------------------------------------------------------------------------
@@ -180,18 +223,36 @@ def lm_loss_from_hidden(cfg: ArchConfig, plan: PlanConfig, params, hidden,
     The sequence goes in chunks of ``plan.loss_chunk`` (the whole sequence
     when that does not divide S), each chunk's float32 logits recomputed in
     the backward pass; the target logit is taken by ``gather``, the same
-    sum as the reference's one-hot product."""
+    sum as the reference's one-hot product.  With the head split over
+    "model" each rank computes its vocabulary's logits, and the chunk's
+    row maxima, sums of exponentials and target logits (from the rank that
+    owns the target) are all-reduced."""
     S = hidden.shape[1]
     head = _head(params)
     chunk = min(plan.loss_chunk, S)
     if S % chunk:
         chunk = S
     maskf = mask.to(torch.float32)
+    Vl = head.shape[0]
+    split = Vl < padded_vocab(cfg)
+    if split:
+        hidden = partition.tp_enter(hidden)
+        v0 = partition.tp_rank() * Vl
 
     def chunk_loss(xc, tc, mc):
         logits = torch.einsum("bsd,vd->bsv", xc, head).to(torch.float32)
-        lse = torch.logsumexp(logits, dim=-1)
-        tgt = torch.gather(logits, -1, tc.to(torch.long)[..., None])[..., 0]
+        if not split:
+            lse = torch.logsumexp(logits, dim=-1)
+            tgt = torch.gather(logits, -1,
+                               tc.to(torch.long)[..., None])[..., 0]
+            return torch.sum((lse - tgt) * mc)
+        m = partition.tp_max(torch.amax(logits.detach(), dim=-1))
+        lse = m + torch.log(partition.tp_exit(
+            torch.sum(torch.exp(logits - m[..., None]), dim=-1)))
+        local = tc.to(torch.long) - v0
+        mine = (local >= 0) & (local < Vl)
+        t = torch.gather(logits, -1, local.clamp(0, Vl - 1)[..., None])[..., 0]
+        tgt = partition.tp_exit(torch.where(mine, t, torch.zeros_like(t)))
         return torch.sum((lse - tgt) * mc)
 
     total = sum(remat(chunk_loss)(hidden[:, i:i + chunk],
@@ -255,7 +316,7 @@ def init_cache(cfg: ArchConfig, batch: int, max_len: int, dtype, *,
 
 
 def block_decode(p, cfg: ArchConfig, x, cache_slices, pos, *, use_moe: bool,
-                 use_cp=False):
+                 d_ff: int, use_cp=False):
     """One block of one decode step; updates ``cache_slices`` in place."""
     h = L.rms_norm(x, p["ln1"], cfg.norm_eps)
     if cfg.mla is not None:
@@ -272,16 +333,15 @@ def block_decode(p, cfg: ArchConfig, x, cache_slices, pos, *, use_moe: bool,
                                              partition.gather_rows(h))[0],
                                  partition.current_split())
     else:
-        h = L.mlp_apply(p["mlp"], h)
+        h = L.mlp_apply(p["mlp"], h, d_ff)
     return x + h
 
 
-def _decode_stack(cfg, plan, blocks, cache, x, pos, *, use_moe: bool):
-    for i in range(tree_leaves(cache)[0].shape[0]):
-        x = block_decode(gather_fsdp(tree_map(lambda a: a[i], blocks),
-                                     plan.moe_ep), cfg, x,
-                         {k: a[i] for k, a in cache.items()}, pos,
-                         use_moe=use_moe, use_cp=plan.decode_cp)
+def _decode_stack(cfg, plan, blocks, cache, x, pos, *, use_moe: bool,
+                  d_ff: int):
+    for lp, cs in zip(unstack(blocks), unstack(cache)):
+        x = block_decode(gather_fsdp(lp, plan.moe_ep), cfg, x, cs, pos,
+                         use_moe=use_moe, use_cp=plan.decode_cp, d_ff=d_ff)
     return x
 
 
@@ -294,12 +354,11 @@ def lm_decode_step(cfg: ArchConfig, plan: PlanConfig, params, cache, tokens,
     x = embed_tokens(cfg, params, tokens)
     if "prefix_blocks" in params:
         x = _decode_stack(cfg, plan, params["prefix_blocks"], cache["prefix"],
-                          x, pos, use_moe=False)
+                          x, pos, use_moe=False, d_ff=cfg.moe.d_ff_dense)
     x = _decode_stack(cfg, plan, params["blocks"], cache["main"], x, pos,
-                      use_moe=cfg.moe is not None)
+                      use_moe=cfg.moe is not None, d_ff=cfg.d_ff)
     x = L.rms_norm(x, gather_fsdp(params["final_norm"]), cfg.norm_eps)
-    logits = unembed(cfg, params, x)                     # (B, Vp)
-    return torch.argmax(logits, dim=-1).to(torch.int32), cache
+    return L.greedy(x, _head(params), padded_vocab(cfg)), cache
 
 
 def lm_prefill(cfg: ArchConfig, plan: PlanConfig, params, tokens, max_len,
@@ -319,6 +378,8 @@ def lm_prefill(cfg: ArchConfig, plan: PlanConfig, params, tokens, max_len,
     cache = init_cache(cfg, Bsz, max_len, cdt, device=e.device)
     for grp, leaves in cache.items():
         for name, src in zip(leaves, caches[grp]):
+            if name in ("k", "v"):
+                src = L.whole_kv_heads(src, cfg.num_kv_heads)
             leaves[name][:, :, :S] = src
     logits = unembed(cfg, params, hidden[:, -1, :])
     return logits, cache, torch.full((Bsz,), S, dtype=torch.int32,

@@ -13,17 +13,23 @@ from repro_torch.models import partition
 from repro_torch.tree import tree_leaves, tree_map, tree_unzip
 
 
+def unstack(stacked) -> tuple:
+    """The layers of a tree stacked on its leading axis, one tree each, by
+    one ``unbind`` per leaf: views of the stack (a decode writes its cache
+    through them).  Its backward stacks the layers' gradients once;
+    indexing each layer instead would give every layer's gradient as a
+    zero-filled tensor of the whole stack, summed layer by layer, and on a
+    ``DTensor`` costs one sharding propagation a layer and leaf."""
+    n = tree_leaves(stacked)[0].shape[0]
+    return tree_unzip(tree_map(lambda a: a.unbind(0), stacked), n)
+
+
 def stack_scan(body, x, stacked):
     """``body(x, layer_slice) -> (x, y)`` over the leading axis of
-    ``stacked``; returns (x, ys stacked over layers, or None).
-
-    The layers are taken apart by one ``unbind`` per leaf, whose backward
-    stacks the layers' gradients once; indexing each layer instead would
-    give every layer's gradient as a zero-filled tensor of the whole stack,
-    summed layer by layer."""
-    n = tree_leaves(stacked)[0].shape[0]
+    ``stacked`` (``unstack``); returns (x, ys stacked over layers, or
+    None)."""
     ys = []
-    for layer in tree_unzip(tree_map(lambda a: a.unbind(0), stacked), n):
+    for layer in unstack(stacked):
         x, y = body(x, layer)
         ys.append(y)
     if not ys or not tree_leaves(ys[0]):

@@ -11,9 +11,10 @@ The cache is a dict of tensors on the serving device.  ``_write_rows``
 copies a prefilled request's rows into its slot IN PLACE, and the decode
 function updates the cache in place too (the reference rebuilds both).
 Under a plan scope over a mesh (``models.partition``) the cache leaves
-are ``DTensor``s, and rows are copied span by span on each rank; the
-slots must then not be split over ranks (a mesh whose data-parallel axes
-hold one rank, as the prefills of one request each replicate the batch).
+are ``DTensor``s, and rows are copied span by span on each rank.  Where
+the mesh splits the slots over data-parallel ranks, a request's rows
+(its prefill replicates a batch of one over them) are copied on the ranks
+that hold its slot, and a decode step runs each rank on its own slots.
 
 ``QueryServer`` serves polystore queries through the middleware's
 signature-keyed plan cache: a cold signature trains once (the middleware
@@ -59,17 +60,39 @@ class Request:
     done: bool = False
 
 
+def _slot_block(dst: DTensor, b_axis: int) -> tuple:
+    """(this rank's block of the slots, number of blocks): the mesh axes
+    that split dimension ``b_axis`` of ``dst``, major to minor."""
+    mesh = dst.device_mesh
+    index, n = 0, 1
+    for k, (pl, size) in enumerate(zip(dst.placements, mesh.shape)):
+        if isinstance(pl, Shard) and pl.dim == b_axis and size > 1:
+            index = index * size + mesh.get_local_rank(k)
+            n *= size
+    return index, n
+
+
 def _check_spans(dst: DTensor, src, b_axis: int) -> None:
-    """Rows copy span by span only where the slots are whole on each rank
-    and the prefill's leaf is split as the server's."""
-    split = {pl.dim for pl, n in zip(dst.placements, dst.device_mesh.shape)
-             if isinstance(pl, Shard) and n > 1}
-    if b_axis in split:
-        raise NotImplementedError("BatchServer on a mesh that splits its "
-                                  "slots over ranks")
-    if not isinstance(src, DTensor) or src.placements != dst.placements:
+    """Rows copy span by span where the prefill's leaf is split as the
+    server's along every dimension but the slots' (which a batch of one
+    leaves whole)."""
+    if not isinstance(src, DTensor) or src.device_mesh != dst.device_mesh:
         raise ValueError("a prefilled cache leaf not in the server "
                          "cache's layout")
+    split = set()
+    for a, b, n in zip(dst.placements, src.placements,
+                       dst.device_mesh.shape):
+        if n == 1:
+            continue
+        if isinstance(a, Shard) and a.dim == b_axis:
+            ok = not isinstance(b, Shard)
+        else:
+            ok = a == b
+        if not ok:
+            raise ValueError("a prefilled cache leaf not in the server "
+                             "cache's layout")
+        if isinstance(a, Shard):
+            split.add(a.dim)
     seq = b_axis + 1
     if seq in split and src.shape[seq] != dst.shape[seq]:
         raise NotImplementedError("a split seq dimension shorter in the "
@@ -112,7 +135,9 @@ class BatchServer:
 
         Generic across cache families: the batch axis of each leaf is
         located by matching (slots vs 1) dims; a following seq axis, if
-        shorter in the source, is zero-filled past the source's length."""
+        shorter in the source, is zero-filled past the source's length.
+        Where the slots are split over ranks, only the ranks that hold
+        ``slot`` copy, at its place in their block."""
         def place(dst, src):
             b_axis = None
             for ax in range(dst.ndim):
@@ -123,10 +148,18 @@ class BatchServer:
                 return dst
             if isinstance(dst, DTensor):
                 _check_spans(dst, src, b_axis)
-                place(dst.to_local(), src.to_local())
+                block, n = _slot_block(dst, b_axis)
+                per = self.slots // n
+                if slot // per == block:
+                    place_local(dst.to_local(), src.to_local(), b_axis,
+                                slot - block * per)
                 return dst
+            place_local(dst, src, b_axis, slot)
+            return dst
+
+        def place_local(dst, src, b_axis, at):
             idx = [slice(None)] * dst.ndim
-            idx[b_axis] = slice(slot, slot + 1)
+            idx[b_axis] = slice(at, at + 1)
             seq = b_axis + 1
             if seq < dst.ndim and src.shape[seq] != dst.shape[seq]:
                 tail = list(idx)
@@ -134,7 +167,6 @@ class BatchServer:
                 dst[tuple(tail)] = 0
                 idx[seq] = slice(0, src.shape[seq])
             dst[tuple(idx)] = src.to(dst.dtype)
-            return dst
         self.cache = tree_map(place, self.cache, cache_rows)
 
     def _prefill_compute(self, req: Request):

@@ -146,6 +146,106 @@ def cp_decode(mesh, name):
     assert_trees_close(c0, c_one, f"{name} naive vs one device", **CP_TOL)
 
 
+def split_work(mesh):
+    """Under the split on (2, 4) (internlm2 smoke: H 4 over 4 ranks, KV 2
+    replicated by the guard, d_ff 256, vocabulary 512): a layer's gather
+    keeps every "model" shard (this rank's query head, its 64 d_ff
+    columns) and redistributes only over "data"; a prefill's blocks end in
+    one g and one reduce-scatter each, a decode step's in two g; the
+    prefill's logits and cache equal the single device's."""
+    from torch.distributed.tensor import Shard
+    from repro_torch.configs import PlanConfig, ShapeConfig, get_arch
+    from repro_torch.models import api, partition
+    from repro_torch.models.partition import plan_scope
+    from repro_torch.models.specs import gather_fsdp
+    from repro_torch.tree import tree_leaves, tree_map
+    cfg = get_arch("internlm2-1.8b").smoke()
+    plan = PlanConfig(param_dtype="float32", compute_dtype="float32",
+                      remat="none")
+    L, D, H, hd = cfg.num_layers, cfg.d_model, cfg.num_heads, cfg.head_dim
+    params = api.init_params(cfg, torch.Generator().manual_seed(4), plan,
+                             "cpu")
+    shape = ShapeConfig("p", "prefill", 32, 2)
+    tokens = torch.randint(0, cfg.vocab_size, (2, 16), dtype=torch.int32,
+                           generator=torch.Generator().manual_seed(4))
+    want = api.make_prefill(cfg, shape, plan)(params, {"tokens": tokens})
+    with plan_scope(mesh, plan):
+        sp = api.distribute(params, api.to_shardings(
+            mesh, api.param_specs(cfg, plan, params)))
+        layer = tree_map(lambda a: a[0], sp["blocks"])
+        on_data = sum(any(isinstance(pl, Shard) and n > 1 for pl, n in
+                          zip(t.placements[:1], mesh.shape[:1]))
+                      for t in tree_leaves(layer))
+        partition.reset_weight_gathers()
+        lp = gather_fsdp(layer)
+        assert partition.weight_gathers() == on_data > 0, \
+            (partition.weight_gathers(), on_data)
+        assert tuple(lp["attn"]["wq"].shape) == (D, H // 4, hd)
+        assert tuple(lp["attn"]["wo"].shape) == (H // 4, hd, D)
+        assert tuple(lp["attn"]["wk"].shape) == (D, cfg.num_kv_heads, hd)
+        assert tuple(lp["mlp"]["w1"].shape) == (D, cfg.d_ff // 4)
+        assert tuple(lp["mlp"]["w2"].shape) == (cfg.d_ff // 4, D)
+        for t, g in zip(tree_leaves(layer), tree_leaves(lp)):
+            whole = list(t.shape)
+            for pl, name in zip(t.placements, mesh.mesh_dim_names):
+                if name == "model" and isinstance(pl, Shard):
+                    whole[pl.dim] //= 4
+            assert list(g.shape) == whole, (g.shape, whole)
+        partition.reset_tp_collectives()
+        got = api.make_prefill(cfg, shape, plan)(sp, {"tokens": tokens})
+        n = partition.tp_collectives()
+        # the embedding's g, then per block the attention's g and the MLP's
+        # reduce-scatter (sp_boundary: S 16 over 4 ranks)
+        assert n["g"] == L + 1 and n["seq_exit"] == L, n
+        assert n["f"] == 2 * L and n["gather"] == L + 2, n
+        np.testing.assert_allclose(got[0].numpy(), want[0].numpy(),
+                                   **CP_TOL)
+        assert_trees_close(got[1], want[1], "split prefill cache", **CP_TOL)
+        cache = api.init_cache(cfg, 2, 32, torch.float32, "cpu")
+        partition.reset_tp_collectives()
+        api.make_decode_step(cfg, ShapeConfig("d", "decode", 32, 2), plan)(
+            sp, cache, tokens[:, 0], torch.tensor([0, 1], dtype=torch.int32))
+        n = partition.tp_collectives()
+        assert n["g"] == 2 * L + 1 and n["seq_exit"] == 0, n
+
+
+def split_vocabulary(mesh):
+    """The vocabulary split over "model" (512 rows, 128 a rank): the
+    embedding lookup equals the whole one bit for bit, and the decode
+    argmax breaks a tie that straddles two ranks' ranges (rows 127 and
+    128) toward the lower index, as ``torch.argmax`` does."""
+    from repro_torch.configs import PlanConfig, get_arch
+    from repro_torch.models import api
+    from repro_torch.models import layers as Lyr
+    from repro_torch.models import transformer as T
+    from repro_torch.models.partition import plan_scope
+    from repro_torch.models.specs import gather_fsdp
+    cfg = get_arch("internlm2-1.8b").smoke()
+    plan = PlanConfig(param_dtype="float32")
+    params = api.init_params(cfg, torch.Generator().manual_seed(6), plan,
+                             "cpu")
+    tokens = torch.arange(0, 512, 3, dtype=torch.int32).reshape(1, -1)
+    x = torch.randn((3, cfg.d_model), generator=torch.Generator()
+                    .manual_seed(6))
+    head = params["head"].clone()
+    head[128] = head[127]
+    head[127] *= 50.0 / float(x[0] @ head[127])
+    head[128] = head[127]
+    head[300] = head[127]
+    want = torch.argmax(x @ head.T, dim=-1).to(torch.int32)
+    assert int(want[0]) == 127, want
+    with plan_scope(mesh, plan):
+        sp = api.distribute({**params, "head": head}, api.to_shardings(
+            mesh, api.param_specs(cfg, plan, {**params, "head": head})))
+        with torch.no_grad():
+            e = T.embed_tokens(cfg, sp, tokens)
+            local = gather_fsdp(sp["head"])
+            assert local.shape[0] == 128, local.shape
+            got = Lyr.greedy(x, local, 512)
+    assert torch.equal(e, params["emb"][tokens.long()])
+    assert torch.equal(got, want), (got, want)
+
+
 def _train_step_check(mesh, name, plan, inp, prefix, batch):
     """One sharded train step from the state ``<prefix>state/...`` of
     ``inp`` against the port's single-device step and, where ``inp`` has
@@ -217,21 +317,37 @@ def elastic_checkpoint(state, work):
 
 
 def scenario_dense(work):
-    """8 ranks, (2, 4): placement order, CP decode (internlm2, zamba2),
-    internlm2's sharded train step (as is; int8_ef under block remat)
-    against one device and the JAX package, an elastic checkpoint."""
+    """8 ranks, (2, 4): placement order, the split's shapes, gathers and
+    collectives, the split vocabulary, CP decode (internlm2, zamba2),
+    internlm2's sharded train step (sp_boundary, sp_residual, neither;
+    int8_ef under block remat) against one device and the JAX package,
+    an elastic checkpoint."""
     from repro_torch.configs import PlanConfig
     from repro_torch.launch.mesh import make_mesh_compat
     mesh = make_mesh_compat((2, 4), ("data", "model"), "cpu")
     placement_order(mesh)
+    split_work(mesh)
+    split_vocabulary(mesh)
     for name in ("internlm2-1.8b", "zamba2-7b"):
         cp_decode(mesh, name)
     inp = dict(np.load(os.path.join(work, "inputs.npz")))
     batch = {"tokens": torch.from_numpy(inp["tokens"])}
     plan = PlanConfig(param_dtype="float32", compute_dtype="float32",
                       master_dtype="float32", loss_chunk=8, remat="none")
-    state, _ = _train_step_check(mesh, "internlm2-1.8b", plan, inp, "",
-                                 batch)
+    from repro_torch.models import partition
+    layers = 4
+    # the step's exits: the embedding's g, the loss's two a chunk (S 16 in
+    # chunks of 8) in its forward and again in its recompute, and per
+    # block two g or reduce-scatters
+    for p, g, rs in ((plan, layers, layers), (plan.with_(sp_residual=True),
+                                                0, 2 * layers),
+                     (plan.with_(sp_boundary=False), 2 * layers, 0)):
+        partition.reset_tp_collectives()
+        s, _ = _train_step_check(mesh, "internlm2-1.8b", p, inp, "", batch)
+        n = partition.tp_collectives()
+        assert n["g"] == g + 1 + 2 * 2 * 2 and n["seq_exit"] == rs, (p, n)
+        if p is plan:
+            state = s
     _train_step_check(mesh, "internlm2-1.8b",
                       plan.with_(grad_compression="int8_ef", remat="block"),
                       inp, "ef_", batch)
@@ -240,7 +356,9 @@ def scenario_dense(work):
 
 def scenario_moe(work):
     """4 ranks, (2, 2): deepseek-v2-lite (MoE, MLA) smoke, one sharded
-    train step and one decode step at 4 slots against one device."""
+    train step and one decode step at 4 slots against one device, with
+    the experts split over "model" whole (``ep``: 2 of 4 a rank) and on
+    ``d_ff`` (``moe_ep=False``: 32 of 64 columns)."""
     from repro_torch.configs import PlanConfig, ShapeConfig, get_arch
     from repro_torch.launch.mesh import make_mesh_compat
     from repro_torch.models import api
@@ -257,9 +375,31 @@ def scenario_moe(work):
     tokens = torch.randint(0, cfg.vocab_size, (4, 16), dtype=torch.int32,
                            generator=torch.Generator().manual_seed(1))
     flat = {"state/" + k: v.numpy() for k, v in flat_full(state).items()}
-    _train_step_check(mesh, name, plan, flat, "", {"tokens": tokens})
-    # decode: the slots of both data ranks route as one group
-    _decode_check(mesh, cfg, plan, state["master"], name)
+    from repro_torch.models import partition
+    from repro_torch.models.specs import gather_fsdp
+    m = cfg.moe
+    counts = []
+    for p, local in ((plan, (m.num_experts // 2, cfg.d_model, m.d_ff_expert)),
+                     (plan.with_(moe_ep=False),
+                      (m.num_experts, cfg.d_model, m.d_ff_expert // 2))):
+        with plan_scope(mesh, p):
+            sp = api.distribute(state["master"], api.to_shardings(
+                mesh, api.param_specs(cfg, p, state["master"])))
+            lp = gather_fsdp(tree_map(lambda a: a[0], sp["blocks"]), p.moe_ep)
+            assert tuple(lp["moe"]["we1"].shape) == local, lp["moe"]["we1"].shape
+            assert lp["attn"]["wq"].shape[-2] == cfg.num_heads // 2
+        partition.reset_tp_collectives()
+        _train_step_check(mesh, name, p, flat, "", {"tokens": tokens})
+        counts.append(partition.tp_collectives())
+        # decode: the slots of both data ranks route as one group
+        _decode_check(mesh, cfg, p, state["master"], name)
+    # each MoE layer: ep all-gathers its experts' outputs; a d_ff split
+    # enters its experts and its combine (two f) and ends in g
+    moe_layers = cfg.num_layers - m.first_dense_layers
+    (ep, ff) = counts
+    assert ep["gather"] - ff["gather"] == moe_layers, counts
+    assert ff["f"] - ep["f"] == 2 * moe_layers, counts
+    assert ff["g"] - ep["g"] == moe_layers, counts
 
 
 def _decode_check(mesh, cfg, plan, params, what):
@@ -339,9 +479,10 @@ def restarts_on_the_mesh(mesh, work):
 
 def batch_server_on_a_mesh(mesh_split):
     """``BatchServer`` on a (1, 4) mesh (the cache's seq dimension split
-    over "model", CP decode across the 4 ranks) gives the unsharded
-    server's tokens; on a mesh that splits its slots over ranks it
-    raises."""
+    over "model", CP decode across the 4 ranks) and on a (2, 2) mesh that
+    splits its slots over the data ranks (each rank copies the rows of the
+    requests in its slots, and decodes them) gives the unsharded server's
+    tokens."""
     from repro_torch.configs import PlanConfig, ShapeConfig, get_arch
     from repro_torch.launch.mesh import make_mesh_compat
     from repro_torch.models import api, layers
@@ -380,18 +521,18 @@ def batch_server_on_a_mesh(mesh_split):
     with plan_scope(mesh_split, plan):
         placed = api.distribute(params, api.to_shardings(
             mesh_split, api.param_specs(cfg, plan, params)))
-        try:
-            serve(placed)
-        except NotImplementedError as e:
-            assert "splits its slots" in str(e), e
-        else:
-            raise AssertionError("a server whose slots are split served")
+        cache = api.init_cache(cfg, 2, 32, torch.float32, "cpu")
+        assert cache["main"]["k"].to_local().shape[1] == 1
+        got = serve(placed)
+    assert got == want, (got, want)
 
 
 def scenario_families(work):
-    """4 ranks, (2, 2): mamba2 (SSM), seamless (encdec) and internvl2 (vlm)
-    smoke, one sharded train step and one decode step each against one
-    device; restarts onto the mesh."""
+    """4 ranks, (2, 2): mamba2 (SSM), seamless (encdec), internvl2 (vlm)
+    and zamba2 (hybrid, its LoRA factors ``b_*`` seeded: the init's are
+    zero, which would leave the ``a_*`` without a gradient) smoke, one
+    sharded train step and one decode step each against one device;
+    restarts onto the mesh."""
     from repro_torch.configs import PlanConfig, get_arch
     from repro_torch.launch.mesh import make_mesh_compat
     from repro_torch.models import api
@@ -400,11 +541,15 @@ def scenario_families(work):
     plan = PlanConfig(param_dtype="float32", compute_dtype="float32",
                       master_dtype="float32", loss_chunk=8, remat="none")
     for seed, name in enumerate(("mamba2-370m", "seamless-m4t-medium",
-                                 "internvl2-26b")):
+                                 "internvl2-26b", "zamba2-7b")):
         cfg = get_arch(name).smoke()
         state = api.init_train_state(cfg, plan,
                                      torch.Generator().manual_seed(seed),
                                      AdamW(LR), "cpu")
+        gen = torch.Generator().manual_seed(30 + seed)
+        for k, b in state["master"].get("lora", {}).items():
+            if k.startswith("b_"):
+                b.copy_(0.1 * torch.randn(b.shape, generator=gen))
         batch = {"tokens": torch.randint(
             0, cfg.vocab_size, (4, 16), dtype=torch.int32,
             generator=torch.Generator().manual_seed(10 + seed)),

@@ -339,6 +339,25 @@ def test_flash_kernel_reads_strided_inputs(cuda, dtype, d):
     torch.testing.assert_close(got, want, rtol=0, atol=0)
 
 
+@pytest.mark.parametrize("d", [128, 64, 112])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_kernel_reads_narrowed_kv_heads(cuda, dtype, d):
+    """k and v narrowed to one KV head of 8 (a rank's share where the KV
+    projection stays whole: ``layers.rank_kv``) are read in place and give
+    the contiguous copies' result and the plain version's."""
+    gen = torch.Generator(device=cuda).manual_seed(6)
+    q = torch.randn((1, 300, 3, d), generator=gen, device=cuda).to(dtype)
+    k, v = (torch.randn((1, 300, 8, d), generator=gen, device=cuda)
+            .to(dtype).narrow(2, 5, 1) for _ in range(2))
+    assert not k.is_contiguous()
+    got = flash_attention_cuda(q, k, v)
+    want = flash_attention_cuda(q, k.contiguous(), v.contiguous())
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+    tol = 3e-2 if dtype == torch.bfloat16 else 1e-4
+    torch.testing.assert_close(got.float(), flash_attention_ref(
+        q, k, v).float(), rtol=tol, atol=tol)
+
+
 @pytest.mark.parametrize("dtype,d,kind", [(torch.bfloat16, 128, "tc"),
                                           (torch.bfloat16, 64, "tc"),
                                           (torch.float32, 128, "tf32"),

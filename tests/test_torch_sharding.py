@@ -11,7 +11,9 @@ path by path.
 The multi-rank properties run as gloo ranks on the CPU in a subprocess
 (``tests/_torch_ranks.py``), as the reference's run on forced host devices
 (``tests/test_distributed.py``): no process group is opened in the pytest
-process.  The test computes the JAX package's single-device train steps
+process.  Their plans split the compute over "model" (``tp``, the
+default), so they hold the tensor-parallel model code to the single
+device.  The test computes the JAX package's single-device train steps
 beforehand and hands them to the ranks as an ``.npz``.  Tolerances are the
 reference's: CP decode rtol 1e-5 / atol 5e-6, a train step's loss rtol
 1e-4 and masters rtol 2e-3 / atol 2e-4; under int8 error feedback the
@@ -194,6 +196,84 @@ def test_remat_recomputes_under_the_forward_scope():
     torch.testing.assert_close(out[0], torch.cos(x.detach()))
 
 
+def test_tp_helpers_are_the_identity_without_a_split():
+    """Outside a scope, and under a scope without ranks, every collective
+    of the split returns its input and counts nothing."""
+    x = torch.arange(24.0).reshape(2, 4, 3)
+    helpers = (tpart.tp_enter, tpart.tp_exit, tpart.seq_enter,
+               tpart.seq_exit, tpart.tp_max,
+               lambda t: tpart.tp_split(t, 1), lambda t: tpart.tp_gather(t, 1))
+    tpart.reset_tp_collectives()
+    for scope in (None, tpart.AbstractMesh(("data", "model"), (2, 4))):
+        with tpart.plan_scope(scope, TPlan()):
+            assert not tpart.tp_active()
+            assert tpart.tp_rank() == 0 and not tpart.tp_splits(16)
+            for fn in helpers:
+                assert fn(x) is x
+    assert not any(tpart.tp_collectives().values())
+
+
+@pytest.mark.parametrize("H, KV, Hl, rank, want", [
+    (4, 2, 1, 3, [1]),           # internlm2 smoke at tp 4
+    (16, 8, 4, 1, [2, 3]),       # internlm2 at tp 4, KV split too
+    (48, 8, 3, 2, [1]),          # a group of 6 over 16 ranks
+    (48, 8, 12, 1, [2, 3]),
+    (12, 3, 3, 1, None),         # heads 3-5 straddle two groups: raises
+])
+def test_rank_kv_reads_the_kv_heads_of_the_rank_query_heads(
+        monkeypatch, H, KV, Hl, rank, want):
+    """Query head h reads KV head h // (H // KV): the rank's heads read a
+    contiguous range, taken as a view where GQA's equal groups hold; a
+    split that straddles groups unevenly raises."""
+    from repro_torch.models import layers as TL
+    monkeypatch.setattr(tpart, "tp_rank", lambda: rank)
+    k = torch.arange(KV, dtype=torch.float32)[None, :, None].expand(
+        2, KV, 5).contiguous()
+    if want is None:
+        with pytest.raises(ValueError, match="unevenly"):
+            TL.rank_kv(k, H, KV, Hl)
+        return
+    got = TL.rank_kv(k, H, KV, Hl)
+    assert got._base is k
+    heads = got[0, :, 0].tolist()
+    assert heads == want and Hl % len(want) == 0
+    rep = Hl // len(want)
+    assert [heads[j // rep] for j in range(Hl)] == [
+        (rank * Hl + j) // (H // KV) for j in range(Hl)]
+
+
+@pytest.mark.parametrize("name", list(ARCHS))
+def test_every_leaf_replicated_over_model_says_where_its_gradient_sums(name):
+    """Each parameter whose rule keeps no "tp" entry is either read inside
+    a region split over "model" (``specs.TP_PARTIAL``: its gradient a
+    partial sum there) or outside every one (``specs.TP_WHOLE``), so that
+    a new replicated leaf cannot take a wrong gradient unnoticed."""
+    from repro_torch.models import specs as tspecs
+    partial = frozenset().union(*tspecs.TP_PARTIAL.values())
+    assert not partial & tspecs.TP_WHOLE
+    names = set()
+    tree_map_with_path(lambda path, t: names.add(tspecs.leaf_name(path)),
+                       _port_shapes(name)[0])
+    replicated = {n for n in names
+                  if "tp" not in (tspecs.rule_for(n, (8,) * 4) or ())}
+    assert replicated <= partial | tspecs.TP_WHOLE, (
+        replicated - partial - tspecs.TP_WHOLE)
+
+
+def test_vocabulary_helpers_without_a_split_are_the_plain_ops():
+    """The embedding lookup, the logits and the greedy token of a whole
+    vocabulary are the plain ones."""
+    from repro_torch.models import layers as TL
+    g = torch.Generator().manual_seed(0)
+    emb = torch.randn((512, 16), generator=g)
+    x = torch.randn((3, 16), generator=g)
+    tok = torch.tensor([[0, 511, 7]], dtype=torch.int32)
+    assert torch.equal(TL.embed(emb, tok, 512), emb[tok.long()])
+    assert torch.equal(TL.vocab_logits(x, emb, 512), x @ emb.T)
+    assert torch.equal(TL.greedy(x, emb, 512),
+                       torch.argmax(x @ emb.T, -1).to(torch.int32))
+
+
 def test_importing_the_mesh_module_opens_no_group():
     code = ("import torch.distributed as d, repro_torch.launch.mesh as m; "
             "assert not d.is_initialized(); "
@@ -238,12 +318,17 @@ def _flat_np(tree, prefix) -> dict:
 
 
 def test_dense_sharding_on_8_gloo_ranks(tmp_path):
-    """Mesh (2, 4) ("data", "model"): placement order; CP decode equals
-    naive decode (internlm2 and zamba2 smoke); internlm2 smoke's sharded
-    train step equals the port's single-device step and the JAX
-    package's, as is and under int8_ef (with block remat); a state saved
-    from the mesh restores at (4, 2) and here, on one process, with every
-    leaf equal."""
+    """Mesh (2, 4) ("data", "model"), the compute split over "model":
+    placement order; a layer's gather keeps its "model" shards (the
+    rank's query head and d_ff columns) and its prefill and decode end
+    each block in two g or reduce-scatters; the vocabulary's lookup is
+    the whole one bit for bit and its argmax breaks a tie across ranks to
+    the lower index; CP decode equals naive decode (internlm2 and zamba2
+    smoke); internlm2 smoke's sharded train step equals the port's
+    single-device step and the JAX package's, under sp_boundary (the
+    default), sp_residual, neither, and int8_ef (with block remat); a
+    state saved from the mesh restores at (4, 2) and here, on one
+    process, with every leaf equal."""
     tokens = np.asarray(jax.random.randint(
         jax.random.PRNGKey(1), (8, 16), 0,
         ARCHS["internlm2-1.8b"].smoke().vocab_size), np.int32)
@@ -274,7 +359,8 @@ def test_dense_sharding_on_8_gloo_ranks(tmp_path):
 def test_moe_sharding_on_4_gloo_ranks(tmp_path):
     """Mesh (2, 2): deepseek-v2-lite smoke (MoE with MLA), one sharded
     train step and one decode step at 4 slots (the slots of both data
-    ranks routed as one group) against the single-device ones."""
+    ranks routed as one group) against the single-device ones, the
+    experts split over "model" whole (ep) and on d_ff."""
     _run_ranks("moe", tmp_path)
 
 
@@ -286,6 +372,7 @@ def test_other_families_on_4_gloo_ranks(tmp_path):
     single-device ones; ``Trainer.run_with_restarts`` with a failure
     injected, restoring onto the mesh by ``shardings``, against an
     uninterrupted run (sharded saves: rank 0 writes whole leaves); and
-    ``BatchServer`` on a (1, 4) mesh under ``decode_cp`` against the
-    unsharded server's tokens (it raises where the slots are split)."""
+    ``BatchServer`` on a (1, 4) mesh under ``decode_cp`` and on the (2, 2)
+    mesh, which splits its slots, against the unsharded server's
+    tokens."""
     _run_ranks("families", tmp_path)

@@ -5,9 +5,12 @@ CPU and CUDA activity, three ways in one process: unsharded, and on a
 (1, 1) ("data", "model") mesh over a 1-rank NCCL group (a ``FileStore``
 in a temporary directory) with context-parallel decode and with the naive
 route.  Prints one JSON line per way: host wall ms (median of 5 calls,
-each ending in a synchronize), the device's busy ms, and the operators
-that took the most host time themselves (``self_cpu_time_total``, ms a
-step) with their call counts; the card's name and power limit.
+each ending in a synchronize), the device's busy ms, the operators that
+took the most host time themselves (``self_cpu_time_total``, ms a step)
+with their call counts, and on the mesh the step's weight gathers
+(``DTensor.redistribute`` calls, ``partition.weight_gathers``) and
+tensor-parallel collectives (``partition.tp_collectives``), both none
+where every axis has one rank; the card's name and power limit.
 
 Run from the repository root on a machine with one CUDA card:
     python3 tools/sharded_decode_profile.py [--top N]
@@ -31,7 +34,7 @@ sys.path.insert(0, str(Path(__file__).resolve().parents[1] / "src"))
 
 from repro_torch.configs import PlanConfig, ShapeConfig, get_arch  # noqa: E402
 from repro_torch.launch.mesh import make_mesh_compat  # noqa: E402
-from repro_torch.models import api  # noqa: E402
+from repro_torch.models import api, partition  # noqa: E402
 from repro_torch.models.partition import plan_scope  # noqa: E402
 
 SLOTS, MAX_LEN = 8, 4096
@@ -100,9 +103,15 @@ def main() -> int:
                         mesh, api.param_specs(cfg, p2, params)))
                     cache = api.init_cache(cfg, SLOTS, MAX_LEN,
                                            torch.bfloat16, dev)
-                    out[way] = _profile(
+                    partition.reset_weight_gathers()
+                    partition.reset_tp_collectives()
+                    step(placed, cache, toks, pos)
+                    counts = {"weight_gathers": partition.weight_gathers(),
+                              "tp_collectives":
+                                  partition.tp_collectives()}
+                    out[way] = {**_profile(
                         lambda: step(placed, cache, toks, pos), dev,
-                        args.top)
+                        args.top), **counts}
                 del placed, cache
         finally:
             dist.destroy_process_group()
