@@ -27,7 +27,9 @@ weight gathers a 1-rank mesh reduces to none), one rank's share of
 internlm2 split four ways over "model" (``tp_rank``: rank 0 of a (1, 4)
 mesh over torch's fake process group, whose collectives move nothing: a
 2048-token prefill on its 4 query heads and 2 KV heads, and 4 decode
-steps, timed, no value checked), and last LM training of internlm2, mamba2 (at depth 24), deepseek (at
+steps, timed, no value checked) and of zamba2-7b (``tp_rank_hybrid``: the
+Mamba mixer on 28 of 112 heads in each of 81 layers, the shared block on
+8 of 32), and last LM training of internlm2, mamba2 (at depth 24), deepseek (at
 depth 3), zamba2 (at depth 13), internvl2 (at depth 2) and seamless
 (``train``: the
 kernels' gradients against the plain versions, a
@@ -107,7 +109,7 @@ from repro_torch.kernels.ssd_scan import (  # noqa: E402
 from repro_torch.launch.mesh import make_mesh_compat  # noqa: E402
 from repro_torch.models import api  # noqa: E402
 from repro_torch.models import layers as L  # noqa: E402
-from repro_torch.models import partition  # noqa: E402
+from repro_torch.models import partition, ssm  # noqa: E402
 from repro_torch.models.partition import plan_scope  # noqa: E402
 from repro_torch.models.specs import gather_fsdp  # noqa: E402
 from repro_torch.models.encdec import DECODE_ENC_LEN  # noqa: E402
@@ -220,12 +222,16 @@ CROSS_FLASH_SHAPES = [(1, 77, 4096, 16, 16, 64, False, torch.bfloat16),
                       (1, 77, 4096, 16, 16, 64, False, torch.float32),
                       (1, 1, 4096, 16, 16, 64, False, torch.float32)]
 # one rank's share of internlm2-1.8b's prefill split 4 ways over "model"
-# (phase tp_rank: 4 of 16 query heads over 2 of 8 KV heads), and of
+# (phase tp_rank: 4 of 16 query heads over 2 of 8 KV heads), of
+# zamba2-7b's shared block split the same way (tp_rank_hybrid: 8 of 32
+# heads of 112), and of
 # internvl2-26b's or grok-1's split 16 ways, where KV % tp != 0 keeps wk
 # and wv whole: 3 of 48 query heads read one KV head of 8 in place, k and
 # v narrowed views of the whole projection (``layers.rank_kv``), given as
 # (shape, whole KV heads, first KV head read: ranks 10 and 11's)
 TP_RANK_FLASH_SHAPE = (1, 2048, 2048, 4, 2, 128, True, torch.bfloat16)
+TP_RANK_HYBRID_FLASH_SHAPE = (1, 2048, 2048, 8, 8, 112, True,
+                              torch.bfloat16)
 FLASH_NARROW_KV = [((1, 2048, 2048, 3, 1, 128, True, torch.bfloat16), 8, 5),
                    ((1, 2048, 2048, 3, 1, 128, True, torch.float32), 8, 5)]
 # (B, Sq, Sk, H, KV, d, causal, dtype), the (B, S, H, d) form with the KV
@@ -246,7 +252,8 @@ FLASH_GQA_SHAPES = [(1, 2048, 2048, 16, 8, 128, True, torch.bfloat16),
                     (1, 2048, 2048, 32, 32, 112, True, torch.bfloat16),
                     (1, 2048, 2048, 32, 32, 112, True, torch.float32),
                     MLA_FLASH_SHAPE, GROK_FLASH_SHAPE, VLM_FLASH_SHAPE,
-                    TP_RANK_FLASH_SHAPE, ENC_FLASH_SHAPE, *CROSS_FLASH_SHAPES,
+                    TP_RANK_FLASH_SHAPE, TP_RANK_HYBRID_FLASH_SHAPE,
+                    ENC_FLASH_SHAPE, *CROSS_FLASH_SHAPES,
                     (2, 1000, 1000, 4, 1, 64, False, torch.bfloat16),
                     (1, 65, 65, 8, 2, 80, True, torch.bfloat16),
                     (2, 129, 129, 6, 2, 128, True, torch.float32),
@@ -270,7 +277,8 @@ FLASH_GQA_SHAPES = [(1, 2048, 2048, 16, 8, 128, True, torch.bfloat16),
 # its time before "mma" took that path) and at zamba2's width, beside the
 # warp-level kernel on zamba2's path; the MoE models' prefills (MLA at d 192 on "mma",
 # grok's group of 6 on "tc"), internvl2's group of 6 and seamless's
-# non-causal encoder at d 64 on "tc"; and the folded forms at 2048 tokens,
+# non-causal encoder at d 64 on "tc"; zamba2's shared block on the rank's
+# 8 heads (tp_rank_hybrid) on "mma"; and the folded forms at 2048 tokens,
 # where the CUDA-core kernel, forced, is the float32 kernel's time before
 # the 3xTF32 one took the shape
 FLASH_TIMED = {(FLASH_GQA_SHAPES[0], "tc"): "tc",
@@ -285,6 +293,7 @@ FLASH_TIMED = {(FLASH_GQA_SHAPES[0], "tc"): "tc",
                (GROK_FLASH_SHAPE, "tc"): "tc_gqa6",
                (VLM_FLASH_SHAPE, "tc"): "tc_gqa6_vlm",
                (ENC_FLASH_SHAPE, "tc"): "tc_d64_noncausal",
+               (TP_RANK_HYBRID_FLASH_SHAPE, "mma"): "mma_tp_rank",
                (FLASH_SHAPES[0], "tc"): "tc_folded",
                (FLASH_SHAPES[1], "tf32"): "tf32_folded",
                (FLASH_SHAPES[1], "simt"): "simt_folded",
@@ -293,20 +302,27 @@ FLASH_TIMED = {(FLASH_GQA_SHAPES[0], "tc"): "tc",
 # 16 chunks of 128 for a 2048-token prompt), then zamba2-7b's p and n at 32
 # heads, zamba2's own prefill shape (112 heads), a tensor-core shape with
 # g = 2, the SSM smoke config's 61-token prefill (ragged_check: 8 chunks of
-# 8), and ragged shapes that only the CUDA-core kernel takes.  Every shape
-# runs on the CUDA-core kernel, and on the tensor-core kernel where
-# ssd_scan.variant names it.
+# 8), ragged shapes that only the CUDA-core kernel takes, and a rank's
+# heads of a Mamba mixer split over "model": zamba2's 28 at tp 4
+# (tp_rank_hybrid's path), mamba2's 8 at tp 4 and zamba2's 7 at tp 16.
+# Every shape runs on the CUDA-core kernel, and on the tensor-core kernel
+# where ssd_scan.variant names it.
 HYBRID_SSD_SHAPE = (16, 128, 112, 64, 1, 64)
+TP_RANK_HYBRID_SSD = (16, 128, 28, 64, 1, 64)
 SSD_SHAPES = [(16, 128, 32, 64, 1, 128), (16, 128, 32, 64, 1, 64),
               HYBRID_SSD_SHAPE, (2, 128, 8, 64, 2, 32), (8, 8, 16, 16, 1, 16),
-              (3, 40, 6, 17, 2, 9), (5, 77, 4, 33, 2, 31)]
+              (3, 40, 6, 17, 2, 9), (5, 77, 4, 33, 2, 31),
+              TP_RANK_HYBRID_SSD, (16, 128, 8, 64, 1, 128),
+              (16, 128, 7, 64, 1, 64)]
 # the (shape, kernel) pairs that phase_ssd times: each kernel at its path's
-# shape (the tensor-core one at mamba2's and at zamba2's), and the CUDA-core
-# kernel, forced, at the tensor-core kernel's first path shape, its time
-# before the tensor-core kernel took that path
+# shape (the tensor-core one at mamba2's, at zamba2's and at zamba2's
+# rank of four), and the CUDA-core kernel, forced, at the tensor-core
+# kernel's first path shape, its time before the tensor-core kernel took
+# that path
 SSD_TIMED = {(SSD_SHAPES[0], "tc"): "tc", (SSD_SHAPES[4], "simt"): "simt",
              (SSD_SHAPES[0], "simt"): "simt_before",
-             (HYBRID_SSD_SHAPE, "tc"): "tc_p64_n64"}
+             (HYBRID_SSD_SHAPE, "tc"): "tc_p64_n64",
+             (TP_RANK_HYBRID_SSD, "tc"): "tc_tp_rank"}
 # the reference tests' tolerances: attention float32 1e-4, bfloat16 3e-2;
 # SSD y and states 2e-4, chunk decay 1e-5 relative / 1e-6 absolute
 FLASH_TOL = {torch.float32: 1e-4, torch.bfloat16: 3e-2}
@@ -430,10 +446,12 @@ SSD_GRAD_SHAPES = [(16, 128, 32, 64, 1, 128),
 # gradient within TRAIN_GRAD_TOL of its largest magnitude (the CPU tests'
 # tolerance for a gradient leaf against the reference)
 TRAIN_CHECK_DEPTH, TRAIN_CHECK_BATCH, TRAIN_CHECK_SEQ = 2, 2, 256
-# the hybrid's: one group and the tail (as its serving cpu_check); the
-# encoder-decoder's one layer and one encoder layer, at a smaller (batch,
-# tokens) so that the CPU's step at its vocabulary (256,206) stays near
-# 15 s, over TRAIN_CHECK_FRAMES frames.  Not internvl2 (cut for the time
+# the hybrid's: one group and the tail (as its serving cpu_check), at B 1
+# since tp_rank_hybrid came (its CPU step at B 2 took 22-24 s of the
+# script; the batch dimension stays held by the other models' checks at
+# B 2); the encoder-decoder's one layer and one encoder layer, at a
+# smaller (batch, tokens) so that the CPU's step at its vocabulary
+# (256,206) stays near 15 s, over TRAIN_CHECK_FRAMES frames.  Not internvl2 (cut for the time
 # budget: its CPU step at depth 1 took 30-40 s of the script).  Without it
 # the card checks neither the vlm loss nor the gradient through the
 # patches: the transformer's train step is held by internlm2's train
@@ -441,7 +459,8 @@ TRAIN_CHECK_DEPTH, TRAIN_CHECK_BATCH, TRAIN_CHECK_SEQ = 2, 2, 256
 # the flash Function's backward at internvl2's train shape by grad_check
 TRAIN_CHECK_DEPTHS = {"zamba2-7b": HYBRID_CHECK_DEPTH,
                       "seamless-m4t-medium": 1}
-TRAIN_CHECK_SIZES = {"seamless-m4t-medium": (1, 256)}
+TRAIN_CHECK_SIZES = {"seamless-m4t-medium": (1, 256),
+                     "zamba2-7b": (1, TRAIN_CHECK_SEQ)}
 TRAIN_CHECK_SKIP = ("internvl2-26b",)
 TRAIN_CHECK_FRAMES = 512
 TRAIN_GRAD_TOL = 1e-4
@@ -474,6 +493,10 @@ SHARDED_DECODE_TIMED = 5
 # device time by kind
 TP_RANK_WAYS, TP_RANK_PROMPT, TP_RANK_STEPS = 4, 2048, 4
 TP_RANK_FLASH = ((1, 2048, 4, 128), (1, 2048, 2, 128))
+# tp_rank_hybrid: zamba2-7b the same way (81 Mamba layers with the mixer on
+# the rank's 28 of 112 heads, the shared block 13 times on 8 of 32 heads):
+# its flash kernel's q and k shapes (its SSD kernel's: TP_RANK_HYBRID_SSD)
+TP_RANK_HYBRID_FLASH = ((1, 2048, 8, 112), (1, 2048, 8, 112))
 
 
 class SmokeFailure(RuntimeError):
@@ -2923,14 +2946,19 @@ def phase_lm_sharded(dev, dense: dict, cfg=None, slots=LM_SLOTS,
 
 def phase_tp_rank(dev, cfg=None, ways=TP_RANK_WAYS, prompt=TP_RANK_PROMPT,
                   slots=LM_SLOTS, max_len=LM_MAX_LEN, steps=TP_RANK_STEPS,
-                  flash_shapes=TP_RANK_FLASH) -> dict:
-    """Rank 0's share of internlm2-1.8b split ``ways`` ways over "model"
-    (``TP_RANK_*``): its local weights, a prefill of ``prompt`` tokens
-    (warmed up once, then timed twice and traced once), ``steps`` decode
-    steps at ``slots`` slots of ``max_len``, the flash kernel's launches
-    and shapes in one prefill, and the phase's peak memory.  The fake
-    group's collectives leave their outputs as allocated, so the values
-    are not the model's and none is checked; the shapes and counts are."""
+                  flash_shapes=TP_RANK_FLASH, ssd_shape=None,
+                  phase="tp_rank") -> dict:
+    """Rank 0's share of a model (internlm2-1.8b by default) split ``ways``
+    ways over "model" (``TP_RANK_*``): its local weights, a prefill of
+    ``prompt`` tokens (warmed up once, then timed twice and traced once),
+    ``steps`` decode steps at ``slots`` slots of ``max_len``, each hand
+    kernel's launches and shapes in one prefill (flash at ``flash_shapes``,
+    SSD at ``ssd_shape`` or nowhere), the split's collectives and weight
+    gathers over "model" (a Mamba mixer's: one gated-norm sum a layer, its
+    sequence-parallel entry and exit, and only the conv's weights
+    gathered), and the phase's peak memory.  The fake group's collectives
+    leave their outputs as allocated, so the values are not the model's
+    and none is checked; the shapes and counts are."""
     from torch.testing._internal.distributed.fake_pg import FakeStore
     t_phase = time.perf_counter()
     cfg = cfg or get_arch("internlm2-1.8b")
@@ -2939,16 +2967,20 @@ def phase_tp_rank(dev, cfg=None, ways=TP_RANK_WAYS, prompt=TP_RANK_PROMPT,
     if dev.type == "cuda":
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats(dev)
-    seen = []
-    flash = ops.flash_attention
+    seen, ssd_seen = [], []
+    flash, ssd = ops.flash_attention, ops.ssd_intra
 
     def spy(q, k, v, **kw):
         seen.append((tuple(q.shape), tuple(k.shape)))
         return flash(q, k, v, **kw)
 
+    def ssd_spy(x, da, B, C):
+        ssd_seen.append(tuple(x.shape) + tuple(B.shape[2:]))
+        return ssd(x, da, B, C)
+
     dist.init_process_group("fake", store=FakeStore(), rank=0,
                             world_size=ways)
-    ops.flash_attention = spy
+    ops.flash_attention, ops.ssd_intra = spy, ssd_spy
     try:
         mesh = make_mesh_compat((1, ways), ("data", "model"), dev.type)
         params = api.init_params(
@@ -2964,12 +2996,15 @@ def phase_tp_rank(dev, cfg=None, ways=TP_RANK_WAYS, prompt=TP_RANK_PROMPT,
         prefill = api.make_prefill(cfg, shape, plan)
         decode = api.make_decode_step(cfg, shape, plan)
         with plan_scope(mesh, plan):
+            mixer = cfg.ssm is not None and ssm.mixer_splits(cfg)
             run_prefill = lambda: prefill(placed, {"tokens": tok})
             run_prefill()
             sync(dev)
             ops.reset_launches()
             seen.clear()
+            ssd_seen.clear()
             partition.reset_tp_collectives()
+            partition.reset_weight_gathers()
             prefill_ms = []
             for _ in range(2):
                 t0 = time.perf_counter()
@@ -2978,9 +3013,13 @@ def phase_tp_rank(dev, cfg=None, ways=TP_RANK_WAYS, prompt=TP_RANK_PROMPT,
                 prefill_ms.append((time.perf_counter() - t0) * 1e3)
             launches = ops.launches()
             tp = partition.tp_collectives()
-            shapes = sorted(set(seen))
-            profile = _device_profile(run_prefill, dev, ["flash_fwd_wgmma"],
-                                      top=8) if dev.type == "cuda" else None
+            gathered = partition.model_gathers()
+            shapes, ssd_shapes = sorted(set(seen)), sorted(set(ssd_seen))
+            kernels = [DEVICE_KERNEL[k] for k in
+                       _prefill_launches(cfg, torch.bfloat16)]
+            profile = _device_profile(run_prefill, dev, kernels, top=8,
+                                      warm=False) \
+                if dev.type == "cuda" else None
             cache = api.init_cache(cfg, slots, max_len, torch.bfloat16, dev)
             toks = torch.zeros((slots,), dtype=torch.int32, device=dev)
             decode_ms = []
@@ -2995,13 +3034,15 @@ def phase_tp_rank(dev, cfg=None, ways=TP_RANK_WAYS, prompt=TP_RANK_PROMPT,
                            for t in tree_leaves(cache)) / 1e9
             del cache
     finally:
-        ops.flash_attention = flash
+        ops.flash_attention, ops.ssd_intra = flash, ssd
         dist.destroy_process_group()
     peak = torch.cuda.max_memory_allocated(dev) / 1e9 \
         if dev.type == "cuda" else None
     per_prefill = {k: n // 2 for k, n in launches.items() if n}
-    row = {"mesh": [1, ways], "rank": 0, "backend": "fake",
-           "values_checked": False,
+    tp_per = {k: n // 2 for k, n in tp.items()}
+    gathered_per = {k: n // 2 for k, n in gathered.items()}
+    row = {"model": cfg.name, "mesh": [1, ways], "rank": 0,
+           "backend": "fake", "values_checked": False,
            "note": "the fake group's collectives move nothing: shapes, "
                    "launches and times only, no value checked",
            "prompt": prompt, "slots": slots, "max_len": max_len,
@@ -3009,19 +3050,33 @@ def phase_tp_rank(dev, cfg=None, ways=TP_RANK_WAYS, prompt=TP_RANK_PROMPT,
            "peak_mem_gb": peak, "prefill_ms": prefill_ms,
            "decode_step_ms": decode_ms[1:], "decode_first_ms": decode_ms[0],
            "launches": per_prefill, "flash_shapes": shapes,
-           "tp_collectives_per_prefill": {k: n // 2 for k, n in tp.items()},
+           "ssd_shapes": ssd_shapes, "mixer_splits": mixer,
+           "tp_collectives_per_prefill": tp_per,
+           "model_gathers_per_prefill": gathered_per,
            "profile_prefill": profile}
     if dev.type == "cuda":
-        kind = "flash_attention_" + variant(torch.bfloat16, cfg.head_dim)
-        check(per_prefill == {kind: cfg.num_layers},
-              f"tp_rank: {per_prefill} launches a prefill, want "
-              f"{cfg.num_layers} {kind}")
+        want = _prefill_launches(cfg, torch.bfloat16)
+        check(per_prefill == want,
+              f"{phase}: {per_prefill} launches a prefill, want {want}")
     check(shapes == [tuple(flash_shapes)],
-          f"tp_rank: flash ran at {shapes}, want {flash_shapes}")
+          f"{phase}: flash ran at {shapes}, want {flash_shapes}")
+    check(ssd_shapes == ([tuple(ssd_shape)] if ssd_shape else []),
+          f"{phase}: SSD ran at {ssd_shapes}, want {ssd_shape}")
     check(tp["g"] > 0 and tp["seq_exit"] > 0,
-          f"tp_rank: the split issued no collectives: {tp}")
+          f"{phase}: the split issued no collectives: {tp}")
+    if cfg.ssm is not None:
+        n = cfg.num_layers
+        check(mixer and tp_per["sum"] == n and tp_per["seq_enter"] >= n
+              and tp_per["seq_exit"] >= n,
+              f"{phase}: the mixer's collectives a prefill {tp_per}, want "
+              f"{n} gated-norm sums and a sequence pair a layer")
+    want = {"conv_w": cfg.num_layers, "conv_b": cfg.num_layers} \
+        if cfg.ssm is not None else {}
+    check(gathered_per == want,
+          f"{phase}: weights gathered over \"model\" a prefill "
+          f"{gathered_per}, want {want}")
     row["seconds"] = time.perf_counter() - t_phase
-    emit("tp_rank", **row)
+    emit(phase, **row)
     if dev.type == "cuda":
         torch.cuda.empty_cache()
     return row
@@ -3424,7 +3479,7 @@ def _kernel_entry(name, source, replaces, launches, row) -> dict:
 def kernels_line(haar_row: dict, knn_rows: dict, flash_rows: dict,
                  ssd_rows: dict, analytic: dict, serving: dict,
                  procpool: dict, lm_dense: dict, lm_sharded: dict,
-                 tp_rank: dict, lm_ssm: dict,
+                 tp_rank: dict, tp_rank_hybrid: dict, lm_ssm: dict,
                  lm_moe: dict, lm_moe_grok: dict, lm_hybrid: dict,
                  lm_vlm: dict, lm_encdec: dict, train: dict) -> dict:
     """Launches of each kernel on its own path: Haar and kNN (all kernels,
@@ -3449,7 +3504,9 @@ def kernels_line(haar_row: dict, knn_rows: dict, flash_rows: dict,
     and seamless-m4t-medium's (the tensor-core flash kernel at d 64, timed
     at its non-causal encoder's shape; its prefills also run the decoder's
     causal self-attention and its cross-attention on the same kernel) as
-    entries of their own.
+    entries of their own; rank 0 of zamba2-7b's four-way split
+    (``tp_rank_hybrid``: the warp-level flash kernel on 8 of 32 heads, the
+    tensor-core SSD on 28 of 112) as two more, timed at those shapes.
     ``train_launches``: the bfloat16 flash kernels (tensor-core at d 128,
     warp-level at MLA's d 192 and zamba2's d 112) and SSD in the train
     phase's steps (forward and remat recompute), the 3xTF32 flash kernel in
@@ -3539,6 +3596,12 @@ def kernels_line(haar_row: dict, knn_rows: dict, flash_rows: dict,
         _kernel_entry("ssd_intra_simt", "ssd_scan.cu", ssd,
                       lm_ssm["ragged_check"]["launches"]["ssd_intra_simt"],
                       ssd_rows["simt"]),
+        _kernel_entry("flash_attention_mma_tp_rank", "flash_attention.cu",
+                      flash, tp_rank_hybrid["launches"]["flash_attention_mma"],
+                      flash_rows["mma_tp_rank"]),
+        _kernel_entry("ssd_intra_tc_tp_rank", "ssd_scan.cu", ssd,
+                      tp_rank_hybrid["launches"]["ssd_intra_tc"],
+                      ssd_rows["tc_tp_rank"]),
     ]}
 
 
@@ -3573,6 +3636,9 @@ def main() -> int:
     lm_dense = phase_lm(dev, "internlm2-1.8b", keep=SHARDED_REQUESTS)
     lm_sharded = phase_lm_sharded(dev, lm_dense)
     tp_rank = phase_tp_rank(dev)
+    tp_rank_hybrid = phase_tp_rank(
+        dev, cfg=get_arch("zamba2-7b"), flash_shapes=TP_RANK_HYBRID_FLASH,
+        ssd_shape=TP_RANK_HYBRID_SSD, phase="tp_rank_hybrid")
     lm_ssm = phase_lm(dev, "mamba2-370m")
     lm_moe = phase_lm(dev, "deepseek-v2-lite-16b")
     grok = get_arch("grok-1-314b")
@@ -3588,7 +3654,8 @@ def main() -> int:
          host_behind=HOST_BEHIND)
     print(json.dumps(kernels_line(haar_row, knn_rows, flash_rows, ssd_rows,
                                   analytic, serving, procpool, lm_dense,
-                                  lm_sharded, tp_rank, lm_ssm, lm_moe,
+                                  lm_sharded, tp_rank, tp_rank_hybrid,
+                                  lm_ssm, lm_moe,
                                   lm_moe_grok, lm_hybrid, lm_vlm, lm_encdec,
                                   train)),
           flush=True)

@@ -51,7 +51,7 @@ from torch.distributed.tensor import zeros as dtensor_zeros
 
 from repro_torch.configs.base import ArchConfig, PlanConfig, ShapeConfig
 from repro_torch.core.tables import resolve_device
-from repro_torch.models import encdec, hybrid, partition, ssm_lm, vlm
+from repro_torch.models import encdec, hybrid, partition, ssm, ssm_lm, vlm
 from repro_torch.models import specs as _specs
 from repro_torch.models import transformer as T
 from repro_torch.models.partition import NamedSharding, P
@@ -122,7 +122,8 @@ def make_prefill(cfg: ArchConfig, shape: ShapeConfig, plan: PlanConfig):
         with torch.no_grad(), env.splitting(entry):
             logits, cache, pos = fn(p, local)
             return (partition.gather_rows(logits),
-                    _cache_layout(cache, b["tokens"].shape[0]),
+                    _cache_layout(cache, b["tokens"].shape[0],
+                                  _heads_leaves(cfg)),
                     partition.gather_rows(pos))
     return prefill
 
@@ -408,21 +409,41 @@ def _split_batch(batch: dict) -> tuple:
     return local, specs["tokens"][0]
 
 
-def _cache_layout(cache, batch: int):
+SSM_STATES = frozenset({"ssm", "ssm_g", "ssm_t"})
+
+
+def _heads_leaves(cfg: ArchConfig) -> frozenset:
+    """The cache leaves that a prefill hands back as this rank's share
+    over "model": the SSM states, on the rank's heads, where the Mamba
+    mixer splits."""
+    split = cfg.ssm is not None and partition.tp_active() \
+        and ssm.mixer_splits(cfg)
+    return SSM_STATES if split else frozenset()
+
+
+def _cache_layout(cache, batch: int, heads=frozenset()):
     """A prefill's cache, this rank's rows whole along the other
-    dimensions, as ``DTensor``s in the layout of ``cache_specs`` for a
-    global batch of ``batch`` rows: each rank keeps its span."""
+    dimensions (the leaves named in ``heads``: still split over "model",
+    as its spec splits them), as ``DTensor``s in the layout of
+    ``cache_specs`` for a global batch of ``batch`` rows: each rank keeps
+    its span."""
     env = partition.ranks_env()
 
     def one(path, t):
-        rule = _specs.CACHE_RULES.get(_leaf_name(path))
+        name = _leaf_name(path)
+        rule = _specs.CACHE_RULES.get(name)
         shape = list(t.shape)
         if rule is not None:
             shape[t.ndim - len(rule)] = batch
+        if name in heads:           # the whole H, of which t holds a share
+            shape[t.ndim - len(rule) + rule.index("tp")] *= \
+                env.axis_size[env.resolve("tp")]
         pl = _cache_sharding(env.mesh, path, shape).placements
         rows = DTensor.from_local(
             t.contiguous(), env.mesh,
-            partition.rows_placements(env.axis_names, pl), run_check=False)
+            partition.rows_placements(env.axis_names, pl,
+                                      keep_tp=name in heads),
+            run_check=False)
         span = rows.redistribute(env.mesh, pl).to_local().contiguous()
         return DTensor.from_local(span, env.mesh, pl, run_check=False)
     return tree_map_with_path(one, cache)

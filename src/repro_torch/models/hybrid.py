@@ -15,15 +15,20 @@ zamba2-7b prefill launches 81 SSD and 13 flash kernels.  With
 backward pass; the tail's are kept, as in the reference.  Decode is plain
 PyTorch and writes every SSM and conv state and the shared block's key and
 value rows into the cache IN PLACE (the reference threads a new cache
-through its loop).  Under a plan scope each Mamba layer's weights are
-gathered whole (the Mamba mixer is not split over "model": every model
-rank computes the whole layer), and the shared block and the group's LoRA
+through its loop).  Under a plan scope each Mamba layer runs as
+``ssm_lm.mamba_block`` (the mixer on the rank's heads where
+``ssm.mixer_splits`` says so), and the shared block and the group's LoRA
 factors are gathered over the ``fsdp`` axes before ``_shared_effective``,
 where the reference gathers them: the LoRA ``b_*`` are split over
 "model" as their weights are and the ``a_*`` replicated, so W + a·b is
 this rank's shard of the effective weight, and the shared block runs on
-the rank's heads and ``d_ff`` columns (``layers``).  The vocabulary is
-split as the transformer's.
+the rank's heads and ``d_ff`` columns (``layers``).  Under
+``sp_boundary`` (where the guard splits S) the residual stream is the
+rank's rows of the sequence throughout, as the reference's Mamba
+boundaries: the Mamba blocks as ``ssm_lm``'s, the shared block's norms
+on the rows and its attention and MLP taking and giving rows
+(``seq_in`` / ``seq_out``).  The vocabulary is split as the
+transformer's.
 """
 from __future__ import annotations
 
@@ -32,7 +37,9 @@ import torch
 from repro_torch.configs.base import ArchConfig, PlanConfig
 from repro_torch.models import layers as L
 from repro_torch.models import partition, ssm
-from repro_torch.models.specs import gather_fsdp, tp_partial_leaves
+from repro_torch.models.specs import (gather_fsdp, gather_mamba,
+                                      tp_partial_leaves)
+from repro_torch.models.ssm_lm import mamba_block
 from repro_torch.models.transformer import (lm_loss_from_hidden,
                                            next_token_targets, padded_vocab)
 from repro_torch.models.util import remat, stack_scan, unstack
@@ -98,12 +105,16 @@ def _shared_effective(shared, lora_i):
             "mlp": mlp}
 
 
-def _shared_block_apply(sp, cfg, x, positions):
+def _shared_block_apply(sp, cfg, x, positions, rows: bool = False):
+    """The shared block on x, or with ``rows`` on the rank's rows of the
+    sequence (each sublayer all-gathers them and gives back rows)."""
     h = L.rms_norm(x, sp["ln1"], cfg.norm_eps)
-    h, cache = L.attention_apply(sp["attn"], cfg, h, positions)
+    h, cache = L.attention_apply(sp["attn"], cfg, h, positions, seq_in=rows,
+                                 seq_out=rows)
     x = x + h
     h = L.rms_norm(x, sp["ln2"], cfg.norm_eps)
-    return x + L.mlp_apply(sp["mlp"], h, cfg.d_ff), cache
+    return x + L.mlp_apply(sp["mlp"], h, cfg.d_ff, seq_in=rows,
+                           seq_out=rows), cache
 
 
 def hybrid_hidden(cfg, plan: PlanConfig, params, embeds, positions,
@@ -112,29 +123,29 @@ def hybrid_hidden(cfg, plan: PlanConfig, params, embeds, positions,
     (G, P, ...), "tail": (T, ...), "kv": each group's (k, v) (G, ...)}, or
     Nones without ``collect_cache``)."""
     shared = params["shared"]
-    partial = tp_partial_leaves(cfg)
+    seq = partition.seq_splits(embeds.shape[1])
+    partial = tp_partial_leaves(cfg, seq_rows=seq)
 
     def mamba_body(x, lp):
-        lp = gather_fsdp(lp, whole=True)
-        h, state = ssm.mamba_apply(lp, cfg,
-                                   L.rms_norm(x, lp["ln"], cfg.norm_eps))
-        return x + h, (state if collect_cache else None)
+        return mamba_block(cfg, x, lp, seq=seq, collect_state=collect_cache)
 
     def group_body(x, inp):
         x, states = stack_scan(mamba_body, x, inp["groups"])
         sp = _shared_effective(gather_fsdp(shared, partial=partial),
                                gather_fsdp(inp["lora"], partial=partial))
-        x, kv = _shared_block_apply(sp, cfg, x, positions)
+        x, kv = _shared_block_apply(sp, cfg, x, positions, rows=seq)
         return x, (states, kv if collect_cache else None)
 
     if plan.remat == "block":
         group_body = remat(group_body)
-    x, ys = stack_scan(group_body, embeds, {"groups": params["groups"],
-                                            "lora": params["lora"]})
+    x = partition.tp_split(embeds, 1) if seq else embeds
+    x, ys = stack_scan(group_body, x, {"groups": params["groups"],
+                                       "lora": params["lora"]})
     g_states, kvs = ys if ys is not None else (None, None)
     t_states = None
     if "tail" in params:
         x, t_states = stack_scan(mamba_body, x, params["tail"])
+    x = partition.tp_gather(x, 1) if seq else x
     x = L.rms_norm(x, gather_fsdp(params["final_norm"]), cfg.norm_eps)
     return x, {"groups": g_states, "tail": t_states, "kv": kvs}
 
@@ -214,13 +225,8 @@ def hybrid_decode_step(cfg: ArchConfig, plan: PlanConfig, params, cache,
     T = _geometry(cfg)[2]
 
     def mamba_step(x, lp, ssm_state, conv_state):
-        lp = gather_fsdp(lp, whole=True)
-        h, (s2, c2) = ssm.mamba_step(
-            lp, cfg, L.rms_norm(x, lp["ln"], cfg.norm_eps),
-            (partition.rows_of(ssm_state), partition.rows_of(conv_state)))
-        partition.store_rows(ssm_state, s2)
-        partition.store_rows(conv_state, c2)
-        return x + h
+        return ssm.mamba_decode_layer(gather_mamba(lp, cfg), cfg, x,
+                                      ssm_state, conv_state)
 
     shared = gather_fsdp(params["shared"])
     for lps, lora_i, states, kv in zip(

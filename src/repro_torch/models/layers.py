@@ -99,10 +99,17 @@ def rms_norm(x, w, eps: float = 1e-5):
     return (out * w.to(torch.float32)).to(x.dtype)
 
 
-def rms_norm_gated(x, z, w, eps: float = 1e-5):
-    """Mamba2 gated norm: rmsnorm(x * silu(z))."""
+def rms_norm_gated(x, z, w, eps: float = 1e-5, width: int = 0):
+    """Mamba2 gated norm: rmsnorm(x * silu(z)).  ``width``: the normalised
+    dimension's whole size where x, z and w hold this rank's columns of it
+    (the heads of a Mamba mixer split over "model"): the squares' sum is
+    summed over the ranks (``partition.tp_sum``) and divided by it."""
     xf = x.to(torch.float32) * F.silu(z.to(torch.float32))
-    var = torch.mean(xf * xf, dim=-1, keepdim=True)
+    if width and width != x.shape[-1]:
+        var = partition.tp_sum(torch.sum(xf * xf, dim=-1, keepdim=True)) \
+            / width
+    else:
+        var = torch.mean(xf * xf, dim=-1, keepdim=True)
     out = xf * torch.rsqrt(var + eps)
     return (out * w.to(torch.float32)).to(x.dtype)
 

@@ -46,18 +46,25 @@ conjugate pairs:
   ``seq_exit``        reduce-scatter on seq forward, all-gather backward
   ``tp_split``        this rank's chunk forward, all-gather backward
   ``tp_gather``       all-gather forward, this rank's chunk backward
+  ``tp_sum``          all-reduce forward, all-reduce backward
 
 (``seq_enter`` is ``tp_gather`` then f, ``seq_exit`` g then ``tp_split``:
 the sequence-parallel forms of f and g.)  g is not
 ``torch.distributed.nn.functional.all_reduce``, whose backward all-reduces
-again and multiplies the gradients by the axis size.  Every helper is the
+again and multiplies the gradients by the axis size.  ``tp_sum`` is that
+all-reduce: a sum inside a region (the Mamba mixer's gated norm sums its
+squares over the ranks' heads) whose consumers are rank-partial, so that
+the gradient each rank hands back is partial too and is summed.  Every helper is the
 identity, and launches and counts nothing, when the plan resolves "tp" to
 no axis or the axis has one rank (``tp_active``); otherwise each call is
-counted by kind (``tp_collectives``), and each ``redistribute`` that a
-weight gather issues by ``weight_gathers``.  A replicated weight used
+counted by kind (``tp_collectives``), each ``redistribute`` that a
+weight gather issues by ``weight_gathers``, and those that gather a leaf
+split over "model" by the leaf's name (``model_gathers``).  A replicated weight used
 inside a region, or on a rank's rows of the sequence, gets a gradient that
 is a partial sum over "model": its gather says so (``gather_leaf``'s
-``partial``).
+``partial``), as does a weight split over "model" that a region gathers
+whole (the Mamba mixer's conv, whose even split does not fall on the
+rank's heads).
 """
 from __future__ import annotations
 
@@ -294,16 +301,20 @@ class _Count:
             setattr(self, n, 0)
 
 
-TP_KINDS = ("f", "g", "seq_enter", "seq_exit", "split", "gather", "max")
+TP_KINDS = ("f", "g", "seq_enter", "seq_exit", "split", "gather", "max",
+            "sum")
 _TP_COUNT = _Count(*TP_KINDS)
 _GATHER_COUNT = _Count("redistributes")
+# leaf name -> redistributes over "model" (``model_gathers``)
+_MODEL_GATHERS: dict = {}
 
 
 def tp_collectives() -> dict:
     """Calls of the tensor-parallel helpers since the last
     ``reset_tp_collectives``, by kind: "f" (``tp_enter``), "g"
     (``tp_exit``), "seq_enter", "seq_exit", "split" (``tp_split``),
-    "gather" (``tp_gather``) and "max" (``tp_max``)."""
+    "gather" (``tp_gather``), "max" (``tp_max``) and "sum"
+    (``tp_sum``)."""
     return counters.read({k: (_TP_COUNT, k) for k in TP_KINDS})
 
 
@@ -317,11 +328,21 @@ def weight_gathers() -> int:
     return _GATHER_COUNT.redistributes
 
 
+def model_gathers() -> dict:
+    """Of those, the ones that gathered a leaf split over "model", by the
+    leaf's name (``gather_leaf``'s ``name``)."""
+    with counters._LOCK:
+        return dict(_MODEL_GATHERS)
+
+
 def reset_weight_gathers() -> None:
     counters.reset([(_GATHER_COUNT, "redistributes")])
+    with counters._LOCK:
+        _MODEL_GATHERS.clear()
 
 
-def gather_leaf(t, *, keep_tp: bool = True, partial: bool = False):
+def gather_leaf(t, *, keep_tp: bool = True, partial: bool = False,
+                name: str = ""):
     """A ``DTensor`` weight as this rank's local tensor for compute: gathered
     over every mesh axis but "model" (the ``fsdp`` axes: the reference's
     ``gather_fsdp``), or over all of them with ``keep_tp=False``; a split
@@ -329,31 +350,39 @@ def gather_leaf(t, *, keep_tp: bool = True, partial: bool = False):
     gathered, so a mesh of size-1 axes issues no ``redistribute``.  The
     local tensor's gradient goes back as a partial sum over the axes that
     split the batch (a reduce-scatter onto ``t``'s shards, or an all-reduce
-    where ``t`` is replicated), as this rank's shard over "model", and,
-    with ``partial``, as a partial sum over "model" where ``t`` is
-    replicated there (a replicated weight used inside a tensor-parallel
-    region or on a rank's rows of the sequence).  A plain tensor passes
-    through."""
+    where ``t`` is replicated), as this rank's shard over "model" where
+    that is kept, and, with ``partial``, as a partial sum over "model"
+    where the local tensor is whole there (a replicated weight used inside
+    a tensor-parallel region or on a rank's rows of the sequence, or a
+    split one gathered whole for such a region: reduce-scattered back onto
+    its shards).  ``name`` (the leaf's) is what ``model_gathers`` counts.
+    A plain tensor passes through."""
     if not isinstance(t, DTensor):
         return t
     env = _env_with_ranks()
     mesh = t.device_mesh
-    tp = env.resolve("tp") if keep_tp else None
+    tp = env.resolve("tp")
     split = entry_axes(env.split)
     target, grads = [], []
-    for name, pl, n in zip(mesh.mesh_dim_names, t.placements, mesh.shape):
+    over_model = False
+    for axis, pl, n in zip(mesh.mesh_dim_names, t.placements, mesh.shape):
         if n == 1:
             target.append(pl)
             grads.append(pl)
-        elif name == tp:
+        elif axis == tp and keep_tp:
             target.append(pl)
             grads.append(pl if isinstance(pl, Shard)
                          else Partial() if partial else Replicate())
         else:
             target.append(Replicate())
-            grads.append(Partial() if name in split else Replicate())
+            over_model |= axis == tp and isinstance(pl, Shard)
+            grads.append(Partial() if axis in split
+                         or (partial and axis == tp) else Replicate())
     if tuple(target) != tuple(t.placements):
         counters.count(_GATHER_COUNT, "redistributes")
+        if over_model:
+            with counters._LOCK:
+                _MODEL_GATHERS[name] = _MODEL_GATHERS.get(name, 0) + 1
         t = t.redistribute(mesh, target)
     return t.to_local(grad_placements=grads)
 
@@ -424,38 +453,48 @@ def mean_over_split(x):
 # cache spans
 # --------------------------------------------------------------------------
 
-def rows_placements(mesh_names, pls) -> list:
-    """Placements ``pls`` with only the DP axes' kept: the layout of this
-    rank's rows, whole along every other dimension."""
-    dp = entry_axes(_env_with_ranks().resolve("dp"))
-    return [pl if name in dp else Replicate()
+def rows_placements(mesh_names, pls, keep_tp: bool = False) -> list:
+    """Placements ``pls`` with only the DP axes' kept (and, with
+    ``keep_tp``, the "model" axis's): the layout of this rank's rows,
+    whole along every other dimension."""
+    env = _env_with_ranks()
+    keep = entry_axes(env.resolve("dp"))
+    if keep_tp:
+        keep = keep + entry_axes(env.resolve("tp"))
+    return [pl if name in keep else Replicate()
             for name, pl in zip(mesh_names, pls)]
 
 
-def _rows_placements(t: DTensor) -> list:
-    return rows_placements(t.device_mesh.mesh_dim_names, t.placements)
+def _rows_placements(t: DTensor, keep_tp: bool) -> list:
+    return rows_placements(t.device_mesh.mesh_dim_names, t.placements,
+                           keep_tp)
 
 
-def rows_of(t):
+def rows_of(t, keep_tp: bool = False):
     """A cache leaf's rows of this rank, whole along the other dimensions
-    (gathered over the axes that split them); a plain tensor itself."""
+    (gathered over the axes that split them), or with ``keep_tp`` still
+    split over "model" (this rank's heads of an SSM state: no gather); a
+    plain tensor itself."""
     if not isinstance(t, DTensor):
         return t
-    return t.redistribute(t.device_mesh, _rows_placements(t)).to_local()
+    pls = _rows_placements(t, keep_tp)
+    if pls == list(t.placements):
+        return t.to_local()
+    return t.redistribute(t.device_mesh, pls).to_local()
 
 
-def store_rows(t, rows):
-    """Write this rank's span of ``rows`` (as ``rows_of`` gives them) into
-    the cache leaf ``t`` IN PLACE; nothing to do where ``rows`` is the
-    leaf's own storage."""
+def store_rows(t, rows, keep_tp: bool = False):
+    """Write this rank's span of ``rows`` (as ``rows_of`` gives them, with
+    the same ``keep_tp``) into the cache leaf ``t`` IN PLACE; nothing to
+    do where ``rows`` is the leaf's own storage."""
     local = t.to_local() if isinstance(t, DTensor) else t
     if local.data_ptr() == rows.data_ptr() and local.shape == rows.shape:
         return
-    if not isinstance(t, DTensor):
-        t.copy_(rows)
+    pls = _rows_placements(t, keep_tp) if isinstance(t, DTensor) else None
+    if pls is None or pls == list(t.placements):
+        local.copy_(rows)
         return
-    span = DTensor.from_local(rows, t.device_mesh, _rows_placements(t),
-                              run_check=False)
+    span = DTensor.from_local(rows, t.device_mesh, pls, run_check=False)
     local.copy_(span.redistribute(t.device_mesh, t.placements).to_local())
 
 
@@ -506,6 +545,20 @@ def tp_splits(n: int) -> bool:
     "model" here: the compute is split and the divisibility guard keeps
     the axis (``spec``)."""
     return tp_active() and spec((n,), ("tp",))[0] is not None
+
+
+def tp_ways(n: int) -> int:
+    """The ranks along "model" that a dimension of ``n`` marked "tp" is
+    split over under the current env, a mesh with ranks or an
+    ``AbstractMesh`` (``spec``'s divisibility guard); 1 outside a scope,
+    where the plan resolves "tp" to no axis, or where the guard keeps the
+    dimension whole."""
+    env = current_env()
+    axis = None if env is None else env.resolve("tp")
+    if axis is None:
+        return 1
+    size = env.axis_size[axis]
+    return size if n % size == 0 else 1
 
 
 def seq_splits(n: int) -> bool:
@@ -570,6 +623,19 @@ class _Exit(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dy):
         return dy, None
+
+
+class _Sum(torch.autograd.Function):
+    """All-reduce forward, all-reduce backward."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return _all_reduce_sum(x, group)
+
+    @staticmethod
+    def backward(ctx, dy):
+        return _all_reduce_sum(dy, ctx.group), None
 
 
 class _SeqEnter(torch.autograd.Function):
@@ -640,6 +706,16 @@ def tp_exit(x):
         return x
     counters.count(_TP_COUNT, "g")
     return _Exit.apply(x, t[0])
+
+
+def tp_sum(x):
+    """The sum over the ranks of a rank-partial ``x`` inside a region,
+    for rank-partial consumers: all-reduced, and its gradient too."""
+    t = _tp_axis()
+    if t is None:
+        return x
+    counters.count(_TP_COUNT, "sum")
+    return _Sum.apply(x, t[0])
 
 
 def seq_enter(x, dim: int = 1):

@@ -10,12 +10,15 @@ as the reference's does: a leaf split over "model" stays this rank's
 shard, and the model code computes on it (its heads, its ``d_ff``
 columns, its experts as ``_expert_rule`` places them, its vocabulary),
 with the collectives of ``models.partition`` where the reference's SPMD
-partitioner puts them.  The Mamba mixer is not split: its layers are
-gathered whole (``whole=True``) and computed on every model rank.
+partitioner puts them.  A Mamba layer's gather is ``gather_mamba``: where
+the mixer splits (``ssm.mixer_splits``) its heads' leaves stay the rank's
+shard and its conv's are gathered whole (their even split does not fall
+on the heads); where it does not, the layer is gathered whole and
+computed on every model rank.
 """
 from __future__ import annotations
 
-from repro_torch.models import partition
+from repro_torch.models import partition, ssm
 from repro_torch.tree import tree_map_with_path
 
 PARAM_RULES = {
@@ -61,19 +64,25 @@ EXPERT_NAMES = {"we1", "we2", "we3"}
 # Keyed by what splits the region: the attention's heads (KV projections
 # and biases that the guard replicates, MLA's latent path, the hybrid
 # shared block's LoRA factors ``a_*`` of split weights), the MLP's d_ff
-# (its LoRA factors), and "seq_rows": the norms that act on the rank's
-# rows of the sequence under ``sp_residual``.
+# (its LoRA factors), the Mamba mixer's heads (B, C and dt projected
+# whole, the rank's heads of the per-head leaves), and "seq_rows": the
+# norms that act on the rank's rows of the sequence (``sp_residual``'s,
+# and a Mamba block's and the hybrid's shared block's under
+# ``sp_boundary``).
 TP_PARTIAL = {
     "heads": frozenset({"wk", "wv", "bk", "bv", "wkv_a", "kv_norm", "a_q",
                         "a_k", "a_v", "b_k", "b_v"}),
     "d_ff": frozenset({"a_1", "a_3"}),
-    "seq_rows": frozenset({"ln1", "ln2"}),
+    "mixer": frozenset({"w_B", "w_C", "w_dt", "A_log", "dt_bias", "Dskip"}),
+    "seq_rows": frozenset({"ln1", "ln2", "ln"}),
 }
 # the other leaves replicated over "model": read outside every split region
-# (the router before the experts' dispatch, the final norms, the Mamba
-# mixer computed whole), so every rank has their whole gradient
-TP_WHOLE = frozenset({"router", "final_norm", "enc_norm", "lnx", "ln",
-                      "w_B", "w_C", "w_dt", "A_log", "dt_bias", "Dskip"})
+# (the router before the experts' dispatch, the final norms), so every rank
+# has their whole gradient
+TP_WHOLE = frozenset({"router", "final_norm", "enc_norm", "lnx"})
+# the Mamba conv's leaves: split over "model" evenly, gathered whole for a
+# split mixer, their gradient partial there
+MIXER_WHOLE = frozenset({"conv_w", "conv_b"})
 
 
 def leaf_name(path) -> str:
@@ -102,14 +111,17 @@ def rule_for(name: str, shape, moe_ep: bool = True):
 
 def tp_partial_leaves(cfg, *, seq_rows: bool = False) -> frozenset:
     """The names of ``TP_PARTIAL`` whose regions are split here (the
-    attention's when its heads are, the MLP's when its d_ff is) and, with
-    ``seq_rows``, the norms on the rank's rows: ``gather_fsdp``'s
-    ``partial``."""
+    attention's when its heads are, the MLP's when its d_ff is, the Mamba
+    mixer's when ``ssm.mixer_splits``) and, with ``seq_rows``, the norms
+    on the rank's rows: ``gather_fsdp``'s ``partial``."""
     names = set(TP_PARTIAL["seq_rows"]) if seq_rows else set()
     if partition.tp_splits(cfg.num_heads):
         names |= TP_PARTIAL["heads"]
     if partition.tp_splits(cfg.d_ff):
         names |= TP_PARTIAL["d_ff"]
+    if cfg.ssm is not None and partition.tp_active() \
+            and ssm.mixer_splits(cfg):
+        names |= TP_PARTIAL["mixer"]
     return frozenset(names)
 
 
@@ -134,4 +146,24 @@ def gather_fsdp(tree, moe_ep: bool = True, *, whole: bool = False,
         return tree
     return tree_map_with_path(
         lambda path, t: partition.gather_leaf(
-            t, keep_tp=not whole, partial=leaf_name(path) in partial), tree)
+            t, keep_tp=not whole, partial=leaf_name(path) in partial,
+            name=leaf_name(path)), tree)
+
+
+def gather_mamba(lp, cfg, *, seq_rows: bool = False):
+    """ONE Mamba layer's weights for compute.  Where the mixer splits
+    (``ssm.mixer_splits``): its heads' leaves as this rank's shard over
+    "model", the conv's (``MIXER_WHOLE``) gathered whole, their gradient
+    and that of the replicated leaves of ``TP_PARTIAL["mixer"]`` partial
+    over "model"; else the whole layer on every rank.  With ``seq_rows``
+    the block's norm acts on the rank's rows of the sequence, and its
+    gradient is partial too.  The identity outside a plan scope."""
+    rows = TP_PARTIAL["seq_rows"] if seq_rows else frozenset()
+    if partition.current_env() is None:
+        return lp
+    if not ssm.mixer_splits(cfg):
+        return gather_fsdp(lp, whole=True, partial=rows)
+    partial = rows | TP_PARTIAL["mixer"] | MIXER_WHOLE
+    return {k: partition.gather_leaf(t, keep_tp=k not in MIXER_WHOLE,
+                                     partial=k in partial, name=k)
+            for k, t in lp.items()}

@@ -9,8 +9,26 @@ bfloat16 model, as in the reference.
 
 ``causal_conv1d`` stays shift-and-add in float32 (the reference's form; a
 float32 ``F.conv1d`` on the card would go through cuDNN in TF32).  Decode
-(``mamba_step``) returns new state tensors; ``ssm_lm.ssm_decode_step``
-copies them into the cache in place.
+(``mamba_step``) returns new state tensors; ``mamba_decode_layer`` copies
+them into the cache in place.
+
+Under a plan scope the mixer is split over "model" as the reference's
+rules place it (``PARAM_RULES``: ``w_z``, ``w_x``, ``ssm_norm`` and
+``out_proj`` by heads; ``CACHE_RULES``: the SSM state by heads), where
+``mixer_splits`` says so.  A rank projects z and x on its heads' columns,
+computes B, C and dt whole from the replicated ``w_B``, ``w_C`` and
+``w_dt`` (taking its heads of dt and of ``dt_bias``, ``A_log`` and
+``Dskip``), and runs the conv on its x channels and every B and C
+channel: ``conv_w``'s rule splits the d_inner + 2·G·N channels evenly,
+which does not fall on the heads, so the conv's weights are gathered
+whole (``specs.gather_mamba``) and the rank takes its channels by range.
+The SSD scan runs on its heads; the gated norm sums its squares over the
+ranks (``layers.rms_norm_gated``, ``partition.tp_sum``); ``out_proj``'s
+rows end in g (or the reduce-scatter to the rank's rows of the
+sequence).  A prefill's conv tail is all-gathered whole; its SSM state
+stays the rank's heads.  A decode step reads and writes the rank's heads
+of the SSM state in place, reads the conv state whole and writes back its
+span.  Where the mixer does not split, every rank computes it whole.
 """
 from __future__ import annotations
 
@@ -21,7 +39,9 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig, SSMConfig
 from repro_torch.kernels import ops
-from repro_torch.models.layers import _dense_init, _ones, rms_norm_gated
+from repro_torch.models import partition
+from repro_torch.models.layers import (_dense_init, _enter, _exit, _ones,
+                                       rms_norm, rms_norm_gated)
 
 
 # --------------------------------------------------------------------------
@@ -170,81 +190,175 @@ def init_mamba_block(gen, cfg: ArchConfig, dtype, device, lead=()):
     }
 
 
-def _split_xbc(xBC, cfg):
+def _dims(cfg: ArchConfig) -> tuple:
+    """(d_inner, heads, G·N) of the mixer."""
     m = cfg.ssm
     di = m.expand * cfg.d_model
-    GN = m.n_groups * m.state_dim
-    return xBC[..., :di], xBC[..., di:di + GN], xBC[..., di + GN:]
+    return di, di // m.head_dim, m.n_groups * m.state_dim
 
 
-def mamba_apply(p, cfg: ArchConfig, x, initial_state=None):
-    """x: (B, S, D).  Returns (out (B,S,D), (ssm_state, conv_tail))."""
+def mixer_splits(cfg: ArchConfig) -> bool:
+    """Whether the Mamba mixer runs on this rank's heads under the current
+    plan scope: "tp" resolves to an axis of more than one rank that the
+    guard keeps on ``d_inner``, the rank's ``d_inner`` columns are whole
+    heads (H % tp == 0), and its heads fall inside whole groups of B and C
+    (or hold whole groups).  Otherwise every rank computes it whole."""
+    m = cfg.ssm
+    di, H, _ = _dims(cfg)
+    n = partition.tp_ways(di)
+    if n == 1 or H % n:
+        return False
+    Hl, hg = H // n, H // m.n_groups
+    return Hl % hg == 0 or hg % Hl == 0
+
+
+def _rank_heads(p, cfg: ArchConfig) -> tuple:
+    """(first head, heads) of this rank: all of them where ``w_x`` is
+    whole."""
+    di, H, _ = _dims(cfg)
+    Hl = H * p["w_x"].shape[-1] // di
+    return partition.tp_rank() * Hl if Hl < H else 0, Hl
+
+
+def _rank_channels(t, cfg: ArchConfig, h0: int, Hl: int):
+    """This rank's conv channels (the last dimension) of ``t``, which has
+    all d_inner + 2·G·N: its heads' x channels and every B and C
+    channel; ``t`` itself where the rank has every head."""
+    di, H, _ = _dims(cfg)
+    if Hl == H:
+        return t
+    hd = cfg.ssm.head_dim
+    return torch.cat([t[..., h0 * hd:(h0 + Hl) * hd], t[..., di:]], dim=-1)
+
+
+def _rank_groups(t, cfg: ArchConfig, h0: int, Hl: int):
+    """The groups of B or C (dimension -2) that this rank's heads read."""
+    G = cfg.ssm.n_groups
+    hg = _dims(cfg)[1] // G
+    if G == 1 or Hl == G * hg:
+        return t
+    return t.narrow(-2, h0 // hg, max(1, Hl // hg))
+
+
+def _heads(t, h0: int, Hl: int):
+    """This rank's heads (the last dimension) of a per-head leaf."""
+    return t if t.shape[-1] == Hl else t[..., h0:h0 + Hl]
+
+
+def mamba_apply(p, cfg: ArchConfig, x, initial_state=None, *,
+                seq: bool = False, state: bool = True):
+    """x: (B, S, D), or with ``seq`` this rank's rows of the sequence (the
+    output then the rank's rows too).  Returns (out, (ssm_state,
+    conv_tail)): the state on this rank's heads, the tail whole; with
+    ``state=False`` (training) None for the pair.  ``initial_state``
+    holds every head and channel."""
     m: SSMConfig = cfg.ssm
-    Bsz, S, D = x.shape
-    di = m.expand * D
-    H = di // m.head_dim
+    di, H, GN = _dims(cfg)
     f32 = torch.float32
+    h0, Hl = _rank_heads(p, cfg)
+    split = Hl < H
+    x = _enter(x, split, seq)
+    Bsz, S, _ = x.shape
     z = torch.einsum("bsd,de->bse", x, p["w_z"])
     xx = torch.einsum("bsd,de->bse", x, p["w_x"])
     xB = torch.einsum("bsd,de->bse", x, p["w_B"])
     xC = torch.einsum("bsd,de->bse", x, p["w_C"])
     xBC = torch.cat([xx, xB, xC], dim=-1)
+    conv_w = _rank_channels(p["conv_w"], cfg, h0, Hl)
+    conv_b = _rank_channels(p["conv_b"], cfg, h0, Hl)
+    if initial_state is not None:
+        prev_conv = _rank_channels(initial_state[1], cfg, h0, Hl)
+        xBC_in = torch.cat([prev_conv, xBC], dim=1)
+        conv = causal_conv1d(xBC_in, conv_w, conv_b)[:, m.conv_width - 1:]
+    else:
+        conv = causal_conv1d(xBC, conv_w, conv_b)
+    conv = F.silu(conv.to(f32)).to(x.dtype)
+    dl = Hl * m.head_dim
+    xs = conv[..., :dl].reshape(Bsz, S, Hl, m.head_dim)
+    Bs = _rank_groups(conv[..., dl:dl + GN].reshape(
+        Bsz, S, m.n_groups, m.state_dim), cfg, h0, Hl)
+    Cs = _rank_groups(conv[..., dl + GN:].reshape(
+        Bsz, S, m.n_groups, m.state_dim), cfg, h0, Hl)
+    dt = F.softplus(torch.einsum("bsd,dh->bsh", x,
+                                 _heads(p["w_dt"], h0, Hl)).to(f32)
+                    + _heads(p["dt_bias"], h0, Hl))
+    A = -torch.exp(_heads(p["A_log"], h0, Hl))
+    ssm_init = None
+    if initial_state is not None:
+        ssm_init = initial_state[0].narrow(1, h0, Hl) if split \
+            else initial_state[0]
+    y, fstate = ssd_chunked(xs, dt, A, Bs, Cs, m.chunk, ssm_init)
+    y = y + _heads(p["Dskip"], h0, Hl)[None, None, :, None] * xs.to(f32)
+    y = y.reshape(Bsz, S, dl).to(x.dtype)
+    y = rms_norm_gated(y, z, p["ssm_norm"], cfg.norm_eps, width=di)
+    out = _exit(torch.einsum("bse,ed->bsd", y, p["out_proj"]), split, seq)
+    if not state:
+        return out, None
     # as the reference: a prompt shorter than conv_width - 1 gives a shorter
     # tail (BatchServer._write_rows pads it at the end)
-    conv_tail = xBC[:, -(m.conv_width - 1):]
-    if initial_state is not None:
-        _, prev_conv = initial_state
-        xBC_in = torch.cat([prev_conv, xBC], dim=1)
-        conv = causal_conv1d(xBC_in, p["conv_w"],
-                             p["conv_b"])[:, m.conv_width - 1:]
-    else:
-        conv = causal_conv1d(xBC, p["conv_w"], p["conv_b"])
-    conv = F.silu(conv.to(f32)).to(x.dtype)
-    xs, Bs, Cs = _split_xbc(conv, cfg)
-    xs = xs.reshape(Bsz, S, H, m.head_dim)
-    Bs = Bs.reshape(Bsz, S, m.n_groups, m.state_dim)
-    Cs = Cs.reshape(Bsz, S, m.n_groups, m.state_dim)
-    dt = F.softplus(torch.einsum("bsd,dh->bsh", x, p["w_dt"]).to(f32)
-                    + p["dt_bias"])
-    A = -torch.exp(p["A_log"])
-    ssm_init = initial_state[0] if initial_state is not None else None
-    y, fstate = ssd_chunked(xs, dt, A, Bs, Cs, m.chunk, ssm_init)
-    y = y + p["Dskip"][None, None, :, None] * xs.to(f32)
-    y = y.reshape(Bsz, S, di).to(x.dtype)
-    y = rms_norm_gated(y, z, p["ssm_norm"], cfg.norm_eps)
-    out = torch.einsum("bse,ed->bsd", y, p["out_proj"])
+    tail = -(m.conv_width - 1)
+    xt = xx[:, tail:]
+    conv_tail = torch.cat([partition.tp_gather(xt, 2) if split else xt,
+                           xB[:, tail:], xC[:, tail:]], dim=-1)
     return out, (fstate, conv_tail)
 
 
 def mamba_step(p, cfg: ArchConfig, x, state):
-    """Single-token decode.  x: (B, D); state = (ssm_state, conv_state).
-    Returns (out (B, D), (new ssm_state, new conv_state))."""
+    """Single-token decode.  x: (B, D); state = (ssm_state on this rank's
+    heads, conv_state with every channel).  Returns (out (B, D), (new
+    ssm_state, new conv_state)), in the same layouts."""
     m: SSMConfig = cfg.ssm
-    Bsz, D = x.shape
-    di = m.expand * D
-    H = di // m.head_dim
+    di, H, GN = _dims(cfg)
     f32 = torch.float32
+    h0, Hl = _rank_heads(p, cfg)
+    split = Hl < H
+    x = _enter(x, split, False)
+    Bsz = x.shape[0]
     ssm_state, conv_state = state
     z = torch.einsum("bd,de->be", x, p["w_z"])
     xx = torch.einsum("bd,de->be", x, p["w_x"])
     xB = torch.einsum("bd,de->be", x, p["w_B"])
     xC = torch.einsum("bd,de->be", x, p["w_C"])
     xBC = torch.cat([xx, xB, xC], dim=-1)
-    conv, conv_state = conv1d_step(conv_state, xBC, p["conv_w"], p["conv_b"])
+    conv, window = conv1d_step(_rank_channels(conv_state, cfg, h0, Hl), xBC,
+                               _rank_channels(p["conv_w"], cfg, h0, Hl),
+                               _rank_channels(p["conv_b"], cfg, h0, Hl))
+    if split:       # the window's new row with every rank's x channels
+        row = torch.cat([partition.tp_gather(xx, 1), xB, xC], dim=-1)
+        window = torch.cat([conv_state, row[:, None]], dim=1)[:, 1:]
     conv = F.silu(conv.to(f32)).to(x.dtype)
-    xs, Bs, Cs = _split_xbc(conv, cfg)
-    xs = xs.reshape(Bsz, H, m.head_dim)
-    Bs = Bs.reshape(Bsz, m.n_groups, m.state_dim)
-    Cs = Cs.reshape(Bsz, m.n_groups, m.state_dim)
-    dt = F.softplus(torch.einsum("bd,dh->bh", x, p["w_dt"]).to(f32)
-                    + p["dt_bias"])
-    A = -torch.exp(p["A_log"])
+    dl = Hl * m.head_dim
+    xs = conv[..., :dl].reshape(Bsz, Hl, m.head_dim)
+    Bs = _rank_groups(conv[..., dl:dl + GN].reshape(
+        Bsz, m.n_groups, m.state_dim), cfg, h0, Hl)
+    Cs = _rank_groups(conv[..., dl + GN:].reshape(
+        Bsz, m.n_groups, m.state_dim), cfg, h0, Hl)
+    dt = F.softplus(torch.einsum("bd,dh->bh", x,
+                                 _heads(p["w_dt"], h0, Hl)).to(f32)
+                    + _heads(p["dt_bias"], h0, Hl))
+    A = -torch.exp(_heads(p["A_log"], h0, Hl))
     ssm_state, y = ssd_step(ssm_state, xs, dt, A, Bs, Cs)
-    y = y + p["Dskip"][None, :, None] * xs.to(f32)
-    y = y.reshape(Bsz, di).to(x.dtype)
-    y = rms_norm_gated(y, z, p["ssm_norm"], cfg.norm_eps)
-    out = torch.einsum("be,ed->bd", y, p["out_proj"])
-    return out, (ssm_state, conv_state)
+    y = y + _heads(p["Dskip"], h0, Hl)[None, :, None] * xs.to(f32)
+    y = y.reshape(Bsz, dl).to(x.dtype)
+    y = rms_norm_gated(y, z, p["ssm_norm"], cfg.norm_eps, width=di)
+    out = _exit(torch.einsum("be,ed->bd", y, p["out_proj"]), split, False)
+    return out, (ssm_state, window)
+
+
+def mamba_decode_layer(lp, cfg: ArchConfig, x, ssm_leaf, conv_leaf):
+    """``x`` plus one Mamba layer's decode of it, with the layer's weights
+    ``lp`` as ``specs.gather_mamba`` gives them and its cache leaves,
+    which are written IN PLACE: the SSM state read and written as this
+    rank's heads where the mixer is split (no gather), the conv state read
+    whole and this rank's span written back."""
+    split = lp["w_x"].shape[-1] < _dims(cfg)[0]
+    h, (s2, c2) = mamba_step(
+        lp, cfg, rms_norm(x, lp["ln"], cfg.norm_eps),
+        (partition.rows_of(ssm_leaf, keep_tp=split),
+         partition.rows_of(conv_leaf)))
+    partition.store_rows(ssm_leaf, s2, keep_tp=split)
+    partition.store_rows(conv_leaf, c2)
+    return x + h
 
 
 def init_mamba_state(cfg: ArchConfig, batch: int, dtype=torch.float32, *,

@@ -6,12 +6,17 @@ training its ``autograd.Function``), with each block's activations
 recomputed in the backward pass when ``plan.remat == "block"``.  Decode is
 plain PyTorch and writes each layer's new SSM and conv state into the cache
 IN PLACE (the reference returns a new cache).  Under a plan scope each
-layer's weights are gathered whole at the top of its body (the Mamba
-mixer is not split over "model": every model rank computes the whole
-layer), and a decode gathers each state's heads (split over "model" by
-``CACHE_RULES``) and writes back the rank's own.  The vocabulary is split
-over "model" as the transformer's: a masked embedding lookup, the
-vocabulary-parallel loss, a global decode argmax.
+layer's weights are gathered at the top of its body
+(``specs.gather_mamba``) and the mixer runs on the rank's heads where
+``ssm.mixer_splits`` says so (``models.ssm``), else whole on every model
+rank; a decode reads and writes the rank's heads of each SSM state in
+place and the conv state's span.  Under ``sp_boundary`` (where the guard
+splits S) the residual stream between blocks is the rank's rows of the
+sequence, as the reference's ``pcon(x, "dp", "sp", None)``: the block's
+norm acts on the rows, the mixer all-gathers them at entry and
+reduce-scatters its output, and the final norm's input is gathered.  The
+vocabulary is split over "model" as the transformer's: a masked embedding
+lookup, the vocabulary-parallel loss, a global decode argmax.
 """
 from __future__ import annotations
 
@@ -20,7 +25,7 @@ import torch
 from repro_torch.configs.base import ArchConfig, PlanConfig
 from repro_torch.models import layers as L
 from repro_torch.models import partition, ssm
-from repro_torch.models.specs import gather_fsdp
+from repro_torch.models.specs import gather_fsdp, gather_mamba
 from repro_torch.models.transformer import (lm_loss_from_hidden,
                                            next_token_targets, padded_vocab)
 from repro_torch.models.util import remat, stack_scan, unstack
@@ -39,17 +44,27 @@ def init_ssm_lm(cfg: ArchConfig, gen, plan: PlanConfig = PlanConfig(), *,
     }
 
 
+def mamba_block(cfg: ArchConfig, x, lp, *, seq: bool, collect_state: bool):
+    """One Mamba block on the residual ``x`` (the rank's rows of the
+    sequence with ``seq``): (x + mixer(norm(x)), its state or None)."""
+    lp = gather_mamba(lp, cfg, seq_rows=seq)
+    h, state = ssm.mamba_apply(lp, cfg, L.rms_norm(x, lp["ln"], cfg.norm_eps),
+                               seq=seq, state=collect_state)
+    return x + h, state
+
+
 def ssm_hidden(cfg: ArchConfig, plan: PlanConfig, params, embeds,
                collect_state=False):
+    seq = partition.seq_splits(embeds.shape[1])
+
     def body(x, lp):
-        lp = gather_fsdp(lp, whole=True)
-        h, state = ssm.mamba_apply(lp, cfg,
-                                   L.rms_norm(x, lp["ln"], cfg.norm_eps))
-        return x + h, (state if collect_state else None)
+        return mamba_block(cfg, x, lp, seq=seq, collect_state=collect_state)
 
     if plan.remat == "block":
         body = remat(body)
-    x, states = stack_scan(body, embeds, params["blocks"])
+    x = partition.tp_split(embeds, 1) if seq else embeds
+    x, states = stack_scan(body, x, params["blocks"])
+    x = partition.tp_gather(x, 1) if seq else x
     return (L.rms_norm(x, gather_fsdp(params["final_norm"]), cfg.norm_eps),
             states)
 
@@ -99,14 +114,8 @@ def ssm_decode_step(cfg: ArchConfig, plan: PlanConfig, params, cache, tokens,
     is updated in place."""
     x = _embed(params, tokens)
     for lp, c in zip(unstack(params["blocks"]), unstack(cache)):
-        lp = gather_fsdp(lp, whole=True)
-        s_i, c_i = c["ssm"], c["conv"]
-        h, (s2, c2) = ssm.mamba_step(
-            lp, cfg, L.rms_norm(x, lp["ln"], cfg.norm_eps),
-            (partition.rows_of(s_i), partition.rows_of(c_i)))
-        partition.store_rows(s_i, s2)
-        partition.store_rows(c_i, c2)
-        x = x + h
+        x = ssm.mamba_decode_layer(gather_mamba(lp, cfg), cfg, x, c["ssm"],
+                                   c["conv"])
     x = L.rms_norm(x, gather_fsdp(params["final_norm"]), cfg.norm_eps)
     return L.greedy(x, gather_fsdp(params["emb"]),
                     params["emb"].shape[0]), cache

@@ -20,6 +20,7 @@ import torch.distributed as dist
 CP_TOL = dict(rtol=1e-5, atol=5e-6)          # the reference's CP test
 LOSS_RTOL = 1e-4
 MASTER_TOL = dict(rtol=2e-3, atol=2e-4)      # the reference's sharded step
+GRAD_TOL = 1e-4      # the port's gradient leaf against the reference's
 LR = 1e-3
 
 
@@ -63,6 +64,32 @@ def assert_trees_close(got, want, what, flip=None, **tol):
         off = diff > tol["atol"] + tol["rtol"] * np.abs(b)
         assert off.mean() <= 1e-3, (what, k, off.mean())
         assert diff.max() <= flip + tol["atol"], (what, k, diff.max())
+
+
+def assert_steps_close(got, want, what):
+    """Two states after one AdamW step from one state: each leaf's
+    gradient (its first moment m = (1 - b1) g) within ``GRAD_TOL`` of the
+    reference leaf's largest |m|, and each master within ``MASTER_TOL``
+    but where the reference's gradient is within that gradient tolerance
+    of zero.  There the comparison cannot tell its sign, and Adam's first
+    step, g / (|g| + eps), is up to lr of whichever sign the float32 sums
+    gave it: within 2 lr.  (zamba2 smoke's sharded step has one such
+    ``out_proj`` element, whose gradient takes the other sign on the
+    meshes.)"""
+    gm, wm = flat_full(got["opt"]["m"]), flat_full(want["opt"]["m"])
+    ga, wa = flat_full(got["master"]), flat_full(want["master"])
+    assert sorted(gm) == sorted(wm) == sorted(ga) == sorted(wa), what
+    for k in wm:
+        g, w = gm[k].float().numpy(), wm[k].float().numpy()
+        scale = np.abs(w).max()
+        err = np.abs(g - w).max()
+        assert err <= GRAD_TOL * scale, (what, k, "gradient", err, scale)
+        a, b = ga[k].float().numpy(), wa[k].float().numpy()
+        diff = np.abs(a - b)
+        off = diff > MASTER_TOL["atol"] + MASTER_TOL["rtol"] * np.abs(b)
+        free = np.abs(w) <= GRAD_TOL * scale
+        assert not (off & ~free).any(), (what, k, diff[off & ~free].max())
+        assert diff.max() <= 2 * LR + MASTER_TOL["atol"], (what, k)
 
 
 def fill_pattern(shape):
@@ -246,10 +273,13 @@ def split_vocabulary(mesh):
     assert torch.equal(got, want), (got, want)
 
 
-def _train_step_check(mesh, name, plan, inp, prefix, batch):
+def _train_step_check(mesh, name, plan, inp, prefix, batch,
+                      moments=False):
     """One sharded train step from the state ``<prefix>state/...`` of
     ``inp`` against the port's single-device step and, where ``inp`` has
-    them, the JAX package's loss and masters.  Returns the sharded
+    them, the JAX package's loss and masters; with ``moments``, its
+    gradients and masters by ``assert_steps_close`` (``inp`` then has the
+    JAX package's moments, ``<prefix>jax_m/...``).  Returns the sharded
     state."""
     from repro_torch.configs import get_arch
     from repro_torch.convert import train_state_from_numpy
@@ -268,8 +298,11 @@ def _train_step_check(mesh, name, plan, inp, prefix, batch):
             api.distribute(state, sh), batch)
     l1, l2 = float(m1["loss"]), float(m2["loss"])
     np.testing.assert_allclose(l2, l1, rtol=LOSS_RTOL, err_msg=prefix)
-    assert_trees_close(s2["master"], s1["master"], f"{prefix} vs one device",
-                       **MASTER_TOL)
+    if moments:
+        assert_steps_close(s2, s1, f"{prefix} vs one device")
+    else:
+        assert_trees_close(s2["master"], s1["master"],
+                           f"{prefix} vs one device", **MASTER_TOL)
     for k in ("grad_norm", "lr"):
         np.testing.assert_allclose(float(m2[k]), float(m1[k]), rtol=1e-5,
                                    err_msg=prefix + k)
@@ -279,6 +312,13 @@ def _train_step_check(mesh, name, plan, inp, prefix, batch):
         want = {k[len(prefix + "jax_master/"):]: torch.from_numpy(v)
                 for k, v in inp.items()
                 if k.startswith(prefix + "jax_master/")}
+        if moments:
+            m = {k[len(prefix + "jax_m/"):]: torch.from_numpy(v)
+                 for k, v in inp.items() if k.startswith(prefix + "jax_m/")}
+            assert_steps_close(s2, {"master": nest(want),
+                                    "opt": {"m": nest(m)}},
+                               f"{prefix} vs jax")
+            return s2, sh
         flip = 2 * LR if plan.grad_compression == "int8_ef" else None
         assert_trees_close(s2["master"], nest(want), f"{prefix} vs jax",
                            flip=flip, **MASTER_TOL)
@@ -318,7 +358,8 @@ def elastic_checkpoint(state, work):
 
 def scenario_dense(work):
     """8 ranks, (2, 4): placement order, the split's shapes, gathers and
-    collectives, the split vocabulary, CP decode (internlm2, zamba2),
+    collectives, the split vocabulary, the Mamba mixer split four ways
+    (``mixer_split``: mamba2, zamba2), CP decode (internlm2, zamba2),
     internlm2's sharded train step (sp_boundary, sp_residual, neither;
     int8_ef under block remat) against one device and the JAX package,
     an elastic checkpoint."""
@@ -328,6 +369,7 @@ def scenario_dense(work):
     placement_order(mesh)
     split_work(mesh)
     split_vocabulary(mesh)
+    _mixer_scenarios(mesh, work)
     for name in ("internlm2-1.8b", "zamba2-7b"):
         cp_decode(mesh, name)
     inp = dict(np.load(os.path.join(work, "inputs.npz")))
@@ -400,6 +442,54 @@ def scenario_moe(work):
     assert ep["gather"] - ff["gather"] == moe_layers, counts
     assert ff["f"] - ep["f"] == 2 * moe_layers, counts
     assert ff["g"] - ep["g"] == moe_layers, counts
+
+
+MIXER_NAMES = ("mamba2-370m", "zamba2-7b")
+
+
+def _mixer_counts(what, cfg, n, gathers):
+    """A split mixer's collectives: one gated-norm sum a Mamba layer (every
+    layer of mamba2 and of zamba2's backbone), its entry and exit (f and
+    g, or the sequence pair), and of its weights only the conv's gathered
+    over "model", once a layer."""
+    layers = cfg.num_layers
+    assert n["sum"] == layers, (what, n)
+    assert n["f"] + n["seq_enter"] >= layers, (what, n)
+    assert n["g"] + n["seq_exit"] >= layers, (what, n)
+    assert gathers == {"conv_w": layers, "conv_b": layers}, (what, gathers)
+
+
+def mixer_split(mesh, name, inp, plan, batch):
+    """A Mamba mixer split over "model" (the smoke configs' 16 heads over
+    the mesh's "model" ranks; their 288 conv channels split evenly off
+    the heads): the decision says so, and one sharded train step (under
+    ``plan``: the default ``sp_boundary``, S 16 on the rank's rows) equals
+    the single-device step and the JAX package's, with one gated-norm sum
+    a Mamba layer and no gather over "model" of a weight but the conv's;
+    one decode step equals the unsharded one, with the same counts."""
+    from repro_torch.configs import get_arch
+    from repro_torch.convert import train_state_from_numpy
+    from repro_torch.models import partition, ssm
+    from repro_torch.models.partition import plan_scope
+    cfg = get_arch(name).smoke()
+    tp = mesh.shape[mesh.mesh_dim_names.index("model")]
+    with plan_scope(mesh, plan):
+        assert ssm.mixer_splits(cfg), (name, tp)
+        assert partition.seq_splits(batch["tokens"].shape[1]), name
+    pre = name + " "
+    partition.reset_tp_collectives()
+    partition.reset_weight_gathers()
+    _train_step_check(mesh, name, plan, inp, pre, batch, moments=True)
+    _mixer_counts(pre + "train", cfg, partition.tp_collectives(),
+                  partition.model_gathers())
+    state = train_state_from_numpy(nest(
+        {k[len(pre + "state/"):]: v for k, v in inp.items()
+         if k.startswith(pre + "state/")}), "cpu")
+    partition.reset_tp_collectives()
+    partition.reset_weight_gathers()
+    _decode_check(mesh, cfg, plan, state["master"], name)
+    _mixer_counts(pre + "decode", cfg, partition.tp_collectives(),
+                  partition.model_gathers())
 
 
 def _decode_check(mesh, cfg, plan, params, what):
@@ -482,13 +572,35 @@ def batch_server_on_a_mesh(mesh_split):
     over "model", CP decode across the 4 ranks) and on a (2, 2) mesh that
     splits its slots over the data ranks (each rank copies the rows of the
     requests in its slots, and decodes them) gives the unsharded server's
-    tokens."""
-    from repro_torch.configs import PlanConfig, ShapeConfig, get_arch
+    tokens; so does zamba2 smoke on the (1, 4) mesh, its Mamba mixer split
+    four ways (the SSM states on the rank's heads, the conv states' spans
+    off the heads, the shared block's KV cache split on seq; the 16-token
+    prompt's prefill on the rank's rows of the sequence)."""
     from repro_torch.launch.mesh import make_mesh_compat
+    from repro_torch.models import partition
+    mesh = make_mesh_compat((1, 4), ("data", "model"), "cpu")
+    serve, want = _server("internlm2-1.8b", (9, 3, 14))
+    got = serve(mesh)
+    assert got == want, (got, want)
+    got = serve(mesh_split, slots_split=True)
+    assert got == want, (got, want)
+    serve, want = _server("zamba2-7b", (9, 3, 16))
+    partition.reset_tp_collectives()
+    got = serve(mesh)
+    assert got == want, (got, want)
+    n = partition.tp_collectives()
+    assert n["sum"] > 0 and n["seq_exit"] > 0, n
+
+
+def _server(name, lengths):
+    """(serve(mesh) -> each request's tokens from a ``BatchServer`` on the
+    mesh, the unsharded server's tokens) for ``name``'s smoke config and
+    prompts of ``lengths`` tokens, 5 new tokens each, 2 slots of 32."""
+    from repro_torch.configs import PlanConfig, ShapeConfig, get_arch
     from repro_torch.models import api, layers
     from repro_torch.models.partition import plan_scope
     from repro_torch.runtime import BatchServer, Request
-    cfg = get_arch("internlm2-1.8b").smoke()
+    cfg = get_arch(name).smoke()
     plan = PlanConfig(param_dtype="float32", compute_dtype="float32",
                       remat="none", decode_cp=True)
     shape = ShapeConfig("serve", "decode", 32, 2)
@@ -496,7 +608,7 @@ def batch_server_on_a_mesh(mesh_split):
                              "cpu")
     rng = np.random.default_rng(5)
     prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
-               for n in (9, 3, 14)]
+               for n in lengths]
 
     def serve(p):
         prefill = api.make_prefill(cfg, shape, plan)
@@ -509,47 +621,83 @@ def batch_server_on_a_mesh(mesh_split):
         srv.run(reqs)
         return [r.out_tokens for r in reqs]
 
-    want = serve(params)
-    mesh = make_mesh_compat((1, 4), ("data", "model"), "cpu")
+    def on(mesh, slots_split=False):
+        with plan_scope(mesh, plan):
+            placed = api.distribute(params, api.to_shardings(
+                mesh, api.param_specs(cfg, plan, params)))
+            if slots_split:
+                cache = api.init_cache(cfg, 2, 32, torch.float32, "cpu")
+                assert cache["main"]["k"].to_local().shape[1] == 1
+            else:
+                layers.reset_cp_combines()
+            got = serve(placed)
+            if not slots_split:
+                assert layers.cp_combines() > 0
+        return got
+
+    return on, serve(params)
+
+
+def _mixer_scenarios(mesh, work):
+    """``mixer_split`` of mamba2 and zamba2 smoke (the test's JAX steps in
+    ``inputs.npz``: zamba2's LoRA factors ``b_*`` seeded, as the init's
+    are zero, which would leave the ``a_*`` without a gradient)."""
+    from repro_torch.configs import PlanConfig
+    inp = dict(np.load(os.path.join(work, "inputs.npz")))
+    plan = PlanConfig(param_dtype="float32", compute_dtype="float32",
+                      master_dtype="float32", loss_chunk=8, remat="none")
+    for name in MIXER_NAMES:
+        batch = {"tokens": torch.from_numpy(inp[name + " tokens"])}
+        mixer_split(mesh, name, inp, plan, batch)
+    mixer_groups(mesh, plan)
+
+
+def mixer_groups(mesh, plan):
+    """mamba2 smoke with 2 groups of B and C (8 heads each): on 2 "model"
+    ranks each holds one whole group, on 4 its heads fall inside one
+    group.  A prefill (logits and cache) and a decode step on the mesh
+    equal the single device's."""
+    import dataclasses
+    from repro_torch.configs import ShapeConfig, get_arch
+    from repro_torch.models import api, ssm
+    from repro_torch.models.partition import plan_scope
+    base = get_arch("mamba2-370m").smoke()
+    cfg = dataclasses.replace(base, ssm=dataclasses.replace(base.ssm,
+                                                            n_groups=2))
+    params = api.init_params(cfg, torch.Generator().manual_seed(7), plan,
+                             "cpu")
+    tokens = torch.randint(0, cfg.vocab_size, (4, 16), dtype=torch.int32,
+                           generator=torch.Generator().manual_seed(7))
+    shape = ShapeConfig("p", "prefill", 16, 4)
+    want = api.make_prefill(cfg, shape, plan)(params, {"tokens": tokens})
     with plan_scope(mesh, plan):
-        placed = api.distribute(params, api.to_shardings(
+        assert ssm.mixer_splits(cfg)
+        sp = api.distribute(params, api.to_shardings(
             mesh, api.param_specs(cfg, plan, params)))
-        layers.reset_cp_combines()
-        got = serve(placed)
-        assert layers.cp_combines() > 0
-    assert got == want, (got, want)
-    with plan_scope(mesh_split, plan):
-        placed = api.distribute(params, api.to_shardings(
-            mesh_split, api.param_specs(cfg, plan, params)))
-        cache = api.init_cache(cfg, 2, 32, torch.float32, "cpu")
-        assert cache["main"]["k"].to_local().shape[1] == 1
-        got = serve(placed)
-    assert got == want, (got, want)
+        got = api.make_prefill(cfg, shape, plan)(sp, {"tokens": tokens})
+    np.testing.assert_allclose(got[0].numpy(), want[0].numpy(), **CP_TOL)
+    assert_trees_close(got[1], want[1], "groups prefill cache", **CP_TOL)
+    _decode_check(mesh, cfg, plan, params, "groups")
 
 
 def scenario_families(work):
-    """4 ranks, (2, 2): mamba2 (SSM), seamless (encdec), internvl2 (vlm)
-    and zamba2 (hybrid, its LoRA factors ``b_*`` seeded: the init's are
-    zero, which would leave the ``a_*`` without a gradient) smoke, one
-    sharded train step and one decode step each against one device;
+    """4 ranks, (2, 2): mamba2 (SSM) and zamba2 (hybrid) with the mixer
+    split (``mixer_split``), seamless (encdec) and internvl2 (vlm) smoke,
+    one sharded train step and one decode step each against one device;
     restarts onto the mesh."""
     from repro_torch.configs import PlanConfig, get_arch
     from repro_torch.launch.mesh import make_mesh_compat
     from repro_torch.models import api
     from repro_torch.optim import AdamW
     mesh = make_mesh_compat((2, 2), ("data", "model"), "cpu")
+    _mixer_scenarios(mesh, work)
     plan = PlanConfig(param_dtype="float32", compute_dtype="float32",
                       master_dtype="float32", loss_chunk=8, remat="none")
-    for seed, name in enumerate(("mamba2-370m", "seamless-m4t-medium",
-                                 "internvl2-26b", "zamba2-7b")):
+    for seed, name in ((1, "seamless-m4t-medium"), (2, "internvl2-26b")):
         cfg = get_arch(name).smoke()
         state = api.init_train_state(cfg, plan,
                                      torch.Generator().manual_seed(seed),
                                      AdamW(LR), "cpu")
-        gen = torch.Generator().manual_seed(30 + seed)
-        for k, b in state["master"].get("lora", {}).items():
-            if k.startswith("b_"):
-                b.copy_(0.1 * torch.randn(b.shape, generator=gen))
         batch = {"tokens": torch.randint(
             0, cfg.vocab_size, (4, 16), dtype=torch.int32,
             generator=torch.Generator().manual_seed(10 + seed)),

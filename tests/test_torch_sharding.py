@@ -201,7 +201,7 @@ def test_tp_helpers_are_the_identity_without_a_split():
     of the split returns its input and counts nothing."""
     x = torch.arange(24.0).reshape(2, 4, 3)
     helpers = (tpart.tp_enter, tpart.tp_exit, tpart.seq_enter,
-               tpart.seq_exit, tpart.tp_max,
+               tpart.seq_exit, tpart.tp_max, tpart.tp_sum,
                lambda t: tpart.tp_split(t, 1), lambda t: tpart.tp_gather(t, 1))
     tpart.reset_tp_collectives()
     for scope in (None, tpart.AbstractMesh(("data", "model"), (2, 4))):
@@ -211,6 +211,39 @@ def test_tp_helpers_are_the_identity_without_a_split():
             for fn in helpers:
                 assert fn(x) is x
     assert not any(tpart.tp_collectives().values())
+
+
+@pytest.mark.parametrize("d_model, groups, sizes, plan, want", [
+    (128, 1, (2, 4), {}, True),          # smoke: H 16 over 4
+    (128, 1, (2, 2), {}, True),
+    (128, 1, (4, 16), {}, True),         # H 16 over 16: one head a rank
+    (120, 1, (2, 4), {}, False),         # H 15 over 4: not whole heads
+    (128, 1, (8, 1), {}, False),         # "model" of one rank
+    (128, 1, (2, 4), {"tp": False}, False),
+    (128, 2, (2, 4), {}, True),          # 4 heads inside a group of 8
+    (128, 4, (2, 2), {}, True),          # 8 heads: two whole groups
+    (96, 3, (2, 2), {}, False),          # H 12: 6 heads over groups of 4
+])
+def test_the_mixer_splits_on_whole_heads(d_model, groups, sizes, plan, want):
+    """``ssm.mixer_splits`` under an ``AbstractMesh`` (no ranks): the
+    mixer runs on the rank's heads where "tp" splits d_inner into whole
+    heads that fall inside whole groups of B and C (or hold whole
+    groups); d_model 120 gives d_inner 240, which 4 divides, but 15 heads,
+    which it does not, so the layer is computed whole.  Every SSM config
+    splits on both production meshes."""
+    import dataclasses
+    from repro_torch.models import ssm as tssm
+    smoke = tget("zamba2-7b").smoke()
+    cfg = dataclasses.replace(smoke, d_model=d_model, ssm=dataclasses.replace(
+        smoke.ssm, n_groups=groups))
+    mesh = tpart.AbstractMesh(("data", "model"), sizes)
+    with tpart.plan_scope(mesh, TPlan(**plan)):
+        assert tssm.mixer_splits(cfg) is want
+    for name in ("mamba2-370m", "zamba2-7b"):
+        for names, mesh_sizes in MESHES.values():
+            with tpart.plan_scope(tpart.AbstractMesh(names, mesh_sizes),
+                                  TPlan()):
+                assert tssm.mixer_splits(tget(name))
 
 
 @pytest.mark.parametrize("H, KV, Hl, rank, want", [
@@ -317,13 +350,51 @@ def _flat_np(tree, prefix) -> dict:
         jax.tree.map(np.asarray, tree)).items()}
 
 
+@functools.lru_cache(maxsize=None)
+def _mixer_inputs() -> dict:
+    """The JAX package's state before and after one single-device train
+    step of mamba2 and zamba2 smoke (zamba2's LoRA factors ``b_*`` seeded
+    N(0, 0.1²): the init's are zero), its first moments, its loss and its
+    (4, 16) tokens, keyed "<name> ..." for the ranks' ``mixer_split``."""
+    plan = PlanConfig(param_dtype="float32", compute_dtype="float32",
+                      master_dtype="float32", loss_chunk=8, remat="none")
+    out = {}
+    for seed, name in enumerate(("mamba2-370m", "zamba2-7b")):
+        cfg = ARCHS[name].smoke()
+        opt = JAdamW(learning_rate=1e-3)
+        state = japi.init_train_state(cfg, plan, jax.random.PRNGKey(seed),
+                                      opt)
+        if "lora" in state["master"]:
+            rng = np.random.default_rng(30 + seed)
+            lora = {k: (jnp.asarray(0.1 * rng.standard_normal(v.shape),
+                                    v.dtype) if k.startswith("b_") else v)
+                    for k, v in state["master"]["lora"].items()}
+            state = dict(state, master=dict(state["master"], lora=lora))
+        tokens = np.random.default_rng(10 + seed).integers(
+            0, cfg.vocab_size, (4, 16)).astype(np.int32)
+        s1, m1 = jax.jit(japi.make_train_step(cfg, plan, opt))(
+            state, {"tokens": jnp.asarray(tokens)})
+        pre = name + " "
+        out.update(_flat_np(state, pre + "state/"))
+        out.update(_flat_np(s1["master"], pre + "jax_master/"))
+        out.update(_flat_np(s1["opt"]["m"], pre + "jax_m/"))
+        out[pre + "jax_loss"] = np.float32(m1["loss"])
+        out[pre + "tokens"] = tokens
+    return out
+
+
 def test_dense_sharding_on_8_gloo_ranks(tmp_path):
     """Mesh (2, 4) ("data", "model"), the compute split over "model":
     placement order; a layer's gather keeps its "model" shards (the
     rank's query head and d_ff columns) and its prefill and decode end
     each block in two g or reduce-scatters; the vocabulary's lookup is
     the whole one bit for bit and its argmax breaks a tie across ranks to
-    the lower index; CP decode equals naive decode (internlm2 and zamba2
+    the lower index; the Mamba mixer of mamba2 and zamba2 smoke split four
+    ways (4 of 16 heads a rank, the conv's 288 channels split off the
+    heads), its sharded train step equal to the single-device step and
+    the JAX package's and its decode step to the unsharded one, with one
+    gated-norm all-reduce a Mamba layer and no weight but the conv's
+    gathered over "model"; CP decode equals naive decode (internlm2 and zamba2
     smoke); internlm2 smoke's sharded train step equals the port's
     single-device step and the JAX package's, under sp_boundary (the
     default), sp_residual, neither, and int8_ef (with block remat); a
@@ -343,6 +414,7 @@ def test_dense_sharding_on_8_gloo_ranks(tmp_path):
         inp.update(_flat_np(state, prefix + "state/"))
         inp.update(_flat_np(s1["master"], prefix + "jax_master/"))
         inp[prefix + "jax_loss"] = np.float32(loss)
+    inp.update(_mixer_inputs())
     np.savez(tmp_path / "inputs.npz", **inp)
     _run_ranks("dense", tmp_path)
     saved = dict(np.load(tmp_path / "saved.npz"))
@@ -365,14 +437,18 @@ def test_moe_sharding_on_4_gloo_ranks(tmp_path):
 
 
 def test_other_families_on_4_gloo_ranks(tmp_path):
-    """Mesh (2, 2): mamba2 (SSM: states split over "model" by head),
-    seamless (encdec: frames split with the batch, the encoder cache's
-    spans gathered) and internvl2 (vlm: patches split with the batch)
-    smoke, one sharded train step and one decode step each against the
-    single-device ones; ``Trainer.run_with_restarts`` with a failure
-    injected, restoring onto the mesh by ``shardings``, against an
+    """Mesh (2, 2): mamba2 (SSM) and zamba2 (hybrid) smoke with the Mamba
+    mixer split two ways (8 of 16 heads a rank, states split over "model"
+    by head), their sharded train step equal to the single-device step
+    and the JAX package's, their decode step to the unsharded one, with
+    the mixer's counts; seamless (encdec: frames split with the batch,
+    the encoder cache's spans gathered) and internvl2 (vlm: patches split
+    with the batch) smoke, one sharded train step and one decode step each
+    against the single-device ones; ``Trainer.run_with_restarts`` with a
+    failure injected, restoring onto the mesh by ``shardings``, against an
     uninterrupted run (sharded saves: rank 0 writes whole leaves); and
-    ``BatchServer`` on a (1, 4) mesh under ``decode_cp`` and on the (2, 2)
-    mesh, which splits its slots, against the unsharded server's
-    tokens."""
+    ``BatchServer`` on a (1, 4) mesh under ``decode_cp`` (internlm2, and
+    zamba2 with its mixer split four ways) and on the (2, 2) mesh, which
+    splits its slots, against the unsharded server's tokens."""
+    np.savez(tmp_path / "inputs.npz", **_mixer_inputs())
     _run_ranks("families", tmp_path)
