@@ -7,7 +7,7 @@ replay), the same analytic served by ``QueryServer`` over a resilient
 session with the 64 test patients as one batch (cold race, throughput,
 shedding, failover, tracing, warm restart), the process pool on the same
 state (``procpool``: a master in a fresh process that never initializes
-CUDA drives pools of 1, 2 and 4 workers on the card, the analytic's front
+CUDA drives pools of 1 and 4 workers on the card, the analytic's front
 half over 4 row-range shards, an append through a pool and a worker
 killed mid-request; streaming views patched after appends in this
 process), then LM serving
@@ -29,7 +29,11 @@ mesh over torch's fake process group, whose collectives move nothing: a
 2048-token prefill on its 4 query heads and 2 KV heads, and 4 decode
 steps, timed, no value checked) and of zamba2-7b (``tp_rank_hybrid``: the
 Mamba mixer on 28 of 112 heads in each of 81 layers, the shared block on
-8 of 32), and last LM training of internlm2, mamba2 (at depth 24), deepseek (at
+8 of 32), the dry run of codeqwen1.5-7b at train_4k (``dryrun``:
+``launch.dryrun.run_cell`` as rank 0 of the production (16, 16) mesh over
+the fake group: one full-depth train step on the card, its peak memory
+against the card's, the cost probes and the roofline), and last LM
+training of internlm2, mamba2 (at depth 24), deepseek (at
 depth 3), zamba2 (at depth 13), internvl2 (at depth 2) and seamless
 (``train``: the
 kernels' gradients against the plain versions, a
@@ -98,6 +102,7 @@ from repro_torch.ckpt import CheckpointManager  # noqa: E402
 from repro_torch.data import (ShardedLoader, TokenStream,  # noqa: E402
                               ecg_waveforms)
 from repro_torch.kernels import _build, ops  # noqa: E402
+from repro_torch.kernels.work import flash_work, ssd_work  # noqa: E402
 from repro_torch.kernels.haar import haar_cuda, haar_ref  # noqa: E402
 from repro_torch.kernels.flash_attention import (  # noqa: E402
     TC_HEAD_DIMS, flash_attention_cuda, flash_attention_ref, tc_occupancy,
@@ -153,12 +158,14 @@ FUSE_COMPARE_SERVES = 12
 SERVE_COLD, SERVE_WARM, SERVE_WORKERS = 16, 64, 8
 SHED_BATCH, SHED_PENDING = 32, 2
 FAILOVER_WAVES = (256, 1024)
-# procpool: worker counts of the warm runs, warm requests a run and client
+# procpool: worker counts of the warm runs (the largest also traced; a
+# pool of 2 was dropped for the time budget: its start-up alone took
+# 16-17 s), warm requests a run and client
 # threads; the scatter run's shards, workers, planner breadth and timed
 # serves a mode; the stream run's appends and rows an append; the kill
 # run's requests and the execute dispatch its injector kills; how long the
 # phase's master may stay silent
-POOL_SIZES, POOL_WARM, POOL_CLIENTS = (1, 2, 4), 64, 8
+POOL_SIZES, POOL_WARM, POOL_CLIENTS = (1, 4), 64, 8
 SCATTER_SHARDS, SCATTER_WORKERS, SCATTER_TRAIN_PLANS = 4, 2, 2
 SCATTER_SERVES = 6
 STREAM_APPENDS, STREAM_ROWS = 8, 64
@@ -232,6 +239,14 @@ CROSS_FLASH_SHAPES = [(1, 77, 4096, 16, 16, 64, False, torch.bfloat16),
 TP_RANK_FLASH_SHAPE = (1, 2048, 2048, 4, 2, 128, True, torch.bfloat16)
 TP_RANK_HYBRID_FLASH_SHAPE = (1, 2048, 2048, 8, 8, 112, True,
                               torch.bfloat16)
+# dryrun: ``launch.dryrun.run_cell`` of codeqwen1.5-7b (dense MHA, qkv
+# bias) at train_4k as rank 0 of the production (16, 16) mesh over torch's
+# fake process group, at full width and depth with its default plan: the
+# fit proof (one full-depth train step on the card, its peak memory), the
+# cost probes and the roofline; its flash kernel at the rank's 2 of 32
+# heads, 16 // accum rows of 4096 tokens (DRYRUN_FLASH_SHAPE at accumulation 1)
+DRYRUN_ARCH, DRYRUN_SHAPE = "codeqwen1.5-7b", "train_4k"
+DRYRUN_FLASH_SHAPE = (16, 4096, 4096, 2, 2, 128, True, torch.bfloat16)
 FLASH_NARROW_KV = [((1, 2048, 2048, 3, 1, 128, True, torch.bfloat16), 8, 5),
                    ((1, 2048, 2048, 3, 1, 128, True, torch.float32), 8, 5)]
 # (B, Sq, Sk, H, KV, d, causal, dtype), the (B, S, H, d) form with the KV
@@ -253,7 +268,8 @@ FLASH_GQA_SHAPES = [(1, 2048, 2048, 16, 8, 128, True, torch.bfloat16),
                     (1, 2048, 2048, 32, 32, 112, True, torch.float32),
                     MLA_FLASH_SHAPE, GROK_FLASH_SHAPE, VLM_FLASH_SHAPE,
                     TP_RANK_FLASH_SHAPE, TP_RANK_HYBRID_FLASH_SHAPE,
-                    ENC_FLASH_SHAPE, *CROSS_FLASH_SHAPES,
+                    DRYRUN_FLASH_SHAPE, ENC_FLASH_SHAPE,
+                    *CROSS_FLASH_SHAPES,
                     (2, 1000, 1000, 4, 1, 64, False, torch.bfloat16),
                     (1, 65, 65, 8, 2, 80, True, torch.bfloat16),
                     (2, 129, 129, 6, 2, 128, True, torch.float32),
@@ -274,29 +290,30 @@ FLASH_GQA_SHAPES = [(1, 2048, 2048, 16, 8, 128, True, torch.bfloat16),
 # the (shape, kernel) pairs that phase_flash times, with their row's name:
 # each kernel at its path's shape ("tc", "tf32", "mma"); the CUDA-core
 # kernel, forced, at the warp-level kernel's path shape ("simt_before":
-# its time before "mma" took that path) and at zamba2's width, beside the
-# warp-level kernel on zamba2's path; the MoE models' prefills (MLA at d 192 on "mma",
+# its time before "mma" took that path, the CUDA-core kernel's row of the
+# kernels line); the warp-level kernel on zamba2's path in both dtypes;
+# the MoE models' prefills (MLA at d 192 on "mma",
 # grok's group of 6 on "tc"), internvl2's group of 6 and seamless's
 # non-causal encoder at d 64 on "tc"; zamba2's shared block on the rank's
-# 8 heads (tp_rank_hybrid) on "mma"; and the folded forms at 2048 tokens,
-# where the CUDA-core kernel, forced, is the float32 kernel's time before
-# the 3xTF32 one took the shape
+# 8 heads (tp_rank_hybrid) on "mma"; codeqwen's rank of 16 (dryrun: 2
+# heads, 16 rows of 4096) on "tc"; and the folded forms at 2048 tokens.
+# The CUDA-core kernel's times at zamba2's width and the folded float32
+# form (the "before" of the kernels that took those shapes) are no longer
+# taken, for the time budget; those shapes are still checked on it
 FLASH_TIMED = {(FLASH_GQA_SHAPES[0], "tc"): "tc",
                (FLASH_GQA_SHAPES[1], "tf32"): "tf32",
                (FLASH_GQA_SHAPES[3], "mma"): "mma",
                (FLASH_GQA_SHAPES[3], "simt"): "simt_before",
                (FLASH_GQA_SHAPES[4], "mma"): "mma_d112_bf16",
-               (FLASH_GQA_SHAPES[4], "simt"): "simt_d112_bf16",
                (FLASH_GQA_SHAPES[5], "mma"): "mma_d112_f32",
-               (FLASH_GQA_SHAPES[5], "simt"): "simt_d112_f32",
                (MLA_FLASH_SHAPE, "mma"): "mma_d192",
                (GROK_FLASH_SHAPE, "tc"): "tc_gqa6",
                (VLM_FLASH_SHAPE, "tc"): "tc_gqa6_vlm",
                (ENC_FLASH_SHAPE, "tc"): "tc_d64_noncausal",
                (TP_RANK_HYBRID_FLASH_SHAPE, "mma"): "mma_tp_rank",
+               (DRYRUN_FLASH_SHAPE, "tc"): "tc_dryrun",
                (FLASH_SHAPES[0], "tc"): "tc_folded",
                (FLASH_SHAPES[1], "tf32"): "tf32_folded",
-               (FLASH_SHAPES[1], "simt"): "simt_folded",
                (FLASH_SHAPES[2], "tf32"): "tf32_d64"}
 # (b, Q, h, p, g, n); the first is the SSM prefill path's shape (mamba2:
 # 16 chunks of 128 for a 2048-token prompt), then zamba2-7b's p and n at 32
@@ -375,9 +392,9 @@ DECODE_NEAR_TIE = 0.5
 # depth but TRAIN_DEPTH's (deepseek-v2-lite: its dense first layer and two
 # MoE layers, 1.67 B parameters), PlanConfig defaults (bfloat16 compute,
 # float32 master and moments, block remat, attention and loss chunks of
-# 1024); one warm-up step, then TRAIN_STEPS timed ones (4 since PR 22,
-# for the time budget: their medians came within 2% of 8's), with AdamW
-# at TRAIN_LR
+# 1024); one warm-up step, then TRAIN_STEPS timed ones (cut from 8 to 4,
+# then to 2, for the time budget: 4's medians came within 2% of 8's), with
+# AdamW at TRAIN_LR
 TRAIN_BATCH = {"internlm2-1.8b": 4, "mamba2-370m": 8,
                "deepseek-v2-lite-16b": 4, "zamba2-7b": 4,
                "internvl2-26b": 4, "seamless-m4t-medium": 4}
@@ -391,7 +408,7 @@ TRAIN_DEPTH = {"deepseek-v2-lite-16b": 3, "zamba2-7b": 13,
 # S 2048 a row: internvl2's 256 patch embeddings and 1792 tokens;
 # seamless's 2048 frames and 2048 decoder tokens (the reference's train
 # batch, ``api.example_batch``)
-TRAIN_SEQ, TRAIN_STEPS, TRAIN_LR = 2048, 4, 1e-3
+TRAIN_SEQ, TRAIN_STEPS, TRAIN_LR = 2048, 2, 1e-3
 # grad_check: gradients through the kernels' autograd Functions against
 # autograd through the plain versions, the largest error over the
 # gradient's largest magnitude: 1e-4 in float32, 2e-2 in bfloat16
@@ -449,7 +466,8 @@ TRAIN_CHECK_DEPTH, TRAIN_CHECK_BATCH, TRAIN_CHECK_SEQ = 2, 2, 256
 # the hybrid's: one group and the tail (as its serving cpu_check), at B 1
 # since tp_rank_hybrid came (its CPU step at B 2 took 22-24 s of the
 # script; the batch dimension stays held by the other models' checks at
-# B 2); the encoder-decoder's one layer and one encoder layer, at a
+# B 2), and deepseek-v2-lite's at B 1 since the dry run came (its CPU step
+# at B 2 took 26 s); the encoder-decoder's one layer and one encoder layer, at a
 # smaller (batch, tokens) so that the CPU's step at its vocabulary
 # (256,206) stays near 15 s, over TRAIN_CHECK_FRAMES frames.  Not internvl2 (cut for the time
 # budget: its CPU step at depth 1 took 30-40 s of the script).  Without it
@@ -460,7 +478,8 @@ TRAIN_CHECK_DEPTH, TRAIN_CHECK_BATCH, TRAIN_CHECK_SEQ = 2, 2, 256
 TRAIN_CHECK_DEPTHS = {"zamba2-7b": HYBRID_CHECK_DEPTH,
                       "seamless-m4t-medium": 1}
 TRAIN_CHECK_SIZES = {"seamless-m4t-medium": (1, 256),
-                     "zamba2-7b": (1, TRAIN_CHECK_SEQ)}
+                     "zamba2-7b": (1, TRAIN_CHECK_SEQ),
+                     "deepseek-v2-lite-16b": (1, TRAIN_CHECK_SEQ)}
 TRAIN_CHECK_SKIP = ("internvl2-26b",)
 TRAIN_CHECK_FRAMES = 512
 TRAIN_GRAD_TOL = 1e-4
@@ -750,23 +769,6 @@ def phase_knn(dev, shapes=KNN_SHAPES, k: int = K) -> dict:
     return main
 
 
-def _flash_work(b, sq, sk, h, kv, d, causal, esize, vd=None) -> tuple:
-    """(bytes, operations) of one attention call: q, k and v read once and
-    o written once (k and v at their KV heads); the query-key pairs that
-    the mask keeps (causal, top-left aligned: query i sees min(i + 1, Sk)
-    keys; else Sq x Sk), a multiply-add a pair and width in each product.
-    v and o are ``vd`` wide (d by default): MLA's v before its padding."""
-    vd = d if vd is None else vd
-    if not causal:
-        pairs = sq * sk
-    elif sq <= sk:
-        pairs = sq * (sq + 1) / 2
-    else:
-        pairs = sk * (sk + 1) / 2 + (sq - sk) * sk
-    nbytes = (b * sq * h * (d + vd) + b * sk * kv * (d + vd)) * esize
-    return nbytes, 2.0 * b * h * (d + vd) * pairs
-
-
 def _sdpa_layout(q, k, v):
     """q, k, v in ``scaled_dot_product_attention``'s (B, H, S, d), KV heads
     expanded, laid out before the yardstick is timed."""
@@ -904,7 +906,7 @@ def phase_flash(dev, shapes=FLASH_SHAPES, gqa_shapes=FLASH_GQA_SHAPES,
                                             label=f"{tag} library")
                 row["library_kernels"] = _kernel_names(library, dev)
                 row["call_ms"] = call_ms(lambda: run(0), dev)
-                nbytes, ops_count = _flash_work(b, sq, sk, h, kv, d, causal,
+                nbytes, ops_count = flash_work(b, sq, sk, h, kv, d, causal,
                                                 q.element_size())
                 units = _flash_units(kind, dtype)
                 row.update(bound_ms(nbytes, ops_count, units,
@@ -924,7 +926,7 @@ def phase_flash(dev, shapes=FLASH_SHAPES, gqa_shapes=FLASH_GQA_SHAPES,
                         unpadded, dev)
                     row["v_width"] = MLA_V_WIDTH
                     row["pv_products_on_padding"] = (d - MLA_V_WIDTH) / d
-                    row["bound_unpadded_ms"] = bound_ms(*_flash_work(
+                    row["bound_unpadded_ms"] = bound_ms(*flash_work(
                         b, sq, sk, h, kv, d, causal, q.element_size(),
                         MLA_V_WIDTH), units)["bound_ms"]
                     del vu
@@ -939,18 +941,6 @@ def phase_flash(dev, shapes=FLASH_SHAPES, gqa_shapes=FLASH_GQA_SHAPES,
               f"flash entry launches {entry}, want each of {sorted(used)}")
     timed["entry_launches"] = entry
     return timed
-
-
-def _ssd_work(b, q, h, p, g, n) -> tuple:
-    """(bytes, operations) the intra-chunk SSD needs: inputs read and
-    outputs written once; C·Bᵀ on and under the diagonal once per group,
-    the masked decay and M·x per head, the decayed Bᵀ·x per head."""
-    tri = q * (q + 1) / 2
-    nbytes = 4.0 * (b * q * h * p * 2 + b * q * h + 2 * b * q * g * n
-                    + b * h * n * p + b * h)
-    ops_count = (2.0 * b * g * n * tri
-                 + b * h * (2.0 * p * tri + tri + 2.0 * q * n * p + q * p))
-    return nbytes, ops_count
 
 
 SSD_OUTPUTS = ("y", "states", "decay")
@@ -1018,7 +1008,7 @@ def phase_ssd(dev, shapes=SSD_SHAPES, timed_at=SSD_TIMED) -> dict:
                 # 3xTF32 on the tensor cores takes the operations below the
                 # bytes: the tensor-core kernel's bound is the bytes
                 units = "3xtf32" if kind == "tc" else "f32"
-                row.update(bound_ms(*_ssd_work(b, q, h, p, g, n), units,
+                row.update(bound_ms(*ssd_work(b, q, h, p, g, n), units,
                                     ("f32", "3xtf32")))
                 timed[name] = dict(row)
             emit("ssd_intra", **row)
@@ -1710,7 +1700,7 @@ def _pool_warm(conn, inp: dict, processes: int) -> dict:
                    r.seconds * 1e3 for r in reps),
                "used_gb": used_gb, "launches": launches,
                "dispatches": pool.dispatches, "by_plan": _by_plan(reps)}
-        if processes == 2:
+        if processes == POOL_SIZES[-1]:
             row["trace"] = _pool_trace(pool, q)
         return row
     finally:
@@ -2014,9 +2004,9 @@ def phase_procpool(dev, data, state_dir: str) -> dict:
     serve warm).  In this process: the in-process references (the
     ``QueryServer`` neighbours, the unsharded front half) and the streaming
     views.  In a freshly spawned master that never initializes CUDA: the
-    warm runs at 1, 2 and 4 workers, the scattered and whole front half,
-    an append through a pool with a respawn, and a worker killed
-    mid-request.  Emits one line a section."""
+    warm runs at 1 and 4 workers (the 4-worker one traced), the scattered
+    and whole front half, an append through a pool with a respawn, and a
+    worker killed mid-request.  Emits one line a section."""
     t_phase = time.perf_counter()
     train_w = data["train_w"]
     batch = data["test_hists"]
@@ -3082,6 +3072,99 @@ def phase_tp_rank(dev, cfg=None, ways=TP_RANK_WAYS, prompt=TP_RANK_PROMPT,
     return row
 
 
+def phase_dryrun(dev, arch=DRYRUN_ARCH, shape=DRYRUN_SHAPE, mesh_shape=None,
+                 flash_shape=DRYRUN_FLASH_SHAPE) -> dict:
+    """``launch.dryrun.run_cell`` of ``arch`` x ``shape`` (codeqwen1.5-7b
+    at train_4k: names, or config objects to rehearse) as rank 0 of the
+    production mesh (or of ``mesh_shape``), with the cell's default plan:
+    the step fits the card; ``state_bytes`` equals the shards the rank
+    placed and the specs' count on an ``AbstractMesh``; the fit step
+    launched the flash kernel twice a layer and microbatch (forward and
+    remat recompute) at the rank's shape (``flash_shape`` at accumulation
+    1: its rows divided by the accumulation); the collective tally by kind
+    covers the split's collectives; the roofline is finite.  The fake
+    group's collectives move nothing: no value is checked."""
+    from repro_torch.configs import SHAPES_BY_NAME
+    from repro_torch.core.tensorplan import default_plan
+    from repro_torch.launch import dryrun
+    t_phase = time.perf_counter()
+    cfg = get_arch(arch) if isinstance(arch, str) else arch
+    sh = SHAPES_BY_NAME[shape] if isinstance(shape, str) else shape
+    plan = default_plan(cfg, sh)
+    seen = []
+    flash = ops.flash_attention
+
+    def spy(q, k, v, **kw):
+        seen.append((tuple(q.shape), tuple(k.shape)))
+        return flash(q, k, v, **kw)
+
+    ops.flash_attention = spy
+    try:
+        rec = dryrun.run_cell(cfg, sh, multi_pod=False, plan=plan,
+                              device=dev, mesh_shape=mesh_shape)
+    finally:
+        ops.flash_attention = flash
+    accum = rec["plan"]["accum"]
+    sizes = mesh_shape or (16, 16)
+    mem = rec["memory"]
+    meta_total, meta_parts = dryrun.state_bytes(
+        cfg, sh, PlanConfig(**rec["plan"]),
+        partition.AbstractMesh(("data", "model"), sizes))
+    check(rec["state_bytes"] == meta_total
+          and mem["placed_bytes"] == meta_total - meta_parts["batch"],
+          f"dryrun: state {rec['state_bytes']} bytes, placed "
+          f"{mem['placed_bytes']}, the specs' {meta_parts}")
+    b, s, _, h, kv, d, _, _ = flash_shape
+    rank_shape = ((b // accum, s, h, d), (b // accum, s, kv, d))
+    check(sorted(set(seen)) == [rank_shape],
+          f"dryrun: flash ran at {sorted(set(seen))}, want {rank_shape}")
+    launches = rec["step"]["launches"]
+    if dev.type == "cuda":
+        check(rec["fits"] and mem["oom"] is None,
+              f"dryrun: {cfg.name} x {sh.name} does not fit: "
+              f"{mem['peak_reserved_bytes']} bytes reserved, {mem['oom']}")
+        want = {k: n * accum for k, n in
+                _step_launches(cfg, torch.bfloat16).items()}
+        check(launches == want,
+              f"dryrun: {launches} launches in the step, want {want}")
+    tp, coll = rec["step"]["tp_collectives"], mem["coll_breakdown"]
+    n = lambda kind: coll.get(kind, {}).get("count", 0)
+    check(n("reduce-scatter") >= tp["seq_exit"]
+          and n("all-reduce") >= tp["g"] + tp["sum"] + tp["max"]
+          and n("all-gather") >= tp["gather"] + tp["seq_enter"]
+          and tp["g"] > 0 and mem["coll_bytes"] > 0,
+          f"dryrun: collectives {coll} against the split's {tp}")
+    rf = rec["roofline"]
+    check(all(math.isfinite(rf[k]) and rf[k] > 0 for k in
+              ("t_compute", "t_memory", "t_collective",
+               "model_flops_per_device", "roofline_fraction")),
+          f"dryrun: roofline {rf}")
+    gb = lambda x: None if x is None else x / 1e9
+    row = {"model": cfg.name, "shape": sh.name, "mesh": rec["mesh"],
+           "rank": 0, "backend": "fake", "values_checked": False,
+           "plan": {k: rec["plan"][k] for k in
+                    ("accum", "remat", "moment_dtype", "tp", "fsdp",
+                     "sp_boundary")},
+           "state_gb": gb(rec["state_bytes"]),
+           "state_parts_gb": {k: gb(v) for k, v in
+                              mem["state_parts"].items()},
+           "peak_allocated_gb": gb(mem["peak_allocated_bytes"]),
+           "peak_reserved_gb": gb(mem["peak_reserved_bytes"]),
+           "capacity_gb": gb(rec["hbm_capacity_bytes"]), "fits": rec["fits"],
+           "step_s": mem["step_s"], "place_s": mem["place_s"],
+           "launches": launches, "flash_shape": rank_shape,
+           "tp_collectives": tp, "coll_breakdown": coll,
+           "cost": rec["cost"], "roofline": rf,
+           "probe_s": {k: v.get("seconds") for k, v in
+                       rec["probes"].items()},
+           "device": rec["device"]}
+    row["seconds"] = time.perf_counter() - t_phase
+    emit("dryrun", **row)
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    return row
+
+
 # -- LM training --------------------------------------------------------------
 
 def _rel_err(a: torch.Tensor, b: torch.Tensor) -> float:
@@ -3479,7 +3562,8 @@ def _kernel_entry(name, source, replaces, launches, row) -> dict:
 def kernels_line(haar_row: dict, knn_rows: dict, flash_rows: dict,
                  ssd_rows: dict, analytic: dict, serving: dict,
                  procpool: dict, lm_dense: dict, lm_sharded: dict,
-                 tp_rank: dict, tp_rank_hybrid: dict, lm_ssm: dict,
+                 tp_rank: dict, tp_rank_hybrid: dict, dryrun: dict,
+                 lm_ssm: dict,
                  lm_moe: dict, lm_moe_grok: dict, lm_hybrid: dict,
                  lm_vlm: dict, lm_encdec: dict, train: dict) -> dict:
     """Launches of each kernel on its own path: Haar and kNN (all kernels,
@@ -3506,7 +3590,10 @@ def kernels_line(haar_row: dict, knn_rows: dict, flash_rows: dict,
     causal self-attention and its cross-attention on the same kernel) as
     entries of their own; rank 0 of zamba2-7b's four-way split
     (``tp_rank_hybrid``: the warp-level flash kernel on 8 of 32 heads, the
-    tensor-core SSD on 28 of 112) as two more, timed at those shapes.
+    tensor-core SSD on 28 of 112) as two more, timed at those shapes;
+    rank 0 of codeqwen1.5-7b's (16, 16) train_4k step (``dryrun``: the
+    tensor-core flash kernel on 2 of 32 heads, forward and remat
+    recompute) as one more, and as ``dryrun_launches`` on the first.
     ``train_launches``: the bfloat16 flash kernels (tensor-core at d 128,
     warp-level at MLA's d 192 and zamba2's d 112) and SSD in the train
     phase's steps (forward and remat recompute), the 3xTF32 flash kernel in
@@ -3538,6 +3625,8 @@ def kernels_line(haar_row: dict, knn_rows: dict, flash_rows: dict,
                  lm_sharded["train"]["launches_per_step"]),
              tp_rank_launches=tp_rank["launches"].get("flash_attention_tc",
                                                       0),
+             dryrun_launches=dryrun["launches"].get("flash_attention_tc",
+                                                    0),
              train_launches=steps["internlm2-1.8b"]["launches"]
              ["flash_attention_tc"]),
         dict(_kernel_entry("flash_attention_tc_gqa6_vlm",
@@ -3602,6 +3691,9 @@ def kernels_line(haar_row: dict, knn_rows: dict, flash_rows: dict,
         _kernel_entry("ssd_intra_tc_tp_rank", "ssd_scan.cu", ssd,
                       tp_rank_hybrid["launches"]["ssd_intra_tc"],
                       ssd_rows["tc_tp_rank"]),
+        _kernel_entry("flash_attention_tc_dryrun", "flash_attention.cu",
+                      flash, dryrun["launches"]["flash_attention_tc"],
+                      flash_rows["tc_dryrun"]),
     ]}
 
 
@@ -3639,6 +3731,7 @@ def main() -> int:
     tp_rank_hybrid = phase_tp_rank(
         dev, cfg=get_arch("zamba2-7b"), flash_shapes=TP_RANK_HYBRID_FLASH,
         ssd_shape=TP_RANK_HYBRID_SSD, phase="tp_rank_hybrid")
+    dry = phase_dryrun(dev)
     lm_ssm = phase_lm(dev, "mamba2-370m")
     lm_moe = phase_lm(dev, "deepseek-v2-lite-16b")
     grok = get_arch("grok-1-314b")
@@ -3655,7 +3748,7 @@ def main() -> int:
     print(json.dumps(kernels_line(haar_row, knn_rows, flash_rows, ssd_rows,
                                   analytic, serving, procpool, lm_dense,
                                   lm_sharded, tp_rank, tp_rank_hybrid,
-                                  lm_ssm, lm_moe,
+                                  dry, lm_ssm, lm_moe,
                                   lm_moe_grok, lm_hybrid, lm_vlm, lm_encdec,
                                   train)),
           flush=True)

@@ -48,7 +48,7 @@ import math
 
 import torch
 
-from repro_torch.kernels import counters
+from repro_torch.kernels import counters, work
 
 _DTYPES = (torch.float32, torch.bfloat16)
 MAX_HEAD_DIM = 256
@@ -296,12 +296,18 @@ def flash_attention_bwd(q, k, v, o, do, *, causal: bool = True,
 
 class FlashAttention(torch.autograd.Function):
     """Attention with a gradient: the kernel forward
-    (``flash_attention_cuda``), the plain backward (``flash_attention_bwd``).
-    ``kernels.ops.flash_attention`` applies it to every CUDA tensor."""
+    (``flash_attention_cuda``; with ``plain``, the plain version), the
+    plain backward (``flash_attention_bwd``), each credited with its work
+    from ``kernels.work`` while that is counted.  ``kernels.ops``
+    applies it to every CUDA tensor, and with ``plain`` to a CPU tensor
+    while the work is counted."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal: bool):
-        o = flash_attention_cuda(q, k, v, causal=causal)
+    def forward(ctx, q, k, v, causal: bool, plain: bool = False):
+        fwd = flash_attention_ref if plain else flash_attention_cuda
+        with work.kernel(lambda: work.flash_work(
+                *work.flash_shapes(q, k, v, causal))):
+            o = fwd(q, k, v, causal=causal)
         ctx.save_for_backward(q, k, v, o)
         ctx.causal = causal
         return o
@@ -309,6 +315,8 @@ class FlashAttention(torch.autograd.Function):
     @staticmethod
     def backward(ctx, do):
         q, k, v, o = ctx.saved_tensors
-        dq, dk, dv = flash_attention_bwd(q, k, v, o, do.contiguous(),
-                                         causal=ctx.causal)
-        return dq, dk, dv, None
+        with work.kernel(lambda: work.flash_bwd_work(
+                *work.flash_shapes(q, k, v, ctx.causal))):
+            dq, dk, dv = flash_attention_bwd(q, k, v, o, do.contiguous(),
+                                             causal=ctx.causal)
+        return dq, dk, dv, None, None

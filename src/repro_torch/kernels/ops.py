@@ -18,13 +18,16 @@ tensor goes through the kernel's ``torch.autograd.Function``
 (``FlashAttention``, ``SSDIntra``: the kernel forward, a plain PyTorch
 backward), which records a backward node only when an input requires a
 gradient, and launches the kernel once either way; a CPU tensor goes
-through the plain version, which autograd differentiates.
+through the plain version, which autograd differentiates, but inside
+``work.count()``, where it goes through the same Function with the plain
+forward, so that the count credits each call's work from its shapes, with
+the same backward, on either device.
 """
 from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import counters
+from repro_torch.kernels import counters, work
 from repro_torch.kernels.flash_attention import (FlashAttention,
                                                  flash_attention_cuda,
                                                  flash_attention_ref)
@@ -79,10 +82,12 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     KV heads read in place by groups of H // KV query heads.  The kernel
     reads any strides; only a last dimension that is not contiguous is
     copied."""
-    if _route(q, "flash_attention"):
+    cuda = _route(q, "flash_attention")
+    if cuda:
         q, k, v = (t if t.stride(-1) == 1 else t.contiguous()
                    for t in (q, k, v))
-        return FlashAttention.apply(q, k, v, causal)
+    if cuda or work.counting():
+        return FlashAttention.apply(q, k, v, causal, not cuda)
     return flash_attention_ref(q, k, v, causal=causal)
 
 
@@ -90,9 +95,10 @@ def ssd_intra(x: torch.Tensor, da: torch.Tensor, B: torch.Tensor,
               C: torch.Tensor):
     """Intra-chunk SSD over (b, Q, ...) chunks: (y, states, chunk_decay);
     on the card the kernel that ``ssd_scan.variant`` names for the shape."""
-    if _route(x, "ssd_intra"):
+    cuda = _route(x, "ssd_intra")
+    if cuda or work.counting():
         return SSDIntra.apply(x.contiguous(), da.contiguous(),
-                              B.contiguous(), C.contiguous())
+                              B.contiguous(), C.contiguous(), not cuda)
     return ssd_intra_ref(x, da, B, C)
 
 

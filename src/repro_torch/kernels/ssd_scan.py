@@ -26,7 +26,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import counters
+from repro_torch.kernels import counters, work
 
 SMEM_LIMIT = 232448          # bytes of shared memory a Hopper block may use
 _TILE = 32                   # output rows per tile in the CUDA-core kernel
@@ -190,14 +190,21 @@ def ssd_intra_bwd(x, da, B, C, dy, dstates, ddecay):
 
 class SSDIntra(torch.autograd.Function):
     """The intra-chunk SSD with a gradient: the kernel forward
-    (``ssd_intra_cuda``), the plain backward (``ssd_intra_bwd``).
-    ``kernels.ops.ssd_intra`` applies it to every CUDA tensor."""
+    (``ssd_intra_cuda``; with ``plain``, the plain version), the plain
+    backward (``ssd_intra_bwd``), each credited with its work from
+    ``kernels.work`` while that is counted.  ``kernels.ops.ssd_intra``
+    applies it to every CUDA tensor, and with ``plain`` to a CPU tensor
+    while the work is counted."""
 
     @staticmethod
-    def forward(ctx, x, da, B, C):
+    def forward(ctx, x, da, B, C, plain: bool = False):
         ctx.save_for_backward(x, da, B, C)
-        return ssd_intra_cuda(x, da, B, C)
+        fwd = ssd_intra_ref if plain else ssd_intra_cuda
+        with work.kernel(lambda: work.ssd_work(*work.ssd_shapes(x, B))):
+            return fwd(x, da, B, C)
 
     @staticmethod
     def backward(ctx, dy, dstates, ddecay):
-        return ssd_intra_bwd(*ctx.saved_tensors, dy, dstates, ddecay)
+        x, da, B, C = ctx.saved_tensors
+        with work.kernel(lambda: work.ssd_bwd_work(*work.ssd_shapes(x, B))):
+            return (*ssd_intra_bwd(x, da, B, C, dy, dstates, ddecay), None)

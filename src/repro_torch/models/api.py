@@ -9,6 +9,9 @@
   make_train_step(cfg, plan, optimizer) -> f(state, batch) -> (state, metrics)
   make_prefill(cfg, shape, plan)        -> f(params, batch) -> (logits, cache, pos)
   make_decode_step(cfg, shape, plan)    -> f(params, cache, tokens, pos) -> (tok, cache)
+  make_serve_step(cfg, shape, plan)     -> the decode step (a decode cell's)
+  example_batch(cfg, shape, plan)       -> a cell's inputs, on ``meta``
+  example_cache(cfg, shape, plan)       -> a decode cell's cache, on ``meta``
   count_params(cfg, active_only)        -> parameter count (shapes only)
   param_specs / cache_specs / batch_specs / train_state_specs
                                         -> PartitionSpec trees (plan-resolved)
@@ -201,6 +204,47 @@ def _family_cache(cfg: ArchConfig, batch: int, max_len: int, dtype, device):
                                         encdec.DECODE_ENC_LEN, dtype,
                                         device=device)
     return ssm_lm.init_ssm_cache(cfg, batch, dtype, device=device)
+
+
+def make_serve_step(cfg: ArchConfig, shape: ShapeConfig, plan: PlanConfig):
+    """Decode-mode step: (params, cache, tokens, pos) -> (next_tokens,
+    cache)."""
+    return make_decode_step(cfg, shape, plan)
+
+
+def example_cache(cfg: ArchConfig, shape: ShapeConfig, plan: PlanConfig,
+                  batch=None):
+    """The cache of a decode cell (capacity ``shape.seq_len``, ``batch``
+    rows or the shape's global batch) on ``meta``: ``init_cache``'s
+    shapes and dtypes in ``plan.param_dtype``, nothing allocated.  The
+    reference gives ``ShapeDtypeStruct``s."""
+    B = batch if batch is not None else shape.global_batch
+    return _family_cache(cfg, B, shape.seq_len,
+                         getattr(torch, plan.param_dtype), "meta")
+
+
+def example_batch(cfg: ArchConfig, shape: ShapeConfig, plan: PlanConfig):
+    """A cell's inputs on ``meta``: tokens (and a decode cell's positions)
+    in int32, a vlm's patch embeddings before its tokens, an encdec's
+    frames (the cell's ``seq_len`` of them; the decoder's prompt is the
+    whole sequence to train, its first token to prefill) in
+    ``plan.param_dtype``."""
+    B, S = shape.global_batch, shape.seq_len
+    dt = getattr(torch, plan.param_dtype)
+    tok = lambda *s: torch.empty(s, dtype=torch.int32, device="meta")
+    if shape.mode == "decode":
+        return {"tokens": tok(B), "pos": tok(B)}
+    if cfg.family == "vlm":
+        Pf = cfg.num_frontend_tokens
+        return {"patch_embeds": torch.empty((B, Pf, cfg.d_model), dtype=dt,
+                                            device="meta"),
+                "tokens": tok(B, S - Pf)}
+    if cfg.family == "encdec":
+        S_dec = S if shape.mode == "train" else 1
+        return {"frames": torch.empty((B, S, cfg.d_model), dtype=dt,
+                                      device="meta"),
+                "tokens": tok(B, S_dec)}
+    return {"tokens": tok(B, S)}
 
 
 # --------------------------------------------------------------------------

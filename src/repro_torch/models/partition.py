@@ -59,7 +59,8 @@ identity, and launches and counts nothing, when the plan resolves "tp" to
 no axis or the axis has one rank (``tp_active``); otherwise each call is
 counted by kind (``tp_collectives``), each ``redistribute`` that a
 weight gather issues by ``weight_gathers``, and those that gather a leaf
-split over "model" by the leaf's name (``model_gathers``).  A replicated weight used
+split over "model" by the leaf's name (``model_gathers``); the bytes that
+the collectives move are tallied by kind (``collective_bytes``).  A replicated weight used
 inside a region, or on a rank's rows of the sequence, gets a gradient that
 is a partial sum over "model": its gather says so (``gather_leaf``'s
 ``partial``), as does a weight split over "model" that a region gathers
@@ -341,6 +342,47 @@ def reset_weight_gathers() -> None:
         _MODEL_GATHERS.clear()
 
 
+# kind -> [collectives, bytes] (``collective_bytes``)
+_COLL_BYTES: dict = {}
+
+
+def _tally(kind: str, t) -> None:
+    """Count one collective of ``kind`` whose result is ``t`` (a tensor, or
+    its size in bytes): an all-reduce twice its size (a ring's
+    reduce-scatter and all-gather), the others their result's size."""
+    nbytes = t if isinstance(t, int) else t.numel() * t.element_size()
+    with counters._LOCK:
+        rec = _COLL_BYTES.setdefault(kind, [0, 0.0])
+        rec[0] += 1
+        rec[1] += nbytes * (2.0 if kind == "all-reduce" else 1.0)
+
+
+def collective_bytes() -> tuple:
+    """(total bytes, {kind: {"count", "bytes"}}) of the collectives that
+    this rank has issued in this process (a caller takes differences), as
+    ``repro.launch.dryrun.parse_collective_bytes`` reads them from HLO:
+    the tensor-parallel helpers' (forward and backward), the weight
+    gathers' all-gathers and their gradients' reductions (one
+    reduce-scatter onto the weight's shard, or an all-reduce where it is
+    replicated over an axis that splits the batch), the cache's gathers
+    (``rows_of``), the batch's (``gather_rows``) and ``all_reduce``'s.
+    Collectives that ``DTensor`` issues on its own (the optimizer's norm,
+    a gradient's ``redistribute`` onto its parameter's placements) are not
+    in it."""
+    with counters._LOCK:
+        out = {k: {"count": n, "bytes": b} for k, (n, b)
+               in _COLL_BYTES.items()}
+    return sum(v["bytes"] for v in out.values()), out
+
+
+def _tally_gradient(local, shard_bytes: int, kind: str) -> None:
+    """Tally the reduction of ``local``'s gradient when backward makes it."""
+    if local.requires_grad:
+        local.register_hook(
+            lambda g: _tally(kind, shard_bytes if kind == "reduce-scatter"
+                             else g))
+
+
 def gather_leaf(t, *, keep_tp: bool = True, partial: bool = False,
                 name: str = ""):
     """A ``DTensor`` weight as this rank's local tensor for compute: gathered
@@ -383,8 +425,21 @@ def gather_leaf(t, *, keep_tp: bool = True, partial: bool = False,
         if over_model:
             with counters._LOCK:
                 _MODEL_GATHERS[name] = _MODEL_GATHERS.get(name, 0) + 1
+        shard = t.to_local()
+        shard_bytes = shard.numel() * shard.element_size()
+        sharded = any(isinstance(pl, Shard) and not isinstance(tg, Shard)
+                      for pl, tg in zip(t.placements, target))
         t = t.redistribute(mesh, target)
-    return t.to_local(grad_placements=grads)
+        local = t.to_local(grad_placements=grads)
+        _tally("all-gather", local)
+        if any(isinstance(g, Partial) for g in grads):
+            _tally_gradient(local, shard_bytes, "reduce-scatter" if sharded
+                            else "all-reduce")
+        return local
+    local = t.to_local(grad_placements=grads)
+    if any(isinstance(g, Partial) for g in grads):
+        _tally_gradient(local, 0, "all-reduce")
+    return local
 
 
 def _split(entry) -> tuple:
@@ -431,8 +486,10 @@ def gather_rows(x):
     if env is None or env.split is None:
         return x
     pl = spec_placements(env.axis_names, P(env.split))
-    return DTensor.from_local(x.contiguous(), env.mesh, pl,
-                              run_check=False).full_tensor()
+    out = DTensor.from_local(x.contiguous(), env.mesh, pl,
+                             run_check=False).full_tensor()
+    _tally("all-gather", out)
+    return out
 
 
 def mean_over_split(x):
@@ -446,6 +503,7 @@ def mean_over_split(x):
                for a in env.axis_names)
     total = DTensor.from_local(x.detach().reshape(()), env.mesh, pl,
                                run_check=False).full_tensor()
+    _tally("all-reduce", total)
     return total / env.axes_size(env.split)
 
 
@@ -480,7 +538,9 @@ def rows_of(t, keep_tp: bool = False):
     pls = _rows_placements(t, keep_tp)
     if pls == list(t.placements):
         return t.to_local()
-    return t.redistribute(t.device_mesh, pls).to_local()
+    rows = t.redistribute(t.device_mesh, pls).to_local()
+    _tally("all-gather", rows)
+    return rows
 
 
 def store_rows(t, rows, keep_tp: bool = False):
@@ -508,6 +568,7 @@ def all_reduce(x, op, axis: str):
     """In-place all-reduce of ``x`` over the ranks along mesh ``axis``."""
     env = _env_with_ranks()
     dist.all_reduce(x, op=op, group=env.mesh.get_group(axis))
+    _tally("all-reduce", x)
     return x
 
 
@@ -576,6 +637,7 @@ _reduce_scatter_single = getattr(dist, "reduce_scatter_single", None) \
 def _all_reduce_sum(x, group):
     out = x.clone(memory_format=torch.contiguous_format)
     dist.all_reduce(out, group=group)
+    _tally("all-reduce", out)
     return out
 
 
@@ -584,6 +646,7 @@ def _all_gather(x, dim, group, n):
     x0 = x.movedim(dim, 0).contiguous()
     out = x0.new_empty((n * x0.shape[0],) + tuple(x0.shape[1:]))
     _all_gather_single(out, x0, group=group)
+    _tally("all-gather", out)
     return out.movedim(0, dim)
 
 
@@ -592,6 +655,7 @@ def _reduce_scatter(x, dim, group, n):
     x0 = x.movedim(dim, 0).contiguous()
     out = x0.new_empty((x0.shape[0] // n,) + tuple(x0.shape[1:]))
     _reduce_scatter_single(out, x0, group=group)
+    _tally("reduce-scatter", out)
     return out.movedim(0, dim)
 
 
@@ -764,4 +828,5 @@ def tp_max(x):
     counters.count(_TP_COUNT, "max")
     out = x.detach().clone(memory_format=torch.contiguous_format)
     dist.all_reduce(out, op=dist.ReduceOp.MAX, group=t[0])
+    _tally("all-reduce", out)
     return out

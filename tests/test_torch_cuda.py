@@ -467,7 +467,8 @@ def test_lm_kernels_refuse_what_they_do_not_take(cuda):
 
 
 LM_NAMES = ["internlm2-1.8b", "mamba2-370m", "deepseek-v2-lite-16b",
-            "grok-1-314b", "zamba2-7b", "internvl2-26b", "seamless-m4t-medium"]
+            "grok-1-314b", "zamba2-7b", "internvl2-26b", "seamless-m4t-medium",
+            "qwen2-72b", "glm4-9b", "codeqwen1.5-7b"]
 
 
 def _stub(cfg, batch, frames=40, seed=0):

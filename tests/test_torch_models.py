@@ -43,7 +43,8 @@ PLAN = PlanConfig(param_dtype="float32", compute_dtype="float32",
                   attn_chunk=8, remat="none")
 TPLAN = TPlan(param_dtype="float32", compute_dtype="float32", remat="none")
 NAMES = ["internlm2-1.8b", "mamba2-370m", "deepseek-v2-lite-16b",
-         "grok-1-314b", "zamba2-7b", "internvl2-26b", "seamless-m4t-medium"]
+         "grok-1-314b", "zamba2-7b", "internvl2-26b", "seamless-m4t-medium",
+         "qwen2-72b", "glm4-9b", "codeqwen1.5-7b"]
 # encoder frames of the encoder-decoder's prefills: not the decoder
 # prompt's length, so the cross-attention has Sq != Sk
 FRAMES = 12

@@ -42,7 +42,8 @@ from repro_torch.tree import tree_leaves, tree_unflatten
 from repro_torch.optim import AdamW
 
 NAMES = ["internlm2-1.8b", "mamba2-370m", "deepseek-v2-lite-16b",
-         "grok-1-314b", "zamba2-7b", "internvl2-26b", "seamless-m4t-medium"]
+         "grok-1-314b", "zamba2-7b", "internvl2-26b", "seamless-m4t-medium",
+         "qwen2-72b", "glm4-9b", "codeqwen1.5-7b"]
 PLAN = PlanConfig(param_dtype="float32", compute_dtype="float32",
                   master_dtype="float32", attn_chunk=8, loss_chunk=8,
                   remat="none")
