@@ -50,11 +50,12 @@ kernel with its launches on its path
 (Haar and kNN on the analytic, the tensor-core kNN on the serving phase,
 and both in the procpool phase's workers as ``pool_launches``,
 the bfloat16 tensor-core flash attention on the dense LM's bfloat16
-serving (and as entries of their own on internvl2's at a GQA group of 6
-and seamless's at d 64), the float32 (3xTF32) one on its float32 prefill
-check, the
-warp-level tensor-core one on deepseek's MLA serving at head width 192
-(and as its own entry on zamba2's at 112),
+serving (and as entries of their own on internvl2's at a GQA group of 6,
+seamless's at d 64, deepseek's MLA at q/k 192 and v 128, zamba2's at 112,
+and one rank's heads of zamba2 and internlm2, split over keys), the
+float32 (3xTF32) one on its float32 prefill check, the warp-level
+tensor-core one on the smoke configs' float32 ragged prefills (and as its
+own entry on zamba2's float32 prefill at 112),
 the CUDA-core one on the flash phase's entry-point calls at widths
 that are not a multiple of 8, the tensor-core SSD on the SSM LM's
 serving (and as its own entry on zamba2's at p 64, n 64), the CUDA-core one on the SSM smoke config's ragged prefill
@@ -101,12 +102,13 @@ from repro_torch.core.qlang import bigdawg  # noqa: E402
 from repro_torch.ckpt import CheckpointManager  # noqa: E402
 from repro_torch.data import (ShardedLoader, TokenStream,  # noqa: E402
                               ecg_waveforms)
-from repro_torch.kernels import _build, ops  # noqa: E402
+from repro_torch.kernels import _build, counters, ops  # noqa: E402
 from repro_torch.kernels.work import flash_work, ssd_work  # noqa: E402
 from repro_torch.kernels.haar import haar_cuda, haar_ref  # noqa: E402
 from repro_torch.kernels.flash_attention import (  # noqa: E402
-    TC_HEAD_DIMS, flash_attention_cuda, flash_attention_ref, tc_occupancy,
-    tf32_smem_bytes, variant)
+    TC_WIDTHS, TF32_HEAD_DIMS, flash_attention_cuda, flash_attention_ref,
+    split_plan, tc_key_tile, tc_occupancy, tc_smem_bytes, tf32_smem_bytes,
+    variant)
 from repro_torch.kernels.knn import (  # noqa: E402
     knn_scores_cuda, knn_scores_ref, variant as knn_variant)
 from repro_torch.kernels.ssd_scan import (  # noqa: E402
@@ -213,10 +215,12 @@ FLASH_SHAPES = [(16, 2048, 2048, 128, True, torch.bfloat16),
                 (4, 33, 200, 64, False, torch.float32),
                 (3, 200, 50, 128, False, torch.bfloat16)]
 # deepseek-v2-lite's MLA prefill of 2048 tokens (16 heads, q and k 192
-# wide: qk_nope 128 + qk_rope 64; v 128, zero-padded to 192 on the path)
-# and grok-1's (48 query heads over 8 KV heads of 128), both bfloat16
-MLA_FLASH_SHAPE = (1, 2048, 2048, 16, 16, 192, True, torch.bfloat16)
+# wide: qk_nope 128 + qk_rope 64; v 128, read at its own width on the
+# path), the shape's last element v's width, and grok-1's (48 query heads
+# over 8 KV heads of 128), both bfloat16
 MLA_V_WIDTH = 128
+MLA_FLASH_SHAPE = (1, 2048, 2048, 16, 16, 192, True, torch.bfloat16,
+                   MLA_V_WIDTH)
 GROK_FLASH_SHAPE = (1, 2048, 2048, 48, 8, 128, True, torch.bfloat16)
 # internvl2-26b's prefill of 256 patches and a 2048-token prompt (grok's
 # group of 6: 48 heads over 8), seamless-m4t-medium's encoder over 4096
@@ -249,17 +253,19 @@ DRYRUN_ARCH, DRYRUN_SHAPE = "codeqwen1.5-7b", "train_4k"
 DRYRUN_FLASH_SHAPE = (16, 4096, 4096, 2, 2, 128, True, torch.bfloat16)
 FLASH_NARROW_KV = [((1, 2048, 2048, 3, 1, 128, True, torch.bfloat16), 8, 5),
                    ((1, 2048, 2048, 3, 1, 128, True, torch.float32), 8, 5)]
-# (B, Sq, Sk, H, KV, d, causal, dtype), the (B, S, H, d) form with the KV
-# heads read in place; first the paths' own shapes: internlm2's prefill (16
+# (B, Sq, Sk, H, KV, d, causal, dtype[, v width]), the (B, S, H, d) form
+# with the KV heads read in place; first the paths' own shapes: internlm2's
+# prefill (16
 # query heads over 8 KV heads of 128) of 2048 tokens in bfloat16 (serving)
 # and float32 (the traced float32 prefill), of 256 in float32 (cpu_check),
 # and its smoke config's 61-token float32 prefill (ragged_check: head width
 # 32); then zamba2-7b's shared block (32 heads of 112) at 2048 tokens in
 # both dtypes (bfloat16: its serving), the MoE models', internvl2's and
 # seamless's prefills, ragged shapes, and non-causal Sq != Sk on every
-# kernel: Sq < Sk and Sq > Sk on "tc" and "tf32" at d 64 and 128, "mma" at
-# d 80 and 112 (and forced "simt" there), "simt" at d 17; Sq 1 against Sk
-# 4096 on "tc", "tf32" and "mma" (and forced "simt")
+# kernel: Sq < Sk and Sq > Sk on "tc" and "tf32" at d 64 and 128, "tc" at
+# 112 and 192 (v 128 and 192), "mma" at d 80 and float32 112 (and forced
+# "simt" there), "simt" at d 17; Sq 1 against Sk 4096 on "tc", "tf32" and
+# "mma" (and forced "simt")
 FLASH_GQA_SHAPES = [(1, 2048, 2048, 16, 8, 128, True, torch.bfloat16),
                     (1, 2048, 2048, 16, 8, 128, True, torch.float32),
                     (1, 256, 256, 16, 8, 128, True, torch.float32),
@@ -284,6 +290,10 @@ FLASH_GQA_SHAPES = [(1, 2048, 2048, 16, 8, 128, True, torch.bfloat16),
                     (1, 130, 300, 8, 2, 128, False, torch.bfloat16),
                     (2, 300, 130, 4, 2, 128, False, torch.float32),
                     (1, 300, 97, 4, 4, 112, False, torch.float32),
+                    (2, 300, 130, 4, 2, 112, False, torch.bfloat16),
+                    (1, 333, 333, 4, 2, 192, True, torch.bfloat16, 128),
+                    (1, 130, 300, 4, 2, 192, False, torch.bfloat16, 128),
+                    (1, 200, 200, 4, 2, 192, True, torch.bfloat16),
                     (1, 1, 4096, 4, 4, 32, False, torch.float32),
                     (2, 70, 150, 4, 2, 17, False, torch.bfloat16),
                     (2, 150, 70, 4, 1, 17, False, torch.float32)]
@@ -291,26 +301,30 @@ FLASH_GQA_SHAPES = [(1, 2048, 2048, 16, 8, 128, True, torch.bfloat16),
 # each kernel at its path's shape ("tc", "tf32", "mma"); the CUDA-core
 # kernel, forced, at the warp-level kernel's path shape ("simt_before":
 # its time before "mma" took that path, the CUDA-core kernel's row of the
-# kernels line); the warp-level kernel on zamba2's path in both dtypes;
-# the MoE models' prefills (MLA at d 192 on "mma",
-# grok's group of 6 on "tc"), internvl2's group of 6 and seamless's
-# non-causal encoder at d 64 on "tc"; zamba2's shared block on the rank's
-# 8 heads (tp_rank_hybrid) on "mma"; codeqwen's rank of 16 (dryrun: 2
-# heads, 16 rows of 4096) on "tc"; and the folded forms at 2048 tokens.
+# kernels line); zamba2's shared block on "tc" in bfloat16 (its serving)
+# and on "mma" in float32; the MoE models' prefills (MLA at q/k 192, v
+# 128 on "tc", grok's group of 6 on "tc"), internvl2's group of 6 and
+# seamless's non-causal encoder at d 64 on "tc"; zamba2's shared block on
+# the rank's 8 heads (tp_rank_hybrid) and internlm2's rank of four
+# (tp_rank) on "tc", both split over keys; codeqwen's rank of 16 (dryrun:
+# 2 heads, 16 rows of 4096) on "tc"; and the folded forms at 2048 tokens.
 # The CUDA-core kernel's times at zamba2's width and the folded float32
-# form (the "before" of the kernels that took those shapes) are no longer
-# taken, for the time budget; those shapes are still checked on it
+# form (the "before" of the kernels that took those shapes), and the
+# warp-level kernel's at zamba2's and MLA's bfloat16 shapes (the "before"
+# of "tc" there), are no longer taken, for the time budget; those shapes
+# are still checked
 FLASH_TIMED = {(FLASH_GQA_SHAPES[0], "tc"): "tc",
                (FLASH_GQA_SHAPES[1], "tf32"): "tf32",
                (FLASH_GQA_SHAPES[3], "mma"): "mma",
                (FLASH_GQA_SHAPES[3], "simt"): "simt_before",
-               (FLASH_GQA_SHAPES[4], "mma"): "mma_d112_bf16",
+               (FLASH_GQA_SHAPES[4], "tc"): "tc_d112",
                (FLASH_GQA_SHAPES[5], "mma"): "mma_d112_f32",
-               (MLA_FLASH_SHAPE, "mma"): "mma_d192",
+               (MLA_FLASH_SHAPE, "tc"): "tc_mla",
                (GROK_FLASH_SHAPE, "tc"): "tc_gqa6",
                (VLM_FLASH_SHAPE, "tc"): "tc_gqa6_vlm",
                (ENC_FLASH_SHAPE, "tc"): "tc_d64_noncausal",
-               (TP_RANK_HYBRID_FLASH_SHAPE, "mma"): "mma_tp_rank",
+               (TP_RANK_HYBRID_FLASH_SHAPE, "tc"): "tc_tp_rank_hybrid",
+               (TP_RANK_FLASH_SHAPE, "tc"): "tc_tp_rank",
                (DRYRUN_FLASH_SHAPE, "tc"): "tc_dryrun",
                (FLASH_SHAPES[0], "tc"): "tc_folded",
                (FLASH_SHAPES[1], "tf32"): "tf32_folded",
@@ -416,8 +430,9 @@ GRAD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 # flash (B, Sq, Sk, H, KV, d, causal, dtype[, v width]): internlm2's layer
 # at B 1, and in bfloat16 also at the batch of its full-depth train steps,
 # the dense smoke config's heads at S 256, and deepseek's MLA at its train
-# steps' batch (v zero-padded from 128 to q's 192, the gradient of o's
-# padded columns zero, as on the path), zamba2's shared block at its train
+# steps' batch (v and o 128 wide beside q and k's 192, as on the path:
+# "tc" in bfloat16, "mma" with v zero-padded in float32), zamba2's shared
+# block at its train
 # steps' batch in both dtypes, internvl2's (grok's group of 6: 48 heads
 # over 8) at its train steps' batch in both dtypes (the float32 row the
 # dtype its train cpu_check ran before that check's cut), and seamless's
@@ -659,16 +674,32 @@ def phase_device(dev) -> dict:
     serialized = [line for lines in ptxas.values() for line in lines
                   if "C75" in line]
     check(not serialized, f"ptxas serialized wgmma: {serialized}")
-    occupancy = {kind: {str(d): tc_occupancy(d, kind) for d in TC_HEAD_DIMS}
-                 for kind in ("tc", "tf32")}
-    for d in TC_HEAD_DIMS:
+    # each tensor-core flash instantiation's registers and shared memory
+    # against the layouts that kernels/flash_attention.py mirrors; the
+    # bfloat16 kernel's block must start with registers enough for
+    # setmaxnreg's 240 a consumer thread and 24 a producer thread
+    occupancy = {"tc": {f"{d}/{dv}": tc_occupancy(d, "tc", dv)
+                        for d, dvs in TC_WIDTHS.items() for dv in dvs},
+                 "tf32": {str(d): tc_occupancy(d, "tf32")
+                          for d in TF32_HEAD_DIMS}}
+    for d in TF32_HEAD_DIMS:
         got = occupancy["tf32"][str(d)]["smem_bytes"]
         check(got == tf32_smem_bytes(d),
               f"flash tf32 d {d}: {got} bytes of shared memory, the layout "
               f"says {tf32_smem_bytes(d)}")
+    for key, got in occupancy["tc"].items():
+        d, dv = map(int, key.split("/"))
+        check(got["smem_bytes"] == tc_smem_bytes(d, dv),
+              f"flash tc {key}: {got['smem_bytes']} bytes of shared memory, "
+              f"the layout says {tc_smem_bytes(d, dv)}")
+        check(got["registers"] * 384 >= 240 * 256 + 24 * 128,
+              f"flash tc {key}: {got['registers']} registers a thread, too "
+              f"few for setmaxnreg")
     info = {"card": card, "capability": list(cap),
             "torch": torch.__version__, "cuda": torch.version.cuda,
             "build_s": round(build_s, 3),
+            "flash_attention_nvcc_s": round(
+                _build.build_seconds.get("flash_attention", 0.0), 3),
             "build_s_each": {k: round(v, 3)
                              for k, v in _build.build_seconds.items()},
             "ptxas": ptxas, "flash_tc_occupancy": occupancy}
@@ -811,7 +842,7 @@ def _flash_out_check(got, q, k, v, causal, label) -> dict:
     with torch.no_grad():
         want = flash_attention_ref(q, k, v, causal=causal)
     err, tol = max_abs_err(got, want), FLASH_TOL[dtype]
-    check(got.dtype == dtype and got.shape == q.shape,
+    check(got.dtype == dtype and got.shape == (*q.shape[:-1], v.shape[-1]),
           f"{label}: {got.dtype} {tuple(got.shape)}")
     check(torch.allclose(got.float(), want.float(), rtol=tol, atol=tol),
           f"{label}: max err {err}")
@@ -837,35 +868,46 @@ def phase_flash(dev, shapes=FLASH_SHAPES, gqa_shapes=FLASH_GQA_SHAPES,
     warp-level kernel takes the shape, or a wgmma kernel in float32;
     ``narrow_kv``'s shapes with k and v narrowed views of wider tensors.
     Returns the rows that ``timed_at`` names, timed beside the plain version
-    and SDPA, and under "entry_launches" the launches of the entry-point
-    calls (the CUDA-core kernel's only caller on the card now)."""
+    and SDPA ("tc" rows with the split over keys that ``split_plan`` makes
+    on this card), and under "entry_launches" the launches of the
+    entry-point calls (the CUDA-core kernel's only caller on the card
+    now)."""
     gen = torch.Generator(device=dev).manual_seed(2)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count \
+        if dev.type == "cuda" else 132
+
+    def full(shape):
+        """(B, Sq, Sk, H, KV, d, causal, dtype, v width)"""
+        return (*shape[:8], shape[8] if len(shape) > 8 else shape[5])
     # both forms as (shape as given, form, narrowed KV (whole heads,
-    # first head) or None, B, Sq, Sk, H, KV, d, causal, dtype); (BH, S, d)
-    # is B 1 with H = KV = BH for the work it does
+    # first head) or None, B, Sq, Sk, H, KV, d, causal, dtype, v width);
+    # (BH, S, d) is B 1 with H = KV = BH for the work it does
     cases = ([(shape, "BH,S,d", None, 1, *shape[1:3], shape[0], shape[0],
-               *shape[3:]) for shape in shapes]
-             + [(shape, "B,S,H,d", None, *shape) for shape in gqa_shapes]
-             + [(shape, "B,S,H,d", (whole, kv0), *shape)
+               *shape[3:], shape[3]) for shape in shapes]
+             + [(shape, "B,S,H,d", None, *full(shape))
+                for shape in gqa_shapes]
+             + [(shape, "B,S,H,d", (whole, kv0), *full(shape))
                 for shape, whole, kv0 in narrow_kv])
     timed = {}
     entry = dict.fromkeys(ops.COUNTERS, 0)
-    for given, form, narrow, b, sq, sk, h, kv, d, causal, dtype in cases:
+    for given, form, narrow, b, sq, sk, h, kv, d, causal, dtype, dv in cases:
         rnd = lambda *shape: torch.randn(shape, generator=gen,
                                          device=dev).to(dtype)
         if narrow:
             whole, kv0 = narrow
             q = rnd(b, sq, h, d)
-            k, v = (rnd(b, sk, whole, d).narrow(2, kv0, kv)
-                    for _ in range(2))
+            k = rnd(b, sk, whole, d).narrow(2, kv0, kv)
+            v = rnd(b, sk, whole, dv).narrow(2, kv0, kv)
             shape = {"B": b, "Sq": sq, "Sk": sk, "H": h, "KV": kv, "d": d,
                      "KV_of": whole, "KV_from": kv0}
         elif form == "B,S,H,d":
-            q, k, v = rnd(b, sq, h, d), rnd(b, sk, kv, d), rnd(b, sk, kv, d)
+            q, k, v = rnd(b, sq, h, d), rnd(b, sk, kv, d), rnd(b, sk, kv, dv)
             shape = {"B": b, "Sq": sq, "Sk": sk, "H": h, "KV": kv, "d": d}
         else:
             q, k, v = rnd(h, sq, d), rnd(h, sk, d), rnd(h, sk, d)
             shape = {"BH": h, "Sq": sq, "Sk": sk, "d": d}
+        if dv != d:
+            shape["dv"] = dv
         fits = variant(dtype, d)
         kinds = [fits]
         if fits == "mma" or (dtype == torch.float32 and fits != "simt"):
@@ -907,36 +949,24 @@ def phase_flash(dev, shapes=FLASH_SHAPES, gqa_shapes=FLASH_GQA_SHAPES,
                 row["library_kernels"] = _kernel_names(library, dev)
                 row["call_ms"] = call_ms(lambda: run(0), dev)
                 nbytes, ops_count = flash_work(b, sq, sk, h, kv, d, causal,
-                                                q.element_size())
+                                                q.element_size(), dv)
                 units = _flash_units(kind, dtype)
                 row.update(bound_ms(nbytes, ops_count, units,
                                     () if units == "bf16"
                                     else ("f32", "3xtf32")))
-                if given == MLA_FLASH_SHAPE:
-                    # MLA's own function: v 128 wide, which the kernel
-                    # takes padded to q's 192 (a third of the P·V
-                    # products on zero columns); SDPA takes it as it is
-                    vu = vl[..., :MLA_V_WIDTH].contiguous()
-                    unpadded = lambda i=0: \
-                        torch.nn.functional.scaled_dot_product_attention(
-                            ql, kl, vu, is_causal=causal)
-                    row["library_unpadded_ms"] = time_ms(
-                        unpadded, dev, label=f"{tag} library unpadded")
-                    row["library_unpadded_kernels"] = _kernel_names(
-                        unpadded, dev)
-                    row["v_width"] = MLA_V_WIDTH
-                    row["pv_products_on_padding"] = (d - MLA_V_WIDTH) / d
-                    row["bound_unpadded_ms"] = bound_ms(*flash_work(
-                        b, sq, sk, h, kv, d, causal, q.element_size(),
-                        MLA_V_WIDTH), units)["bound_ms"]
-                    del vu
+                row["v_width"] = dv
+                if kind == "tc":
+                    # (chunks, key tiles a chunk): (1, ...) is no split
+                    row["split"] = list(split_plan(b, h, sq, sk, causal,
+                                                   sms, tc_key_tile(d, dv)))
+                    row["key_tile"] = tc_key_tile(d, dv)
                 del ql, kl, vl
                 timed[name] = dict(row)
             row["seconds"] = time.perf_counter() - t_row
             emit("flash_attention", **row)
     emit("flash_attention_entry", launches=entry)
     if dev.type == "cuda":
-        used = {variant(c[-1], c[-3]) for c in cases}
+        used = {variant(c[10], c[8]) for c in cases}
         check(all(entry[f"flash_attention_{kind}"] > 0 for kind in used),
               f"flash entry launches {entry}, want each of {sorted(used)}")
     timed["entry_launches"] = entry
@@ -1318,6 +1348,27 @@ def _same_neighbours(got, want, feats, test, what: str) -> int:
     return differing
 
 
+def per_row(key: str) -> bool:
+    """Plan ``key`` runs knn on dense_array, the one engine whose knn scores
+    each test row.  Off dense_array a batch's answer is the reference's
+    (1, k) quirk, and kv_sparse's scatter of the batch into one vector picks
+    its values in no fixed order (ROADMAP queue 3)."""
+    return dict(_plan_from_key(key).assignment)[FUSED_TAIL[1]] \
+        == "dense_array"
+
+
+def _same_answer(got, want, key: str, feats, test, what: str) -> int:
+    """``got`` has the shape of ``want``, the in-process serve of plan
+    ``key``, and where the plan scores each row (``per_row``) the same
+    neighbours, or near-ties (``_same_neighbours``).  Returns how many
+    indices differ."""
+    check(tuple(got.shape) == tuple(want.shape),
+          f"{what} on {key}: {tuple(got.shape)} vs {tuple(want.shape)}")
+    if not per_row(key):
+        return 0
+    return _same_neighbours(got, want, feats, test, f"{what} on {key}")
+
+
 def _timed(srv) -> list:
     """Record each request's latency through ``srv.submit`` (the
     admission's own call), waiting on the signature lock included."""
@@ -1384,12 +1435,26 @@ def phase_serving(dev, data, state_dir: str, train_plans=36,
           and modes.count("production") == cold - 1
           and s.bigdawg.metrics.value("server.trainings") == 1,
           f"cold race modes {modes}")
-    first = next(r for r in reports if r.mode == "production").result.data
-    check(first.dtype == torch.int32 and tuple(first.shape) == (len(batch), K)
+    prod = next(r for r in reports if r.mode == "production")
+    first = prod.result.data
+    rows = len(batch) if per_row(prod.plan_key) else 1
+    check(first.dtype == torch.int32 and tuple(first.shape) == (rows, K)
           and first.device.type == dev.type,
-          f"serving result {first.dtype} {tuple(first.shape)} {first.device}")
-    ties = sum(_same_neighbours(r.result.data, first, feats, batch,
-                                "cold race") for r in reports)
+          f"serving result {first.dtype} {tuple(first.shape)} {first.device}"
+          f" on {prod.plan_key}")
+    # each serve is held to the in-process serve of its own plan: the
+    # production plan may move while monitor means settle, and off
+    # dense_array a batch's answer is the reference's quirk (``per_row``)
+    answers = {prod.plan_key: first}
+
+    def answer(key):
+        if key not in answers:
+            answers[key] = execute_plan(q(), _plan_from_key(key),
+                                        s.catalog, device=dev).value.data
+        return answers[key]
+
+    ties = sum(_same_answer(r.result.data, answer(r.plan_key), r.plan_key,
+                            feats, batch, "cold race") for r in reports)
     row["cold_race"] = {"requests": cold, "workers": workers,
                         "seconds": cold_s, "modes": dict(
                             (m, modes.count(m)) for m in set(modes)),
@@ -1434,8 +1499,9 @@ def phase_serving(dev, data, state_dir: str, train_plans=36,
     plain = QueryServer(s.bigdawg, fuse=False).submit(q())
     s.bigdawg.fuse = True
     check(not plain.fused_segments, "a fuse=False server fused")
-    _same_neighbours(plain.result.data, last.result.data, feats, batch,
-                     "fused vs unfused serving")
+    _same_answer(plain.result.data, last.result.data if
+                 plain.plan_key == last.plan_key else answer(plain.plan_key),
+                 plain.plan_key, feats, batch, "fused vs unfused serving")
     row["warm"] = {"requests": warm, "by_workers": runs,
                    "fused_serves": fused, "launches": launches,
                    "plans": sorted({r.plan_key for r in served}),
@@ -1506,17 +1572,18 @@ def phase_serving(dev, data, state_dir: str, train_plans=36,
     check(all(r.mode == "production" for r in again) and not enumerations,
           f"restart modes {[r.mode for r in again]}, "
           f"{len(enumerations)} enumerations")
-    ties = sum(_same_neighbours(r.result.data, first, feats, batch,
-                                "restart") for r in again)
+    ties = sum(_same_answer(r.result.data, answer(r.plan_key), r.plan_key,
+                            feats, batch, "restart") for r in again)
     row["restart"] = {"serves": len(again), "enumerations": len(enumerations),
                       "modes": [r.mode for r in again],
+                      "plans": [r.plan_key for r in again],
                       "near_tie_indices": ties}
     row["broken_keys"] = fuseplan.broken_keys()
     row["fusion_fallbacks"] = s.bigdawg.fusion_fallbacks
     row["stats"] = dict(srv.stats)
     check(not row["broken_keys"] and row["fusion_fallbacks"] == 0,
           f"serving fusion fell back: {row['broken_keys']}")
-    del s, s2, srv, srv2, feats
+    del s, s2, srv, srv2, feats, answers, first
     emit("serving", **row)
     return row
 
@@ -2054,28 +2121,18 @@ def phase_procpool(dev, data, state_dir: str) -> dict:
     in_process = {ref_rep.plan_key: ref_rep.result.data.cpu()}
 
     def same(by_plan, what):
-        """Every pool answer has the shape of the in-process serve of its
-        plan, and where the plan runs knn on dense_array (the one engine
-        whose knn scores each test row) the same neighbours, or near-ties.
-        Off dense_array a batch's answer is the reference's (1, k) quirk,
-        and kv_sparse's scatter of the batch into one vector picks its
-        values in no fixed order (ROADMAP queue 3).  Returns the near-tie
-        count and each plan's serves."""
+        """Every pool answer is the in-process serve's of its plan
+        (``_same_answer``).  Returns the near-tie count and each plan's
+        serves."""
         ties = 0
         for key, (_, nbs) in by_plan.items():
             if key not in in_process:
                 in_process[key] = execute_plan(
                     bigdawg(SERVING), _plan_from_key(key), s.catalog,
                     device=dev).value.data.cpu()
-            want = in_process[key]
-            per_row = dict(_plan_from_key(key).assignment)[
-                FUSED_TAIL[1]] == "dense_array"
             for nb in nbs:
-                check(tuple(nb.shape) == tuple(want.shape),
-                      f"{what} on {key}: {nb.shape} vs {tuple(want.shape)}")
-                if per_row:
-                    ties += _same_neighbours(torch.from_numpy(nb), want,
-                                             feats, batch, f"{what} on {key}")
+                ties += _same_answer(torch.from_numpy(nb), in_process[key],
+                                     key, feats, batch, what)
         return ties, {key: n for key, (n, _) in by_plan.items()}
 
     for p, w in row["warm"].items():
@@ -2218,6 +2275,16 @@ DEVICE_KERNEL = {"flash_attention_tc": "flash_fwd_wgmma",
                  "flash_attention_simt": "flash_fwd_simt",
                  "ssd_intra_tc": "ssd_intra_wgmma",
                  "ssd_intra_simt": "ssd_intra_kernel"}
+
+
+def _device_kernels(counters) -> list:
+    """The device kernels of launch counters, as ``DEVICE_KERNEL`` names
+    them; the "tc" flash kernel's split over keys also runs
+    flash_fwd_combine."""
+    names = [DEVICE_KERNEL[k] for k in counters]
+    if "flash_attention_tc" in counters:
+        names.append("flash_fwd_combine")
+    return names
 
 
 def _cut(cfg, depth: int):
@@ -2630,7 +2697,7 @@ def phase_lm(dev, name: str, cfg=None, slots=LM_SLOTS, max_len=LM_MAX_LEN,
         toks = torch.zeros((slots,), dtype=torch.int32, device=dev)
         pos = torch.full((slots,), max_len - 2, dtype=torch.int32,
                          device=dev)
-        device_name = [DEVICE_KERNEL[k] for k in want]
+        device_name = _device_kernels(want)
         row["profile"] = {
             f"prefill_{len(long)}": _device_profile(
                 lambda: prefill(params, {"tokens": tok, **stub}), dev,
@@ -2644,8 +2711,7 @@ def phase_lm(dev, name: str, cfg=None, slots=LM_SLOTS, max_len=LM_MAX_LEN,
             prefill32 = api.make_prefill(cut, shape, plan32)
             row["profile"]["prefill_2048_f32"] = _device_profile(
                 lambda: prefill32(small, {"tokens": tok}), dev,
-                [DEVICE_KERNEL[k] for k in _prefill_launches(cfg,
-                                                             torch.float32)])
+                _device_kernels(_prefill_launches(cfg, torch.float32)))
             del small
         if cfg.moe is not None:
             # one MoE layer on a 2048-token hidden: the expert products,
@@ -2991,6 +3057,7 @@ def phase_tp_rank(dev, cfg=None, ways=TP_RANK_WAYS, prompt=TP_RANK_PROMPT,
             run_prefill()
             sync(dev)
             ops.reset_launches()
+            counters.reset([(flash_attention_cuda, "launches_tc_split")])
             seen.clear()
             ssd_seen.clear()
             partition.reset_tp_collectives()
@@ -3002,11 +3069,12 @@ def phase_tp_rank(dev, cfg=None, ways=TP_RANK_WAYS, prompt=TP_RANK_PROMPT,
                 sync(dev)
                 prefill_ms.append((time.perf_counter() - t0) * 1e3)
             launches = ops.launches()
+            split = flash_attention_cuda.launches_tc_split // 2
             tp = partition.tp_collectives()
             gathered = partition.model_gathers()
             shapes, ssd_shapes = sorted(set(seen)), sorted(set(ssd_seen))
-            kernels = [DEVICE_KERNEL[k] for k in
-                       _prefill_launches(cfg, torch.bfloat16)]
+            kernels = _device_kernels(_prefill_launches(cfg,
+                                                        torch.bfloat16))
             profile = _device_profile(run_prefill, dev, kernels, top=8,
                                       warm=False) \
                 if dev.type == "cuda" else None
@@ -3039,7 +3107,8 @@ def phase_tp_rank(dev, cfg=None, ways=TP_RANK_WAYS, prompt=TP_RANK_PROMPT,
            "local_weights_gb": local_gb, "local_cache_gb": cache_gb,
            "peak_mem_gb": peak, "prefill_ms": prefill_ms,
            "decode_step_ms": decode_ms[1:], "decode_first_ms": decode_ms[0],
-           "launches": per_prefill, "flash_shapes": shapes,
+           "launches": per_prefill, "split_launches": split,
+           "flash_shapes": shapes,
            "ssd_shapes": ssd_shapes, "mixer_splits": mixer,
            "tp_collectives_per_prefill": tp_per,
            "model_gathers_per_prefill": gathered_per,
@@ -3048,6 +3117,18 @@ def phase_tp_rank(dev, cfg=None, ways=TP_RANK_WAYS, prompt=TP_RANK_PROMPT,
         want = _prefill_launches(cfg, torch.bfloat16)
         check(per_prefill == want,
               f"{phase}: {per_prefill} launches a prefill, want {want}")
+        # a rank's heads are a grid under one wave: every "tc" launch of
+        # the prefill splits its keys, as split_plan says on this card
+        (b, sq, h, d), (_, sk, kv, _) = flash_shapes
+        plan_split = split_plan(
+            b, h, sq, sk, True,
+            torch.cuda.get_device_properties(dev).multi_processor_count,
+            tc_key_tile(d, d))
+        row["split_plan"] = list(plan_split)
+        want_split = per_prefill.get("flash_attention_tc", 0) \
+            if plan_split[0] > 1 else 0
+        check(split == want_split, f"{phase}: {split} split launches a "
+              f"prefill, want {want_split}")
     check(shapes == [tuple(flash_shapes)],
           f"{phase}: flash ran at {shapes}, want {flash_shapes}")
     check(ssd_shapes == ([tuple(ssd_shape)] if ssd_shape else []),
@@ -3182,15 +3263,13 @@ def _grad_check(dev) -> list:
     its forward check holds the kernel; the flash backward reads the
     kernel's output."""
     rows = []
-    for b, sq, sk, h, kv, d, causal, dtype, *pad in FLASH_GRAD_SHAPES:
+    for b, sq, sk, h, kv, d, causal, dtype, *vw in FLASH_GRAD_SHAPES:
+        dv = vw[0] if vw else d
         gen = torch.Generator(device=dev).manual_seed(sq + sk + d)
         q = torch.randn((b, sq, h, d), generator=gen, device=dev).to(dtype)
-        k, v = (torch.randn((b, sk, kv, d), generator=gen, device=dev)
-                .to(dtype) for _ in range(2))
-        do = torch.randn((b, sq, h, d), generator=gen, device=dev).to(dtype)
-        if pad:
-            v[..., pad[0]:] = 0
-            do[..., pad[0]:] = 0
+        k = torch.randn((b, sk, kv, d), generator=gen, device=dev).to(dtype)
+        v = torch.randn((b, sk, kv, dv), generator=gen, device=dev).to(dtype)
+        do = torch.randn((b, sq, h, dv), generator=gen, device=dev).to(dtype)
         ins = [t.requires_grad_(True) for t in (q, k, v)]
         kernel = "flash_attention_" + variant(dtype, d)
         ops.reset_launches()
@@ -3203,7 +3282,7 @@ def _grad_check(dev) -> list:
         errs = {f"d{n}": _rel_err(a, w) for n, a, w in zip("qkv", got, want)}
         shape = [b, sq, sk, h, kv, d]
         row = {"kernel": "flash_attention", "shape": shape,
-               "causal": causal, "v_width": pad[0] if pad else d,
+               "causal": causal, "v_width": dv,
                "dtype": str(dtype).removeprefix("torch."),
                "variant": kernel, "grad_fn": type(out.grad_fn).__name__,
                "rel_err": errs, "tol": GRAD_TOL[dtype],
@@ -3433,7 +3512,7 @@ def _train_full(dev, name: str, batch: int) -> dict:
                 step_ms.append(dt)
         peak = torch.cuda.max_memory_allocated(dev) / 1e9 if cuda else None
         profile = _device_profile(lambda: step(state, b), dev,
-                                  [DEVICE_KERNEL[k] for k in want], top=12,
+                                  _device_kernels(want), top=12,
                                   warm=False) if cuda else None
     finally:
         loader.close()
@@ -3576,26 +3655,32 @@ def kernels_line(haar_row: dict, knn_rows: dict, flash_rows: dict,
     as ``sharded_launches``, its train steps there as
     ``sharded_train_launches``, one prefill of rank 0 of its four-way
     split as ``tp_rank_launches``), the 3xTF32 one on the dense LM's float32
-    prefill (``cpu_check``), the warp-level one on deepseek-v2-lite's
-    serving (MLA at d 192; ``ragged_launches``: the dense smoke config's
-    ragged prefill), the CUDA-core one on phase_flash's entry-point calls
-    (its only caller: widths that are not a multiple of 8), the tensor-core
-    SSD on SSM serving, the CUDA-core one on the SSM smoke config's ragged
-    prefill (``ragged_check``); zamba2-7b's serving as two entries of their
-    own, the warp-level flash kernel at d 112 and the tensor-core SSD at p
-    64, n 64, each with its times at that path's shape; internvl2-26b's
+    prefill (``cpu_check``), the bfloat16 tensor-core one on deepseek-v2-
+    lite's serving (MLA: q/k 192, v 128) and on zamba2-7b's (d 112) as
+    entries of their own, the warp-level one on the smoke configs' float32
+    ragged prefills (``ragged_check``; ``mla_cpu_check_launches``:
+    deepseek's float32 prefill at 192, v padded) and on zamba2's float32
+    prefill at d 112 (``cpu_check``, an entry of its own), the CUDA-core
+    one on phase_flash's entry-point calls (its only caller: widths that
+    are not a multiple of 8), the tensor-core SSD on SSM serving, the
+    CUDA-core one on the SSM smoke config's ragged prefill
+    (``ragged_check``); zamba2-7b's tensor-core SSD at p 64, n 64 as an
+    entry of its own, with its times at that path's shape; internvl2-26b's
     serving (the tensor-core flash kernel at a GQA group of 6, 2304 rows)
     and seamless-m4t-medium's (the tensor-core flash kernel at d 64, timed
     at its non-causal encoder's shape; its prefills also run the decoder's
     causal self-attention and its cross-attention on the same kernel) as
     entries of their own; rank 0 of zamba2-7b's four-way split
-    (``tp_rank_hybrid``: the warp-level flash kernel on 8 of 32 heads, the
-    tensor-core SSD on 28 of 112) as two more, timed at those shapes;
+    (``tp_rank_hybrid``: the tensor-core flash kernel on 8 of 32 heads of
+    112, split over keys, the tensor-core SSD on 28 of 112) and of
+    internlm2's (``tp_rank``: 4 of 16 heads, split) as three more, timed
+    at those shapes (``split_launches``: the launches that split and ran
+    flash_fwd_combine);
     rank 0 of codeqwen1.5-7b's (16, 16) train_4k step (``dryrun``: the
     tensor-core flash kernel on 2 of 32 heads, forward and remat
     recompute) as one more, and as ``dryrun_launches`` on the first.
-    ``train_launches``: the bfloat16 flash kernels (tensor-core at d 128,
-    warp-level at MLA's d 192 and zamba2's d 112) and SSD in the train
+    ``train_launches``: the bfloat16 flash kernel (tensor-core at d 128,
+    MLA's 192/128 and zamba2's 112) and SSD in the train
     phase's steps (forward and remat recompute), the 3xTF32 flash kernel in
     its float32 ``cpu_check`` steps.  The CUDA-core flash kernel's times are
     its forced row at the dense smoke config's shape."""
@@ -3652,23 +3737,31 @@ def kernels_line(haar_row: dict, knn_rows: dict, flash_rows: dict,
                                 ["flash_attention_tf32"]
                                 for n in ("internlm2-1.8b",
                                           "seamless-m4t-medium"))),
-        dict(_kernel_entry("flash_attention_mma", "flash_attention.cu", flash,
-                           lm_moe["launches"]["flash_attention_mma"],
-                           flash_rows["mma_d192"]),
-             ragged_launches=sum(
-                 row["ragged_check"]["launches"]["flash_attention_mma"]
-                 for row in (lm_dense, lm_vlm, lm_encdec)),
+        dict(_kernel_entry("flash_attention_tc_mla", "flash_attention.cu",
+                           flash, lm_moe["launches"]["flash_attention_tc"],
+                           flash_rows["tc_mla"]),
              train_launches=steps["deepseek-v2-lite-16b"]["launches"]
-             ["flash_attention_mma"]),
-        dict(_kernel_entry("flash_attention_mma_d112", "flash_attention.cu",
-                           flash, lm_hybrid["launches"]["flash_attention_mma"],
-                           flash_rows["mma_d112_bf16"]),
-             cpu_check_launches=lm_hybrid["cpu_check"]["launches"]
-             ["flash_attention_mma"],
-             ragged_launches=lm_hybrid["ragged_check"]["launches"]
-             ["flash_attention_mma"],
+             ["flash_attention_tc"]),
+        dict(_kernel_entry("flash_attention_tc_d112", "flash_attention.cu",
+                           flash,
+                           lm_hybrid["launches"]["flash_attention_tc"],
+                           flash_rows["tc_d112"]),
              train_launches=steps["zamba2-7b"]["launches"]
+             ["flash_attention_tc"]),
+        dict(_kernel_entry("flash_attention_mma", "flash_attention.cu",
+                           flash,
+                           sum(row["ragged_check"]["launches"]
+                               ["flash_attention_mma"]
+                               for row in (lm_dense, lm_moe, lm_hybrid,
+                                           lm_vlm, lm_encdec)),
+                           flash_rows["mma"]),
+             mla_cpu_check_launches=lm_moe["cpu_check"]["launches"]
              ["flash_attention_mma"]),
+        dict(_kernel_entry("flash_attention_mma_d112_f32",
+                           "flash_attention.cu", flash,
+                           lm_hybrid["cpu_check"]["launches"]
+                           ["flash_attention_mma"],
+                           flash_rows["mma_d112_f32"])),
         _kernel_entry("flash_attention_simt", "flash_attention.cu", flash,
                       flash_rows["entry_launches"]["flash_attention_simt"],
                       flash_rows["simt_before"]),
@@ -3685,9 +3778,17 @@ def kernels_line(haar_row: dict, knn_rows: dict, flash_rows: dict,
         _kernel_entry("ssd_intra_simt", "ssd_scan.cu", ssd,
                       lm_ssm["ragged_check"]["launches"]["ssd_intra_simt"],
                       ssd_rows["simt"]),
-        _kernel_entry("flash_attention_mma_tp_rank", "flash_attention.cu",
-                      flash, tp_rank_hybrid["launches"]["flash_attention_mma"],
-                      flash_rows["mma_tp_rank"]),
+        dict(_kernel_entry("flash_attention_tc_tp_rank_hybrid",
+                           "flash_attention.cu", flash,
+                           tp_rank_hybrid["launches"].get(
+                               "flash_attention_tc", 0),
+                           flash_rows["tc_tp_rank_hybrid"]),
+             split_launches=tp_rank_hybrid["split_launches"]),
+        dict(_kernel_entry("flash_attention_tc_tp_rank",
+                           "flash_attention.cu", flash,
+                           tp_rank["launches"].get("flash_attention_tc", 0),
+                           flash_rows["tc_tp_rank"]),
+             split_launches=tp_rank["split_launches"]),
         _kernel_entry("ssd_intra_tc_tp_rank", "ssd_scan.cu", ssd,
                       tp_rank_hybrid["launches"]["ssd_intra_tc"],
                       ssd_rows["tc_tp_rank"]),
@@ -3745,13 +3846,13 @@ def main() -> int:
     train = phase_train(dev)
     emit("total", seconds=time.perf_counter() - t0,
          host_behind=HOST_BEHIND)
-    print(json.dumps(kernels_line(haar_row, knn_rows, flash_rows, ssd_rows,
-                                  analytic, serving, procpool, lm_dense,
-                                  lm_sharded, tp_rank, tp_rank_hybrid,
-                                  dry, lm_ssm, lm_moe,
-                                  lm_moe_grok, lm_hybrid, lm_vlm, lm_encdec,
-                                  train)),
-          flush=True)
+    line = kernels_line(haar_row, knn_rows, flash_rows, ssd_rows, analytic,
+                        serving, procpool, lm_dense, lm_sharded, tp_rank,
+                        tp_rank_hybrid, dry, lm_ssm, lm_moe, lm_moe_grok,
+                        lm_hybrid, lm_vlm, lm_encdec, train)
+    idle = [k["name"] for k in line["kernels"] if not k["launches"] > 0]
+    check(not idle, f"kernels never launched on their paths: {idle}")
+    print(json.dumps(line), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

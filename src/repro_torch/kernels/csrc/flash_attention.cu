@@ -1,10 +1,12 @@
 // Forward flash attention, o = softmax(q·kᵀ / sqrt(d), causal mask
-// qpos >= kpos) · v, with grouped-query heads read in place: q and o are
-// (B, Sq, H, d), k and v (B, Sk, KV, d), H % KV == 0, and query head h reads
-// KV head h / (H / KV), as the reference's jnp.repeat over heads.  Every
-// tensor is addressed through its own element strides of batch, sequence and
-// head; the last dimension is contiguous.  The (BH, S, d) form is the same
-// layout with H = KV = 1.
+// qpos >= kpos) · v, with grouped-query heads read in place: q is
+// (B, Sq, H, d), k (B, Sk, KV, d), v (B, Sk, KV, dv) and o (B, Sq, H, dv),
+// H % KV == 0, and query head h reads KV head h / (H / KV), as the
+// reference's jnp.repeat over heads.  dv == d but on the bfloat16
+// tensor-core kernel at d 192, which also takes MLA's dv 128.  Every
+// tensor is addressed through its own element strides of batch, sequence
+// and head; the last dimension is contiguous.  The (BH, S, d) form is the
+// same layout with H = KV = 1.
 //
 // Replaces the TPU kernel src/repro/kernels/flash_attention.py:
 // flash_attention_pallas (body _fa_kernel).  Same function: the scale
@@ -23,33 +25,46 @@
 // Four variants, chosen by the caller (kernels/flash_attention.py) by dtype
 // and head width:
 //
-// flash_fwd_wgmma: bfloat16 at d 64 and 128, on the tensor cores.  A block
-//   takes 128 query rows of one head: two consumer warpgroups of 64 rows and
-//   one producer warpgroup.  The producer's first thread keeps K and V tiles
-//   of 128 keys in flight into a ring in shared memory (3 stages at d 128,
-//   4 at d 64: what fits in 227 KB) with TMA (cp.async.bulk.tensor over a
-//   4-D tensor map of (B, S, heads, d); rows past S arrive as zeros),
-//   synchronised by mbarriers: "full" when a stage's bytes have landed,
-//   "empty" when all eight consumer warps are done with it.  TMA rather
-//   than cp.async: one thread issues a whole tile, and the 128-byte swizzle
-//   that wgmma reads without bank conflicts comes from the copy itself.  The
-//   tensor-map encoder (cuTensorMapEncodeTiled) lives in libcuda; it is
-//   looked up once with dlsym, so the library links against nothing new.
-//   Each consumer warpgroup computes S = Q·Kᵀ with wgmma.m64n128k16 (Q and K
-//   from shared memory, float32 sums in registers), the online softmax in
-//   registers (the four threads of a row meet by two shuffles), rounds P to
-//   bfloat16 in registers and feeds it as the register A operand of a second
-//   wgmma, O += P·V, with V read transposed from shared memory.  The
-//   accumulator layout of the first product is the A-operand layout of the
-//   second, so P never touches shared memory.  The two products overlap the
-//   softmax: S of tile t+1 and P·V of tile t are issued together, and the
-//   softmax of t+1 runs on the CUDA cores while P·V(t) runs on the tensor
-//   cores.  Registers move from the producer (24 a thread) to the consumers
-//   (240) with setmaxnreg.  Only tiles that cross the diagonal or the ragged
-//   end of k take the element mask; tiles wholly above a warpgroup's
-//   diagonal are skipped.  Causal q-tiles are scheduled heaviest first (the
-//   grid's slow axis runs from the last tile down), so the last wave is not
-//   made of the longest tiles.
+// flash_fwd_wgmma: bfloat16 at q/k width d 64, 112, 128 and 192 (v as wide,
+//   or 128 at 192), on the tensor cores.  A block takes 128 query rows of
+//   one head: two consumer warpgroups of 64 rows and one producer
+//   warpgroup.  The producer's first thread keeps K and V tiles of 128 keys
+//   (64 at q/k 192) in flight into a ring in shared memory (as many stages
+//   as fit beside Q in 227 KB: TcSmem) with TMA (cp.async.bulk.tensor over
+//   a 4-D tensor map of (B, S, heads, width); rows and columns outside the
+//   tensor arrive as zeros, so d 112 lands in the d 128 layout with columns
+//   112-127 zero), synchronised by mbarriers: "full" when a stage's bytes
+//   have landed, "empty" when all eight consumer warps are done with it.
+//   TMA rather than cp.async: one thread issues a whole tile, and the
+//   128-byte swizzle that wgmma reads without bank conflicts comes from the
+//   copy itself.  The tensor-map encoder (cuTensorMapEncodeTiled) lives in
+//   libcuda; it is looked up once with dlsym, so the library links against
+//   nothing new.  Each consumer warpgroup computes S = Q·Kᵀ with
+//   wgmma.m64nBKk16 over the d/16 k-steps of real columns (7 at d 112, 12
+//   at 192; Q and K from shared memory, float32 sums in registers), the
+//   online softmax in registers (the four threads of a row meet by two
+//   shuffles), rounds P to bfloat16 in registers and feeds it as the
+//   register A operand of a second wgmma, O += P·V (m64nNk16, N v's width
+//   in whole 64-column tiles), with V read transposed from shared memory.
+//   The accumulator layout of the first product is the A-operand layout of
+//   the second, so P never touches shared memory.  The two products
+//   overlap the softmax: S of tile t+1 and P·V of tile t are issued
+//   together, and the softmax of t+1 runs on the CUDA cores while P·V(t)
+//   runs on the tensor cores.  Registers move from the producer (24 a
+//   thread) to the consumers (240) with setmaxnreg.  Only tiles that cross
+//   the diagonal or the ragged end of k take the element mask; tiles wholly
+//   above a warpgroup's diagonal are skipped.  Causal q-tiles are scheduled
+//   heaviest first (the grid's slow axis runs from the last tile down), so
+//   the last wave is not made of the longest tiles.
+//   A grid smaller than the card's SMs (a rank's few heads, a short
+//   prompt) would take as long as its longest q-tile, under the causal mask
+//   16 key tiles at 2048 rows where the mean is 8.5, with SMs idle; the
+//   caller's plan then splits each q-tile's key tiles into chunks, one
+//   block each on the grid's z axis.  A q-tile of several chunks writes each
+//   chunk's unnormalised accumulator, running max and sum in float32 to a
+//   workspace, and flash_fwd_combine rescales, sums and divides them into o
+//   (launched as a programmatic dependent, so its launch overlaps the first
+//   pass's last blocks).
 //
 // flash_fwd_wgmma_tf32: float32 at d 64 and 128, on the tensor cores in
 //   3xTF32: TF32 keeps 10 mantissa bits and fails the float32 tolerance,
@@ -80,12 +95,13 @@
 //   masks only on diagonal and ragged tiles.
 //
 // flash_fwd_mma: float32 and bfloat16 at every other width that is a
-//   multiple of 8 up to 256 (the smoke configs' 32, zamba2's 112), on the
-//   warp-level tensor cores (mma.sync): bfloat16 m16n8k16 with float32
-//   sums, float32 as 3xTF32 m16n8k8 (hi·hi + hi·lo + lo·hi, split_tf32), so
-//   the float32 tolerance holds.  One warp owns 16 query rows; d is padded
-//   with zeros in shared memory to a multiple of 16, which sizes the
-//   registers and loops at compile time (one instantiation per width, so
+//   multiple of 8 up to 256 (the smoke configs' 32, zamba2's 112 and MLA's
+//   192 in float32), on the warp-level tensor cores (mma.sync): bfloat16
+//   m16n8k16 with float32 sums, float32 as 3xTF32 m16n8k8 (hi·hi + hi·lo +
+//   lo·hi, split_tf32), so the float32 tolerance holds.  One warp owns 16
+//   query rows; d is padded with zeros in shared memory to a multiple of
+//   16, which sizes the registers and loops at compile time (one
+//   instantiation per width, so
 //   no product sits under a branch and ptxas can schedule the loads of a
 //   step ahead of its products).  K and V tiles (64 keys in bfloat16 up to
 //   d 128, else 32) are staged by cp.async into a double buffer (rows past
@@ -124,7 +140,7 @@ constexpr float kNegInf = -1e30f;  // the TPU kernel's masked value
 
 // Shapes and element strides of one call.
 struct Geom {
-  int B, Sq, Sk, H, KV, d;
+  int B, Sq, Sk, H, KV, d, dv;      // dv: v's and o's width
   long long qsb, qss, qsh, ksb, kss, ksh, vsb, vss, vsh, osb, oss, osh;
 };
 
@@ -699,6 +715,28 @@ __device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da,
       : "l"(da), "l"(db), "r"(scale_d));
 }
 
+// D (64 x 64, float32) += A (64 x 16, shared memory) * B (16 x 64, shared
+// memory, K-major); scale_d == 0 starts D from zero.
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da,
+                                             uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11,"
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
 // D (64 x 64, float32) += A (64 x 16, bfloat16 pairs in registers) *
 // B (16 x 64, shared memory, MN-major: transposed).
 __device__ __forceinline__ void wgmma_rs_n64(float (&d)[32], uint32_t a0,
@@ -757,13 +795,71 @@ __device__ __forceinline__ void wgmma_rs_n128(float (&d)[64], uint32_t a0,
 }
 
 
-template <int D>
-__device__ __forceinline__ void wgmma_rs(float (&d)[D / 2], uint32_t a0,
+// D (64 x 192, float32) += A (64 x 16, bfloat16 pairs in registers) *
+// B (16 x 192, shared memory, MN-major: transposed).
+__device__ __forceinline__ void wgmma_rs_n192(float (&d)[96], uint32_t a0,
+                                              uint32_t a1, uint32_t a2,
+                                              uint32_t a3, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, 1, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n192k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11,"
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35,"
+      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59,"
+      "%60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71,"
+      "%72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83,"
+      "%84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95}, "
+      "{%96, %97, %98, %99}, %100, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]),
+        "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]),
+        "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
+        "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]),
+        "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(db));
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t da,
+                                         uint64_t db, int scale_d) {
+  if constexpr (N == 128) {
+    wgmma_ss_n128(d, da, db, scale_d);
+  } else {
+    static_assert(N == 64, "S tiles of 64 or 128 keys");
+    wgmma_ss_n64(d, da, db, scale_d);
+  }
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_rs(float (&d)[N / 2], uint32_t a0,
                                          uint32_t a1, uint32_t a2,
                                          uint32_t a3, uint64_t db) {
-  if constexpr (D == 128) {
+  if constexpr (N == 192) {
+    wgmma_rs_n192(d, a0, a1, a2, a3, db);
+  } else if constexpr (N == 128) {
     wgmma_rs_n128(d, a0, a1, a2, a3, db);
   } else {
+    static_assert(N == 64, "O tiles of 64, 128 or 192 columns");
     wgmma_rs_n64(d, a0, a1, a2, a3, db);
   }
 }
@@ -774,58 +870,71 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[D / 2], uint32_t a0,
 
 constexpr int kWG = 2;                  // consumer warpgroups, 64 rows each
 constexpr int kTcBQ = 64 * kWG;         // query rows per block
-constexpr int kBK = 128;                // keys per K/V tile
 constexpr int kTcThreads = 128 * (kWG + 1);
 constexpr int kProducerRegs = 24;       // setmaxnreg targets
 constexpr int kConsumerRegs = 240;
 constexpr int kTile = 64 * 128;         // bytes of a [64 rows][64 cols] tile
+constexpr int kSmemLimit = 232448;      // shared memory a block may use
 
-// Shared memory, from a 1024-byte aligned base (the swizzle's period).
-// Every tile is [rows][64 columns] of bfloat16, 128-byte rows in TMA's
-// 128-byte swizzle; a head width of 128 is two such tiles side by side.
-// The ring holds as many K/V stages as fit in 227 KB: 3 at d 128, 4 at 64.
-template <int D>
+// Shared memory at q/k width D and v width DV, from a 1024-byte aligned base
+// (the swizzle's period).  Every tile is [rows][64 columns] of bfloat16,
+// 128-byte rows in TMA's 128-byte swizzle; a width is as many such tiles
+// side by side as cover it (112 takes two: TMA fills columns 112-127 with
+// zeros).  Keys come in tiles of kBK: 128, or 64 where the K and V tiles
+// together are wider than 256 columns (q/k 192), so that a stage stays small
+// enough for a ring of several.  The ring holds as many K/V stages as fit
+// beside Q in 227 KB, at most 4: 3 at d 128 and 112, 4 at 64 and at 192/128,
+// 3 at 192/192.  kernels/flash_attention.py mirrors this (tc_smem_bytes).
+template <int D, int DV>
 struct TcSmem {
-  static constexpr int kStages = D == 128 ? 3 : 4;
-  static constexpr int kHalves = D / 64;
-  static constexpr int kQBytes = kTcBQ * D * 2;        // [wg][half][64][64]
-  static constexpr int kKVBytes = kBK * D * 2;         // [half][kBK][64]
+  static constexpr int kQC = (D + 63) / 64;   // 64-column tiles of Q and K
+  static constexpr int kVC = (DV + 63) / 64;  // of V and of the accumulator
+  static constexpr int kBK = (kQC + kVC) * 64 > 256 ? 64 : 128;
+  static constexpr int kQBytes = kTcBQ * kQC * 128;    // [wg][c][64][64]
+  static constexpr int kKBytes = kBK * kQC * 128;      // [c][kBK][64]
+  static constexpr int kVBytes = kBK * kVC * 128;
+  static constexpr int kFit = (kSmemLimit - 1024 - kQBytes - 8) /
+                              (kKBytes + kVBytes + 16);
+  static constexpr int kStages = kFit < 4 ? kFit : 4;
   static constexpr int kKOff = kQBytes;
-  static constexpr int kVOff = kKOff + kStages * kKVBytes;
-  static constexpr int kBarOff = kVOff + kStages * kKVBytes;
+  static constexpr int kVOff = kKOff + kStages * kKBytes;
+  static constexpr int kBarOff = kVOff + kStages * kVBytes;
   static constexpr int kBytes = kBarOff + 8 * (2 * kStages + 1);
   static constexpr int kAlloc = kBytes + 1024;         // room to align
-  static_assert(kAlloc <= 232448, "more than a block's shared memory");
+  static_assert(kStages >= 2, "no room for a ring of two K/V stages");
+  static_assert(kAlloc <= kSmemLimit, "more than a block's shared memory");
 };
 
-// S = Q·Kᵀ for one K tile: D/16 steps of wgmma.m64n128k16, Q and K from
-// shared memory (each step 16 columns of d: tile kk / 4, 32 bytes into its
-// 128-byte rows).  Issued and committed as one group, not waited for.
-template <int D>
-__device__ __forceinline__ void issue_qk(float (&sc)[kBK / 2], uint32_t q_s,
+// S = Q·Kᵀ for one K tile of BK keys: D/16 steps of wgmma.m64nBKk16 (d 112:
+// 7, the zero columns 112-127 skipped), Q and K from shared memory (each
+// step 16 columns of d: tile kk / 4, 32 bytes into its 128-byte rows).
+// Issued and committed as one group, not waited for.
+template <int D, int BK>
+__device__ __forceinline__ void issue_qk(float (&sc)[BK / 2], uint32_t q_s,
                                          uint32_t k_s) {
 #pragma unroll
   for (int kk = 0; kk < D / 16; ++kk) {
     const uint32_t col = (kk & 3) * 32;
-    wgmma_ss_n128(sc, sw128_desc(q_s + (kk >> 2) * kTile + col, 16, 1024),
-                  sw128_desc(k_s + (kk >> 2) * kBK * 128 + col, 16, 1024),
-                  kk > 0);
+    wgmma_ss<BK>(sc, sw128_desc(q_s + (kk >> 2) * kTile + col, 16, 1024),
+                 sw128_desc(k_s + (kk >> 2) * BK * 128 + col, 16, 1024),
+                 kk > 0);
   }
   wg_commit();
 }
 
-// O += P·V for one V tile: kBK/16 steps, P from registers (the accumulator
+// O += P·V for one V tile: BK/16 steps, P from registers (the accumulator
 // pairs of 16 keys of S are the A fragment of one step), V read transposed
-// from shared memory (16 keys a step, 2048 bytes; the two 64-column halves
-// of d one tile apart).  Issued and committed as one group.
-template <int D>
-__device__ __forceinline__ void issue_pv(float (&acc)[D / 2],
-                                         const uint32_t (&p)[kBK / 4],
+// from shared memory (16 keys a step, 2048 bytes; the 64-column tiles of V
+// BK·128 bytes apart).  N is V's width in whole tiles.  Issued and
+// committed as one group.
+template <int N, int BK>
+__device__ __forceinline__ void issue_pv(float (&acc)[N / 2],
+                                         const uint32_t (&p)[BK / 4],
                                          uint32_t v_s) {
 #pragma unroll
-  for (int kk = 0; kk < kBK / 16; ++kk)
-    wgmma_rs<D>(acc, p[4 * kk], p[4 * kk + 1], p[4 * kk + 2], p[4 * kk + 3],
-                sw128_desc(v_s + kk * 2048, kBK * 128, 1024));
+  for (int kk = 0; kk < BK / 16; ++kk)
+    wgmma_rs<N>(acc, p[4 * kk], p[4 * kk + 1], p[4 * kk + 2], p[4 * kk + 3],
+                sw128_desc(v_s + kk * 2048, BK * 128, 1024));
   wg_commit();
 }
 
@@ -885,21 +994,46 @@ __device__ __forceinline__ void softmax_tile(float (&sc)[BK / 2],
 
 // P rounded to bfloat16: the accumulator pairs of 16 keys of S are the A
 // fragment of one k-step of P·V.
-__device__ __forceinline__ void pack_p(const float (&sc)[kBK / 2],
-                                       uint32_t (&p)[kBK / 4]) {
+template <int BK>
+__device__ __forceinline__ void pack_p(const float (&sc)[BK / 2],
+                                       uint32_t (&p)[BK / 4]) {
 #pragma unroll
-  for (int j = 0; j < kBK / 4; ++j) p[j] = pack_bf16(sc[2 * j], sc[2 * j + 1]);
+  for (int j = 0; j < BK / 4; ++j) p[j] = pack_bf16(sc[2 * j], sc[2 * j + 1]);
 }
 
-template <int D>
+// Key tiles of BK that the q-tile starting at row q0 reads: causal, those
+// that start at or before its last row.
+__host__ __device__ __forceinline__ int tc_row_tiles(int q0, int sq, int sk,
+                                                     int bk, int causal) {
+  const int k_tiles = (sk + bk - 1) / bk;
+  const int last_row = (q0 + kTcBQ < sq ? q0 + kTcBQ : sq) - 1;
+  const int seen = last_row / bk + 1;
+  return causal && seen < k_tiles ? seen : k_tiles;
+}
+
+// The split over keys (kSplit instantiations; the others launch one block
+// a q-tile and carry none of its code): a block takes key tiles [z·tpc,
+// (z+1)·tpc) of its q-tile (z = blockIdx.z).  Where the q-tile has more than
+// one chunk, each chunk writes its unnormalised accumulator and its rows'
+// running max (log2 units) and sum in float32 to the workspace, and
+// flash_fwd_combine writes o.  Workspace: acc [chunks][B·H][Sq][dv], then
+// max and sum [chunks][B·H][Sq].
+struct Split {
+  int tpc;        // key tiles a chunk
+  float* ws;      // null when the grid has one chunk
+};
+
+template <int D, int DV, bool kSplit>
 __global__ void __launch_bounds__(kTcThreads, 1)
 flash_fwd_wgmma(const __grid_constant__ CUtensorMap qmap,
                 const __grid_constant__ CUtensorMap kmap,
                 const __grid_constant__ CUtensorMap vmap,
                 __nv_bfloat16* __restrict__ o, Geom g, float scale_log2,
-                int causal) {
-  using L = TcSmem<D>;
+                int causal, Split split) {
+  using L = TcSmem<D, DV>;
   constexpr int kStages = L::kStages;
+  constexpr int kBK = L::kBK;
+  constexpr int kN = L::kVC * 64;        // accumulator columns
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = reinterpret_cast<uint8_t*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
@@ -914,9 +1048,17 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap qmap,
   const int qt = causal ? (int)gridDim.y - 1 - (int)blockIdx.y
                         : (int)blockIdx.y;
   const int q0 = qt * kTcBQ;
-  const int last_row = min(q0 + kTcBQ, g.Sq) - 1;
-  const int k_tiles = (g.Sk + kBK - 1) / kBK;
-  const int n_tiles = causal ? min(k_tiles, last_row / kBK + 1) : k_tiles;
+  const int row_tiles = tc_row_tiles(q0, g.Sq, g.Sk, kBK, causal);
+  int chunks = 1, t0 = 0, n_tiles = row_tiles;
+  if constexpr (kSplit) {
+    // the combine pass may be scheduled once every block has started (it
+    // waits for this grid's completion before it reads)
+    asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
+    chunks = (row_tiles + split.tpc - 1) / split.tpc;
+    if ((int)blockIdx.z >= chunks) return;   // past this q-tile's keys
+    t0 = (int)blockIdx.z * split.tpc;
+    n_tiles = min(row_tiles, t0 + split.tpc) - t0;
+  }
   const int live_wgs = min(kWG, (g.Sq - q0 + 63) / 64);
 
   if (threadIdx.x == 0) {
@@ -935,22 +1077,22 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap qmap,
     asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n"
                  :: "n"(kProducerRegs));
     if (threadIdx.x == kWG * 128) {
-      mbar_expect_tx(qbar, live_wgs * 64 * D * 2);
+      mbar_expect_tx(qbar, live_wgs * 64 * L::kQC * 128);
       for (int w = 0; w < live_wgs; ++w)
-        for (int hh = 0; hh < L::kHalves; ++hh)
-          tma_load(smem + (w * L::kHalves + hh) * kTile, &qmap, qbar, hh * 64,
-                   h, q0 + 64 * w, b);
-      for (int t = 0; t < n_tiles; ++t) {
-        const int s = t % kStages;
-        mbar_wait(&empty[s], ((t / kStages) & 1) ^ 1);
-        mbar_expect_tx(&full[s], 2 * L::kKVBytes);
-        for (int hh = 0; hh < L::kHalves; ++hh) {
-          const int off = s * L::kKVBytes + hh * kBK * 128;
-          tma_load(smem + L::kKOff + off, &kmap, &full[s], hh * 64, kvh,
-                   t * kBK, b);
-          tma_load(smem + L::kVOff + off, &vmap, &full[s], hh * 64, kvh,
-                   t * kBK, b);
-        }
+        for (int c = 0; c < L::kQC; ++c)
+          tma_load(smem + (w * L::kQC + c) * kTile, &qmap, qbar, c * 64, h,
+                   q0 + 64 * w, b);
+      for (int j = 0; j < n_tiles; ++j) {
+        const int s = j % kStages;
+        const int key = (t0 + j) * kBK;
+        mbar_wait(&empty[s], ((j / kStages) & 1) ^ 1);
+        mbar_expect_tx(&full[s], L::kKBytes + L::kVBytes);
+        for (int c = 0; c < L::kQC; ++c)
+          tma_load(smem + L::kKOff + s * L::kKBytes + c * kBK * 128, &kmap,
+                   &full[s], c * 64, kvh, key, b);
+        for (int c = 0; c < L::kVC; ++c)
+          tma_load(smem + L::kVOff + s * L::kVBytes + c * kBK * 128, &vmap,
+                   &full[s], c * 64, kvh, key, b);
       }
     }
   } else {
@@ -968,28 +1110,30 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap qmap,
     const int c2 = 2 * (lane & 3);
     const bool wg_live = wg < live_wgs;
     const int wg_last = min(q0w + 63, g.Sq - 1);
-    const uint32_t q_s = smem_u32(smem + wg * L::kHalves * kTile);
+    const uint32_t q_s = smem_u32(smem + wg * L::kQC * kTile);
 
-    // the warpgroup's live tiles are a prefix: causal, those that start
-    // at or before its last row
-    const int n_live = !wg_live ? 0
-                       : causal ? min(n_tiles, wg_last / kBK + 1) : n_tiles;
-    float acc[D / 2];
+    // the warpgroup's live tiles of the chunk are a prefix: causal, those
+    // that start at or before its last row
+    const int n_live =
+        !wg_live ? 0
+        : causal ? max(0, min(t0 + n_tiles, wg_last / kBK + 1) - t0)
+                 : n_tiles;
+    float acc[kN / 2];
 #pragma unroll
-    for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+    for (int i = 0; i < kN / 2; ++i) acc[i] = 0.f;
     // running max (in log2 units) and this thread's part of the denominator
     RowState st{kNegInf, kNegInf, 0.f, 0.f};
     uint32_t p[kBK / 4];
     float al_a, al_b;
-    const auto k_smem = [&](int t) {
-      return smem_u32(smem + L::kKOff + (t % kStages) * L::kKVBytes);
+    const auto k_smem = [&](int j) {
+      return smem_u32(smem + L::kKOff + (j % kStages) * L::kKBytes);
     };
-    const auto v_smem = [&](int t) {
-      return smem_u32(smem + L::kVOff + (t % kStages) * L::kKVBytes);
+    const auto v_smem = [&](int j) {
+      return smem_u32(smem + L::kVOff + (j % kStages) * L::kVBytes);
     };
-    const auto release = [&](int t) {     // this warp is done with tile t
+    const auto release = [&](int j) {     // this warp is done with tile j
       __syncwarp();
-      if (lane == 0) mbar_arrive(&empty[t % kStages]);
+      if (lane == 0) mbar_arrive(&empty[j % kStages]);
     };
 
     if (n_live > 0) {
@@ -1000,20 +1144,20 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap qmap,
       for (int i = 0; i < kBK / 2; ++i) sc[i] = 0.f;
       fence_regs(sc);
       wg_fence();
-      issue_qk<D>(sc, q_s, k_smem(0));
+      issue_qk<D, kBK>(sc, q_s, k_smem(0));
       wg_wait<0>();
       fence_regs(sc);
-      softmax_tile<kBK>(sc, st, al_a, al_b, 0, q0w, row_a, c2, g.Sk,
+      softmax_tile<kBK>(sc, st, al_a, al_b, t0 * kBK, q0w, row_a, c2, g.Sk,
                         scale_log2, causal);
-      pack_p(sc, p);
+      pack_p<kBK>(sc, p);
     }
-    // Tile t's P·V runs on the tensor cores while the softmax of tile t+1
-    // runs on the CUDA cores: S(t+1) and P·V(t) are issued together and S
-    // is waited for first.  P(t)'s registers stay fenced until P·V(t) is
+    // Tile j's P·V runs on the tensor cores while the softmax of tile j+1
+    // runs on the CUDA cores: S(j+1) and P·V(j) are issued together and S
+    // is waited for first.  P(j)'s registers stay fenced until P·V(j) is
     // retired, so the compiler gives none of them to the softmax meanwhile
-    // (ptxas would serialize the wgmmas, C7513); P(t+1) is packed after.
-    for (int t = 0; t + 1 < n_live; ++t) {
-      mbar_wait(&full[(t + 1) % kStages], ((t + 1) / kStages) & 1);
+    // (ptxas would serialize the wgmmas, C7513); P(j+1) is packed after.
+    for (int j = 0; j + 1 < n_live; ++j) {
+      mbar_wait(&full[(j + 1) % kStages], ((j + 1) / kStages) & 1);
       float sc[kBK / 2];
 #pragma unroll
       for (int i = 0; i < kBK / 2; ++i) sc[i] = 0.f;
@@ -1021,33 +1165,33 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap qmap,
       fence_regs(acc);
       fence_regs(p);
       wg_fence();
-      issue_qk<D>(sc, q_s, k_smem(t + 1));
-      issue_pv<D>(acc, p, v_smem(t));
+      issue_qk<D, kBK>(sc, q_s, k_smem(j + 1));
+      issue_pv<kN, kBK>(acc, p, v_smem(j));
       wg_wait<1>();
       fence_regs(sc);
-      softmax_tile<kBK>(sc, st, al_a, al_b, (t + 1) * kBK, q0w, row_a, c2,
-                        g.Sk, scale_log2, causal);
+      softmax_tile<kBK>(sc, st, al_a, al_b, (t0 + j + 1) * kBK, q0w, row_a,
+                        c2, g.Sk, scale_log2, causal);
       wg_wait<0>();
       fence_regs(acc);
       fence_regs(p);
-      release(t);
+      release(j);
 #pragma unroll
-      for (int i = 0; i < D / 2; ++i) acc[i] *= (i & 2) ? al_b : al_a;
-      pack_p(sc, p);
+      for (int i = 0; i < kN / 2; ++i) acc[i] *= (i & 2) ? al_b : al_a;
+      pack_p<kBK>(sc, p);
     }
     if (n_live > 0) {
       fence_regs(acc);
       fence_regs(p);
       wg_fence();
-      issue_pv<D>(acc, p, v_smem(n_live - 1));
+      issue_pv<kN, kBK>(acc, p, v_smem(n_live - 1));
       wg_wait<0>();
       fence_regs(acc);
       release(n_live - 1);
     }
     // tiles past the warpgroup's diagonal: keep the ring's phases in step
-    for (int t = n_live; t < n_tiles; ++t) {
-      mbar_wait(&full[t % kStages], (t / kStages) & 1);
-      release(t);
+    for (int j = n_live; j < n_tiles; ++j) {
+      mbar_wait(&full[j % kStages], (j / kStages) & 1);
+      release(j);
     }
 
     if (wg_live) {
@@ -1056,11 +1200,43 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap qmap,
       l_a += __shfl_xor_sync(0xffffffffu, l_a, 2);
       l_b += __shfl_xor_sync(0xffffffffu, l_b, 1);
       l_b += __shfl_xor_sync(0xffffffffu, l_b, 2);
+      if constexpr (kSplit) {
+        if (chunks > 1) {
+          // this chunk's part: rows of (chunk, b·H + h) in the workspace
+          const size_t rows = (size_t)gridDim.x * g.Sq;
+          const size_t base = ((size_t)blockIdx.z * gridDim.x + blockIdx.x) *
+                              g.Sq;
+          float* ws_o = split.ws;
+          float* ws_m = split.ws + rows * gridDim.z * DV;
+          float* ws_l = ws_m + rows * gridDim.z;
+#pragma unroll
+          for (int i = 0; i < DV / 8; ++i) {
+            const int col = 8 * i + c2;
+            if (row_a < g.Sq)
+              *reinterpret_cast<float2*>(ws_o + (base + row_a) * DV + col) =
+                  make_float2(acc[4 * i], acc[4 * i + 1]);
+            if (row_b < g.Sq)
+              *reinterpret_cast<float2*>(ws_o + (base + row_b) * DV + col) =
+                  make_float2(acc[4 * i + 2], acc[4 * i + 3]);
+          }
+          if ((lane & 3) == 0) {
+            if (row_a < g.Sq) {
+              ws_m[base + row_a] = st.m_a;
+              ws_l[base + row_a] = l_a;
+            }
+            if (row_b < g.Sq) {
+              ws_m[base + row_b] = st.m_b;
+              ws_l[base + row_b] = l_b;
+            }
+          }
+          return;
+        }
+      }
       const float den_a = fmaxf(l_a, 1e-30f);
       const float den_b = fmaxf(l_b, 1e-30f);
       __nv_bfloat16* ob = o + b * g.osb + h * g.osh;
 #pragma unroll
-      for (int i = 0; i < D / 8; ++i) {
+      for (int i = 0; i < DV / 8; ++i) {
         const int col = 8 * i + c2;
         if (row_a < g.Sq)
           *reinterpret_cast<uint32_t*>(ob + row_a * g.oss + col) =
@@ -1071,6 +1247,75 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap qmap,
       }
     }
   }
+}
+
+// The split's second pass, over the rows r0 .. Sq - 1 of every head (the
+// q-tiles with more than one chunk: under the causal mask the last ones):
+// one thread a row's eight columns.  The chunks' parts are rescaled to the
+// largest running max, summed and divided, as the online softmax does from
+// tile to tile; o in bfloat16.  The loops run to kMaxChunks with the loads
+// predicated, so that a thread issues all its loads before the first use.
+// Launched as a programmatic dependent of flash_fwd_wgmma: its blocks may
+// start while the last ones of the first pass run, and wait here for that
+// grid's completion and its writes.
+constexpr int kMaxChunks = 16;
+
+__global__ void __launch_bounds__(256)
+flash_fwd_combine(const float* __restrict__ ws,
+                  __nv_bfloat16* __restrict__ o, Geom g, int tpc, int bk,
+                  int n_chunks, int causal, int r0) {
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");
+  const int groups = g.dv / 8;
+  const long long span = (long long)(g.Sq - r0) * groups;
+  const long long idx = (long long)blockIdx.x * 256 + threadIdx.x;
+  if (idx >= span * g.B * g.H) return;
+  const int bh = (int)(idx / span);
+  const long long rest = idx - bh * span;
+  const int row = r0 + (int)(rest / groups);
+  const int col = (int)(rest - (long long)(row - r0) * groups) * 8;
+  const int q0 = row / kTcBQ * kTcBQ;
+  const int chunks = (tc_row_tiles(q0, g.Sq, g.Sk, bk, causal) + tpc - 1) /
+                     tpc;
+  const size_t rows = (size_t)g.B * g.H * g.Sq;
+  const size_t r = (size_t)bh * g.Sq + row;
+  const float* ws_m = ws + rows * n_chunks * g.dv;
+  const float* ws_l = ws_m + rows * n_chunks;
+  float m[kMaxChunks], l[kMaxChunks];
+  float mx = kNegInf;
+#pragma unroll
+  for (int c = 0; c < kMaxChunks; ++c) {
+    m[c] = c < chunks ? ws_m[c * rows + r] : kNegInf;
+    l[c] = c < chunks ? ws_l[c * rows + r] : 0.f;
+    mx = fmaxf(mx, m[c]);
+  }
+  float den = 0.f;
+  float sum[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+  for (int c = 0; c < kMaxChunks; ++c) {
+    if (c < chunks) {
+      const float w = exp2f(m[c] - mx);
+      const float4* part =
+          reinterpret_cast<const float4*>(ws + (c * rows + r) * g.dv + col);
+      const float4 lo = part[0], hi = part[1];
+      den += w * l[c];
+      sum[0] += w * lo.x;
+      sum[1] += w * lo.y;
+      sum[2] += w * lo.z;
+      sum[3] += w * lo.w;
+      sum[4] += w * hi.x;
+      sum[5] += w * hi.y;
+      sum[6] += w * hi.z;
+      sum[7] += w * hi.w;
+    }
+  }
+  const float inv = 1.f / fmaxf(den, 1e-30f);
+  const int b = bh / g.H;
+  const int h = bh - b * g.H;
+  *reinterpret_cast<uint4*>(o + b * g.osb + h * g.osh + row * g.oss + col) =
+      make_uint4(pack_bf16(sum[0] * inv, sum[1] * inv),
+                 pack_bf16(sum[2] * inv, sum[3] * inv),
+                 pack_bf16(sum[4] * inv, sum[5] * inv),
+                 pack_bf16(sum[6] * inv, sum[7] * inv));
 }
 
 // ---------------------------------------------------------------------------
@@ -1433,14 +1678,14 @@ int make_map(CUtensorMap* map, const void* base, bool f32, int batch,
   return r == CUDA_SUCCESS ? 0 : kErrEncode;
 }
 
-template <int D>
-int launch_wgmma(const void* q, const void* k, const void* v, void* o,
-                 const Geom& g, float scale, int causal, cudaStream_t stream) {
-  using L = TcSmem<D>;
-  static int setup = -1;     // once per process (one device)
+// Once per process (one device) and instantiation: the registers that
+// setmaxnreg needs, and the dynamic shared memory.
+template <int D, int DV, bool kSplit>
+int tc_setup() {
+  static int setup = -1;
   if (setup < 0) {
     cudaFuncAttributes attr;
-    setup = (int)cudaFuncGetAttributes(&attr, flash_fwd_wgmma<D>);
+    setup = (int)cudaFuncGetAttributes(&attr, flash_fwd_wgmma<D, DV, kSplit>);
     // setmaxnreg moves registers inside the block's allocation: the block
     // must start with enough for the consumers' 240 and the producer's 24
     if (!setup && attr.numRegs * kTcThreads <
@@ -1448,22 +1693,73 @@ int launch_wgmma(const void* q, const void* k, const void* v, void* o,
       setup = kErrRegs;
     if (!setup)
       setup = (int)cudaFuncSetAttribute(
-          flash_fwd_wgmma<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-          L::kAlloc);
+          flash_fwd_wgmma<D, DV, kSplit>,
+          cudaFuncAttributeMaxDynamicSharedMemorySize, TcSmem<D, DV>::kAlloc);
   }
-  if (setup) return setup;
-  CUtensorMap qm, km, vm;
-  int rc = make_map(&qm, q, false, g.B, g.Sq, g.H, D, g.qsb, g.qss, g.qsh, 64);
-  if (!rc)
-    rc = make_map(&km, k, false, g.B, g.Sk, g.KV, D, g.ksb, g.kss, g.ksh, kBK);
-  if (!rc)
-    rc = make_map(&vm, v, false, g.B, g.Sk, g.KV, D, g.vsb, g.vss, g.vsh, kBK);
+  return setup;
+}
+
+// chunks > 1 splits each q-tile's key tiles into chunks of tpc (the plan of
+// kernels/flash_attention.py: split_plan) over the grid's z axis, with the
+// float32 workspace ws of (dv + 2)·chunks·B·H·Sq elements, and combines
+// them with flash_fwd_combine; chunks == 1 launches one block a q-tile.
+template <int D, int DV>
+int launch_wgmma(const void* q, const void* k, const void* v, void* o,
+                 const Geom& g, float scale, int causal, int chunks, int tpc,
+                 float* ws, cudaStream_t stream) {
+  using L = TcSmem<D, DV>;
+  const int q_tiles = (g.Sq + kTcBQ - 1) / kTcBQ;
+  if (chunks > 1) {
+    // the last q-tile reads the most key tiles: every one in a chunk
+    const int most =
+        tc_row_tiles((q_tiles - 1) * kTcBQ, g.Sq, g.Sk, L::kBK, causal);
+    if (!ws || tpc < 1 || chunks > kMaxChunks ||
+        (long long)chunks * tpc < most)
+      return (int)cudaErrorInvalidValue;
+  } else if (chunks != 1) {
+    return (int)cudaErrorInvalidValue;
+  }
+  int rc = chunks > 1 ? tc_setup<D, DV, true>() : tc_setup<D, DV, false>();
   if (rc) return rc;
-  dim3 grid((unsigned)(g.B * g.H), (unsigned)((g.Sq + kTcBQ - 1) / kTcBQ));
-  flash_fwd_wgmma<D><<<grid, kTcThreads, L::kAlloc, stream>>>(
-      qm, km, vm, static_cast<__nv_bfloat16*>(o), g,
-      scale * 1.4426950408889634f, causal);
-  return (int)cudaGetLastError();
+  CUtensorMap qm, km, vm;
+  rc = make_map(&qm, q, false, g.B, g.Sq, g.H, D, g.qsb, g.qss, g.qsh, 64);
+  if (!rc)
+    rc = make_map(&km, k, false, g.B, g.Sk, g.KV, D, g.ksb, g.kss, g.ksh,
+                  L::kBK);
+  if (!rc)
+    rc = make_map(&vm, v, false, g.B, g.Sk, g.KV, DV, g.vsb, g.vss, g.vsh,
+                  L::kBK);
+  if (rc) return rc;
+  dim3 grid((unsigned)(g.B * g.H), (unsigned)q_tiles, (unsigned)chunks);
+  const float scale_log2 = scale * 1.4426950408889634f;
+  __nv_bfloat16* out = static_cast<__nv_bfloat16*>(o);
+  if (chunks == 1) {
+    flash_fwd_wgmma<D, DV, false><<<grid, kTcThreads, L::kAlloc, stream>>>(
+        qm, km, vm, out, g, scale_log2, causal, Split{0, nullptr});
+    return (int)cudaGetLastError();
+  }
+  flash_fwd_wgmma<D, DV, true><<<grid, kTcThreads, L::kAlloc, stream>>>(
+      qm, km, vm, out, g, scale_log2, causal, Split{tpc, ws});
+  rc = (int)cudaGetLastError();
+  if (rc) return rc;
+  // the first row whose q-tile has more than one chunk
+  int first = 0;
+  while (first < q_tiles - 1 &&
+         tc_row_tiles(first * kTcBQ, g.Sq, g.Sk, L::kBK, causal) <= tpc)
+    ++first;
+  const int r0 = first * kTcBQ;
+  const long long threads = (long long)g.B * g.H * (g.Sq - r0) * (DV / 8);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)((threads + 255) / 256));
+  cfg.blockDim = dim3(256);
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return (int)cudaLaunchKernelEx(&cfg, flash_fwd_combine, (const float*)ws,
+                                 out, g, tpc, L::kBK, chunks, causal, r0);
 }
 
 template <int D>
@@ -1514,67 +1810,91 @@ int kernel_info(K kernel, int threads, int dyn, int* regs, int* smem,
 
 }  // namespace
 
-// What a block of a tensor-core kernel at head width d (64 or 128) takes:
-// flash_fwd_wgmma (tf32 == 0) or flash_fwd_wgmma_tf32 (tf32 == 1).
-// Registers a thread at launch (before any setmaxnreg), shared memory a
-// block (static and dynamic), and how many blocks fit on one SM of this
+// What a block of a tensor-core kernel at q/k width d and v width dv
+// takes: flash_fwd_wgmma (tf32 == 0: d 64, 112, 128 or 192, dv == d or
+// d 192 / dv 128) or flash_fwd_wgmma_tf32 (tf32 == 1: d 64 or 128, dv ==
+// d).  Registers a thread at launch (before any setmaxnreg), shared memory
+// a block (static and dynamic), and how many blocks fit on one SM of this
 // device.
-extern "C" int flash_attention_tc_info(int d, int tf32, int* regs, int* smem,
-                                       int* blocks) {
-  if (d != 64 && d != 128) return (int)cudaErrorInvalidValue;
+extern "C" int flash_attention_tc_info(int d, int dv, int tf32, int* regs,
+                                       int* smem, int* blocks) {
   if (tf32) {
+    if (dv != d) return (int)cudaErrorInvalidValue;
     if (d == 64)
       return kernel_info(flash_fwd_wgmma_tf32<64>, kF32Threads,
                          F32Smem<64>::kAlloc, regs, smem, blocks);
-    return kernel_info(flash_fwd_wgmma_tf32<128>, kF32Threads,
-                       F32Smem<128>::kAlloc, regs, smem, blocks);
+    if (d == 128)
+      return kernel_info(flash_fwd_wgmma_tf32<128>, kF32Threads,
+                         F32Smem<128>::kAlloc, regs, smem, blocks);
+    return (int)cudaErrorInvalidValue;
   }
-  if (d == 64)
-    return kernel_info(flash_fwd_wgmma<64>, kTcThreads, TcSmem<64>::kAlloc,
-                       regs, smem, blocks);
-  return kernel_info(flash_fwd_wgmma<128>, kTcThreads, TcSmem<128>::kAlloc,
-                     regs, smem, blocks);
+#define TC_INFO(D, DV)                                                     \
+  if (d == D && dv == DV)                                                  \
+    return kernel_info(flash_fwd_wgmma<D, DV, false>, kTcThreads,          \
+                       TcSmem<D, DV>::kAlloc, regs, smem, blocks);
+  TC_INFO(64, 64)
+  TC_INFO(112, 112)
+  TC_INFO(128, 128)
+  TC_INFO(192, 192)
+  TC_INFO(192, 128)
+#undef TC_INFO
+  return (int)cudaErrorInvalidValue;
 }
 
 // Kernels behind flash_attention_launch's `kind`
 constexpr int kKindSimt = 0;   // flash_fwd_simt: float32 or bfloat16, d <= 256
-constexpr int kKindTc = 1;     // flash_fwd_wgmma: bfloat16, d 64 or 128
+constexpr int kKindTc = 1;     // flash_fwd_wgmma: bfloat16, d 64/112/128/192
 constexpr int kKindTf32 = 2;   // flash_fwd_wgmma_tf32: float32, d 64 or 128
 constexpr int kKindMma = 3;    // flash_fwd_mma: either dtype, d % 8 == 0
 
-// q, o: (B, Sq, H, d); k, v: (B, Sk, KV, d); element strides of batch,
-// sequence and head for each (the last dimension is contiguous); one dtype
-// (float32 when is_bf16 == 0, else bfloat16).  1 <= d <= 256, Sk >= 1,
-// H % KV == 0, B·H <= 65535.  kind selects the kernel (the constants
-// above); the three tensor-core kernels need strides that are multiples of
-// 8 elements and 16-byte aligned pointers.  scale multiplies the float32
-// scores.  Launches on `stream`, does not synchronise, and returns
-// cudaGetLastError() after the launch (0 on success), or one of the codes
-// above.
+// q: (B, Sq, H, d); k: (B, Sk, KV, d); v: (B, Sk, KV, dv); o: (B, Sq, H, dv);
+// element strides of batch, sequence and head for each (the last dimension
+// is contiguous); one dtype (float32 when is_bf16 == 0, else bfloat16).
+// 1 <= d <= 256, Sk >= 1, H % KV == 0, B·H <= 65535.  kind selects the
+// kernel (the constants above); dv == d but at d 192 on "tc", which also
+// takes dv 128.  The three tensor-core kernels need strides that are
+// multiples of 8 elements and 16-byte aligned pointers.  scale multiplies
+// the float32 scores.  chunks, tpc and ws are the split over keys of the
+// "tc" kernel (launch_wgmma); every other kind takes chunks == 1.  Launches
+// on `stream`, does not synchronise, and returns cudaGetLastError() after
+// the launch (0 on success), or one of the codes above.
 extern "C" int flash_attention_launch(
     const void* q, const void* k, const void* v, void* o, int B, int Sq,
-    int Sk, int H, int KV, int d, long long qsb, long long qss,
+    int Sk, int H, int KV, int d, int dv, long long qsb, long long qss,
     long long qsh, long long ksb, long long kss, long long ksh,
     long long vsb, long long vss, long long vsh, long long osb,
     long long oss, long long osh, float scale, int causal, int is_bf16,
-    int kind, void* stream) {
+    int kind, int chunks, int tpc, void* ws, void* stream) {
   if (B < 0 || Sq < 0 || Sk < 1 || d < 1 || d > 256 || H < 1 || KV < 1 ||
-      H % KV != 0 || (long long)B * H > 65535)
+      H % KV != 0 || (long long)B * H > 65535 || dv < 1 || dv > d)
+    return (int)cudaErrorInvalidValue;
+  if (kind != kKindTc && (dv != d || chunks != 1))
     return (int)cudaErrorInvalidValue;
   if (B == 0 || Sq == 0) return 0;
-  const Geom g{B,   Sq,  Sk,  H,   KV,  d,   qsb, qss, qsh,
+  const Geom g{B,   Sq,  Sk,  H,   KV,  d,   dv,  qsb, qss, qsh,
                ksb, kss, ksh, vsb, vss, vsh, osb, oss, osh};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (kind == kKindTc || kind == kKindTf32) {
-    if ((kind == kKindTc) != (is_bf16 != 0) || (d != 64 && d != 128))
-      return (int)cudaErrorInvalidValue;
-    if (kind == kKindTf32) {
-      if (d == 64)
-        return launch_wgmma_tf32<64>(q, k, v, o, g, scale, causal, s);
+  float* w = static_cast<float*>(ws);
+  if (kind == kKindTc) {
+    if (!is_bf16) return (int)cudaErrorInvalidValue;
+#define TC_LAUNCH(D, DV)                                                   \
+    if (d == D && dv == DV)                                                \
+      return launch_wgmma<D, DV>(q, k, v, o, g, scale, causal, chunks, tpc, \
+                                 w, s);
+    TC_LAUNCH(64, 64)
+    TC_LAUNCH(112, 112)
+    TC_LAUNCH(128, 128)
+    TC_LAUNCH(192, 192)
+    TC_LAUNCH(192, 128)
+#undef TC_LAUNCH
+    return (int)cudaErrorInvalidValue;
+  }
+  if (kind == kKindTf32) {
+    if (is_bf16) return (int)cudaErrorInvalidValue;
+    if (d == 64) return launch_wgmma_tf32<64>(q, k, v, o, g, scale, causal, s);
+    if (d == 128)
       return launch_wgmma_tf32<128>(q, k, v, o, g, scale, causal, s);
-    }
-    if (d == 64) return launch_wgmma<64>(q, k, v, o, g, scale, causal, s);
-    return launch_wgmma<128>(q, k, v, o, g, scale, causal, s);
+    return (int)cudaErrorInvalidValue;
   }
   if (kind == kKindMma) {
     if (d % 8) return (int)cudaErrorInvalidValue;

@@ -10,20 +10,28 @@ Two layouts, the same function:
   ``jnp.repeat`` over heads does in the reference.  The output is
   ``(B, S, H, d)``.
 
-The kernels read either in place through element strides (the 3-D form is
-the 4-D one with one head), so a caller folds, expands and copies nothing.
+v may be narrower than q and k (MLA: q/k 192, v 128); the output then has
+v's width.  The kernels read either layout in place through element
+strides (the 3-D form is the 4-D one with one head), so a caller folds,
+expands and copies nothing.
 
 ``flash_attention_cuda`` launches one of four kernels on CUDA tensors,
-chosen by ``variant`` from the dtype and head width alone: at
-``TC_HEAD_DIMS`` the tensor-core kernels, ``wgmma`` in bfloat16 ("tc") and
-in 3xTF32 for float32 ("tf32": every operand split into two TF32 halves,
-three products each, so the result keeps float32's accuracy); at every
-other width that is a multiple of 8 the warp-level tensor-core kernel
-("mma": ``mma.sync``, bfloat16 or 3xTF32); and the CUDA-core kernel
-("simt") for the widths left.  ``kind=`` forces one (the CUDA-core kernel
-takes any shape).  Each has its own launch counter,
+chosen by ``variant`` from the dtype and q/k head width alone: the
+tensor-core kernels, ``wgmma`` in bfloat16 at ``TC_HEAD_DIMS`` (64, 112,
+128, 192: "tc"; v as wide, or 128 at 192) and in 3xTF32 for float32 at
+``TF32_HEAD_DIMS`` (64, 128: "tf32"; every operand split into two TF32
+halves, three products each, so the result keeps float32's accuracy); at
+every other width that is a multiple of 8 the warp-level tensor-core
+kernel ("mma": ``mma.sync``, bfloat16 or 3xTF32); and the CUDA-core kernel
+("simt") for the widths left.  A kernel that does not read v at its own
+width gets it zero-padded to q's.  Where the "tc" kernel's grid (one block
+a 128-row q-tile and head) is smaller than the card's SMs, ``split_plan``
+splits each q-tile's key tiles into chunks, one block each, whose float32
+parts a second kernel combines.  ``kind=`` forces a kernel (the CUDA-core
+kernel takes any shape).  Each has its own launch counter,
 ``flash_attention_cuda.launches_tc``, ``.launches_tf32``,
-``.launches_mma`` and ``.launches_simt``.  ``flash_attention_ref`` is the
+``.launches_mma`` and ``.launches_simt`` (``.launches_tc_split``: those
+of ``.launches_tc`` that split).  ``flash_attention_ref`` is the
 plain version, written to the reference's oracle
 (``repro.kernels.ref.flash_attention_ref``): float32 softmax over scores
 divided by sqrt(d), cast to q's dtype before the product with v.  The
@@ -52,7 +60,10 @@ from repro_torch.kernels import counters, work
 
 _DTYPES = (torch.float32, torch.bfloat16)
 MAX_HEAD_DIM = 256
-TC_HEAD_DIMS = (64, 128)
+# the bfloat16 wgmma kernel ("tc"): q/k width -> the v widths it takes
+TC_WIDTHS = {64: (64,), 112: (112,), 128: (128,), 192: (192, 128)}
+TC_HEAD_DIMS = tuple(TC_WIDTHS)
+TF32_HEAD_DIMS = (64, 128)  # the float32 wgmma kernel ("tf32"), v as wide
 MAX_HEADS = 65535          # B·H: the kernels' grid
 SMEM_LIMIT = 232448        # bytes of shared memory a Hopper block may use
 MMA_WIDTH_STEP = 8          # the "mma" kernel takes d in multiples of this
@@ -60,18 +71,60 @@ _KIND_CODE = {"simt": 0, "tc": 1, "tf32": 2, "mma": 3}   # the launcher's
 
 
 def variant(dtype: torch.dtype, d: int) -> str:
-    """Which kernel takes (dtype, head width): "tc" (bfloat16 wgmma), "tf32"
-    (float32 3xTF32 wgmma), both at ``TC_HEAD_DIMS``; "mma" (warp-level
-    tensor cores) at every other multiple of ``MMA_WIDTH_STEP`` up to
-    ``MAX_HEAD_DIM``; or "simt" (CUDA cores) for the rest."""
-    if d in TC_HEAD_DIMS:
-        return "tc" if dtype == torch.bfloat16 else "tf32"
+    """Which kernel takes (dtype, q/k head width): "tc" (bfloat16 wgmma) at
+    ``TC_HEAD_DIMS``, "tf32" (float32 3xTF32 wgmma) at ``TF32_HEAD_DIMS``;
+    "mma" (warp-level tensor cores) at every other multiple of
+    ``MMA_WIDTH_STEP`` up to ``MAX_HEAD_DIM``; or "simt" (CUDA cores) for
+    the rest."""
+    if dtype == torch.bfloat16 and d in TC_HEAD_DIMS:
+        return "tc"
+    if dtype != torch.bfloat16 and d in TF32_HEAD_DIMS:
+        return "tf32"
     if d % MMA_WIDTH_STEP == 0 and 0 < d <= MAX_HEAD_DIM:
         return "mma"
     return "simt"
 
 
+def takes_v_width(kind: str, d: int, dv: int) -> bool:
+    """Whether kernel ``kind`` reads v at its own width dv beside q/k's d;
+    where it does not, ``flash_attention_cuda`` pads v to d with zeros."""
+    return dv == d or (kind == "tc" and dv in TC_WIDTHS.get(d, ()))
+
+
 TF32_ROWS, TF32_KEYS = 64, 64   # query rows a block, keys a tile
+TC_ROWS = 128                   # query rows a block of the "tc" kernel
+MAX_CHUNKS = 16                 # of a split q-tile (kMaxChunks)
+SPLIT_MIN_KEYS = 512            # the least a split must take off a q-tile
+TC_STAGES_MAX = 4
+
+
+def _tiles64(d: int) -> int:
+    return -(-d // 64)
+
+
+def tc_key_tile(d: int, dv: int) -> int:
+    """Keys a K/V tile of the bfloat16 tensor-core kernel (``TcSmem::kBK``
+    in ``csrc/flash_attention.cu``): 128, or 64 where K's and V's 64-column
+    tiles together are wider than 256 columns (q/k 192)."""
+    return 64 if (_tiles64(d) + _tiles64(dv)) * 64 > 256 else 128
+
+
+def tc_smem_bytes(d: int, dv: int | None = None) -> int:
+    """Shared memory one block of the bfloat16 tensor-core kernel takes at
+    q/k width d and v width dv (``TcSmem``): Q's 128 rows, a ring of as
+    many K/V stages as fit beside it in ``SMEM_LIMIT`` (at most
+    ``TC_STAGES_MAX``), two mbarriers a stage and Q's, and 1024 bytes to
+    align the base.  Widths are padded to whole 64-column tiles."""
+    dv = d if dv is None else dv
+    if dv not in TC_WIDTHS.get(d, ()):
+        raise ValueError(f"the bfloat16 tensor-core kernel takes (d, dv) in "
+                         f"{TC_WIDTHS}, not ({d}, {dv})")
+    bk = tc_key_tile(d, dv)
+    q_bytes = TC_ROWS * _tiles64(d) * 128
+    stage = bk * (_tiles64(d) + _tiles64(dv)) * 128
+    stages = min(TC_STAGES_MAX, (SMEM_LIMIT - 1024 - q_bytes - 8)
+                 // (stage + 16))
+    return q_bytes + stages * stage + 8 * (2 * stages + 1) + 1024
 
 
 def tf32_smem_bytes(d: int) -> int:
@@ -79,14 +132,53 @@ def tf32_smem_bytes(d: int) -> int:
     head width d (``F32Smem`` in ``csrc/flash_attention.cu``): Q's lo (64
     rows), K and Vᵀ of one tile of 64 keys as hi and lo, the next K and V
     as TMA lands them, eight mbarriers, and 1024 bytes to align the base."""
-    if d not in TC_HEAD_DIMS:
+    if d not in TF32_HEAD_DIMS:
         raise ValueError(f"the float32 tensor-core kernel takes d in "
-                         f"{TC_HEAD_DIMS}, not {d}")
+                         f"{TF32_HEAD_DIMS}, not {d}")
     return (TF32_ROWS * d * 4 + 6 * TF32_KEYS * d * 4) + 8 * 8 + 1024
 
 
+def _row_tiles(q0: int, sq: int, sk: int, key_tile: int, causal: bool) -> int:
+    """Key tiles that the "tc" kernel's q-tile starting at row q0 reads."""
+    k_tiles = -(-sk // key_tile)
+    seen = (min(q0 + TC_ROWS, sq) - 1) // key_tile + 1
+    return min(k_tiles, seen) if causal else k_tiles
+
+
+def split_plan(B: int, H: int, sq: int, sk: int, causal: bool, sms: int,
+               key_tile: int = 128) -> tuple:
+    """(chunks, key tiles a chunk) of the "tc" kernel's split over keys.
+    A grid of B·H·⌈Sq/128⌉ blocks, one a q-tile, that covers the ``sms``
+    SMs runs unsplit: (1, the most key tiles a q-tile reads).  A smaller
+    one would take as long as its longest q-tile (under the causal mask the
+    last reads every key tile, the first one), with SMs idle, so each
+    q-tile's key tiles go in chunks of the mean work an SM would have,
+    ⌈(key tiles of all q-tiles) / sms⌉, each chunk a block; a q-tile that
+    reads fewer keeps one chunk.  The split's own cost (a second kernel,
+    float32 parts written and read back) is about the time of 512 keys on
+    the H100 (``chip_smoke.py``'s flash rows), so a split that shortens the
+    longest q-tile by less (``SPLIT_MIN_KEYS``) is not made.  The grid's z
+    axis is the chunk: ⌈(most key tiles) / (tiles a chunk)⌉ of them, at
+    most ``MAX_CHUNKS``."""
+    q_tiles = -(-sq // TC_ROWS)
+    most = _row_tiles((q_tiles - 1) * TC_ROWS, sq, sk, key_tile, causal)
+    if B * H * q_tiles >= sms:
+        return 1, most
+    need = sum(_row_tiles(t * TC_ROWS, sq, sk, key_tile, causal)
+               for t in range(q_tiles))
+    per_chunk = max(1, -(-B * H * need // sms), -(-most // MAX_CHUNKS))
+    if (most - per_chunk) * key_tile < SPLIT_MIN_KEYS:
+        return 1, most
+    return -(-most // per_chunk), per_chunk
+
+
+def _sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
 def _attend(q, k, v, causal):
-    """(BH, Sq, d) x (BH, Sk, d) -> (BH, Sq, d), float32 softmax."""
+    """(BH, Sq, d) x (BH, Sk, d) x (BH, Sk, dv) -> (BH, Sq, dv), float32
+    softmax."""
     d = q.shape[-1]
     s = torch.einsum("bqd,bkd->bqk", q, k).to(torch.float32) / math.sqrt(d)
     if causal:
@@ -99,23 +191,24 @@ def _attend(q, k, v, causal):
 
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                         causal: bool = True) -> torch.Tensor:
-    """q: (BH, Sq, d), k and v: (BH, Sk, d) -> (BH, Sq, d); or q:
-    (B, Sq, H, d), k and v: (B, Sk, KV, d) -> (B, Sq, H, d), where the KV
-    heads are repeated to the query heads and everything folded to
-    (B·H, S, d) first."""
+    """q: (BH, Sq, d), k: (BH, Sk, d), v: (BH, Sk, dv) -> (BH, Sq, dv); or
+    q: (B, Sq, H, d), k: (B, Sk, KV, d), v: (B, Sk, KV, dv) ->
+    (B, Sq, H, dv), where the KV heads are repeated to the query heads and
+    everything folded to (B·H, S, width) first.  v may be narrower than q
+    and k (MLA's 128 beside 192); the scale is q's 1/sqrt(d)."""
     if q.ndim == 3:
         return _attend(q, k, v, causal)
-    B, S, H, d = q.shape
+    B, S, H, _ = q.shape
     KV = k.shape[2]
     if H % KV:
         raise ValueError(f"{KV} KV heads do not divide {H} query heads")
 
     def fold(t):
         t = torch.repeat_interleave(t, H // t.shape[2], dim=2)
-        return t.permute(0, 2, 1, 3).reshape(B * H, t.shape[1], d)
+        return t.permute(0, 2, 1, 3).reshape(B * H, t.shape[1], t.shape[3])
 
     o = _attend(fold(q), fold(k), fold(v), causal)
-    return o.reshape(B, H, S, d).permute(0, 2, 1, 3)
+    return o.reshape(B, H, S, v.shape[-1]).permute(0, 2, 1, 3)
 
 
 def _lib():
@@ -125,26 +218,26 @@ def _lib():
     lib = _build.load("flash_attention")
     fn = lib.flash_attention_launch
     if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
+        fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 7
                        + [ctypes.c_longlong] * 12
-                       + [ctypes.c_float] + [ctypes.c_int] * 3
-                       + [ctypes.c_void_p])
+                       + [ctypes.c_float] + [ctypes.c_int] * 5
+                       + [ctypes.c_void_p] * 2)
         fn.restype = ctypes.c_int
     return lib
 
 
-def tc_occupancy(d: int, kind: str = "tc") -> dict:
+def tc_occupancy(d: int, kind: str = "tc", dv: int | None = None) -> dict:
     """Registers a thread (at launch, before ``setmaxnreg``), shared memory
     a block and blocks per SM of a tensor-core kernel ("tc" or "tf32") at
-    head width d on the current CUDA device."""
+    q/k width d and v width dv (d when None) on the current CUDA device."""
     import ctypes
     if kind not in ("tc", "tf32"):
         raise ValueError(f"no tensor-core kernel {kind!r}")
     fn = _lib().flash_attention_tc_info
-    fn.argtypes = [ctypes.c_int] * 2 + [ctypes.POINTER(ctypes.c_int)] * 3
+    fn.argtypes = [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int)] * 3
     regs, smem, blocks = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
-    rc = fn(d, int(kind == "tf32"), ctypes.byref(regs), ctypes.byref(smem),
-            ctypes.byref(blocks))
+    rc = fn(d, d if dv is None else dv, int(kind == "tf32"),
+            ctypes.byref(regs), ctypes.byref(smem), ctypes.byref(blocks))
     if rc != 0:
         raise RuntimeError(f"flash_attention_tc_info failed: code {rc}")
     return {"registers": regs.value, "smem_bytes": smem.value,
@@ -154,15 +247,16 @@ def tc_occupancy(d: int, kind: str = "tc") -> dict:
 def _check(q, k, v, kind):
     """Raise on what the kernel does not take, layout first, then dtype and
     the kernel (``kind``, None for ``variant``), then device; returns the
-    4-D views, (B, Sq, Sk, H, KV, d) and the kernel's kind."""
+    4-D views, (B, Sq, Sk, H, KV, d, dv) and the kernel's kind."""
     if q.ndim not in (3, 4) or k.ndim != q.ndim or v.ndim != q.ndim:
         raise ValueError(f"q, k and v must all be (BH, S, d) or "
                          f"(B, S, heads, d), got {q.ndim}-, {k.ndim}- and "
                          f"{v.ndim}-d")
     q4, k4, v4 = (t.unsqueeze(2) if t.ndim == 3 else t for t in (q, k, v))
     B, sq, H, d = q4.shape
-    sk, KV = k4.shape[1], k4.shape[2]
-    if k4.shape != v4.shape or k4.shape[0] != B or k4.shape[3] != d:
+    sk, KV, dv = k4.shape[1], k4.shape[2], v4.shape[3]
+    if (k4.shape[:3] != v4.shape[:3] or k4.shape[0] != B
+            or k4.shape[3] != d or not 1 <= dv <= d):
         raise ValueError(f"shapes differ: q {tuple(q.shape)}, k "
                          f"{tuple(k.shape)}, v {tuple(v.shape)}")
     if KV < 1 or H % KV:
@@ -174,7 +268,7 @@ def _check(q, k, v, kind):
     if B * H > MAX_HEADS or max(sq, sk) >= 2**31:
         raise ValueError(f"too large for the kernel's grid: {tuple(q.shape)}")
     for name, t in (("q", q), ("k", k), ("v", v)):
-        if t.stride(-1) != 1 and d > 1:
+        if t.stride(-1) != 1 and t.shape[-1] > 1:
             raise ValueError(f"{name}'s last dimension must be contiguous")
         if t.dtype not in _DTYPES:
             raise TypeError(f"flash_attention_cuda takes float32 or bfloat16,"
@@ -192,7 +286,7 @@ def _check(q, k, v, kind):
                              f" is on {t.device}")
         if t.device != q.device:
             raise ValueError(f"{name} is on {t.device}, q on {q.device}")
-    return (q4, k4, v4), (B, sq, sk, H, KV, d), kind
+    return (q4, k4, v4), (B, sq, sk, H, KV, d, dv), kind
 
 
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -200,38 +294,59 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          kind: str | None = None) -> torch.Tensor:
     """Launch a kernel on q, k, v of one dtype (float32 or bfloat16) on one
     CUDA device, in either layout of the module docstring, with the last
-    dimension contiguous, 1 <= d <= 256.  ``kind`` is the kernel: None takes
-    ``variant(dtype, d)``; "simt" may be asked for at any shape (to compare
-    the kernels), "tc", "tf32" and "mma" only where ``variant`` names them.
-    The tensor-core kernels also need strides that are multiples of 8
-    elements and 16-byte aligned data.  Returns a new contiguous tensor in
-    q's layout and dtype.  Raises on anything else, and if the launch is
-    refused; layout, dtype and kernel are checked before the device, so a
-    refusal never builds a kernel."""
-    (q4, k4, v4), (B, sq, sk, H, KV, d), kind = _check(q, k, v, kind)
+    dimension contiguous, 1 <= d <= 256, v's width dv <= d.  ``kind`` is the
+    kernel: None takes ``variant(dtype, d)``; "simt" may be asked for at any
+    shape (to compare the kernels), "tc", "tf32" and "mma" only where
+    ``variant`` names them.  A kernel that does not read v at dv
+    (``takes_v_width``) gets v padded to d with zeros and its output sliced
+    back.  The tensor-core kernels also need strides that are multiples of
+    8 elements and 16-byte aligned data.  "tc" splits the keys of a grid
+    smaller than the card's SMs (``split_plan``) into a float32 workspace
+    that a second kernel combines.  Returns a new contiguous tensor in q's
+    layout and dtype, dv wide.  Raises on anything else, and if the launch
+    is refused; layout, dtype and kernel are checked before the device, so
+    a refusal never builds a kernel."""
+    (q4, k4, v4), (B, sq, sk, H, KV, d, dv), kind = _check(q, k, v, kind)
+    if not takes_v_width(kind, d, dv):
+        pad = torch.nn.functional.pad(v, (0, d - dv))
+        return flash_attention_cuda(q, k, pad, causal=causal,
+                                    kind=kind)[..., :dv].contiguous()
     if kind != "simt":
         for name, t in (("q", q4), ("k", k4), ("v", v4)):
             if t.data_ptr() % 16 or any(st % 8 for st in t.stride()[:3]):
                 raise ValueError(f"the tensor-core kernels need {name} "
                                  f"16-byte aligned with strides in multiples"
                                  f" of 8 elements, got {t.stride()}")
-    out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    out = torch.empty((*q.shape[:-1], dv), dtype=q.dtype, device=q.device)
     if B * H == 0 or sq == 0:
         return out
     o4 = out.unsqueeze(2) if out.ndim == 3 else out
+    chunks, per_chunk, ws = 1, 0, None
+    if kind == "tc":
+        chunks, per_chunk = split_plan(B, H, sq, sk, causal,
+                                       _sm_count(q.device),
+                                       tc_key_tile(d, dv))
+        if chunks > 1:
+            ws = torch.empty(chunks * B * H * sq * (dv + 2),
+                             dtype=torch.float32, device=q.device)
     lib = _lib()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = lib.flash_attention_launch(
             q4.data_ptr(), k4.data_ptr(), v4.data_ptr(), o4.data_ptr(),
-            B, sq, sk, H, KV, d,
+            B, sq, sk, H, KV, d, dv,
             *q4.stride()[:3], *k4.stride()[:3], *v4.stride()[:3],
             *o4.stride()[:3], 1.0 / math.sqrt(d), int(causal),
-            int(q.dtype == torch.bfloat16), _KIND_CODE[kind], stream)
+            int(q.dtype == torch.bfloat16), _KIND_CODE[kind], chunks,
+            per_chunk, None if ws is None else ws.data_ptr(), stream)
     if rc != 0:
         raise RuntimeError(f"flash_attention {kind} kernel launch failed: "
                            f"code {rc}")
-    counters.count(flash_attention_cuda, f"launches_{kind}")
+    if chunks > 1:
+        counters.count(flash_attention_cuda, "launches_tc",
+                       "launches_tc_split")
+    else:
+        counters.count(flash_attention_cuda, f"launches_{kind}")
     return out
 
 
@@ -239,6 +354,8 @@ flash_attention_cuda.launches_tc = 0
 flash_attention_cuda.launches_tf32 = 0
 flash_attention_cuda.launches_mma = 0
 flash_attention_cuda.launches_simt = 0
+# of launches_tc, those that split the keys and ran the combine kernel too
+flash_attention_cuda.launches_tc_split = 0
 
 
 BWD_BLOCK = 1024           # query rows whose P the backward holds at once
@@ -247,27 +364,28 @@ BWD_BLOCK = 1024           # query rows whose P the backward holds at once
 def flash_attention_bwd(q, k, v, o, do, *, causal: bool = True,
                         block: int = BWD_BLOCK):
     """(dq, dk, dv) of softmax attention at q, k, v, in either layout of
-    the module docstring, given its output ``o`` and the output's gradient
-    ``do``.  Per block of ``block`` query rows: S = q·kᵀ (in the inputs'
-    dtype, as the forward's plain version takes it), P = softmax(S/sqrt(d))
-    in float32, dV += Pᵀ·dO, dS = P∘(dO·Vᵀ − D) with D = rowsum(dO∘O),
-    dQ = dS·K/sqrt(d), dK += dSᵀ·Q/sqrt(d); P and dS enter the products in
-    the inputs' dtype, dK and dV are summed in float32.  Under a causal mask
-    a block reads only the keys its last row sees."""
+    the module docstring (v, ``o`` and ``do`` at v's width), given its
+    output ``o`` and the output's gradient ``do``.  Per block of ``block``
+    query rows: S = q·kᵀ (in the inputs' dtype, as the forward's plain
+    version takes it), P = softmax(S/sqrt(d)) in float32, dV += Pᵀ·dO, dS =
+    P∘(dO·Vᵀ − D) with D = rowsum(dO∘O), dQ = dS·K/sqrt(d), dK +=
+    dSᵀ·Q/sqrt(d); P and dS enter the products in the inputs' dtype, dK and
+    dV are summed in float32.  Under a causal mask a block reads only the
+    keys its last row sees."""
     q4, k4, v4, o4, do4 = (t.unsqueeze(2) if t.ndim == 3 else t
                            for t in (q, k, v, o, do))
     B, sq, H, d = q4.shape
-    sk, KV = k4.shape[1], k4.shape[2]
+    sk, KV, wv = k4.shape[1], k4.shape[2], v4.shape[3]
     G = H // KV
     dt, f32 = q.dtype, torch.float32
     scale = 1.0 / math.sqrt(d)
     qg = q4.reshape(B, sq, KV, G, d)            # head h = kv·G + g
-    dog = do4.reshape(B, sq, KV, G, d)
-    D = (dog.to(f32) * o4.reshape(B, sq, KV, G, d).to(f32)).sum(-1)
+    dog = do4.reshape(B, sq, KV, G, wv)
+    D = (dog.to(f32) * o4.reshape(B, sq, KV, G, wv).to(f32)).sum(-1)
     D = D.permute(0, 2, 3, 1)                   # (B, KV, G, sq)
     dq = torch.empty_like(qg)
     dk = torch.zeros((B, sk, KV, d), dtype=f32, device=q.device)
-    dv = torch.zeros((B, sk, KV, d), dtype=f32, device=q.device)
+    dv = torch.zeros((B, sk, KV, wv), dtype=f32, device=q.device)
     for q0 in range(0, sq, block):
         q1 = min(q0 + block, sq)
         kend = min(q1, sk) if causal else sk

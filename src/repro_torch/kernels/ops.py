@@ -79,9 +79,11 @@ def knn(train: torch.Tensor, test: torch.Tensor, k: int):
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True) -> torch.Tensor:
     """q, k, v: (BH, S, d); or q (B, S, H, d) with k, v (B, S, KV, d), the
-    KV heads read in place by groups of H // KV query heads.  The kernel
-    reads any strides; only a last dimension that is not contiguous is
-    copied."""
+    KV heads read in place by groups of H // KV query heads.  v may be
+    narrower than q and k (MLA), and the output then has v's width; a
+    kernel that takes one width gets v zero-padded and its output sliced
+    (``flash_attention_cuda``).  The kernel reads any strides; only a last
+    dimension that is not contiguous is copied."""
     cuda = _route(q, "flash_attention")
     if cuda:
         q, k, v = (t if t.stride(-1) == 1 else t.contiguous()

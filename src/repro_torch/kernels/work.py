@@ -41,7 +41,7 @@ def flash_work(b, sq, sk, h, kv, d, causal, esize, vd=None) -> tuple:
     o written once (k and v at their KV heads); the query-key pairs that
     the mask keeps (causal, top-left aligned: query i sees min(i + 1, Sk)
     keys; else Sq x Sk), a multiply-add a pair and width in each product.
-    v and o are ``vd`` wide (d by default): MLA's v before its padding."""
+    v and o are ``vd`` wide (d by default): MLA's v at 128 beside 192."""
     vd = d if vd is None else vd
     nbytes = (b * sq * h * (d + vd) + b * sk * kv * (d + vd)) * esize
     return nbytes, 2.0 * b * h * (d + vd) * _pairs(sq, sk, causal)

@@ -22,10 +22,11 @@ width the internlm2 cache is gigabytes, and no caller needs the old one.
 
 Multi-head latent attention (MLA, DeepSeek-V2) prefills and trains on the
 same flash kernel: q and k are ``qk_nope + qk_rope`` wide (192 at
-deepseek-v2-lite) and v ``v_head_dim`` (128), while the kernels take one
-width, so v is zero-padded to q's width and the output sliced back.  That
-is the reference's function: ``sdpa_chunked`` scales by 1/sqrt(q's width),
-as the kernels do, and the padded columns of P·V are zero.  MLA decode is
+deepseek-v2-lite) and v ``v_head_dim`` (128), passed at its own width as
+the reference's ``sdpa_chunked`` takes it (scaled by 1/sqrt(q's width), as
+the kernels do); the bfloat16 tensor-core kernel reads v at 128, a kernel
+that takes one width gets it zero-padded (``flash_attention_cuda``).  MLA
+decode is
 the reference's absorbed form (attention in the latent space), in plain
 PyTorch, writing the latent ``c`` and rotated ``kr`` rows in place.
 
@@ -427,7 +428,7 @@ def init_mla(gen, cfg: ArchConfig, dtype, *, device, lead=()):
 def mla_apply(p, cfg: ArchConfig, x, positions, *, seq_in=False,
               seq_out=False):
     """MLA over the full sequence (prefill, training), naive expansion, on
-    the flash kernel with v zero-padded to the q/k width.  With the heads
+    the flash kernel with v at its own width, a view of ``kv``.  With the heads
     split over "model" (``wq``, ``wkv_b``, ``wo``) the kernel runs on this
     rank's heads and ``wo``'s rows end in g; the latent path (``wkv_a``,
     ``kv_norm``) is computed whole on every rank.  Returns (out, (c_kv
@@ -447,9 +448,7 @@ def mla_apply(p, cfg: ArchConfig, x, positions, *, seq_in=False,
     k_nope, v = kv[..., :nope], kv[..., nope:]
     k = torch.cat([k_nope, k_rope[:, :, None, :].expand(
         *k_nope.shape[:3], k_rope.shape[-1])], -1)
-    vd = v.shape[-1]
-    v = F.pad(v, (0, q.shape[-1] - vd))
-    o = ops.flash_attention(q, k, v, causal=True)[..., :vd]
+    o = ops.flash_attention(q, k, v, causal=True)
     out = torch.einsum("bshv,hvd->bsd", o, p["wo"])
     return _exit(out, split, seq_out), (c_kv, k_rope)
 

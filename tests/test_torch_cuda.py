@@ -358,6 +358,142 @@ def test_flash_kernel_reads_narrowed_kv_heads(cuda, dtype, d):
         q, k, v).float(), rtol=tol, atol=tol)
 
 
+# the bfloat16 tensor-core kernel at zamba2's 112 and MLA's 192 (v 128, and
+# v as wide): ragged causal lengths, Sq != Sk non-causal, one query row
+@pytest.mark.parametrize("b,sq,sk,h,kv,d,dv,causal", [
+    (1, 333, 333, 4, 2, 112, 112, True),
+    (2, 300, 130, 4, 2, 112, 112, False),
+    (1, 130, 300, 8, 2, 112, 112, False),
+    (1, 333, 333, 4, 4, 192, 128, True),
+    (2, 300, 130, 4, 2, 192, 128, False),
+    (1, 77, 500, 4, 4, 192, 128, False),
+    (1, 1, 4096, 4, 4, 192, 128, False),
+    (1, 200, 200, 4, 2, 192, 192, True),
+])
+def test_flash_tc_wide_kernel_matches_plain(cuda, b, sq, sk, h, kv, d, dv,
+                                            causal):
+    """The "tc" kernel at the widths it took from the warp-level kernel,
+    against the plain version (3e-2) and the plain version in float32
+    (1.6e-2, as chip_smoke.phase_flash); one launch of it and of no other
+    kernel."""
+    gen = torch.Generator(device=cuda).manual_seed(sq + sk + d + dv)
+    q = torch.randn((b, sq, h, d), generator=gen, device=cuda).bfloat16()
+    k = torch.randn((b, sk, kv, d), generator=gen, device=cuda).bfloat16()
+    v = torch.randn((b, sk, kv, dv), generator=gen, device=cuda).bfloat16()
+    assert variant(torch.bfloat16, d) == "tc"
+    ops.reset_launches()
+    got = flash_attention_cuda(q, k, v, causal=causal)
+    counts = ops.launches()
+    assert counts["flash_attention_tc"] == 1
+    assert sum(counts.values()) == 1
+    assert got.dtype == torch.bfloat16 and got.shape == (b, sq, h, dv)
+    torch.testing.assert_close(got.float(), flash_attention_ref(
+        q, k, v, causal=causal).float(), rtol=3e-2, atol=3e-2)
+    want32 = flash_attention_ref(q.float(), k.float(), v.float(),
+                                 causal=causal)
+    assert float((got.float() - want32).abs().max()) <= 1.6e-2
+
+
+def test_flash_tc_reads_mla_v_as_a_view(cuda):
+    """MLA's v is the last 128 columns of the (B, S, H, 256) projection
+    (``layers.mla_apply``): a strided view 256 bytes in, read in place by
+    the "tc" kernel, equal to its contiguous copy's result and to the
+    plain version's; so are q and k as heads-major views."""
+    gen = torch.Generator(device=cuda).manual_seed(192)
+    q = torch.randn((1, 4, 300, 192), generator=gen,
+                    device=cuda).bfloat16().transpose(1, 2)
+    k = torch.randn((1, 300, 4, 192), generator=gen, device=cuda).bfloat16()
+    kv = torch.randn((1, 300, 4, 256), generator=gen, device=cuda).bfloat16()
+    v = kv[..., 128:]
+    assert not v.is_contiguous() and v.stride(-1) == 1
+    got = flash_attention_cuda(q, k, v)
+    want = flash_attention_cuda(q.contiguous(), k, v.contiguous())
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+    torch.testing.assert_close(got.float(), flash_attention_ref(
+        q, k, v).float(), rtol=3e-2, atol=3e-2)
+
+
+@pytest.mark.parametrize("b,sq,sk,h,kv,d,dv,causal", [
+    (1, 2048, 2048, 8, 8, 112, 112, True),     # zamba2's rank of 8 heads
+    (1, 2048, 2048, 4, 2, 128, 128, True),     # internlm2's rank of four
+    (1, 1000, 1000, 2, 2, 192, 128, True),     # 64-key tiles, ragged
+    (1, 300, 3000, 3, 1, 64, 64, False),
+    (2, 1500, 900, 1, 1, 112, 112, True),      # Sq > Sk
+])
+def test_flash_tc_split_matches_unsplit(cuda, monkeypatch, b, sq, sk, h, kv,
+                                        d, dv, causal):
+    """The split over keys (``split_plan`` on this card, and on a card of
+    a million SMs: one key tile a chunk, at most 16 chunks) against the
+    unsplit launch (a card of one SM) and the plain version: the parts
+    rescaled and summed in float32 agree with the online softmax within
+    the bfloat16 tolerance, and only a split moves ``launches_tc_split``."""
+    from repro_torch.kernels import flash_attention as tflash
+    gen = torch.Generator(device=cuda).manual_seed(sq * sk + d)
+    q = torch.randn((b, sq, h, d), generator=gen, device=cuda).bfloat16()
+    k = torch.randn((b, sk, kv, d), generator=gen, device=cuda).bfloat16()
+    v = torch.randn((b, sk, kv, dv), generator=gen, device=cuda).bfloat16()
+    want = flash_attention_ref(q, k, v, causal=causal).float()
+    outs, splits = {}, {}
+    for name, sms in (("unsplit", 1), ("card", None), ("most", 10**6)):
+        with monkeypatch.context() as patch:
+            if sms is not None:
+                patch.setattr(tflash, "_sm_count", lambda device, n=sms: n)
+            before = flash_attention_cuda.launches_tc_split
+            outs[name] = flash_attention_cuda(q, k, v, causal=causal)
+            splits[name] = flash_attention_cuda.launches_tc_split - before
+        torch.testing.assert_close(outs[name].float(), want, rtol=3e-2,
+                                   atol=3e-2)
+    assert splits["unsplit"] == 0 and splits["most"] == 1
+    for name in ("card", "most"):
+        torch.testing.assert_close(outs[name].float(),
+                                   outs["unsplit"].float(), rtol=2e-2,
+                                   atol=2e-2)
+
+
+def test_flash_tc_launch_failure_raises_without_fallback(cuda, monkeypatch):
+    """A refused "tc" launch at d 112 raises through the entry point, and
+    no counter moves: nothing falls back to the warp-level kernel or the
+    plain version for a CUDA tensor."""
+    from repro_torch.kernels import flash_attention as tflash
+    real = tflash._lib()
+
+    class Refusing:
+        flash_attention_tc_info = real.flash_attention_tc_info
+
+        @staticmethod
+        def flash_attention_launch(*args):
+            return 10003                      # kErrRegs
+
+    monkeypatch.setattr(tflash, "_lib", lambda: Refusing)
+    q = torch.randn((1, 300, 4, 112), device=cuda).bfloat16()
+    ops.reset_launches()
+    with pytest.raises(RuntimeError, match="tc kernel launch failed"):
+        ops.flash_attention(q, q, q)
+    assert sum(ops.launches().values()) == 0
+
+
+@pytest.mark.parametrize("dtype,d,dv,kind", [(torch.float32, 192, 128, "mma"),
+                                             (torch.bfloat16, 48, 32, "mma"),
+                                             (torch.bfloat16, 128, 64, "tc"),
+                                             (torch.float32, 17, 9, "simt")])
+def test_flash_one_width_kernels_pad_v(cuda, dtype, d, dv, kind):
+    """A kernel that reads one width (float32 MLA on "mma", the MLA smoke
+    config's 48/32, "tc" at a pair it does not take) gets v zero-padded to
+    q's width and its output sliced back: the plain version's result at
+    v's width, one launch."""
+    gen = torch.Generator(device=cuda).manual_seed(d + dv)
+    q = torch.randn((1, 150, 4, d), generator=gen, device=cuda).to(dtype)
+    k = torch.randn((1, 150, 2, d), generator=gen, device=cuda).to(dtype)
+    v = torch.randn((1, 150, 2, dv), generator=gen, device=cuda).to(dtype)
+    ops.reset_launches()
+    got = ops.flash_attention(q, k, v)
+    assert ops.launches()[f"flash_attention_{kind}"] == 1
+    assert got.shape == (1, 150, 4, dv) and got.is_contiguous()
+    tol = 3e-2 if dtype == torch.bfloat16 else 1e-4
+    torch.testing.assert_close(got.float(), flash_attention_ref(
+        q, k, v).float(), rtol=tol, atol=tol)
+
+
 @pytest.mark.parametrize("dtype,d,kind", [(torch.bfloat16, 128, "tc"),
                                           (torch.bfloat16, 64, "tc"),
                                           (torch.float32, 128, "tf32"),
@@ -365,13 +501,16 @@ def test_flash_kernel_reads_narrowed_kv_heads(cuda, dtype, d):
                                           (torch.float32, 80, "mma"),
                                           (torch.bfloat16, 80, "mma"),
                                           (torch.float32, 32, "mma"),
-                                          (torch.bfloat16, 112, "mma"),
+                                          (torch.bfloat16, 112, "tc"),
+                                          (torch.bfloat16, 192, "tc"),
+                                          (torch.float32, 112, "mma"),
                                           (torch.float32, 17, "simt"),
                                           (torch.bfloat16, 17, "simt")])
 def test_flash_variant_counters(cuda, dtype, d, kind):
     """At d 64 and 128 bfloat16 launches only the bfloat16 tensor-core
-    kernel and float32 only the 3xTF32 one; every other multiple of 8 only
-    the warp-level tensor-core kernel; the widths left only the CUDA-core
+    kernel and float32 only the 3xTF32 one; bfloat16 at 112 and 192 the
+    bfloat16 tensor-core kernel too; every other multiple of 8 only the
+    warp-level tensor-core kernel; the widths left only the CUDA-core
     kernel."""
     assert variant(dtype, d) == kind
     q = torch.randn((1, 70, 4, d), device=cuda).to(dtype)

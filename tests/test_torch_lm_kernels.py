@@ -141,8 +141,9 @@ def test_flash_plain_gqa_matches_oracle_and_pallas(seed):
 def test_flash_launcher_refuses_before_building(monkeypatch):
     """KV heads that do not divide the query heads, and a last dimension
     that is not contiguous, are refused before nvcc or ctypes is touched;
-    the dispatch picks the wgmma kernels at d 64 and 128 only, the
-    warp-level tensor cores at the other multiples of 8."""
+    the dispatch picks the wgmma kernels at d 64 and 128 (and bfloat16 at
+    112 and 192), the warp-level tensor cores at the other multiples of
+    8."""
     from repro_torch.kernels import _build
 
     def boom(*a, **k):
@@ -166,12 +167,14 @@ def test_flash_launcher_refuses_before_building(monkeypatch):
 @pytest.mark.parametrize("d,bf16_kind,f32_kind", [
     (64, "tc", "tf32"), (128, "tc", "tf32"),      # the wgmma kernels
     (8, "mma", "mma"), (32, "mma", "mma"), (40, "mma", "mma"),
-    (80, "mma", "mma"), (112, "mma", "mma"), (256, "mma", "mma"),
+    (80, "mma", "mma"), (112, "tc", "mma"), (192, "tc", "mma"),
+    (256, "mma", "mma"),
     (17, "simt", "simt"), (1, "simt", "simt"), (100, "simt", "simt"),
     (255, "simt", "simt")])
 def test_flash_variant_by_width(d, bf16_kind, f32_kind):
-    """"tc"/"tf32" at d 64 and 128, "mma" at every other multiple of 8 up
-    to 256, "simt" for the widths left."""
+    """"tc"/"tf32" at d 64 and 128, "tc" also in bfloat16 at zamba2's 112
+    and MLA's 192, "mma" at every other multiple of 8 up to 256, "simt" for
+    the widths left."""
     assert tflash.variant(torch.bfloat16, d) == bf16_kind
     assert tflash.variant(torch.float32, d) == f32_kind
 
@@ -184,7 +187,7 @@ def test_flash_variant_by_width(d, bf16_kind, f32_kind):
     ("mma", torch.float32, 17),        # a width only the CUDA cores take
     ("mma", torch.bfloat16, 17),
     ("mma", torch.bfloat16, 64),       # a wgmma kernel's width
-    ("tc", torch.bfloat16, 112),       # the warp-level kernel's width
+    ("tc", torch.bfloat16, 80),        # the warp-level kernel's width
 ])
 def test_flash_forced_kind_refuses_before_building(monkeypatch, kind, dtype,
                                                    d):
@@ -214,6 +217,142 @@ def test_flash_tf32_shared_memory_fits(d, total):
     assert total <= tflash.SMEM_LIMIT
     with pytest.raises(ValueError, match="takes d in"):
         tflash.tf32_smem_bytes(80)
+
+
+@pytest.mark.parametrize("d,dv,total", [(64, 64, 148552),
+                                        (112, 112, 230456),
+                                        (128, 128, 230456),
+                                        (192, 192, 197688),
+                                        (192, 128, 214088)])
+def test_flash_tc_shared_memory_fits(d, dv, total):
+    """The bfloat16 tensor-core kernel's layout (``TcSmem``) fits in a
+    Hopper block at every (q/k, v) width it takes: Q's 128 rows, a ring of
+    K/V stages (4 at d 64 and at MLA's 192/128 with 64-key tiles, 3 at 112
+    and 128, 3 at 192/192), its mbarriers and the alignment; a pair it
+    does not take has no layout."""
+    assert tflash.tc_smem_bytes(d, dv) == total
+    assert total <= tflash.SMEM_LIMIT
+    assert tflash.tc_key_tile(d, dv) == (64 if d == 192 else 128)
+    with pytest.raises(ValueError, match="takes"):
+        tflash.tc_smem_bytes(128, 64)
+    with pytest.raises(ValueError, match="takes"):
+        tflash.tc_smem_bytes(80)
+
+
+def _chunks_cover(B, H, sq, sk, causal, sms, key_tile=128):
+    """The split plan's chunks of each q-tile, as the kernel walks them:
+    q-tile t's key tiles [c·per, min((c+1)·per, need)) for c below its own
+    count of chunks."""
+    chunks, per = tflash.split_plan(B, H, sq, sk, causal, sms, key_tile)
+    k_tiles = -(-sk // key_tile)
+    out = []
+    for t in range(-(-sq // tflash.TC_ROWS)):
+        last = min((t + 1) * tflash.TC_ROWS, sq) - 1
+        need = min(k_tiles, last // key_tile + 1) if causal else k_tiles
+        mine = -(-need // per)
+        assert mine <= chunks
+        out.append((need, [range(c * per, min((c + 1) * per, need))
+                           for c in range(mine)], last))
+    return chunks, per, out
+
+
+@pytest.mark.parametrize("B,H,sq,sk,causal,sms,key_tile", [
+    (1, 8, 2048, 2048, True, 132, 128),     # zamba2's rank of 8 heads
+    (1, 4, 2048, 2048, True, 132, 128),     # internlm2's rank of four
+    (1, 2, 700, 700, True, 132, 64),        # ragged, 64-key tiles
+    (1, 3, 300, 5000, False, 132, 128),     # Sq != Sk, non-causal
+    (1, 2, 3000, 1500, True, 132, 128),     # Sq > Sk
+    (1, 1, 1100, 1100, True, 16, 128),      # a card of 16 SMs
+    (1, 4, 1, 65536, False, 132, 128)])     # 512 key tiles: 16 chunks
+def test_flash_split_plan_covers_every_key_tile_once(B, H, sq, sk, causal,
+                                                     sms, key_tile):
+    """Every key tile a q-tile reads is in exactly one of its chunks, no
+    chunk starts past the causal diagonal, and a grid under one wave is
+    split into more blocks than it had."""
+    chunks, per, tiles = _chunks_cover(B, H, sq, sk, causal, sms, key_tile)
+    for need, parts, last in tiles:
+        seen = [t for part in parts for t in part]
+        assert seen == list(range(need))
+        assert all(len(part) >= 1 for part in parts)
+        if causal:
+            assert all(part[0] * key_tile <= last for part in parts)
+    blocks = B * H * sum(len(parts) for _, parts, _ in tiles)
+    assert blocks > B * H * len(tiles)
+    assert 1 < chunks <= tflash.MAX_CHUNKS and per >= 1
+
+
+@pytest.mark.parametrize("B,H,sq,sk,causal,sms", [
+    (1, 16, 2048, 2048, True, 132),   # internlm2's prefill: 256 blocks
+    (1, 8, 2048, 2048, True, 128),    # 128 blocks on a card of 128 SMs
+    (1, 16, 128, 128, True, 132),     # one key tile: nothing to split
+    (1, 16, 1, 4096, False, 16),      # decode-like, on 16 SMs
+    (1, 16, 512, 512, True, 132)])    # a split would save 256 keys
+def test_flash_split_plan_leaves_a_wave_unsplit(B, H, sq, sk, causal, sms):
+    """A grid of a wave or more, q-tiles of one key tile, or a split that
+    would take less than ``SPLIT_MIN_KEYS`` off the longest q-tile, launch
+    as before: one chunk of every key tile the last q-tile reads."""
+    chunks, per = tflash.split_plan(B, H, sq, sk, causal, sms)
+    assert (chunks, per) == (1, -(-sk // 128))   # the last q-tile reads all
+
+
+def _narrow_v_inputs(dtype, layout, seed=0):
+    """q and k 192 wide, v 128 (MLA's widths): numpy from a seed, each as
+    (JAX, torch) arrays, in the 3-D (BH, S, d) or 4-D (B, S, H, d)
+    layout."""
+    rng = np.random.default_rng(1920 + seed)
+    shape = (3, 37) if layout == "BH,S,d" else (2, 37, 3)
+    q, k = (rng.normal(size=shape + (192,)).astype(np.float32)
+            for _ in range(2))
+    v = rng.normal(size=shape + (128,)).astype(np.float32)
+    if dtype == "bf16":
+        return [bf16_pair(a) for a in (q, k, v)]
+    return [(jnp.asarray(a), torch.from_numpy(a)) for a in (q, k, v)]
+
+
+@pytest.mark.parametrize("layout", ["BH,S,d", "B,S,H,d"])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_flash_plain_narrow_v_matches_oracle(layout, causal, dtype):
+    """v narrower than q and k (MLA: 128 beside 192): the plain version
+    in both layouts against the reference's oracle, which reads v at its
+    own width (on the folded heads in the 4-D layout)."""
+    tol = 3e-2 if dtype == "bf16" else 1e-4
+    (qj, qt), (kj, kt), (vj, vt) = _narrow_v_inputs(dtype, layout)
+    got = tref.flash_attention_ref(qt, kt, vt, causal=causal)
+    assert got.dtype == qt.dtype and got.shape == (*qt.shape[:-1], 128)
+    if layout == "B,S,H,d":
+        fold = lambda a: a.transpose(0, 2, 1, 3).reshape(
+            -1, a.shape[1], a.shape[3])
+        want = jref.flash_attention_ref(fold(qj), fold(kj), fold(vj),
+                                        causal=causal)
+        want = np.asarray(want, np.float32).reshape(
+            2, 3, 37, 128).transpose(0, 2, 1, 3)
+    else:
+        want = jref.flash_attention_ref(qj, kj, vj, causal=causal)
+    np.testing.assert_allclose(_f32(got), _f32(want), rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("layout", ["BH,S,d", "B,S,H,d"])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_bwd_narrow_v_matches_autograd(layout, causal):
+    """``flash_attention_bwd`` with v narrower than q and k (MLA's 128
+    beside 192, o and do at 128) against autograd through the plain
+    version, float32 at 1e-4; blocks of 16 rows so that the causal key
+    ranges differ from block to block."""
+    (_, q), (_, k), (_, v) = _narrow_v_inputs("f32", layout, seed=1)
+    if layout == "B,S,H,d":
+        k, v = k[:, :, :1], v[:, :, :1]         # 3 query heads on one KV
+    q, k, v = (t.clone().requires_grad_(True) for t in (q, k, v))
+    o = tref.flash_attention_ref(q, k, v, causal=causal)
+    do = torch.from_numpy(np.random.default_rng(5).normal(
+        size=tuple(o.shape)).astype(np.float32))
+    want = torch.autograd.grad(o, (q, k, v), do)
+    got = tflash.flash_attention_bwd(q.detach(), k.detach(), v.detach(),
+                                     o.detach(), do, causal=causal, block=16)
+    for g, w in zip(got, want):
+        assert g.shape == w.shape
+        np.testing.assert_allclose(g.numpy(), w.numpy(), rtol=1e-4,
+                                   atol=1e-4)
 
 
 @pytest.mark.parametrize("causal", [True, False])

@@ -118,7 +118,7 @@ def _mla_params(seed=0):
 @pytest.mark.parametrize("S", [13, 16])
 def test_mla_apply_matches_reference(S):
     """Prefill MLA (13 positions: ragged against the reference's chunks of
-    8) through the flash path with v padded to the q/k width, against the
+    8) through the flash path with v at its own width, against the
     reference's ``sdpa_chunked``."""
     cfg, tcfg, jp, tp = _mla_params()
     x = _normal((2, S, cfg.d_model), seed=S)
@@ -132,26 +132,30 @@ def test_mla_apply_matches_reference(S):
 
 
 def test_mla_apply_gives_the_kernel_one_width(monkeypatch):
-    """q, k and v reach the flash entry point at q's width (qk_nope +
-    qk_rope), v zero-padded past v_head_dim."""
+    """q and k reach the flash entry point at one width (qk_nope +
+    qk_rope), v at its own v_head_dim, unpadded: the last columns of the
+    kv projection, a view read in place (the reference's ``sdpa_chunked``
+    takes v at that width too)."""
     cfg, tcfg, jp, tp = _mla_params()
     m = tcfg.mla
     seen = []
     real = ops.flash_attention
 
     def spy(q, k, v, *, causal=True):
-        seen.append((tuple(q.shape), tuple(k.shape), v.clone()))
+        seen.append((tuple(q.shape), tuple(k.shape), v))
         return real(q, k, v, causal=causal)
 
     monkeypatch.setattr(ops, "flash_attention", spy)
-    TL.mla_apply(tp, tcfg, torch.from_numpy(_normal((1, 5, cfg.d_model), 1)),
-                 torch.arange(5))
+    out, _ = TL.mla_apply(tp, tcfg, torch.from_numpy(
+        _normal((1, 5, cfg.d_model), 1)), torch.arange(5))
     ((qs, ks, v),) = seen
     width = m.qk_nope_head_dim + m.qk_rope_head_dim
     assert qs == ks == (1, 5, cfg.num_heads, width)
-    assert tuple(v.shape) == qs
-    assert torch.count_nonzero(v[..., m.v_head_dim:]) == 0
-    assert torch.count_nonzero(v[..., :m.v_head_dim]) > 0
+    assert tuple(v.shape) == (1, 5, cfg.num_heads, m.v_head_dim)
+    assert v.stride(-1) == 1 and v.stride(-2) == m.qk_nope_head_dim \
+        + m.v_head_dim                       # a view of kv's columns
+    assert torch.count_nonzero(v) > 0
+    assert tuple(out.shape) == (1, 5, cfg.d_model)
 
 
 def test_mla_decode_matches_reference_and_writes_in_place():
