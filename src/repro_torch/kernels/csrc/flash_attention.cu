@@ -26,8 +26,8 @@
 // and head width:
 //
 // flash_fwd_wgmma: bfloat16 at q/k width d 64, 112, 128 and 192 (v as wide,
-//   or 128 at 192), on the tensor cores.  A block takes 128 query rows of
-//   one head: two consumer warpgroups of 64 rows and one producer
+//   or 128 at 192), on the tensor cores.  A unit of work is 128 query rows
+//   of one head: two consumer warpgroups of 64 rows and one producer
 //   warpgroup.  The producer's first thread keeps K and V tiles of 128 keys
 //   (64 at q/k 192) in flight into a ring in shared memory (as many stages
 //   as fit beside Q in 227 KB: TcSmem) with TMA (cp.async.bulk.tensor over
@@ -47,24 +47,61 @@
 //   register A operand of a second wgmma, O += P·V (m64nNk16, N v's width
 //   in whole 64-column tiles), with V read transposed from shared memory.
 //   The accumulator layout of the first product is the A-operand layout of
-//   the second, so P never touches shared memory.  The two products
-//   overlap the softmax: S of tile t+1 and P·V of tile t are issued
-//   together, and the softmax of t+1 runs on the CUDA cores while P·V(t)
-//   runs on the tensor cores.  Registers move from the producer (24 a
-//   thread) to the consumers (240) with setmaxnreg.  Only tiles that cross
-//   the diagonal or the ragged end of k take the element mask; tiles wholly
-//   above a warpgroup's diagonal are skipped.  Causal q-tiles are scheduled
-//   heaviest first (the grid's slow axis runs from the last tile down), so
-//   the last wave is not made of the longest tiles.
-//   A grid smaller than the card's SMs (a rank's few heads, a short
+//   the second, so P never touches shared memory.  Registers move from the
+//   producer (24 a thread) to the consumers (240) with setmaxnreg.  Only
+//   tiles that cross the diagonal or the ragged end of k take the element
+//   mask; tiles wholly above a warpgroup's diagonal are skipped.
+//
+//   The main loop, from a clock64 trace of its phases (tools/flash_trace.py:
+//   at grok-1's group of 6 a key tile took 4,628 cycles where its products
+//   need 2,048 at the tensor cores' rate, and one warpgroup's softmax alone
+//   took 1,985-2,520):
+//   - Ping-pong (FlashAttention-3's schedule, arXiv:2407.08608 §3.1): the
+//     two consumer warpgroups take turns to issue their products, ordered
+//     by named barriers 1 and 2 (bar.sync on its own, bar.arrive on the
+//     other's, 256 threads each): warpgroup 0 issues S(j+1) and P·V(j),
+//     then warpgroup 1, and so on, so that one's softmax, rescale and pack
+//     run on the CUDA cores while the other's products hold the tensor
+//     cores.  Inside a warpgroup S(j+1) and P·V(j) are still issued
+//     together and S waited for first, so its softmax also runs under its
+//     own P·V, and the accumulator's rescale runs between the two issues.
+//     Where one warpgroup reads a key tile fewer (64-key tiles on the
+//     diagonal) it takes its last turn empty; a unit where only one
+//     warpgroup reads keys (a ragged q-tile of 64 rows or fewer, a chunk of
+//     the split past warpgroup 0's diagonal) takes no turns, so the
+//     barriers' arrivals always match.
+//   - The online softmax costs one FFMA and one MUFU.EX2 a score: the max
+//     is taken over the raw scores and the scale folded into the
+//     exponent's argument (s·scale_log2 - m), and ex2.approx.ftz replaces
+//     exp2f, which guarded every MUFU.EX2 for subnormal results; .ftz
+//     flushes a probability below 2^-126 of its row's running max to zero.
+//     One tile of 128 keys: 820 SASS instructions before, 455 after (12.8
+//     and 7.1 a score, the mask's branch included; tools/flash_trace.py's
+//     softmax_probe).  The mask compares each score's key offset with one
+//     limit a row.
+//   - The grid is persistent (the trace put the fill and the epilogue at
+//     13% of grok's heaviest blocks): one block an SM walks the (q-tile,
+//     head) units round by round in the order of a grid of one block a
+//     unit, odd rounds backwards (tc_unit), and each warpgroup's
+//     Q rows have their own "full" and "empty" barriers, so the producer
+//     loads the next unit's Q as soon as a warpgroup's last S has read the
+//     old rows, and its first K/V tile before that: both land while the
+//     warpgroup finishes the unit.  The epilogue multiplies by one
+//     reciprocal a row and stores 16 bytes a thread (a row's pairs of
+//     columns transposed among its four threads by shuffles).
+//   What bounds it now: the tensor cores run about 58% of a key tile's
+//   cycles at d 128; a warpgroup's chain of S wait, softmax, rescale and
+//   pack is longer than the other's products at d 64, where the MUFU's
+//   exponentials and the products take about as long each.
+//   A grid of fewer units than the card's SMs (a rank's few heads, a short
 //   prompt) would take as long as its longest q-tile, under the causal mask
 //   16 key tiles at 2048 rows where the mean is 8.5, with SMs idle; the
 //   caller's plan then splits each q-tile's key tiles into chunks, one
-//   block each on the grid's z axis.  A q-tile of several chunks writes each
-//   chunk's unnormalised accumulator, running max and sum in float32 to a
-//   workspace, and flash_fwd_combine rescales, sums and divides them into o
-//   (launched as a programmatic dependent, so its launch overlaps the first
-//   pass's last blocks).
+//   block each on the grid's z axis (this launch is not persistent).  A
+//   q-tile of several chunks writes each chunk's unnormalised accumulator,
+//   running max and sum in float32 to a workspace, and flash_fwd_combine
+//   rescales, sums and divides them into o (launched as a programmatic
+//   dependent, so its launch overlaps the first pass's last blocks).
 //
 // flash_fwd_wgmma_tf32: float32 at d 64 and 128, on the tensor cores in
 //   3xTF32: TF32 keeps 10 mantissa bits and fails the float32 tolerance,
@@ -884,7 +921,9 @@ constexpr int kSmemLimit = 232448;      // shared memory a block may use
 // together are wider than 256 columns (q/k 192), so that a stage stays small
 // enough for a ring of several.  The ring holds as many K/V stages as fit
 // beside Q in 227 KB, at most 4: 3 at d 128 and 112, 4 at 64 and at 192/128,
-// 3 at 192/192.  kernels/flash_attention.py mirrors this (tc_smem_bytes).
+// 3 at 192/192.  Then the mbarriers: "full" and "empty" of each stage, and
+// of each consumer warpgroup's Q rows.  kernels/flash_attention.py mirrors
+// this (tc_smem_bytes).
 template <int D, int DV>
 struct TcSmem {
   static constexpr int kQC = (D + 63) / 64;   // 64-column tiles of Q and K
@@ -893,13 +932,13 @@ struct TcSmem {
   static constexpr int kQBytes = kTcBQ * kQC * 128;    // [wg][c][64][64]
   static constexpr int kKBytes = kBK * kQC * 128;      // [c][kBK][64]
   static constexpr int kVBytes = kBK * kVC * 128;
-  static constexpr int kFit = (kSmemLimit - 1024 - kQBytes - 8) /
+  static constexpr int kFit = (kSmemLimit - 1024 - kQBytes - 8 * 2 * kWG) /
                               (kKBytes + kVBytes + 16);
   static constexpr int kStages = kFit < 4 ? kFit : 4;
   static constexpr int kKOff = kQBytes;
   static constexpr int kVOff = kKOff + kStages * kKBytes;
   static constexpr int kBarOff = kVOff + kStages * kVBytes;
-  static constexpr int kBytes = kBarOff + 8 * (2 * kStages + 1);
+  static constexpr int kBytes = kBarOff + 8 * (2 * kStages + 2 * kWG);
   static constexpr int kAlloc = kBytes + 1024;         // room to align
   static_assert(kStages >= 2, "no room for a ring of two K/V stages");
   static_assert(kAlloc <= kSmemLimit, "more than a block's shared memory");
@@ -938,13 +977,27 @@ __device__ __forceinline__ void issue_pv(float (&acc)[N / 2],
   wg_commit();
 }
 
-// The online softmax of one S tile, in place in its registers: scales by
-// 1/sqrt(d)·log2 e (so exp is exp2), masks the keys past Sk and, causal,
-// past each row (only where the tile crosses the diagonal or the ragged
-// end), replaces each score by its exp, and updates the running max and
-// this thread's part of the denominator.  Returns the factors by which the
-// two rows' accumulators must be rescaled.  The four threads of a row meet
-// by two shuffles.
+// 2^x by MUFU.EX2 alone.  exp2f (the build has no fast-math flag) wraps
+// each MUFU.EX2 in a guard for subnormal results (an FSETP and two
+// predicated FMULs); .ftz flushes them to zero instead, which changes a
+// probability only where it is below 2^-126 of its row's running max.
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// The online softmax of one S tile, in place in its registers: masks the
+// keys past Sk and, causal, past each row (only where the tile crosses the
+// diagonal or the ragged end: one compare and select a score against the
+// row's limit), takes each row's max of the raw scores, and replaces each
+// score s by 2^(s·scale_log2 - m), m the running max in log2 units (the
+// scale is 1/sqrt(d)·log2 e, so exp is exp2): one FFMA and one MUFU.EX2 a
+// score.  scale_log2 > 0 and rounding is monotone, so the scaled max is
+// the max of the scaled scores.  Updates the running max and this
+// thread's part of the denominator, and returns the factors by which the
+// two rows' accumulators must be rescaled.  The four threads of a row
+// meet by two shuffles.
 struct RowState {
   float m_a, m_b, l_a, l_b;
 };
@@ -955,15 +1008,15 @@ __device__ __forceinline__ void softmax_tile(float (&sc)[BK / 2],
                                              float& al_b, int k0, int q0w,
                                              int row_a, int c2, int sk,
                                              float scale_log2, int causal) {
-#pragma unroll
-  for (int i = 0; i < BK / 2; ++i) sc[i] *= scale_log2;
   if ((causal && k0 + BK - 1 > q0w) || k0 + BK > sk) {
+    // score i holds key k0 + c2 + 8 (i / 4) + i % 2: masked from the row's
+    // limit on, min(Sk, row + 1) under the causal mask, else Sk
+    const int lim_a = (causal ? min(sk, row_a + 1) : sk) - k0 - c2;
+    const int lim_b = (causal ? min(sk, row_a + 9) : sk) - k0 - c2;
 #pragma unroll
-    for (int i = 0; i < BK / 2; ++i) {
-      const int kc = k0 + 8 * (i >> 2) + c2 + (i & 1);
-      const int row = (i & 2) ? row_a + 8 : row_a;
-      if (kc >= sk || (causal && kc > row)) sc[i] = kNegInf;
-    }
+    for (int i = 0; i < BK / 2; ++i)
+      if (8 * (i >> 2) + (i & 1) >= ((i & 2) ? lim_b : lim_a))
+        sc[i] = kNegInf;
   }
   float mx_a = kNegInf, mx_b = kNegInf;
 #pragma unroll
@@ -975,16 +1028,16 @@ __device__ __forceinline__ void softmax_tile(float (&sc)[BK / 2],
   mx_a = fmaxf(mx_a, __shfl_xor_sync(0xffffffffu, mx_a, 2));
   mx_b = fmaxf(mx_b, __shfl_xor_sync(0xffffffffu, mx_b, 1));
   mx_b = fmaxf(mx_b, __shfl_xor_sync(0xffffffffu, mx_b, 2));
-  const float mn_a = fmaxf(st.m_a, mx_a);
-  const float mn_b = fmaxf(st.m_b, mx_b);
-  al_a = exp2f(st.m_a - mn_a);
-  al_b = exp2f(st.m_b - mn_b);
+  const float mn_a = fmaxf(st.m_a, mx_a * scale_log2);
+  const float mn_b = fmaxf(st.m_b, mx_b * scale_log2);
+  al_a = ex2(st.m_a - mn_a);
+  al_b = ex2(st.m_b - mn_b);
   st.m_a = mn_a;
   st.m_b = mn_b;
   float ps_a = 0.f, ps_b = 0.f;
 #pragma unroll
   for (int i = 0; i < BK / 2; ++i) {
-    sc[i] = exp2f(sc[i] - ((i & 2) ? mn_b : mn_a));
+    sc[i] = ex2(fmaf(sc[i], scale_log2, (i & 2) ? -mn_b : -mn_a));
     if (i & 2) ps_b += sc[i];
     else ps_a += sc[i];
   }
@@ -1011,8 +1064,8 @@ __host__ __device__ __forceinline__ int tc_row_tiles(int q0, int sq, int sk,
   return causal && seen < k_tiles ? seen : k_tiles;
 }
 
-// The split over keys (kSplit instantiations; the others launch one block
-// a q-tile and carry none of its code): a block takes key tiles [z·tpc,
+// The split over keys (kSplit instantiations; the others run the persistent
+// grid and carry none of its code): a block takes key tiles [z·tpc,
 // (z+1)·tpc) of its q-tile (z = blockIdx.z).  Where the q-tile has more than
 // one chunk, each chunk writes its unnormalised accumulator and its rows'
 // running max (log2 units) and sum in float32 to the workspace, and
@@ -1022,6 +1075,119 @@ struct Split {
   int tpc;        // key tiles a chunk
   float* ws;      // null when the grid has one chunk
 };
+
+// One unit of a block's work: the 128 query rows from q0 of head h of batch
+// b against key tiles [t0, t0 + n_tiles) of the q-tile's own; chunks is
+// the q-tile's count of chunks (1 but in a split launch).
+struct TcUnit {
+  int b, h, q0, t0, n_tiles, chunks;
+};
+
+// The unit a block takes in round r, or false where it has none.  A split
+// launch takes one, its own: (head, q-tile, chunk) = blockIdx.  Else the
+// grid is persistent (one block an SM, G = gridDim.x) and walks the units
+// in the order of the old grid of one block a unit, heads the fast axis
+// (a KV head's group of query heads stays together in L2) and, causal,
+// the heaviest q-tiles first: round r takes units r·G .. r·G + G - 1, block
+// i the i-th of them in even rounds and the (G - 1 - i)-th in odd ones, so
+// that no block takes the heaviest unit of every causal round.
+template <bool kSplit>
+__device__ __forceinline__ bool tc_unit(int r, const Geom& g, int causal,
+                                        int bk, int tpc, TcUnit& un) {
+  const int q_tiles = (g.Sq + kTcBQ - 1) / kTcBQ;
+  int x, y, z = 0;
+  if constexpr (kSplit) {
+    if (r > 0) return false;
+    x = (int)blockIdx.x;
+    y = (int)blockIdx.y;
+    z = (int)blockIdx.z;
+  } else {
+    const int G = (int)gridDim.x;
+    const int i = (r & 1) ? G - 1 - (int)blockIdx.x : (int)blockIdx.x;
+    const long long u = (long long)r * G + i;
+    if (u >= (long long)g.B * g.H * q_tiles) return false;
+    y = (int)(u / (g.B * g.H));
+    x = (int)(u - (long long)y * g.B * g.H);
+  }
+  un.b = x / g.H;
+  un.h = x - un.b * g.H;
+  un.q0 = (causal ? q_tiles - 1 - y : y) * kTcBQ;
+  const int row_tiles = tc_row_tiles(un.q0, g.Sq, g.Sk, bk, causal);
+  un.chunks = kSplit ? (row_tiles + tpc - 1) / tpc : 1;
+  if (z >= un.chunks) return false;          // past this q-tile's keys
+  un.t0 = kSplit ? z * tpc : 0;
+  un.n_tiles = kSplit ? min(row_tiles, un.t0 + tpc) - un.t0 : row_tiles;
+  return true;
+}
+
+// Key tiles of the unit that consumer warpgroup w reads: none past Sq, and
+// causal a prefix, those that start at or before its last row.
+__device__ __forceinline__ int tc_live_tiles(const TcUnit& un, int w,
+                                             const Geom& g, int causal,
+                                             int bk) {
+  if (un.q0 + 64 * w >= g.Sq) return 0;
+  const int last = min(un.q0 + 64 * w + 63, g.Sq - 1);
+  return causal ? max(0, min(un.t0 + un.n_tiles, last / bk + 1) - un.t0)
+                : un.n_tiles;
+}
+
+// One row's output for 4 column groups (i0 .. i0 + 3 of the accumulator
+// layout; row a at r 0, row b at r 2), scaled by inv and rounded to
+// bfloat16, transposed among the 4 threads of the row (lane & 3 = t): in,
+// thread t holds columns 8 i + 2 t, + 1 of each group i; out, all 8 columns
+// of group i0 + t, in order.  Two butterfly steps over lanes t ^ 2 and
+// t ^ 1, two shuffles each.
+template <int N>
+__device__ __forceinline__ void store_quad(uint4& out, const float (&acc)[N],
+                                           int i0, int r, float inv,
+                                           int lane) {
+  uint32_t x0 = pack_bf16(acc[4 * i0 + r] * inv, acc[4 * i0 + r + 1] * inv);
+  uint32_t x1 = pack_bf16(acc[4 * i0 + 4 + r] * inv,
+                          acc[4 * i0 + 5 + r] * inv);
+  uint32_t x2 = pack_bf16(acc[4 * i0 + 8 + r] * inv,
+                          acc[4 * i0 + 9 + r] * inv);
+  uint32_t x3 = pack_bf16(acc[4 * i0 + 12 + r] * inv,
+                          acc[4 * i0 + 13 + r] * inv);
+  const bool h2 = lane & 2, h1 = lane & 1;
+  uint32_t s0 = __shfl_xor_sync(0xffffffffu, h2 ? x0 : x2, 2);
+  uint32_t s1 = __shfl_xor_sync(0xffffffffu, h2 ? x1 : x3, 2);
+  if (h2) {
+    x0 = s0;
+    x1 = s1;
+  } else {
+    x2 = s0;
+    x3 = s1;
+  }
+  s0 = __shfl_xor_sync(0xffffffffu, h1 ? x0 : x1, 1);
+  s1 = __shfl_xor_sync(0xffffffffu, h1 ? x2 : x3, 1);
+  if (h1) {
+    x0 = s0;
+    x2 = s1;
+  } else {
+    x1 = s0;
+    x3 = s1;
+  }
+  out = make_uint4(x0, x1, x2, x3);
+}
+
+// The ping-pong schedule's named barriers (barrier 0 is __syncthreads):
+// consumer warpgroup w waits on kTurnBar + w (bar.sync) for its turn to
+// issue its products and passes the turn by arriving on the other's
+// (bar.arrive); each counts 256 threads, 128 waiting and 128 arriving.
+// Predicated on `on` (the same in all of a warpgroup's threads), so that no
+// branch sits among the wgmma instructions.
+constexpr int kTurnBar = 1;
+
+__device__ __forceinline__ void turn_wait(int wg, bool on) {
+  asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %1, 0;\n"
+               "@p bar.sync %0, 256;\n}\n"
+               :: "r"(kTurnBar + wg), "r"((int)on) : "memory");
+}
+__device__ __forceinline__ void turn_pass(int wg, bool on) {
+  asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %1, 0;\n"
+               "@p bar.arrive %0, 256;\n}\n"
+               :: "r"(kTurnBar + 1 - wg), "r"((int)on) : "memory");
+}
 
 template <int D, int DV, bool kSplit>
 __global__ void __launch_bounds__(kTcThreads, 1)
@@ -1039,169 +1205,233 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap qmap,
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
   uint64_t* full = reinterpret_cast<uint64_t*>(smem + L::kBarOff);
   uint64_t* empty = full + kStages;
-  uint64_t* qbar = empty + kStages;
+  uint64_t* qfull = empty + kStages;     // a warpgroup's Q rows: one each
+  uint64_t* qempty = qfull + kWG;
 
-  const int b = blockIdx.x / g.H;
-  const int h = blockIdx.x - b * g.H;
-  const int kvh = h / (g.H / g.KV);
-  // causal: the heaviest q-tiles (the last ones) are launched first
-  const int qt = causal ? (int)gridDim.y - 1 - (int)blockIdx.y
-                        : (int)blockIdx.y;
-  const int q0 = qt * kTcBQ;
-  const int row_tiles = tc_row_tiles(q0, g.Sq, g.Sk, kBK, causal);
-  int chunks = 1, t0 = 0, n_tiles = row_tiles;
   if constexpr (kSplit) {
     // the combine pass may be scheduled once every block has started (it
     // waits for this grid's completion before it reads)
     asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
-    chunks = (row_tiles + split.tpc - 1) / split.tpc;
-    if ((int)blockIdx.z >= chunks) return;   // past this q-tile's keys
-    t0 = (int)blockIdx.z * split.tpc;
-    n_tiles = min(row_tiles, t0 + split.tpc) - t0;
+    TcUnit un;
+    if (!tc_unit<true>(0, g, causal, kBK, split.tpc, un)) return;
   }
-  const int live_wgs = min(kWG, (g.Sq - q0 + 63) / 64);
+  const int rounds =
+      kSplit ? 1
+             : (int)(((long long)g.B * g.H * ((g.Sq + kTcBQ - 1) / kTcBQ) +
+                      gridDim.x - 1) / gridDim.x);
 
   if (threadIdx.x == 0) {
     for (int s = 0; s < kStages; ++s) {
       mbar_init(&full[s], 1);
       mbar_init(&empty[s], 4 * kWG);     // one arrival per consumer warp
     }
-    mbar_init(qbar, 1);
+    for (int w = 0; w < kWG; ++w) {
+      mbar_init(&qfull[w], 1);
+      mbar_init(&qempty[w], 4);          // one arrival per warp of w
+    }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
 
   const int wg = threadIdx.x / 128;
   if (wg == kWG) {
-    // producer warpgroup: one thread issues every copy
+    // producer warpgroup: one thread issues every copy, the units' K/V
+    // tiles in one ring (it: tiles issued so far); a unit's Q after its
+    // first K/V tile, each warpgroup's 64 rows once that warpgroup's last
+    // product of the last unit has read its old ones, so that both land
+    // while it finishes the last unit (a warpgroup without rows gets an
+    // arrival, to keep its barrier's phases in step)
     asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n"
                  :: "n"(kProducerRegs));
     if (threadIdx.x == kWG * 128) {
-      mbar_expect_tx(qbar, live_wgs * 64 * L::kQC * 128);
-      for (int w = 0; w < live_wgs; ++w)
-        for (int c = 0; c < L::kQC; ++c)
-          tma_load(smem + (w * L::kQC + c) * kTile, &qmap, qbar, c * 64, h,
-                   q0 + 64 * w, b);
-      for (int j = 0; j < n_tiles; ++j) {
-        const int s = j % kStages;
-        const int key = (t0 + j) * kBK;
-        mbar_wait(&empty[s], ((j / kStages) & 1) ^ 1);
-        mbar_expect_tx(&full[s], L::kKBytes + L::kVBytes);
-        for (int c = 0; c < L::kQC; ++c)
-          tma_load(smem + L::kKOff + s * L::kKBytes + c * kBK * 128, &kmap,
-                   &full[s], c * 64, kvh, key, b);
-        for (int c = 0; c < L::kVC; ++c)
-          tma_load(smem + L::kVOff + s * L::kVBytes + c * kBK * 128, &vmap,
-                   &full[s], c * 64, kvh, key, b);
+      int it = 0, n = 0;
+      TcUnit un;
+      for (int r = 0; r < rounds; ++r) {
+        if (!tc_unit<kSplit>(r, g, causal, kBK, split.tpc, un)) continue;
+        const int kvh = un.h / (g.H / g.KV);
+        const int live_wgs = min(kWG, (g.Sq - un.q0 + 63) / 64);
+        for (int j = 0; j < un.n_tiles; ++j, ++it) {
+          const int s = it % kStages;
+          const int key = (un.t0 + j) * kBK;
+          mbar_wait(&empty[s], ((it / kStages) & 1) ^ 1);
+          mbar_expect_tx(&full[s], L::kKBytes + L::kVBytes);
+          for (int c = 0; c < L::kQC; ++c)
+            tma_load(smem + L::kKOff + s * L::kKBytes + c * kBK * 128, &kmap,
+                     &full[s], c * 64, kvh, key, un.b);
+          for (int c = 0; c < L::kVC; ++c)
+            tma_load(smem + L::kVOff + s * L::kVBytes + c * kBK * 128, &vmap,
+                     &full[s], c * 64, kvh, key, un.b);
+          for (int w = 0; w < kWG && j == 0; ++w) {
+            mbar_wait(&qempty[w], (n & 1) ^ 1);
+            if (w < live_wgs) {
+              mbar_expect_tx(&qfull[w], 64 * L::kQC * 128);
+              for (int c = 0; c < L::kQC; ++c)
+                tma_load(smem + (w * L::kQC + c) * kTile, &qmap, &qfull[w],
+                         c * 64, un.h, un.q0 + 64 * w, un.b);
+            } else {
+              mbar_arrive(&qfull[w]);
+            }
+          }
+        }
+        ++n;
       }
     }
   } else {
-    // consumer warpgroup wg: query rows q0w .. q0w + 63
+    // consumer warpgroup wg: query rows q0 + 64 wg .. q0 + 64 wg + 63 of
+    // each unit
     asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n"
                  :: "n"(kConsumerRegs));
     const int tid = threadIdx.x & 127;
     const int warp = tid >> 5;
     const int lane = tid & 31;
-    const int q0w = q0 + 64 * wg;
-    // accumulator layout of wgmma m64nN: this thread holds rows row_a and
-    // row_a + 8, columns 8 i + c2 and 8 i + c2 + 1 of every 8-column group
-    const int row_a = q0w + warp * 16 + (lane >> 2);
-    const int row_b = row_a + 8;
-    const int c2 = 2 * (lane & 3);
-    const bool wg_live = wg < live_wgs;
-    const int wg_last = min(q0w + 63, g.Sq - 1);
     const uint32_t q_s = smem_u32(smem + wg * L::kQC * kTile);
-
-    // the warpgroup's live tiles of the chunk are a prefix: causal, those
-    // that start at or before its last row
-    const int n_live =
-        !wg_live ? 0
-        : causal ? max(0, min(t0 + n_tiles, wg_last / kBK + 1) - t0)
-                 : n_tiles;
-    float acc[kN / 2];
-#pragma unroll
-    for (int i = 0; i < kN / 2; ++i) acc[i] = 0.f;
-    // running max (in log2 units) and this thread's part of the denominator
-    RowState st{kNegInf, kNegInf, 0.f, 0.f};
-    uint32_t p[kBK / 4];
-    float al_a, al_b;
     const auto k_smem = [&](int j) {
       return smem_u32(smem + L::kKOff + (j % kStages) * L::kKBytes);
     };
     const auto v_smem = [&](int j) {
       return smem_u32(smem + L::kVOff + (j % kStages) * L::kVBytes);
     };
-    const auto release = [&](int j) {     // this warp is done with tile j
+    const auto arrive = [&](uint64_t* bar) {   // this warp is done with it
       __syncwarp();
-      if (lane == 0) mbar_arrive(&empty[j % kStages]);
+      if (lane == 0) mbar_arrive(bar);
     };
-
-    if (n_live > 0) {
-      mbar_wait(qbar, 0);
-      mbar_wait(&full[0], 0);
-      float sc[kBK / 2];
-#pragma unroll
-      for (int i = 0; i < kBK / 2; ++i) sc[i] = 0.f;
-      fence_regs(sc);
-      wg_fence();
-      issue_qk<D, kBK>(sc, q_s, k_smem(0));
-      wg_wait<0>();
-      fence_regs(sc);
-      softmax_tile<kBK>(sc, st, al_a, al_b, t0 * kBK, q0w, row_a, c2, g.Sk,
-                        scale_log2, causal);
-      pack_p<kBK>(sc, p);
-    }
-    // Tile j's P·V runs on the tensor cores while the softmax of tile j+1
-    // runs on the CUDA cores: S(j+1) and P·V(j) are issued together and S
-    // is waited for first.  P(j)'s registers stay fenced until P·V(j) is
-    // retired, so the compiler gives none of them to the softmax meanwhile
-    // (ptxas would serialize the wgmmas, C7513); P(j+1) is packed after.
-    for (int j = 0; j + 1 < n_live; ++j) {
-      mbar_wait(&full[(j + 1) % kStages], ((j + 1) / kStages) & 1);
-      float sc[kBK / 2];
-#pragma unroll
-      for (int i = 0; i < kBK / 2; ++i) sc[i] = 0.f;
-      fence_regs(sc);
-      fence_regs(acc);
-      fence_regs(p);
-      wg_fence();
-      issue_qk<D, kBK>(sc, q_s, k_smem(j + 1));
-      issue_pv<kN, kBK>(acc, p, v_smem(j));
-      wg_wait<1>();
-      fence_regs(sc);
-      softmax_tile<kBK>(sc, st, al_a, al_b, (t0 + j + 1) * kBK, q0w, row_a,
-                        c2, g.Sk, scale_log2, causal);
-      wg_wait<0>();
-      fence_regs(acc);
-      fence_regs(p);
-      release(j);
-#pragma unroll
-      for (int i = 0; i < kN / 2; ++i) acc[i] *= (i & 2) ? al_b : al_a;
-      pack_p<kBK>(sc, p);
-    }
-    if (n_live > 0) {
-      fence_regs(acc);
-      fence_regs(p);
-      wg_fence();
-      issue_pv<kN, kBK>(acc, p, v_smem(n_live - 1));
-      wg_wait<0>();
-      fence_regs(acc);
-      release(n_live - 1);
-    }
-    // tiles past the warpgroup's diagonal: keep the ring's phases in step
-    for (int j = n_live; j < n_tiles; ++j) {
+    const auto wait_full = [&](int j) {
       mbar_wait(&full[j % kStages], (j / kStages) & 1);
-      release(j);
-    }
+    };
+    // Ping-pong: the two warpgroups take turns to issue their products
+    // (S of one tile, P·V of the last), warpgroup 0 first, so that one's
+    // softmax, rescale and pack run on the CUDA cores while the other's
+    // products hold the tensor cores.  A unit where both warpgroups read
+    // keys takes max(their live tiles) + 1 turns of each; the one with a
+    // tile fewer (64-key tiles on the diagonal) takes its last turn empty,
+    // so that the arrivals match.  The turns run on across the block's
+    // units: warpgroup 0 waits for every turn but the block's first, and
+    // warpgroup 1 passes every turn but the block's last.  A unit with one
+    // live warpgroup takes no turns.
+    bool first_turn = true;
+    int it = 0, n = 0;
+    TcUnit un;
+    for (int r = 0; r < rounds; ++r) {
+      if (!tc_unit<kSplit>(r, g, causal, kBK, split.tpc, un)) continue;
+      const int q0w = un.q0 + 64 * wg;
+      // accumulator layout of wgmma m64nN: this thread holds rows row_a and
+      // row_a + 8, columns 8 i + c2 and 8 i + c2 + 1 of every 8-column group
+      const int row_a = q0w + warp * 16 + (lane >> 2);
+      const int row_b = row_a + 8;
+      const int c2 = 2 * (lane & 3);
+      const int n_live = tc_live_tiles(un, wg, g, causal, kBK);
+      const int n_other = tc_live_tiles(un, wg ^ 1, g, causal, kBK);
+      const int turns = n_live > 0 && n_other > 0
+                            ? max(n_live, n_other) + 1 : 0;
+      bool later = false;      // a later unit of this block takes turns
+      if (wg == 1) {
+        TcUnit next;
+        for (int r2 = r + 1; r2 < rounds && !later; ++r2)
+          later = tc_unit<kSplit>(r2, g, causal, kBK, split.tpc, next) &&
+                  tc_live_tiles(next, 0, g, causal, kBK) > 0 &&
+                  tc_live_tiles(next, 1, g, causal, kBK) > 0;
+      }
+      const auto turn_begin = [&]() {
+        turn_wait(wg, turns && (wg == 1 || !first_turn));
+        first_turn = first_turn && !turns;
+      };
+      const auto turn_end = [&](int t) {
+        turn_pass(wg, turns && (wg == 0 || t + 1 < turns || later));
+      };
 
-    if (wg_live) {
-      float l_a = st.l_a, l_b = st.l_b;
-      l_a += __shfl_xor_sync(0xffffffffu, l_a, 1);
-      l_a += __shfl_xor_sync(0xffffffffu, l_a, 2);
-      l_b += __shfl_xor_sync(0xffffffffu, l_b, 1);
-      l_b += __shfl_xor_sync(0xffffffffu, l_b, 2);
-      if constexpr (kSplit) {
-        if (chunks > 1) {
+      float acc[kN / 2];
+#pragma unroll
+      for (int i = 0; i < kN / 2; ++i) acc[i] = 0.f;
+      // running max (in log2 units) and this thread's part of the
+      // denominator
+      RowState st{kNegInf, kNegInf, 0.f, 0.f};
+      uint32_t p[kBK / 4];
+      float al_a, al_b;
+      mbar_wait(&qfull[wg], n & 1);
+      if (n_live > 0) {
+        wait_full(it);
+        float sc[kBK / 2];
+#pragma unroll
+        for (int i = 0; i < kBK / 2; ++i) sc[i] = 0.f;
+        fence_regs(sc);
+        turn_begin();
+        wg_fence();
+        issue_qk<D, kBK>(sc, q_s, k_smem(it));
+        turn_end(0);
+        wg_wait<0>();
+        fence_regs(sc);
+        if (n_live == 1) arrive(&qempty[wg]);
+        softmax_tile<kBK>(sc, st, al_a, al_b, un.t0 * kBK, q0w, row_a, c2,
+                          g.Sk, scale_log2, causal);
+        pack_p<kBK>(sc, p);
+      }
+      // Inside a warpgroup too, tile j's P·V runs on the tensor cores while
+      // the softmax of tile j+1 runs on the CUDA cores: S(j+1) and P·V(j)
+      // are issued together and S is waited for first, and the
+      // accumulator's rescale for tile j runs between the two issues,
+      // under S(j+1).  P(j)'s registers stay fenced until P·V(j) is
+      // retired, so the compiler gives none of them to the softmax
+      // meanwhile (ptxas would serialize the wgmmas, C7513); P(j+1) is
+      // packed after.
+      for (int j = 0; j + 1 < n_live; ++j) {
+        wait_full(it + j + 1);
+        float sc[kBK / 2];
+#pragma unroll
+        for (int i = 0; i < kBK / 2; ++i) sc[i] = 0.f;
+        fence_regs(sc);
+        fence_regs(acc);
+        fence_regs(p);
+        turn_begin();
+        wg_fence();
+        issue_qk<D, kBK>(sc, q_s, k_smem(it + j + 1));
+#pragma unroll
+        for (int i = 0; i < kN / 2; ++i) acc[i] *= (i & 2) ? al_b : al_a;
+        wg_fence();
+        issue_pv<kN, kBK>(acc, p, v_smem(it + j));
+        turn_end(j + 1);
+        wg_wait<1>();
+        fence_regs(sc);
+        softmax_tile<kBK>(sc, st, al_a, al_b, (un.t0 + j + 1) * kBK, q0w,
+                          row_a, c2, g.Sk, scale_log2, causal);
+        wg_wait<0>();
+        fence_regs(acc);
+        fence_regs(p);
+        arrive(&empty[(it + j) % kStages]);
+        if (j + 2 == n_live) arrive(&qempty[wg]);
+        pack_p<kBK>(sc, p);
+      }
+      if (n_live > 0) {
+        fence_regs(acc);
+        fence_regs(p);
+        turn_begin();
+#pragma unroll
+        for (int i = 0; i < kN / 2; ++i) acc[i] *= (i & 2) ? al_b : al_a;
+        wg_fence();
+        issue_pv<kN, kBK>(acc, p, v_smem(it + n_live - 1));
+        turn_end(n_live);
+        wg_wait<0>();
+        fence_regs(acc);
+        arrive(&empty[(it + n_live - 1) % kStages]);
+      }
+      for (int t = n_live + 1; t < turns; ++t) {   // the empty turn
+        turn_begin();
+        turn_end(t);
+      }
+      if (n_live == 0) arrive(&qempty[wg]);
+      // tiles past the warpgroup's diagonal: keep the ring's phases in step
+      for (int j = n_live; j < un.n_tiles; ++j) {
+        wait_full(it + j);
+        arrive(&empty[(it + j) % kStages]);
+      }
+      // every warpgroup with rows writes: a chunk past its diagonal (no
+      // live tile) its empty part, for the combine to weigh by zero
+      if (q0w < g.Sq) {
+        float l_a = st.l_a, l_b = st.l_b;
+        l_a += __shfl_xor_sync(0xffffffffu, l_a, 1);
+        l_a += __shfl_xor_sync(0xffffffffu, l_a, 2);
+        l_b += __shfl_xor_sync(0xffffffffu, l_b, 1);
+        l_b += __shfl_xor_sync(0xffffffffu, l_b, 2);
+        if (kSplit && un.chunks > 1) {
           // this chunk's part: rows of (chunk, b·H + h) in the workspace
           const size_t rows = (size_t)gridDim.x * g.Sq;
           const size_t base = ((size_t)blockIdx.z * gridDim.x + blockIdx.x) *
@@ -1229,22 +1459,31 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap qmap,
               ws_l[base + row_b] = l_b;
             }
           }
-          return;
+        } else {
+          // o = acc / max(l, 1e-30): a reciprocal a row, a multiply an
+          // element; each row's pairs of 4 column groups transposed among
+          // the row's 4 threads, so that a thread stores 16 bytes (one
+          // group of 8 columns) where it held 4 (a pair of each)
+          const float inv_a = __frcp_rn(fmaxf(l_a, 1e-30f));
+          const float inv_b = __frcp_rn(fmaxf(l_b, 1e-30f));
+          __nv_bfloat16* ob = o + un.b * g.osb + un.h * g.osh;
+#pragma unroll
+          for (int m = 0; m < kN / 32; ++m) {
+            uint4 ra, rb;
+            store_quad(ra, acc, 4 * m, 0, inv_a, lane);
+            store_quad(rb, acc, 4 * m, 2, inv_b, lane);
+            const int col = 8 * (4 * m + (lane & 3));
+            if (col < DV) {
+              if (row_a < g.Sq)
+                *reinterpret_cast<uint4*>(ob + row_a * g.oss + col) = ra;
+              if (row_b < g.Sq)
+                *reinterpret_cast<uint4*>(ob + row_b * g.oss + col) = rb;
+            }
+          }
         }
       }
-      const float den_a = fmaxf(l_a, 1e-30f);
-      const float den_b = fmaxf(l_b, 1e-30f);
-      __nv_bfloat16* ob = o + b * g.osb + h * g.osh;
-#pragma unroll
-      for (int i = 0; i < DV / 8; ++i) {
-        const int col = 8 * i + c2;
-        if (row_a < g.Sq)
-          *reinterpret_cast<uint32_t*>(ob + row_a * g.oss + col) =
-              pack_bf16(acc[4 * i] / den_a, acc[4 * i + 1] / den_a);
-        if (row_b < g.Sq)
-          *reinterpret_cast<uint32_t*>(ob + row_b * g.oss + col) =
-              pack_bf16(acc[4 * i + 2] / den_b, acc[4 * i + 3] / den_b);
-      }
+      it += un.n_tiles;
+      ++n;
     }
   }
 }
@@ -1702,7 +1941,9 @@ int tc_setup() {
 // chunks > 1 splits each q-tile's key tiles into chunks of tpc (the plan of
 // kernels/flash_attention.py: split_plan) over the grid's z axis, with the
 // float32 workspace ws of (dv + 2)·chunks·B·H·Sq elements, and combines
-// them with flash_fwd_combine; chunks == 1 launches one block a q-tile.
+// them with flash_fwd_combine; chunks == 1 launches the persistent grid,
+// one block an SM (no more than the units), which walks the (head, q-tile)
+// units (tc_unit).
 template <int D, int DV>
 int launch_wgmma(const void* q, const void* k, const void* v, void* o,
                  const Geom& g, float scale, int causal, int chunks, int tpc,
@@ -1730,14 +1971,18 @@ int launch_wgmma(const void* q, const void* k, const void* v, void* o,
     rc = make_map(&vm, v, false, g.B, g.Sk, g.KV, DV, g.vsb, g.vss, g.vsh,
                   L::kBK);
   if (rc) return rc;
-  dim3 grid((unsigned)(g.B * g.H), (unsigned)q_tiles, (unsigned)chunks);
   const float scale_log2 = scale * 1.4426950408889634f;
   __nv_bfloat16* out = static_cast<__nv_bfloat16*>(o);
   if (chunks == 1) {
+    const int sms = sm_count();
+    if (sms < 1) return (int)cudaErrorInvalidDevice;
+    const long long units = (long long)g.B * g.H * q_tiles;
+    const dim3 grid((unsigned)(units < sms ? units : sms));
     flash_fwd_wgmma<D, DV, false><<<grid, kTcThreads, L::kAlloc, stream>>>(
         qm, km, vm, out, g, scale_log2, causal, Split{0, nullptr});
     return (int)cudaGetLastError();
   }
+  const dim3 grid((unsigned)(g.B * g.H), (unsigned)q_tiles, (unsigned)chunks);
   flash_fwd_wgmma<D, DV, true><<<grid, kTcThreads, L::kAlloc, stream>>>(
       qm, km, vm, out, g, scale_log2, causal, Split{tpc, ws});
   rc = (int)cudaGetLastError();

@@ -24,10 +24,11 @@ halves, three products each, so the result keeps float32's accuracy); at
 every other width that is a multiple of 8 the warp-level tensor-core
 kernel ("mma": ``mma.sync``, bfloat16 or 3xTF32); and the CUDA-core kernel
 ("simt") for the widths left.  A kernel that does not read v at its own
-width gets it zero-padded to q's.  Where the "tc" kernel's grid (one block
-a 128-row q-tile and head) is smaller than the card's SMs, ``split_plan``
-splits each q-tile's key tiles into chunks, one block each, whose float32
-parts a second kernel combines.  ``kind=`` forces a kernel (the CUDA-core
+width gets it zero-padded to q's.  The "tc" kernel's grid is persistent,
+one block an SM walking the (128-row q-tile, head) units (``tc_walk``);
+where there are fewer units than the card's SMs, ``split_plan`` splits each
+q-tile's key tiles into chunks, one block each, whose float32 parts a
+second kernel combines.  ``kind=`` forces a kernel (the CUDA-core
 kernel takes any shape).  Each has its own launch counter,
 ``flash_attention_cuda.launches_tc``, ``.launches_tf32``,
 ``.launches_mma`` and ``.launches_simt`` (``.launches_tc_split``: those
@@ -113,8 +114,9 @@ def tc_smem_bytes(d: int, dv: int | None = None) -> int:
     """Shared memory one block of the bfloat16 tensor-core kernel takes at
     q/k width d and v width dv (``TcSmem``): Q's 128 rows, a ring of as
     many K/V stages as fit beside it in ``SMEM_LIMIT`` (at most
-    ``TC_STAGES_MAX``), two mbarriers a stage and Q's, and 1024 bytes to
-    align the base.  Widths are padded to whole 64-column tiles."""
+    ``TC_STAGES_MAX``), two mbarriers a stage and two for each consumer
+    warpgroup's Q rows (full, empty), and 1024 bytes to align the base.
+    Widths are padded to whole 64-column tiles."""
     dv = d if dv is None else dv
     if dv not in TC_WIDTHS.get(d, ()):
         raise ValueError(f"the bfloat16 tensor-core kernel takes (d, dv) in "
@@ -122,9 +124,10 @@ def tc_smem_bytes(d: int, dv: int | None = None) -> int:
     bk = tc_key_tile(d, dv)
     q_bytes = TC_ROWS * _tiles64(d) * 128
     stage = bk * (_tiles64(d) + _tiles64(dv)) * 128
-    stages = min(TC_STAGES_MAX, (SMEM_LIMIT - 1024 - q_bytes - 8)
+    q_bars = 8 * 2 * (TC_ROWS // 64)
+    stages = min(TC_STAGES_MAX, (SMEM_LIMIT - 1024 - q_bytes - q_bars)
                  // (stage + 16))
-    return q_bytes + stages * stage + 8 * (2 * stages + 1) + 1024
+    return q_bytes + stages * stage + 16 * stages + q_bars + 1024
 
 
 def tf32_smem_bytes(d: int) -> int:
@@ -145,19 +148,41 @@ def _row_tiles(q0: int, sq: int, sk: int, key_tile: int, causal: bool) -> int:
     return min(k_tiles, seen) if causal else k_tiles
 
 
+def tc_walk(B: int, H: int, sq: int, causal: bool, sms: int) -> list:
+    """The units of the "tc" kernel's persistent grid in the order each
+    block takes them (``tc_unit`` in ``csrc/flash_attention.cu``): one list
+    a block, of (b, h, q-tile).  The grid has min(units, ``sms``) blocks G
+    and walks the units in the order of a grid of one block a unit, heads
+    the fast axis and, causal, the heaviest (last) q-tiles first: round r
+    takes units r·G .. r·G + G - 1, block i the i-th in even rounds and the
+    (G - 1 - i)-th in odd ones."""
+    q_tiles = -(-sq // TC_ROWS)
+    units = B * H * q_tiles
+    G = min(units, sms)
+    blocks = [[] for _ in range(G)]
+    for u in range(units):
+        r, k = divmod(u, G)
+        y, x = divmod(u, B * H)
+        blocks[G - 1 - k if r % 2 else k].append(
+            (x // H, x % H, q_tiles - 1 - y if causal else y))
+    return blocks
+
+
 def split_plan(B: int, H: int, sq: int, sk: int, causal: bool, sms: int,
                key_tile: int = 128) -> tuple:
     """(chunks, key tiles a chunk) of the "tc" kernel's split over keys.
-    A grid of B·H·⌈Sq/128⌉ blocks, one a q-tile, that covers the ``sms``
-    SMs runs unsplit: (1, the most key tiles a q-tile reads).  A smaller
-    one would take as long as its longest q-tile (under the causal mask the
-    last reads every key tile, the first one), with SMs idle, so each
-    q-tile's key tiles go in chunks of the mean work an SM would have,
-    ⌈(key tiles of all q-tiles) / sms⌉, each chunk a block; a q-tile that
-    reads fewer keeps one chunk.  The split's own cost (a second kernel,
-    float32 parts written and read back) is about the time of 512 keys on
-    the H100 (``chip_smoke.py``'s flash rows), so a split that shortens the
-    longest q-tile by less (``SPLIT_MIN_KEYS``) is not made.  The grid's z
+    B·H·⌈Sq/128⌉ units (a q-tile of a head) that cover the ``sms`` SMs run
+    unsplit on the persistent grid: (1, the most key tiles a q-tile reads).
+    Fewer, one block each, would take as long as the longest q-tile (under
+    the causal mask the last reads every key tile, the first one), with SMs
+    idle, so each q-tile's key tiles go in chunks of the mean work an SM
+    would have, ⌈(key tiles of all q-tiles) / sms⌉, each chunk a block; a
+    q-tile that reads fewer keeps one chunk.  The split has its own cost (a
+    second kernel, float32 parts written and read back): on the H100, at
+    both ranks' shapes, a split that shortens the longest q-tile by 256
+    keys is 2-4% slower than none, by 384 keys 1-2% faster and by 512 keys
+    5-6% faster (``tools/flash_time.py --splits``), so a split that
+    shortens it by less than ``SPLIT_MIN_KEYS`` is not made.  The grid's z
     axis is the chunk: ⌈(most key tiles) / (tiles a chunk)⌉ of them, at
     most ``MAX_CHUNKS``."""
     q_tiles = -(-sq // TC_ROWS)

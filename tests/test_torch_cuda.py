@@ -450,6 +450,77 @@ def test_flash_tc_split_matches_unsplit(cuda, monkeypatch, b, sq, sk, h, kv,
                                    atol=2e-2)
 
 
+# where the ping-pong schedule's turns could fail to match (the block would
+# hang on the card): (b, sq, sk, h, kv, d, dv, causal, SMs the split plan
+# sees: None for the card's own)
+@pytest.mark.parametrize("b,sq,sk,h,kv,d,dv,causal,sms", [
+    (1, 61, 61, 4, 2, 128, 128, True, None),     # one live warpgroup
+    (1, 65, 65, 4, 2, 128, 128, True, None),     # the second with one row
+    (1, 130, 130, 4, 4, 192, 128, True, None),   # 64-key tiles: warpgroup 0
+    (1, 200, 200, 4, 4, 192, 128, True, None),   # reads a tile fewer
+    (1, 2048, 2048, 8, 8, 112, 112, True, None),  # tp_rank_hybrid's split
+    (1, 1000, 1000, 2, 2, 192, 128, True, 10**6),  # one-tile chunks: some
+    # leave warpgroup 0 without a live tile
+    (1, 1, 4096, 16, 16, 64, 64, False, None),   # one query row
+    (1, 2304, 2304, 48, 8, 128, 128, True, None),  # the group of 6 at 2304
+    (2, 300, 1000, 4, 4, 64, 64, False, None),   # non-causal d 64, Sq < Sk
+    (1, 1000, 300, 4, 4, 64, 64, False, None),   # and Sq > Sk
+    (2, 300, 300, 32, 8, 128, 128, True, None),  # persistent, 2 rounds with
+    (2, 300, 300, 32, 8, 128, 128, False, None),  # one-warpgroup units
+    (1, 1000, 1000, 32, 32, 192, 128, True, None),  # persistent, 64-key tiles
+])
+def test_flash_tc_pingpong_cases_match_plain(cuda, monkeypatch, b, sq, sk, h,
+                                             kv, d, dv, causal, sms):
+    """The "tc" kernel where its two consumer warpgroups have unequal work
+    (a ragged or one-row q-tile, 64-key tiles on the diagonal, a chunk of
+    the split past one warpgroup's diagonal, units of one warpgroup between
+    units of two on the persistent grid) against the plain version at the
+    bfloat16 tolerance: it returns (a turn that no warpgroup passes would
+    hang it), with exactly one launch of it and of no other kernel."""
+    from repro_torch.kernels import flash_attention as tflash
+    if sms is not None:
+        monkeypatch.setattr(tflash, "_sm_count", lambda device: sms)
+    gen = torch.Generator(device=cuda).manual_seed(sq * 7 + sk + d + h)
+    q = torch.randn((b, sq, h, d), generator=gen, device=cuda).bfloat16()
+    k = torch.randn((b, sk, kv, d), generator=gen, device=cuda).bfloat16()
+    v = torch.randn((b, sk, kv, dv), generator=gen, device=cuda).bfloat16()
+    ops.reset_launches()
+    got = flash_attention_cuda(q, k, v, causal=causal)
+    torch.cuda.synchronize(cuda)
+    counts = ops.launches()
+    assert counts["flash_attention_tc"] == 1
+    assert sum(counts.values()) == 1
+    torch.testing.assert_close(got.float(), flash_attention_ref(
+        q, k, v, causal=causal).float(), rtol=3e-2, atol=3e-2)
+
+
+def test_flash_tc_persistent_calls_back_to_back(cuda):
+    """Two "tc" calls of different shapes and widths queued back to back on
+    one stream, no synchronize between (the second grid's blocks start as
+    the first's finish), each equal to its own call alone."""
+    gen = torch.Generator(device=cuda).manual_seed(2304)
+    shapes = [(1, 2048, 2048, 48, 8, 128, True),
+              (1, 4096, 4096, 16, 16, 64, False),
+              (2, 300, 300, 32, 8, 192, True)]
+    inputs = []
+    for b, sq, sk, h, kv, d, causal in shapes:
+        q = torch.randn((b, sq, h, d), generator=gen, device=cuda).bfloat16()
+        k, v = (torch.randn((b, sk, kv, d), generator=gen, device=cuda)
+                .bfloat16() for _ in range(2))
+        inputs.append((q, k, v, causal))
+    alone = []
+    for q, k, v, causal in inputs:
+        alone.append(flash_attention_cuda(q, k, v, causal=causal))
+        torch.cuda.synchronize(cuda)
+    ops.reset_launches()
+    queued = [flash_attention_cuda(q, k, v, causal=causal)
+              for q, k, v, causal in inputs]
+    torch.cuda.synchronize(cuda)
+    assert ops.launches()["flash_attention_tc"] == len(inputs)
+    for got, want in zip(queued, alone):
+        torch.testing.assert_close(got, want, rtol=0, atol=0)
+
+
 def test_flash_tc_launch_failure_raises_without_fallback(cuda, monkeypatch):
     """A refused "tc" launch at d 112 raises through the entry point, and
     no counter moves: nothing falls back to the warp-level kernel or the

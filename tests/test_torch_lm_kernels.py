@@ -219,17 +219,18 @@ def test_flash_tf32_shared_memory_fits(d, total):
         tflash.tf32_smem_bytes(80)
 
 
-@pytest.mark.parametrize("d,dv,total", [(64, 64, 148552),
-                                        (112, 112, 230456),
-                                        (128, 128, 230456),
-                                        (192, 192, 197688),
-                                        (192, 128, 214088)])
+@pytest.mark.parametrize("d,dv,total", [(64, 64, 148576),
+                                        (112, 112, 230480),
+                                        (128, 128, 230480),
+                                        (192, 192, 197712),
+                                        (192, 128, 214112)])
 def test_flash_tc_shared_memory_fits(d, dv, total):
     """The bfloat16 tensor-core kernel's layout (``TcSmem``) fits in a
     Hopper block at every (q/k, v) width it takes: Q's 128 rows, a ring of
     K/V stages (4 at d 64 and at MLA's 192/128 with 64-key tiles, 3 at 112
-    and 128, 3 at 192/192), its mbarriers and the alignment; a pair it
-    does not take has no layout."""
+    and 128, 3 at 192/192), its mbarriers (two a stage, and full and empty
+    of each consumer warpgroup's Q rows) and the alignment; a pair it does
+    not take has no layout."""
     assert tflash.tc_smem_bytes(d, dv) == total
     assert total <= tflash.SMEM_LIMIT
     assert tflash.tc_key_tile(d, dv) == (64 if d == 192 else 128)
@@ -237,6 +238,43 @@ def test_flash_tc_shared_memory_fits(d, dv, total):
         tflash.tc_smem_bytes(128, 64)
     with pytest.raises(ValueError, match="takes"):
         tflash.tc_smem_bytes(80)
+
+
+@pytest.mark.parametrize("B,H,sq,causal,sms", [
+    (1, 16, 2048, True, 132),       # internlm2's prefill: 256 units
+    (1, 48, 2048, True, 132),       # grok-1's group of 6: 768
+    (1, 48, 2304, True, 132),       # internvl2's 2304 rows
+    (1, 16, 4096, False, 132),      # seamless's encoder, non-causal
+    (16, 2, 4096, True, 132),       # codeqwen's rank of 16
+    (2, 3, 333, True, 7),           # ragged, a card of 7 SMs
+    (1, 4, 300, False, 132)])       # fewer units than SMs
+def test_flash_tc_walk_takes_every_unit_once_heaviest_first(B, H, sq, causal,
+                                                          sms):
+    """The persistent grid's work order: min(units, SMs) blocks take every
+    (b, h, q-tile) exactly once; each round takes the next G units of the
+    one-block-a-unit order (heads the fast axis; causal, the last q-tiles
+    first), so a block's q-tiles never get heavier; and the longest block
+    reads at most one unit's key tiles more than the mean."""
+    blocks = tflash.tc_walk(B, H, sq, causal, sms)
+    q_tiles = -(-sq // tflash.TC_ROWS)
+    G = len(blocks)
+    assert G == min(B * H * q_tiles, sms)
+    units = [u for its in blocks for u in its]
+    assert sorted(units) == [(b, h, t) for b in range(B) for h in range(H)
+                             for t in range(q_tiles)]
+    for blk, its in enumerate(blocks):
+        for r, (b, h, t) in enumerate(its):
+            # the unit's place in the one-block-a-unit order
+            u = ((q_tiles - 1 - t) if causal else t) * B * H + b * H + h
+            assert divmod(u, G) == (r, G - 1 - blk if r % 2 else blk)
+        if causal:
+            tiles = [t for _, _, t in its]
+            assert tiles == sorted(tiles, reverse=True)
+    weight = lambda t: tflash._row_tiles(t * tflash.TC_ROWS, sq, sq, 128,
+                                         causal)
+    loads = [sum(weight(t) for _, _, t in its) for its in blocks]
+    most = max(weight(t) for _, _, t in units)
+    assert max(loads) <= -(-sum(loads) // G) + most
 
 
 def _chunks_cover(B, H, sq, sk, causal, sms, key_tile=128):
