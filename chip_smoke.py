@@ -889,7 +889,7 @@ def phase_flash(dev, shapes=FLASH_SHAPES, gqa_shapes=FLASH_GQA_SHAPES,
              + [(shape, "B,S,H,d", (whole, kv0), *full(shape))
                 for shape, whole, kv0 in narrow_kv])
     timed = {}
-    entry = dict.fromkeys(ops.COUNTERS, 0)
+    entry = dict.fromkeys(ops.LAUNCHES, 0)
     for given, form, narrow, b, sq, sk, h, kv, d, causal, dtype, dv in cases:
         rnd = lambda *shape: torch.randn(shape, generator=gen,
                                          device=dev).to(dtype)
@@ -918,7 +918,7 @@ def phase_flash(dev, shapes=FLASH_SHAPES, gqa_shapes=FLASH_GQA_SHAPES,
             if kind == fits:
                 ops.reset_launches()
                 got = ops.flash_attention(q, k, v, causal=causal)
-                for key, n in ops.launches().items():
+                for key, n in counters.read(ops.LAUNCHES).items():
                     entry[key] += n
             else:
                 got = flash_attention_cuda(q, k, v, causal=causal, kind=kind)
@@ -1091,7 +1091,7 @@ def phase_quickstart(dev, state_dir: str) -> dict:
         s2.bigdawg.drain_explorations()
     finally:
         mw.dp_plans = real_dp
-    launches = ops.launches()
+    launches = counters.read(ops.LAUNCHES)
     out = served[-1].value.data
     want = np.where((A >= -0.5) & (A <= 2.0), A, 0.0) @ B
     err = float(np.abs(out.cpu().numpy() - want).max()) \
@@ -1171,7 +1171,7 @@ def phase_analytic(dev, data, train_plans=36, cpu_checks=4,
         res = s.execute(ANALYTIC)
         seconds.append(time.perf_counter() - t1)
         results.append(res)
-    launches = ops.launches()
+    launches = counters.read(ops.LAUNCHES)
 
     correct = 0
     for i, res in enumerate(results):
@@ -1484,7 +1484,7 @@ def phase_serving(dev, data, state_dir: str, train_plans=36,
             and bool(segs) == fusable(key)
             for mode, status, segs, key in seen),
             f"warm serves at {w} workers: {seen}")
-    launches = ops.launches()
+    launches = counters.read(ops.LAUNCHES)
     fused = s.bigdawg.fused_serves - fused0
     n_fusable = sum(fusable(r.plan_key) for r in served)
     check(fused == n_fusable > 0,
@@ -2350,7 +2350,7 @@ def _lm_cpu_check(cfg, params, prompt, dev, depth=CPU_CHECK_DEPTH,
             for k, t in (stub or {}).items()}
     ops.reset_launches()
     card = _prefill_logits(cut, plan, small, toks, dev, stub)
-    launches = ops.launches()
+    launches = counters.read(ops.LAUNCHES)
     host = _prefill_logits(cut, plan, tree_map(lambda a: a.cpu(), small),
                            toks, torch.device("cpu"), stub)
     err = float((card - host).abs().max())
@@ -2394,7 +2394,7 @@ def _lm_ragged_check(cfg, dev, n_tokens: int = 61,
     ops.reset_launches()
     card = _prefill_logits(small, plan, tree_map(lambda a: a.to(dev),
                                                  params), toks, dev, stub)
-    launches = ops.launches()
+    launches = counters.read(ops.LAUNCHES)
     host = _prefill_logits(small, plan, params, toks, cpu, stub)
     err = float((card - host).abs().max())
     row = {"model": small.name, "layers": small.num_layers,
@@ -2479,7 +2479,7 @@ def _decode_vs_cpu(cfg, params, dev, depth: int, slots=DECODE_CHECK_SLOTS,
     card_tokens, card = serve(small, dev)
     sync(dev)
     card_s = time.perf_counter() - t0
-    launches = ops.launches()
+    launches = counters.read(ops.LAUNCHES)
     t0 = time.perf_counter()
     host = tree_map(lambda a: a.cpu(), small)
     del small
@@ -2648,7 +2648,7 @@ def phase_lm(dev, name: str, cfg=None, slots=LM_SLOTS, max_len=LM_MAX_LEN,
     srv.run(reqs)
     sync(dev)
     run_s = time.perf_counter() - t0
-    launches = ops.launches()
+    launches = counters.read(ops.LAUNCHES)
     peak = torch.cuda.max_memory_allocated(dev) / 1e9 \
         if dev.type == "cuda" else None
 
@@ -2802,7 +2802,7 @@ def _sharded_serve(dev, cfg, plan, mesh, kept, slots, max_len,
         srv.run(reqs)
         sync(dev)
         run_s = time.perf_counter() - t0
-        launches, combines = ops.launches(), L.cp_combines()
+        launches, combines = counters.read(ops.LAUNCHES), L.cp_combines()
         run_gathers = partition.weight_gathers()
         run_tp = partition.tp_collectives()
         tokens = []
@@ -2920,7 +2920,7 @@ def _sharded_train(dev, cfg, mesh, batch, seq, steps) -> dict:
             s, m = step(s, b)
             losses.append(float(m["loss"]))
             ms.append((time.perf_counter() - t1) * 1e3)
-            launches.append(ops.launches())
+            launches.append(counters.read(ops.LAUNCHES))
         return s, losses, ms, launches
 
     plain, plain_losses, plain_ms, _ = run(state)
@@ -3068,7 +3068,7 @@ def phase_tp_rank(dev, cfg=None, ways=TP_RANK_WAYS, prompt=TP_RANK_PROMPT,
                 run_prefill()
                 sync(dev)
                 prefill_ms.append((time.perf_counter() - t0) * 1e3)
-            launches = ops.launches()
+            launches = counters.read(ops.LAUNCHES)
             split = flash_attention_cuda.launches_tc_split // 2
             tp = partition.tp_collectives()
             gathered = partition.model_gathers()
@@ -3276,7 +3276,7 @@ def _grad_check(dev) -> list:
         out = ops.flash_attention(*ins, causal=causal)
         got = torch.autograd.grad(out, ins, do)
         sync(dev)
-        launches = ops.launches()
+        launches = counters.read(ops.LAUNCHES)
         want = torch.autograd.grad(flash_attention_ref(*ins, causal=causal),
                                    ins, do)
         errs = {f"d{n}": _rel_err(a, w) for n, a, w in zip("qkv", got, want)}
@@ -3320,7 +3320,7 @@ def _grad_check(dev) -> list:
                 for o in outs]
         got = torch.autograd.grad(outs, ins, cots)
         sync(dev)
-        launches = ops.launches()
+        launches = counters.read(ops.LAUNCHES)
         want = torch.autograd.grad(ssd_intra_ref(*ins), ins, cots)
         errs = {f"d{n_}": _rel_err(a, w)
                 for n_, a, w in zip(("x", "da", "B", "C"), got, want)}
@@ -3394,7 +3394,7 @@ def _train_cpu_check(dev, name: str) -> dict:
     card, m_card = step(state, {k: t.to(dev) for k, t in data.items()})
     del state
     sync(dev)
-    launches = ops.launches()
+    launches = counters.read(ops.LAUNCHES)
     host_step = api.make_train_step(cfg, plan.with_(remat="none"), opt)
     t0 = time.perf_counter()
     host, m_host = host_step(host_state, data)
@@ -3507,7 +3507,7 @@ def _train_full(dev, name: str, batch: int) -> dict:
             state, metrics = step(state, b)
             losses.append(float(metrics["loss"]))       # waits for the card
             dt = (time.perf_counter() - t1) * 1e3
-            per_step.append(ops.launches())
+            per_step.append(counters.read(ops.LAUNCHES))
             if i:
                 step_ms.append(dt)
         peak = torch.cuda.max_memory_allocated(dev) / 1e9 if cuda else None

@@ -1,9 +1,11 @@
-"""Request tracing: per-request trees of timed spans.
+"""Tracing in two halves: request-scoped span trees for polystore queries,
+and regions on the profiler's clock for the LM path.
 
-The paper's middleware carries a *monitor* that "collects performance
-information about each query"; ``Monitor`` (monitor.py) keeps the
-*aggregate* half of that story (per-signature engine rates that feed the
-optimizer).  This module adds the *request-scoped* half: a ``Tracer``
+**Span trees.**  The paper's middleware carries a *monitor* that
+"collects performance information about each query"; ``Monitor``
+(monitor.py) keeps the *aggregate* half of that story (per-signature
+engine rates that feed the optimizer).  This module adds the
+*request-scoped* half: a ``Tracer``
 produces one ``Trace`` per request — a tree of timed ``Span`` records
 (``plan``, ``cache_hit``/``cache_miss``, ``train``, ``cast``,
 ``engine_op``, ``fused_segment``, ``ivm_patch``, ``failover``,
@@ -25,6 +27,16 @@ Design constraints, in order:
    under one lock; the tree is only materialized on demand
    (:meth:`Trace.tree`).  Hot paths that already measured a duration
    attach it via :meth:`Span.static_child` instead of re-timing.
+
+**Profiler regions.**  The LM path (``BatchServer``, the model blocks, the
+MoE layer, the train step) marks its layers with :func:`region`: a
+``torch.profiler.record_function`` named ``repro_torch.<name>`` while a
+profiler runs, so that an operator sees the regions in any
+``torch.profiler`` trace of a serving or training process, on the same
+clock as the CUDA activity the profiler collects, and each idle gap of the
+device can be put down to what the program was doing.  With no profiler
+running a region is one shared no-op context: no clock read, no
+allocation and no dispatcher call.
 """
 from __future__ import annotations
 
@@ -33,9 +45,12 @@ import json
 import os
 import threading
 import time
+from contextlib import nullcontext
 from typing import Any, Dict, List, Optional, Tuple
 
-__all__ = ["Span", "Trace", "Tracer", "NULL_TRACER"]
+import torch
+
+__all__ = ["Span", "Trace", "Tracer", "NULL_TRACER", "region"]
 
 _IDS = itertools.count(1)
 
@@ -218,3 +233,16 @@ def portable(trace: Optional[Any]) -> Optional[Dict[str, Any]]:
     if trace is None:
         return None
     return trace.to_dict() if isinstance(trace, Trace) else trace
+
+
+_PROFILER = torch.autograd.profiler
+_NULL_REGION = nullcontext()
+
+
+def region(name: str):
+    """A ``record_function`` named ``repro_torch.<name>`` while a profiler
+    runs (``_is_profiler_enabled``, the module flag torch keeps for fast
+    Python checks), else one shared no-op context."""
+    if _PROFILER._is_profiler_enabled:
+        return _PROFILER.record_function("repro_torch." + name)
+    return _NULL_REGION

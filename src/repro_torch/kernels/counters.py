@@ -1,9 +1,16 @@
-"""The hand kernels' launch counters: thread-safe, and credited across CUDA
-graph replays.
+"""The hand kernels' launch counters and the program's work counters:
+thread-safe, and credited across CUDA graph replays.
 
 Each wrapper (``haar_cuda``, ``knn_scores_cuda``, ``flash_attention_cuda``,
 ``ssd_intra_cuda``) keeps its counts as plain integers on itself and adds
 to them through ``count`` where it launches its kernel, and nowhere else.
+The LM path's work counts live on ``LM_WORK`` here, so that
+``kernels.ops`` reads them without importing ``models``, and grow through
+``add`` by amounts computed from tensor shapes on the host:
+``expand_kv_bytes`` (the bytes of each tensor that
+``models.layers._expand_kv`` returns where it repeats KV heads),
+``moe_rows_computed`` (groups x the rank's experts x the capacity, each
+``moe_apply``) and ``moe_rows_routed`` (groups x tokens x top-k).
 Serving threads launch kernels side by side, so every change takes one lock.
 
 A CUDA graph replays the launches it captured without calling the wrapper
@@ -24,15 +31,36 @@ _LOCAL = threading.local()
 Deltas = Dict[Tuple[object, str], int]
 
 
-def count(fn, *attrs: str) -> None:
-    """Add one to each counter ``fn.<attr>`` (a wrapper's launch)."""
+class Counts:
+    """Named integer counts held on one object, as a wrapper holds its
+    launch counts."""
+
+    def __init__(self, *names: str):
+        for name in names:
+            setattr(self, name, 0)
+
+
+LM_WORK = Counts("expand_kv_bytes", "moe_rows_computed", "moe_rows_routed")
+
+
+def _add(fn, attrs: Tuple[str, ...], n: int) -> None:
     with _LOCK:
         for attr in attrs:
-            setattr(fn, attr, getattr(fn, attr) + 1)
+            setattr(fn, attr, getattr(fn, attr) + n)
     deltas = getattr(_LOCAL, "deltas", None)
     if deltas is not None:
         for attr in attrs:
-            deltas[fn, attr] = deltas.get((fn, attr), 0) + 1
+            deltas[fn, attr] = deltas.get((fn, attr), 0) + n
+
+
+def count(fn, *attrs: str) -> None:
+    """Add one to each counter ``fn.<attr>`` (a wrapper's launch)."""
+    _add(fn, attrs, 1)
+
+
+def add(fn, attr: str, n: int) -> None:
+    """Add ``n`` to the counter ``fn.<attr>`` (a work count)."""
+    _add(fn, (attr,), n)
 
 
 @contextmanager

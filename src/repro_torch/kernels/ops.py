@@ -8,13 +8,16 @@ wrapper counts its launches (``haar_cuda.launches``;
 ``.launches_tiled`` per kernel; flash attention and SSD one count per
 variant, ``flash_attention_cuda.launches_tc``, ``.launches_tf32``,
 ``.launches_mma`` and ``.launches_simt``,
-``ssd_intra_cuda.launches_tc`` and ``.launches_simt``), so a run can
-show that its main path went through the kernels.  The counts are
-thread-safe, and a CUDA graph replay of captured launches credits them
-again (``kernels.counters``).  ``flash_attention`` and
-``ssd_intra`` carry the LM prefill and training paths
-(``models.layers.attention_apply``, ``models.ssm.ssd_chunked``).  A CUDA
-tensor goes through the kernel's ``torch.autograd.Function``
+``ssd_intra_cuda.launches_tc`` and ``.launches_simt``; ``LAUNCHES``), so
+a run can show that its main path went through the kernels.  ``COUNTERS``
+holds the program's work counts next to the launch counts
+(``counters.LM_WORK``: ``expand_kv_bytes``, ``moe_rows_computed``,
+``moe_rows_routed``), so ``launches()`` reads and ``reset_launches()``
+zeroes both.  The counts are thread-safe, and a CUDA graph replay of
+captured launches credits them again (``kernels.counters``).
+``flash_attention`` and ``ssd_intra`` carry the LM prefill and training
+paths (``models.layers.attention_apply``, ``models.ssm.ssd_chunked``).  A
+CUDA tensor goes through the kernel's ``torch.autograd.Function``
 (``FlashAttention``, ``SSDIntra``: the kernel forward, a plain PyTorch
 backward), which records a backward node only when an input requires a
 gradient, and launches the kernel once either way; a CPU tensor goes
@@ -37,7 +40,7 @@ from repro_torch.kernels.ssd_scan import (SSDIntra, ssd_intra_cuda,
                                           ssd_intra_ref)
 
 # launch counters: name -> (wrapper, attribute)
-COUNTERS = {"haar": (haar_cuda, "launches"),
+LAUNCHES = {"haar": (haar_cuda, "launches"),
             "knn_scores": (knn_scores_cuda, "launches"),
             "knn_scores_gemv": (knn_scores_cuda, "launches_gemv"),
             "knn_scores_tiled": (knn_scores_cuda, "launches_tiled"),
@@ -47,6 +50,9 @@ COUNTERS = {"haar": (haar_cuda, "launches"),
             "flash_attention_simt": (flash_attention_cuda, "launches_simt"),
             "ssd_intra_tc": (ssd_intra_cuda, "launches_tc"),
             "ssd_intra_simt": (ssd_intra_cuda, "launches_simt")}
+# and the program's work counters beside them
+COUNTERS = {**LAUNCHES, **{name: (counters.LM_WORK, name)
+                           for name in vars(counters.LM_WORK)}}
 
 
 def _route(t: torch.Tensor, op: str) -> bool:

@@ -101,7 +101,7 @@ from repro_torch.configs import (ARCHS, SHAPES_BY_NAME, ArchConfig,
                                  shape_applicable)
 from repro_torch.core.tables import resolve_device
 from repro_torch.core.tensorplan import default_plan
-from repro_torch.kernels import ops, work
+from repro_torch.kernels import counters, ops, work
 from repro_torch.launch.mesh import make_mesh_compat, make_production_mesh
 from repro_torch.models import api, partition
 from repro_torch.models.partition import plan_scope
@@ -317,7 +317,7 @@ def _sync(device) -> None:
 
 
 def _snapshot() -> dict:
-    return {"launches": ops.launches(),
+    return {"launches": counters.read(ops.LAUNCHES),
             "tp_collectives": partition.tp_collectives(),
             "weight_gathers": partition.weight_gathers(),
             "coll": partition.collective_bytes()[1]}

@@ -54,6 +54,7 @@ from torch.distributed.tensor import zeros as dtensor_zeros
 
 from repro_torch.configs.base import ArchConfig, PlanConfig, ShapeConfig
 from repro_torch.core.tables import resolve_device
+from repro_torch.core.tracing import region
 from repro_torch.models import encdec, hybrid, partition, ssm, ssm_lm, vlm
 from repro_torch.models import specs as _specs
 from repro_torch.models import transformer as T
@@ -273,7 +274,9 @@ def make_train_step(cfg: ArchConfig, plan: PlanConfig, optimizer):
     float32 gradient (summed over ``plan.accum`` microbatches, one after
     the other, then averaged), the optional int8 error-feedback
     compression, and the optimizer's update.  The state passed in is not
-    changed."""
+    changed.  Under a profiler the loss, its gradient and the update are
+    regions (``core.tracing.region``: ``train.forward``,
+    ``train.backward``, ``train.optimizer``)."""
     loss_fn = get_loss_fn(cfg, plan)
     compute_dt = getattr(torch, plan.compute_dtype)
 
@@ -281,12 +284,15 @@ def make_train_step(cfg: ArchConfig, plan: PlanConfig, optimizer):
         with torch.enable_grad():
             leaves = [p.detach().requires_grad_(True)
                       for p in tree_leaves(master)]
-            loss = loss_fn(cast_params(tree_unflatten(master, leaves),
-                                       compute_dt), mb)
+            with region("train.forward"):
+                loss = loss_fn(cast_params(tree_unflatten(master, leaves),
+                                           compute_dt), mb)
             # split over n ranks: each takes 1/n of its rows' mean, and the
             # gathers' backward sums the ranks' gradients
             n = _split_ranks()
-            grads = torch.autograd.grad(loss if n == 1 else loss / n, leaves)
+            with region("train.backward"):
+                grads = torch.autograd.grad(loss if n == 1 else loss / n,
+                                            leaves)
         return loss.detach(), tree_unflatten(
             master, [_placed_like(g, p).to(torch.float32)
                      for g, p in zip(grads, leaves)])
@@ -322,8 +328,10 @@ def make_train_step(cfg: ArchConfig, plan: PlanConfig, optimizer):
         new_state = dict(state)
         if plan.grad_compression == "int8_ef":
             grads, new_state["ef"] = int8_ef_compress(grads, state["ef"])
-        new_master, new_opt, stats = optimizer.update(grads, state["opt"],
-                                                      master)
+        with region("train.optimizer"):
+            new_master, new_opt, stats = optimizer.update(grads,
+                                                          state["opt"],
+                                                          master)
         new_state.update(master=new_master, opt=new_opt,
                          step=state["step"] + 1)
         return new_state, {"loss": loss, **stats}

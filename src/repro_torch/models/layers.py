@@ -204,8 +204,14 @@ def init_attention(gen, cfg: ArchConfig, dtype, device, lead=()):
 
 def _expand_kv(k, n_rep):
     """Repeat KV heads to the query heads: query head h reads KV head
-    h // n_rep (``jnp.repeat`` along heads)."""
-    return k if n_rep == 1 else torch.repeat_interleave(k, n_rep, dim=-2)
+    h // n_rep (``jnp.repeat`` along heads).  A repeat counts the bytes it
+    writes (``counters.LM_WORK.expand_kv_bytes``)."""
+    if n_rep == 1:
+        return k
+    out = torch.repeat_interleave(k, n_rep, dim=-2)
+    counters.add(counters.LM_WORK, "expand_kv_bytes",
+                 out.numel() * out.element_size())
+    return out
 
 
 def rank_kv(k, H: int, KV: int, Hl: int):

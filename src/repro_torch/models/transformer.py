@@ -35,7 +35,10 @@ remat saves 1/tp of it): a block all-gathers it at entry and its MLP's
 output is reduce-scattered; under ``sp_residual`` both residual sums in
 the block stay on the rank's rows (the attention's and the MLP's outputs
 reduce-scattered, their inputs all-gathered).  An MoE block takes the
-rows whole around the experts.
+rows whole around the experts.  Under a profiler each block marks its
+attention, MLP or experts as regions (``core.tracing.region``:
+``model.attention``, ``model.mlp``, ``model.moe``), in prefill, decode and
+training alike (under remat a second set in the backward pass).
 """
 from __future__ import annotations
 
@@ -44,6 +47,7 @@ from typing import Optional
 import torch
 
 from repro_torch.configs.base import ArchConfig, PlanConfig
+from repro_torch.core.tracing import region
 from repro_torch.models import layers as L
 from repro_torch.models import moe as M
 from repro_torch.models import partition
@@ -124,24 +128,27 @@ def block_apply(p, cfg: ArchConfig, x, positions, *, use_moe: bool,
     if seq == "boundary":
         x = partition.tp_gather(x, 1)
     h = L.rms_norm(x, p["ln1"], cfg.norm_eps)
-    h, cache = attend(p["attn"], cfg, h, positions, seq_in=rows,
-                      seq_out=rows)
+    with region("model.attention"):
+        h, cache = attend(p["attn"], cfg, h, positions, seq_in=rows,
+                          seq_out=rows)
     x = x + h
     h = L.rms_norm(x, p["ln2"], cfg.norm_eps)
     aux = None
     if use_moe:     # the experts take the rows whole
-        h, aux = M.moe_apply(p["moe"], cfg,
-                             partition.tp_gather(h, 1) if rows else h,
-                             group_size=moe_group)
+        with region("model.moe"):
+            h, aux = M.moe_apply(p["moe"], cfg,
+                                 partition.tp_gather(h, 1) if rows else h,
+                                 group_size=moe_group)
         h = partition.tp_split(h, 1) if rows else h
         x = x + h
         return (partition.tp_split(x, 1) if seq == "boundary" else x,
                 cache, aux)
     if seq == "boundary":
-        return (partition.tp_split(x, 1)
-                + L.mlp_apply(p["mlp"], h, d_ff, seq_out=True), cache, aux)
-    return (x + L.mlp_apply(p["mlp"], h, d_ff, seq_in=rows, seq_out=rows),
-            cache, aux)
+        x = partition.tp_split(x, 1)
+    with region("model.mlp"):
+        h = L.mlp_apply(p["mlp"], h, d_ff, seq_in=rows,
+                        seq_out=rows or seq == "boundary")
+    return x + h, cache, aux
 
 
 def _seq_layout(plan: PlanConfig, S: int) -> str:
@@ -319,21 +326,26 @@ def block_decode(p, cfg: ArchConfig, x, cache_slices, pos, *, use_moe: bool,
                  d_ff: int, use_cp=False):
     """One block of one decode step; updates ``cache_slices`` in place."""
     h = L.rms_norm(x, p["ln1"], cfg.norm_eps)
-    if cfg.mla is not None:
-        h, _, _ = L.mla_decode(p["attn"], cfg, h, cache_slices["c"],
-                               cache_slices["kr"], pos)
-    else:
-        h, _, _ = L.attention_decode(p["attn"], cfg, h, cache_slices["k"],
-                                     cache_slices["v"], pos, use_cp=use_cp)
+    with region("model.attention"):
+        if cfg.mla is not None:
+            h, _, _ = L.mla_decode(p["attn"], cfg, h, cache_slices["c"],
+                                   cache_slices["kr"], pos)
+        else:
+            h, _, _ = L.attention_decode(p["attn"], cfg, h,
+                                         cache_slices["k"],
+                                         cache_slices["v"], pos,
+                                         use_cp=use_cp)
     x = x + h
     h = L.rms_norm(x, p["ln2"], cfg.norm_eps)
     if use_moe:
         # the slots of every data-parallel rank route as one group
-        h = partition.local_rows(M.moe_apply(p["moe"], cfg,
-                                             partition.gather_rows(h))[0],
-                                 partition.current_split())
+        with region("model.moe"):
+            h = partition.local_rows(
+                M.moe_apply(p["moe"], cfg, partition.gather_rows(h))[0],
+                partition.current_split())
     else:
-        h = L.mlp_apply(p["mlp"], h, d_ff)
+        with region("model.mlp"):
+            h = L.mlp_apply(p["mlp"], h, d_ff)
     return x + h
 
 

@@ -5,7 +5,13 @@ serving (``QueryServer``), the port of ``repro.runtime.server``.
 Incoming requests are prefilled one at a time into free slots (each
 prefill writes its cache rows), decode steps advance ALL active slots
 together, and finished slots (EOS, max-tokens or a full cache) are
-released.
+released.  Under a profiler the loop's phases are regions
+(``core.tracing.region``): ``serve.prefill`` (the host issuing a
+prefill), ``serve.write_rows``, ``serve.first_token`` (where the host
+waits for the prefill) and ``serve.decode``, a whole step whose children
+``serve.decode.launch`` (the host issuing the step) and
+``serve.decode.wait`` (the host waiting for its tokens) leave the per-slot
+bookkeeping as its self time.
 
 The cache is a dict of tensors on the serving device.  ``_write_rows``
 copies a prefilled request's rows into its slot IN PLACE, and the decode
@@ -44,6 +50,7 @@ from torch.distributed.tensor import DTensor, Shard
 
 from repro_torch.core.errors import Overloaded
 from repro_torch.core.reqpool import RequestPool
+from repro_torch.core.tracing import region
 
 # The pre-taxonomy name for a shed request's result slot, kept as an alias
 # of ``Overloaded`` as in the reference
@@ -172,16 +179,19 @@ class BatchServer:
     def _prefill_compute(self, req: Request):
         """The pure-compute half of a prefill (no shared state): safe to run
         on a request-pool worker while other prefills compute beside it."""
-        tok = torch.as_tensor(np.asarray(req.prompt, np.int32)[None, :],
-                              device=self.device)
-        return self.prefill_fn(self.params, tok)
+        with region("serve.prefill"):
+            tok = torch.as_tensor(np.asarray(req.prompt, np.int32)[None, :],
+                                  device=self.device)
+            return self.prefill_fn(self.params, tok)
 
     def _attach(self, slot: int, req: Request, logits, cache_rows) -> None:
         """The stateful half: copy the prefilled cache rows into the batch
         cache and activate the slot (serialized on the slot lock)."""
         with self._slot_lock:
-            self._write_rows(cache_rows, slot, len(req.prompt))
-            first = int(torch.argmax(logits[0]))
+            with region("serve.write_rows"):
+                self._write_rows(cache_rows, slot, len(req.prompt))
+            with region("serve.first_token"):    # waits for the prefill
+                first = int(torch.argmax(logits[0]))
             req.out_tokens.append(first)
             self.tokens[slot] = first
             self.pos[slot] = len(req.prompt)
@@ -200,25 +210,28 @@ class BatchServer:
     def step(self):
         if not self.active:
             return
-        t0 = time.perf_counter()
-        nxt, self.cache = self.decode_fn(
-            self.params, self.cache,
-            torch.as_tensor(self.tokens, device=self.device),
-            torch.as_tensor(self.pos, device=self.device))
-        nxt = nxt.cpu().numpy()             # waits for the step to finish
-        self.stats["decode_seconds"] += time.perf_counter() - t0
-        self.stats["decode_steps"] += 1
-        for slot, req in list(self.active.items()):
-            tok = int(nxt[slot])
-            req.out_tokens.append(tok)
-            self.pos[slot] += 1
-            self.tokens[slot] = tok
-            self.stats["tokens_out"] += 1
-            if ((self.eos_id is not None and tok == self.eos_id)
-                    or len(req.out_tokens) >= req.max_new_tokens
-                    or self.pos[slot] >= self.max_len - 1):
-                req.done = True
-                del self.active[slot]
+        with region("serve.decode"):
+            t0 = time.perf_counter()
+            with region("serve.decode.launch"):
+                nxt, self.cache = self.decode_fn(
+                    self.params, self.cache,
+                    torch.as_tensor(self.tokens, device=self.device),
+                    torch.as_tensor(self.pos, device=self.device))
+            with region("serve.decode.wait"):  # waits for the step to end
+                nxt = nxt.cpu().numpy()
+            self.stats["decode_seconds"] += time.perf_counter() - t0
+            self.stats["decode_steps"] += 1
+            for slot, req in list(self.active.items()):
+                tok = int(nxt[slot])
+                req.out_tokens.append(tok)
+                self.pos[slot] += 1
+                self.tokens[slot] = tok
+                self.stats["tokens_out"] += 1
+                if ((self.eos_id is not None and tok == self.eos_id)
+                        or len(req.out_tokens) >= req.max_new_tokens
+                        or self.pos[slot] >= self.max_len - 1):
+                    req.done = True
+                    del self.active[slot]
 
     def run(self, requests: List[Request], max_steps: int = 10000):
         pending = list(requests)
