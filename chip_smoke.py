@@ -104,6 +104,8 @@ from repro_torch.data import (ShardedLoader, TokenStream,  # noqa: E402
                               ecg_waveforms)
 from repro_torch.kernels import _build, counters, ops  # noqa: E402
 from repro_torch.kernels.work import flash_work, ssd_work  # noqa: E402
+from repro_torch.kernels.decode_attention import (  # noqa: E402
+    decode_attention_cuda, decode_attention_ref)
 from repro_torch.kernels.haar import haar_cuda, haar_ref  # noqa: E402
 from repro_torch.kernels.flash_attention import (  # noqa: E402
     TC_WIDTHS, TF32_HEAD_DIMS, flash_attention_cuda, flash_attention_ref,
@@ -366,6 +368,16 @@ FLASH_BF16_VS_F32_TOL = 1.6e-2
 # states at 2e-4 relative and 2e-4 of the largest |value| absolute (B and C
 # at unit scale make y of order 100: see phase_ssd)
 SSD_TOL = [(2e-4, 2e-4), (2e-4, 2e-4), (1e-5, 1e-6)]
+# decode attention at the decode cell's step (bench/traffic/serve-decode):
+# 64 slots of 2,048 rows, 16 query over 8 KV heads of 128, bfloat16, each
+# slot's position a prompt of 64-512 tokens and a uniform part of its
+# 256-1,024 output tokens (DECODE_POS_SEED draws them); the kernel against
+# the plain version at FLASH_TOL, and against the plain version in float32
+# on the same values at DECODE_BF16_VS_F32_TOL (the kernel keeps its
+# scores, weights and sums in float32: only its output rounds, 2^-9 of
+# values under 4)
+DECODE_SHAPE, DECODE_POS_SEED, DECODE_BF16_VS_F32_TOL = \
+    (64, 2048, 16, 8, 128), 5, 1e-2
 # LM serving: slots and cache capacity, requests, new tokens each
 LM_SLOTS, LM_MAX_LEN, LM_REQUESTS, LM_NEW_TOKENS = 8, 4096, 16, 32
 # cpu_check: the same depth-2 float32 model on the card (kernels) and on the
@@ -662,7 +674,8 @@ def phase_device(dev) -> dict:
     check(tuple(cap) == (9, 0), f"need an sm_90 card, got capability {cap}")
     t0 = time.perf_counter()
     # one nvcc per source, all at once
-    _build.build(["haar", "knn", "flash_attention", "ssd_scan"])
+    _build.build(["haar", "knn", "flash_attention", "ssd_scan",
+                  "decode_attention"])
     build_s = time.perf_counter() - t0
     # each kernel's registers and spills, and any wgmma that ptxas had to
     # serialize (C7510, C7513, C7520: a register of an in-flight wgmma
@@ -1043,6 +1056,60 @@ def phase_ssd(dev, shapes=SSD_SHAPES, timed_at=SSD_TIMED) -> dict:
                 timed[name] = dict(row)
             emit("ssd_intra", **row)
     return timed
+
+
+def phase_decode(dev, shape=DECODE_SHAPE) -> dict:
+    """The decode kernel at the decode cell's step (``DECODE_SHAPE``) against
+    the plain version, timed beside it, beside SDPA over the repeated heads
+    with the positions' mask (``library_ms``: a yardstick only, the port
+    never calls it) and beside its byte bounds: the K and V rows up to each
+    position (``bound_ms``) and the whole cache (``bound_cache_ms``)."""
+    b, s, h, kv, d = shape
+    gen = torch.Generator(device=dev).manual_seed(DECODE_POS_SEED)
+    q = torch.randn((b, h, d), generator=gen, device=dev).to(torch.bfloat16)
+    k, v = (torch.randn((b, s, kv, d), generator=gen, device=dev)
+            .to(torch.bfloat16) for _ in range(2))
+    rng = np.random.default_rng(DECODE_POS_SEED)
+    prompt, out = rng.integers(64, 513, b), rng.integers(256, 1025, b)
+    at = np.minimum(prompt + (rng.random(b) * out).astype(np.int64), s - 1)
+    pos = torch.from_numpy(at.astype(np.int32)).to(dev)
+    got = decode_attention_cuda(q, k, v, pos)
+    err = max_abs_err(got, decode_attention_ref(q, k, v, pos))
+    err32 = max_abs_err(got, decode_attention_ref(q.float(), k.float(),
+                                                  v.float(), pos))
+    tol = FLASH_TOL[torch.bfloat16]
+    check(err <= tol and err32 <= DECODE_BF16_VS_F32_TOL,
+          f"decode_attention at {shape}: off the plain version by {err} "
+          f"(tol {tol}), by {err32} in float32 (tol "
+          f"{DECODE_BF16_VS_F32_TOL})")
+    rows = int((at + 1).sum())
+    row = {"shape": {"B": b, "S": s, "H": h, "KV": kv, "d": d},
+           "dtype": "bfloat16", "rows": rows, "pos_mean": float(at.mean()),
+           "max_abs_err": err, "max_abs_err_f32": err32,
+           "tol": tol, "tol_f32": DECODE_BF16_VS_F32_TOL}
+    run = lambda i: decode_attention_cuda(q, k, v, pos)
+    row["ms"] = time_ms(run, dev, label="decode_attention")
+    row["plain_ms"] = time_ms(lambda i: decode_attention_ref(q, k, v, pos),
+                              dev, n=10, label="decode_attention plain")
+    ke, ve = (t.repeat_interleave(h // kv, 2).transpose(1, 2)
+              for t in (k, v))
+    mask = (torch.arange(s, device=dev)[None, :]
+            <= pos[:, None])[:, None, None, :]
+    row["library_ms"] = time_ms(
+        lambda i: torch.nn.functional.scaled_dot_product_attention(
+            q[:, :, None], ke, ve, attn_mask=mask), dev, n=10,
+        label="decode_attention library")
+    del ke, ve
+    row["call_ms"] = call_ms(lambda: run(0), dev)
+    # bytes: each K and V row up to the position once, q read and the
+    # output written; operations: 2 G d a row for the scores and again
+    # for the weighted sum, each of kv heads
+    elem = q.element_size()
+    nbytes = 2 * rows * kv * d * elem + 2 * q.numel() * elem
+    row.update(bound_ms(nbytes, 4 * rows * h * d, "f32"))
+    row["bound_cache_ms"] = 2 * k.numel() * elem / HBM_BYTES_PER_S * 1e3
+    emit("decode_attention", **row)
+    return row
 
 
 def phase_quickstart(dev, state_dir: str) -> dict:
@@ -2261,6 +2328,26 @@ def _step_launches(cfg, dtype) -> dict:
     return out
 
 
+def _decode_launches(cfg) -> dict:
+    """{launch counter: launches} of one decode step of ``cfg``: decode
+    attention in every GQA self-attention layer (the hybrid: its shared
+    block, once a group; the encoder-decoder: its decoder's
+    self-attention); none for MLA or an SSM."""
+    if cfg.family == "ssm" or cfg.mla is not None:
+        return {}
+    n = hybrid_geometry(cfg)[0] if cfg.family == "hybrid" \
+        else cfg.num_layers
+    return {"decode_attention": n}
+
+
+def _run_launches(cfg, dtype, prefills: int, steps: int) -> dict:
+    """{launch counter: launches} of ``prefills`` prefills and ``steps``
+    decode steps of ``cfg``."""
+    return {**{k: n * prefills
+               for k, n in _prefill_launches(cfg, dtype).items()},
+            **{k: n * steps for k, n in _decode_launches(cfg).items()}}
+
+
 def _check_launches(launches: dict, want: dict, what: str) -> None:
     """Each counter of ``want`` at its count, every other counter 0."""
     check(all(launches[k] == n for k, n in want.items())
@@ -2274,16 +2361,19 @@ DEVICE_KERNEL = {"flash_attention_tc": "flash_fwd_wgmma",
                  "flash_attention_mma": "flash_fwd_mma",
                  "flash_attention_simt": "flash_fwd_simt",
                  "ssd_intra_tc": "ssd_intra_wgmma",
-                 "ssd_intra_simt": "ssd_intra_kernel"}
+                 "ssd_intra_simt": "ssd_intra_kernel",
+                 "decode_attention": "decode_split"}
 
 
 def _device_kernels(counters) -> list:
     """The device kernels of launch counters, as ``DEVICE_KERNEL`` names
     them; the "tc" flash kernel's split over keys also runs
-    flash_fwd_combine."""
+    flash_fwd_combine, and every decode-attention call decode_combine."""
     names = [DEVICE_KERNEL[k] for k in counters]
     if "flash_attention_tc" in counters:
         names.append("flash_fwd_combine")
+    if "decode_attention" in counters:
+        names.append("decode_combine")
     return names
 
 
@@ -2501,9 +2591,8 @@ def _decode_vs_cpu(cfg, params, dev, depth: int, slots=DECODE_CHECK_SLOTS,
            "card_s": card_s, "copy_s": copy_s, "cpu_s": host_s,
            "launches": launches}
     if dev.type == "cuda":
-        _check_launches(launches, {
-            k: n * slots
-            for k, n in _prefill_launches(cut, torch.float32).items()},
+        _check_launches(launches, _run_launches(
+            cut, torch.float32, slots, card.stats["decode_steps"]),
             "decode_vs_cpu")
     check(card.stats["decode_steps"] == cpu.stats["decode_steps"]
           == steps, f"decode_vs_cpu: {card.stats} / "
@@ -2567,7 +2656,8 @@ def _kind(name: str) -> str:
     dispatch's top-k and inverse), a gather or index (its slots), a copy
     or cast, a reduction, other elementwise work."""
     n = name.lower()
-    if any(w in n for w in ("flash_fwd", "ssd_intra", "haar", "knn_")):
+    if any(w in n for w in ("flash_fwd", "ssd_intra", "haar", "knn_",
+                            "decode_split", "decode_combine")):
         return "hand"
     if any(w in n for w in ("gemm", "nvjet", "cutlass", "xmma")):
         return "gemm"
@@ -2664,10 +2754,13 @@ def phase_lm(dev, name: str, cfg=None, slots=LM_SLOTS, max_len=LM_MAX_LEN,
               f"{leaf.device}")
     prefills = srv.stats["prefills"]
     check(prefills == len(reqs), f"{name}: {prefills} prefills")
+    steps = srv.stats["decode_steps"]
     if dev.type == "cuda":
-        # each prefill's kernels at their counts, and no other launch
-        _check_launches(launches, {k: n * prefills for k, n in want.items()},
-                        f"{name}: {prefills} prefills")
+        # each prefill's and decode step's kernels at their counts, and no
+        # other launch
+        _check_launches(launches, _run_launches(cfg, torch.bfloat16,
+                                                prefills, steps),
+                        f"{name}: {prefills} prefills, {steps} decode steps")
     full = [ms for ms, n in prefill_ms]
     row = {"model": cfg.name, "family": cfg.family, "params": n_params,
            "layers": cfg.num_layers, "d_model": cfg.d_model,
@@ -2704,7 +2797,7 @@ def phase_lm(dev, name: str, cfg=None, slots=LM_SLOTS, max_len=LM_MAX_LEN,
                 device_name),
             "decode_step": _device_profile(
                 lambda: decode(params, srv.cache, toks, pos), dev,
-                device_name)}
+                _device_kernels(_decode_launches(cfg)))}
         if cfg.family == "dense":
             # the float32 prefill (the 3xTF32 kernel) at cpu_check's depth
             cut, plan32, small = _f32_cut(cfg, params)
@@ -3639,7 +3732,8 @@ def _kernel_entry(name, source, replaces, launches, row) -> dict:
 
 
 def kernels_line(haar_row: dict, knn_rows: dict, flash_rows: dict,
-                 ssd_rows: dict, analytic: dict, serving: dict,
+                 ssd_rows: dict, decode_row: dict, analytic: dict,
+                 serving: dict,
                  procpool: dict, lm_dense: dict, lm_sharded: dict,
                  tp_rank: dict, tp_rank_hybrid: dict, dryrun: dict,
                  lm_ssm: dict,
@@ -3683,7 +3777,11 @@ def kernels_line(haar_row: dict, knn_rows: dict, flash_rows: dict,
     MLA's 192/128 and zamba2's 112) and SSD in the train
     phase's steps (forward and remat recompute), the 3xTF32 flash kernel in
     its float32 ``cpu_check`` steps.  The CUDA-core flash kernel's times are
-    its forced row at the dense smoke config's shape."""
+    its forced row at the dense smoke config's shape.  Last, the decode
+    kernel, which replaces no TPU kernel, on dense LM serving's decode
+    steps (``moe_grok_launches``, ``hybrid_launches``, ``vlm_launches``,
+    ``encdec_launches``: those of the other families that decode over a
+    GQA cache), timed at the decode cell's step (``phase_decode``)."""
     flash = "src/repro/kernels/flash_attention.py:73"
     ssd = "src/repro/kernels/ssd_scan.py:45"
     pool_knn = sum(w["launches"]["knn_scores_tiled"]
@@ -3795,6 +3893,14 @@ def kernels_line(haar_row: dict, knn_rows: dict, flash_rows: dict,
         _kernel_entry("flash_attention_tc_dryrun", "flash_attention.cu",
                       flash, dryrun["launches"]["flash_attention_tc"],
                       flash_rows["tc_dryrun"]),
+        dict(_kernel_entry("decode_attention", "decode_attention.cu", None,
+                           lm_dense["launches"]["decode_attention"],
+                           decode_row),
+             moe_grok_launches=lm_moe_grok["launches"]["decode_attention"],
+             hybrid_launches=lm_hybrid["launches"]["decode_attention"],
+             vlm_launches=lm_vlm["launches"]["decode_attention"],
+             encdec_launches=lm_encdec["launches"]["decode_attention"],
+             bound_cache_ms=decode_row["bound_cache_ms"]),
     ]}
 
 
@@ -3818,6 +3924,7 @@ def main() -> int:
     knn_rows = timed_phase("knn", phase_knn, dev)
     flash_rows = timed_phase("flash_attention", phase_flash, dev)
     ssd_rows = timed_phase("ssd_intra", phase_ssd, dev)
+    decode_row = timed_phase("decode_attention", phase_decode, dev)
     with tempfile.TemporaryDirectory(prefix="chip-smoke-") as state_dir:
         timed_phase("quickstart", phase_quickstart, dev, state_dir)
     data = analytic_data(dev)
@@ -3846,7 +3953,8 @@ def main() -> int:
     train = phase_train(dev)
     emit("total", seconds=time.perf_counter() - t0,
          host_behind=HOST_BEHIND)
-    line = kernels_line(haar_row, knn_rows, flash_rows, ssd_rows, analytic,
+    line = kernels_line(haar_row, knn_rows, flash_rows, ssd_rows,
+                        decode_row, analytic,
                         serving, procpool, lm_dense, lm_sharded, tp_rank,
                         tp_rank_hybrid, dry, lm_ssm, lm_moe, lm_moe_grok,
                         lm_hybrid, lm_vlm, lm_encdec, train)

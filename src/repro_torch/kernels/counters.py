@@ -2,13 +2,14 @@
 thread-safe, and credited across CUDA graph replays.
 
 Each wrapper (``haar_cuda``, ``knn_scores_cuda``, ``flash_attention_cuda``,
-``ssd_intra_cuda``) keeps its counts as plain integers on itself and adds
-to them through ``count`` where it launches its kernel, and nowhere else.
+``ssd_intra_cuda``, ``decode_attention_cuda``) keeps its counts as plain
+integers on itself and adds to them through ``count`` where it launches its kernel, and nowhere else.
 The LM path's work counts live on ``LM_WORK`` here, so that
 ``kernels.ops`` reads them without importing ``models``, and grow through
 ``add`` by amounts computed from tensor shapes on the host:
 ``expand_kv_bytes`` (the bytes of each tensor that
-``models.layers._expand_kv`` returns where it repeats KV heads),
+``models.layers._expand_kv`` returns where it repeats KV heads: the
+context-parallel decode and the encoder-decoder's cross-attention),
 ``moe_rows_computed`` (groups x the rank's experts x the capacity, each
 ``moe_apply``) and ``moe_rows_routed`` (groups x tokens x top-k).
 Serving threads launch kernels side by side, so every change takes one lock.

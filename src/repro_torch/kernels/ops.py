@@ -8,7 +8,8 @@ wrapper counts its launches (``haar_cuda.launches``;
 ``.launches_tiled`` per kernel; flash attention and SSD one count per
 variant, ``flash_attention_cuda.launches_tc``, ``.launches_tf32``,
 ``.launches_mma`` and ``.launches_simt``,
-``ssd_intra_cuda.launches_tc`` and ``.launches_simt``; ``LAUNCHES``), so
+``ssd_intra_cuda.launches_tc`` and ``.launches_simt``;
+``decode_attention_cuda.launches``; ``LAUNCHES``), so
 a run can show that its main path went through the kernels.  ``COUNTERS``
 holds the program's work counts next to the launch counts
 (``counters.LM_WORK``: ``expand_kv_bytes``, ``moe_rows_computed``,
@@ -16,7 +17,9 @@ holds the program's work counts next to the launch counts
 zeroes both.  The counts are thread-safe, and a CUDA graph replay of
 captured launches credits them again (``kernels.counters``).
 ``flash_attention`` and ``ssd_intra`` carry the LM prefill and training
-paths (``models.layers.attention_apply``, ``models.ssm.ssd_chunked``).  A
+paths (``models.layers.attention_apply``, ``models.ssm.ssd_chunked``),
+``decode_attention`` the decode step's attention over a GQA cache
+(``models.layers.attention_decode``; no gradient).  A
 CUDA tensor goes through the kernel's ``torch.autograd.Function``
 (``FlashAttention``, ``SSDIntra``: the kernel forward, a plain PyTorch
 backward), which records a backward node only when an input requires a
@@ -31,6 +34,8 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import counters, work
+from repro_torch.kernels.decode_attention import (decode_attention_cuda,
+                                                  decode_attention_ref)
 from repro_torch.kernels.flash_attention import (FlashAttention,
                                                  flash_attention_cuda,
                                                  flash_attention_ref)
@@ -49,7 +54,8 @@ LAUNCHES = {"haar": (haar_cuda, "launches"),
             "flash_attention_mma": (flash_attention_cuda, "launches_mma"),
             "flash_attention_simt": (flash_attention_cuda, "launches_simt"),
             "ssd_intra_tc": (ssd_intra_cuda, "launches_tc"),
-            "ssd_intra_simt": (ssd_intra_cuda, "launches_simt")}
+            "ssd_intra_simt": (ssd_intra_cuda, "launches_simt"),
+            "decode_attention": (decode_attention_cuda, "launches")}
 # and the program's work counters beside them
 COUNTERS = {**LAUNCHES, **{name: (counters.LM_WORK, name)
                            for name in vars(counters.LM_WORK)}}
@@ -108,6 +114,15 @@ def ssd_intra(x: torch.Tensor, da: torch.Tensor, B: torch.Tensor,
         return SSDIntra.apply(x.contiguous(), da.contiguous(),
                               B.contiguous(), C.contiguous(), not cuda)
     return ssd_intra_ref(x, da, B, C)
+
+
+def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     pos: torch.Tensor) -> torch.Tensor:
+    """One query row a slot, q (B, H, hd), against the rows ``<= pos`` of
+    the GQA cache k, v (B, S, KV, hd), read in place: (B, H, hd)."""
+    if _route(q, "decode_attention"):
+        return decode_attention_cuda(q, k, v, pos)
+    return decode_attention_ref(q, k, v, pos)
 
 
 def reset_launches() -> None:

@@ -51,8 +51,8 @@ as the reference's ``shard_map`` takes q replicated over "model") and
 combines the spans' partial softmaxes with all-reduces over "model" (the
 log-sum-exp trick); ``cp_combines()`` counts its combines.  Without a
 scope, or when the cache's seq dimension is not split, it falls back to
-``_decode_attend``, as the reference does.  The naive route under a mesh
-(and MLA's and the cross-attention's, which have no CP variant) gathers
+``ops.decode_attention``, as the reference does.  The naive route under a
+mesh (and MLA's and the cross-attention's, which have no CP variant) gathers
 the spans, attends on the rank's heads, and writes back the rank's own
 span.  The vocabulary helpers (``embed``, ``vocab_logits``, ``greedy``)
 take the embedding or head split over "model" on its rows.
@@ -328,26 +328,12 @@ def attention_decode(p, cfg: ArchConfig, x, cache_k, cache_v, pos,
         at = pos.to(torch.long)
         ck[rows, at] = k.to(ck.dtype)
         cv[rows, at] = v.to(cv.dtype)
-        o = _decode_attend(cfg, q, rank_kv(ck, H, KV, Hl),
-                           rank_kv(cv, H, KV, Hl), pos)
+        o = ops.decode_attention(q, rank_kv(ck, H, KV, Hl),
+                                 rank_kv(cv, H, KV, Hl), pos)
         partition.store_rows(cache_k, ck)
         partition.store_rows(cache_v, cv)
     out = torch.einsum("bhk,hkd->bd", o, p["wo"])
     return _exit(out, Hl < H, False), cache_k, cache_v
-
-
-def _decode_attend(cfg, q, cache_k, cache_v, pos):
-    """q (B, h, hd) against the KV heads of the cache that its heads read,
-    (B, S, kv, hd) with h % kv == 0."""
-    hd = cfg.head_dim
-    n_rep = q.shape[1] // cache_k.shape[2]
-    ke = _expand_kv(cache_k, n_rep)
-    ve = _expand_kv(cache_v, n_rep)
-    s = torch.einsum("bhk,bshk->bhs", q, ke).to(torch.float32) / math.sqrt(hd)
-    mask = torch.arange(ke.shape[1], device=q.device)[None, :] <= pos[:, None]
-    s = s.masked_fill(~mask[:, None, :], float("-inf"))
-    w = torch.softmax(s, dim=-1).to(q.dtype)
-    return torch.einsum("bhs,bshk->bhk", w, ve)
 
 
 def _cp_axis(cache_k):

@@ -9,6 +9,8 @@ import torch
 from repro_torch.core import (BigDAWG, DenseTensor, Plan, Ref, array,
                               connect, fuseplan)
 from repro_torch.kernels import counters, ops
+from repro_torch.kernels.decode_attention import (decode_attention_cuda,
+                                                  decode_attention_ref)
 from repro_torch.kernels.haar import haar_cuda, haar_ref
 from repro_torch.kernels.flash_attention import (flash_attention_cuda,
                                                  flash_attention_ref, variant)
@@ -682,6 +684,120 @@ def test_lm_kernels_refuse_what_they_do_not_take(cuda):
     assert _launches() == before
 
 
+# -- decode attention over a GQA cache ----------------------------------------
+
+def _decode_inputs(cuda, b, s, h, kv, d, dtype, seed=0, heads_of=None):
+    """q (b, h, d), a cache k, v (b, s, kv, d) and positions: 0, a row in
+    the middle of a 256-row chunk, a chunk's last row, s - 1, then others
+    drawn.  With ``heads_of`` the cache is the view of KV heads 1..kv of a
+    cache with ``heads_of`` heads, as ``layers.rank_kv`` gives a rank."""
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    q = torch.randn((b, h, d), generator=gen, device=cuda).to(dtype)
+    k, v = (torch.randn((b, s, heads_of or kv, d), generator=gen,
+                        device=cuda).to(dtype).narrow(2, 1 if heads_of else 0,
+                                                      kv)
+            for _ in range(2))
+    fixed = [0, min(s - 1, 300), min(s - 1, 255), s - 1]
+    drawn = torch.randint(0, s, (b,), generator=gen, device=cuda)
+    pos = torch.tensor(fixed[:b], device=cuda, dtype=torch.int32)
+    return q, k, v, torch.cat([pos, drawn[len(fixed):].to(torch.int32)])
+
+
+# float32: the kernel's float32 scores, softmax and sums against the plain
+# version's, summed in another order: 1e-4, the flash kernels' float32
+# tolerance.  bfloat16: the plain version rounds its scores and weights
+# to bfloat16 where the kernel keeps float32, and both round the output:
+# 3e-2, the reference tests' bfloat16 attention tolerance; against the
+# plain version on the same values in float32 the kernel's only rounding
+# is its output's (2^-9 of values under 4): 1e-2.
+@pytest.mark.parametrize("G", [1, 2, 6, 8, 16])
+@pytest.mark.parametrize("d", [32, 64, 112, 128])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_kernel_matches_plain(cuda, G, d, dtype):
+    kv = 2 if G < 16 else 1
+    q, k, v, pos = _decode_inputs(cuda, 5, 600, G * kv, kv, d, dtype,
+                                  seed=G * d)
+    before = _launches()["decode_attention"]
+    got = decode_attention_cuda(q, k, v, pos)
+    assert _launches()["decode_attention"] == before + 1
+    assert got.dtype == dtype and got.shape == q.shape
+    tol = 3e-2 if dtype == torch.bfloat16 else 1e-4
+    torch.testing.assert_close(got.float(),
+                               decode_attention_ref(q, k, v, pos).float(),
+                               rtol=tol, atol=tol)
+    if dtype == torch.bfloat16:
+        want32 = decode_attention_ref(q.float(), k.float(), v.float(), pos)
+        assert float((got.float() - want32).abs().max()) <= 1e-2
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("pos_dtype", [torch.int32, torch.int64])
+def test_decode_kernel_reads_views_in_place(cuda, dtype, pos_dtype):
+    """A rank's narrowed KV heads (``rank_kv``), one layer's slice of a
+    stacked cache, and positions as int32 or int64, at the decode cell's
+    width: the kernel's output equals its own on contiguous copies."""
+    q, k, v, pos = _decode_inputs(cuda, 3, 700, 4, 2, 128, dtype,
+                                  heads_of=8)
+    assert not k.is_contiguous()
+    pos = pos.to(pos_dtype)
+    got = decode_attention_cuda(q, k, v, pos)
+    torch.testing.assert_close(got, decode_attention_cuda(
+        q, k.contiguous(), v.contiguous(), pos.to(torch.int32)), rtol=0,
+        atol=0)
+    stacked = torch.stack([k, k.flip(0)]), torch.stack([v, v.flip(0)])
+    torch.testing.assert_close(decode_attention_cuda(
+        q, stacked[0][1], stacked[1][1], pos), decode_attention_cuda(
+        q, k.flip(0).contiguous(), v.flip(0).contiguous(), pos), rtol=0,
+        atol=0)
+
+
+def test_decode_kernel_reads_no_row_past_the_position(cuda):
+    """NaN in every K and V row past each slot's position leaves the
+    output as it was: those rows are never read."""
+    q, k, v, pos = _decode_inputs(cuda, 4, 1030, 16, 8, 128, torch.bfloat16)
+    want = decode_attention_cuda(q, k, v, pos)
+    past = torch.arange(k.shape[1], device=cuda)[None, :, None, None] \
+        > pos[:, None, None, None]
+    got = decode_attention_cuda(q, k.masked_fill(past, float("nan")),
+                                v.masked_fill(past, float("nan")), pos)
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+
+
+def test_decode_kernel_refuses_what_it_does_not_take(cuda):
+    before = _launches()
+    q, k, v, pos = _decode_inputs(cuda, 2, 64, 4, 2, 32, torch.float32)
+    with pytest.raises(TypeError):
+        decode_attention_cuda(q, k.bfloat16(), v, pos)
+    with pytest.raises(TypeError):
+        decode_attention_cuda(q, k, v, pos.float())
+    with pytest.raises(ValueError, match="multiples of 8"):
+        decode_attention_cuda(q[..., :20], k[..., :20], v[..., :20], pos)
+    wide = torch.zeros((2, 4, 136), device=cuda)
+    with pytest.raises(ValueError, match="up to 128"):
+        decode_attention_cuda(wide, torch.zeros((2, 8, 2, 136), device=cuda),
+                              torch.zeros((2, 8, 2, 136), device=cuda), pos)
+    with pytest.raises(ValueError, match="groups"):
+        decode_attention_cuda(torch.zeros((2, 34, 32), device=cuda), k, v,
+                              pos)
+    # rows that start 4 bytes past a 16-byte boundary
+    odd = torch.zeros(2 * 64 * 2 * 32 + 1, device=cuda)[1:].view(2, 64, 2,
+                                                                  32)
+    with pytest.raises(ValueError, match="16-byte"):
+        decode_attention_cuda(q, odd, v, pos)
+    assert _launches() == before
+
+
+def _decode_layers(cfg) -> int:
+    """Decode-attention launches a decode step: one for each GQA
+    self-attention layer (the hybrid: its shared block, once a group);
+    none for MLA or the SSM."""
+    if cfg.family == "ssm" or cfg.mla is not None:
+        return 0
+    if cfg.family == "hybrid":
+        return cfg.num_layers // cfg.attn_period
+    return cfg.num_layers
+
+
 LM_NAMES = ["internlm2-1.8b", "mamba2-370m", "deepseek-v2-lite-16b",
             "grok-1-314b", "zamba2-7b", "internvl2-26b", "seamless-m4t-medium",
             "qwen2-72b", "glm4-9b", "codeqwen1.5-7b"]
@@ -768,6 +884,10 @@ def test_smoke_batch_server_on_cuda_launches_the_kernels(cuda, name):
     launches = _launches()
     assert all(r.done and len(r.out_tokens) == 6 for r in reqs)
     want = {k: 3 * n for k, n in _prefill_launches(cfg).items()}
+    if _decode_layers(cfg):     # the prefills launch none of these
+        assert srv.stats["decode_steps"] > 0
+        want["decode_attention"] = srv.stats["decode_steps"] \
+            * _decode_layers(cfg)
     assert _only(launches, want), (launches, want)
 
 

@@ -517,8 +517,9 @@ def test_lm_ops_take_the_plain_version_for_cpu_tensors(monkeypatch):
                                "flash_attention_tf32": 0,
                                "flash_attention_mma": 0,
                                "flash_attention_simt": 0, "ssd_intra_tc": 0,
-                               "ssd_intra_simt": 0, "expand_kv_bytes": 0,
-                               "moe_rows_computed": 0, "moe_rows_routed": 0}
+                               "ssd_intra_simt": 0, "decode_attention": 0,
+                               "expand_kv_bytes": 0, "moe_rows_computed": 0,
+                               "moe_rows_routed": 0}
 
 
 def test_lm_ops_refuse_other_devices():

@@ -8,8 +8,11 @@ counts (``expand_kv_bytes``, ``moe_rows_computed``, ``moe_rows_routed``)
 beside the launch counts, at their formulas from the shapes.  Smoke
 configs of internlm2-1.8b (GQA, 4 query over 2 KV heads) and
 deepseek-v2-lite-16b (MLA, 4 experts top-2 with shared experts, a dense
-first layer), in float32.
+first layer), in float32; zamba2-7b and seamless-m4t-medium at 2 KV heads
+for the decode step's counts.
 """
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -24,6 +27,7 @@ from repro_torch.optim import AdamW
 from repro_torch.runtime import BatchServer, Request
 
 GQA, MOE = "internlm2-1.8b", "deepseek-v2-lite-16b"
+HYBRID, ENCDEC = "zamba2-7b", "seamless-m4t-medium"
 SLOTS, MAX_LEN = 2, 24
 PREFIX = "repro_torch."
 # each region and the region it nests in, in serving
@@ -196,18 +200,29 @@ def test_region_is_a_record_function_under_a_profiler():
     assert tracing.region("model.mlp") is tracing.region("x")
 
 
-def test_decode_step_counts_the_expanded_kv_bytes():
-    """``expand_kv_bytes`` after one decode step: every layer repeats its
-    k and v caches (slots x rows x KV heads x d) to the query heads, float32;
-    the prefill (flash attention reads the KV heads in place) counts none."""
-    cfg, srv = _server(GQA)
+@pytest.mark.parametrize("name", [GQA, HYBRID, ENCDEC])
+def test_decode_step_counts_the_expanded_kv_bytes(name):
+    """``expand_kv_bytes`` after one decode step of a config with 4 query
+    over 2 KV heads: the self-attention reads the cache's KV heads in place
+    (``ops.decode_attention``) and counts none; the encoder-decoder's
+    cross-attention still repeats its k and v (slots x encoder rows x query
+    heads x d, float32, each layer)."""
+    cfg = dataclasses.replace(get_arch(name).smoke(), num_kv_heads=2)
     assert cfg.num_heads > cfg.num_kv_heads
+    plan = _plan()
+    params = api.init_params(cfg, torch.Generator().manual_seed(0), plan,
+                             "cpu")
+    step = api.make_decode_step(cfg, ShapeConfig("serve", "decode", MAX_LEN,
+                                                 SLOTS), plan)
+    cache = api.init_cache(cfg, SLOTS, MAX_LEN, torch.float32, "cpu")
     ops.reset_launches()
-    assert srv.submit(Request(0, _prompt(cfg), max_new_tokens=3))
-    assert ops.launches()["expand_kv_bytes"] == 0
-    srv.step()
-    want = cfg.num_layers * 2 * SLOTS * MAX_LEN * cfg.num_heads \
-        * cfg.head_dim * 4
+    step(params, cache, torch.tensor([3, 7], dtype=torch.int32),
+         torch.tensor([0, MAX_LEN - 1], dtype=torch.int32))
+    want = 0
+    if cfg.family == "encdec":
+        want = cfg.num_layers * 2 * SLOTS * cache["xk"].shape[2] \
+            * cfg.num_heads * cfg.head_dim * 4
+        assert want > 0
     assert ops.launches()["expand_kv_bytes"] == want
     ops.reset_launches()
     assert ops.launches()["expand_kv_bytes"] == 0
